@@ -1,9 +1,10 @@
 """The port imports neither JAX nor anything of the JAX package.
 
-The AST scan covers every module of tidb_tpu_torch and chip_smoke.py; the
-subprocess test runs TPC-H Q1 through GpuClient(device="cpu") in a fresh
-interpreter (tests/conftest.py imports jax into this one) and looks at
-what got loaded.
+The AST scan covers every module of tidb_tpu_torch (cluster/, distsql/
+and executor/ included) and chip_smoke.py; the subprocess tests run TPC-H
+Q1 through GpuClient(device="cpu"), and through the cluster path over
+two regions, in a fresh interpreter (tests/conftest.py imports jax into
+this one) and look at what got loaded.
 """
 
 import ast
@@ -59,7 +60,10 @@ def test_no_reference_import(path):
 def test_scan_finds_the_port():
     files = _port_files()
     assert any(p.endswith(os.path.join("ops", "client.py")) for p in files)
-    assert len(files) >= 15
+    for sub in ("cluster", "distsql", "executor"):
+        assert any(os.path.join("tidb_tpu_torch", sub, "") in p
+                   for p in files), sub
+    assert len(files) >= 25
 
 
 _DRIVE_Q1 = r"""
@@ -80,10 +84,40 @@ print("LOADED", bad)
 """
 
 
-def test_q1_runs_without_jax():
+_DRIVE_CLUSTER_Q1 = r"""
+import sys
+sys.path.insert(0, {root!r})
+from tidb_tpu_torch import distsql, tpch
+from tidb_tpu_torch.cluster.store import DistStore
+from tidb_tpu_torch.executor import fused_agg
+from tidb_tpu_torch.ops import kernels
+data = tpch.generate(500, seed=3)
+store = DistStore(tpch.kv_pairs(data), tpch.split_keys(500, 2), device="cpu")
+sel = tpch.sweep_request("q1full")
+res = distsql.select(store.get_client(), tpch.store_request(sel)).columnar()
+rows = fused_agg.final_states(sel, res)
+assert len(rows) >= 3, rows
+assert kernels.CALLS == {{"region_filter_batched": 1,
+                         "region_agg_states_batched": 1,
+                         "combine_region_partials": 1}}, kernels.CALLS
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "tidb_tpu"))
+print("LOADED", bad)
+"""
+
+
+def _run_without_jax(script: str) -> None:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "-c", _DRIVE_Q1.format(root=ROOT)],
+    out = subprocess.run([sys.executable, "-c", script.format(root=ROOT)],
                          capture_output=True, text=True, timeout=120,
                          cwd=ROOT, env=env)
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_q1_runs_without_jax():
+    _run_without_jax(_DRIVE_Q1)
+
+
+def test_cluster_q1_runs_without_jax():
+    _run_without_jax(_DRIVE_CLUSTER_Q1)

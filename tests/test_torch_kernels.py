@@ -240,3 +240,262 @@ def test_reduction_ops_match_header():
                                "seg_agg_onehot.cu")).read()
     assert int(re.search(r"#define K3_MAX_SEG (\d+)", onehot).group(1)) == \
         pk.ONEHOT_SEGMENTS_MAX
+
+
+# ---------------------------------------------------------------------------
+# slice 2: the plain versions of region_filter_batched (K5),
+# region_agg_states_batched (K6) and combine_region_partials (K7) against
+# the JAX functions of the same names. Exact throughout: the f64 values
+# checked are elementwise planes and extrema.
+# ---------------------------------------------------------------------------
+
+RS, RI, RF, RD = 1, 2, 3, 4     # string, int, double, decimal columns
+
+
+def _region_batch(cap: int, n: int, seed: int) -> rcol.ColumnBatch:
+    """One region's planes: its own string dictionary, NULLs, int64
+    extremes, -0.0 and n live rows (not always a multiple of 32)."""
+    rng = np.random.default_rng(seed)
+    live = np.zeros(cap, bool)
+    live[:n] = True
+    words = sorted(set(rng.choice([b"AIR", b"FOB", b"MAIL", b"RAIL",
+                                   b"SHIP", b"xyz"], 4).tolist()))
+    sv = live & (rng.random(cap) > 0.1)
+    vi = rng.integers(-50, 50, cap)
+    ext = rng.random(cap) < 0.03
+    vi[ext] = rng.choice([I64_MAX, I64_MIN, -1], int(ext.sum()))
+    vf = rng.integers(-400, 400, cap) * 0.25
+    vf[::37] = -0.0
+    cols = {
+        RS: rcol.ColumnData(rcol.K_STR, np.where(
+            sv, rng.integers(0, len(words), cap), -1).astype(np.int64), sv,
+            words, tp=rmy.TypeVarchar),
+        RI: rcol.ColumnData(rcol.K_I64, vi.astype(np.int64),
+                            live & (rng.random(cap) > 0.1),
+                            tp=rmy.TypeLonglong, max_abs=I64_MAX),
+        RF: rcol.ColumnData(rcol.K_F64, vf, live & (rng.random(cap) > 0.1),
+                            tp=rmy.TypeDouble),
+        RD: rcol.ColumnData(rcol.K_DEC, rng.integers(-9999, 9999, cap)
+                            .astype(np.int64), live & (rng.random(cap) > 0.1),
+                            tp=rmy.TypeNewDecimal, dec_scale=2, max_abs=9999),
+    }
+    return rcol.ColumnBatch(n, cap, np.arange(cap, dtype=np.int64), cols)
+
+
+# (capacity, live rows) per region: capacities 1024 and 2048, live rows
+# not a multiple of 32, and a region with no live row
+REGION_SHAPES = [(1024, 1000), (2048, 2047), (1024, 0), (2048, 1507)]
+
+_S = lambda s: expr_value(RDatum.string(s))  # noqa: E731
+_I = lambda v: expr_value(RDatum.i64(v))  # noqa: E731
+WHERES = {
+    "string compare, or": expr_op(
+        Op.OrOr, expr_op(Op.AndAnd, expr_op(Op.GT, c(RI), _I(5)),
+                         expr_op(Op.EQ, c(RS), _S("MAIL"))),
+        expr_op(Op.LT, c(RF), expr_value(RDatum.f64(0.5)))),
+    "NULL predicate": expr_op(Op.LT, c(RI), _I(0)),
+    "decimal and string range": expr_op(
+        Op.AndAnd, expr_op(Op.GE, c(RD), expr_value(RDatum.dec("1.25"))),
+        expr_op(Op.LT, c(RS), _S("RAIL"))),
+    "nothing survives": expr_op(Op.GT, c(RI), expr_value(RDatum.i64(
+        I64_MAX))),
+}
+
+
+def _regions(seed: int):
+    rbs = [_region_batch(cap, n, seed + r)
+           for r, (cap, n) in enumerate(REGION_SHAPES)]
+    return rbs, [carry.batch_from(rb) for rb in rbs]
+
+
+def _port_regions(pbs, where_p, args_p=()):
+    """K5 inputs: per region one program of WHERE + argument outputs."""
+    from tidb_tpu_torch.ops.exprc import compile_arg_plane
+    cpu = torch.device("cpu")
+    regions, progs = [], []
+    for pb in pbs:
+        prog = Program(pb)
+        where = compile_expr(where_p, pb, prog) if where_p is not None \
+            else None
+        colpb = {cid: carry.column_info_from(_pbcol(cid))
+                 for cid in pb.columns}
+        aps = [compile_arg_plane(a, pb, colpb, prog) for a in args_p]
+        fin = prog.finalize(where, [a.compiled for a in aps])
+        planes = pk.batch_planes(pb, cpu)
+        regions.append(pk.RegionProgram(
+            fin, [planes[k][w] for k, w in fin.plane_keys], pb.capacity,
+            pb.n_rows))
+        progs.append(aps)
+    return regions, progs
+
+
+def _pbcol(cid):
+    from tidb_tpu.copr.proto import PBColumnInfo
+    tp = {RS: rmy.TypeVarchar, RI: rmy.TypeLonglong, RF: rmy.TypeDouble,
+          RD: rmy.TypeNewDecimal}[cid]
+    return PBColumnInfo(column_id=cid, tp=tp, decimal=2 if cid == RD else -1)
+
+
+@pytest.mark.parametrize("case", sorted(WHERES))
+def test_region_filter_batched_matches_jax(case):
+    rbs, pbs = _regions(11)
+    where = WHERES[case]
+    segs = []
+    for r, rb in enumerate(rbs):
+        compiled = rcompile(where, rb)
+        cids = sorted({RS, RI, RF, RD})
+        segs.append(((case, r), compiled,
+                     {cid: (rb.columns[cid].values, rb.columns[cid].valid)
+                      for cid in cids}, rb.capacity, rb.n_rows, ()))
+    want = rk.region_filter_batched(segs)
+    regions, _ = _port_regions(pbs, carry.expr_from(where))
+    bits, outs = pk.region_filter_batched(regions, "cpu")
+    got = pk.unpack_masks(bits, [rb.capacity for rb in rbs])
+    assert outs == []
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w), case
+    # the packed layout is np.packbits(..., bitorder="little") region by
+    # region, at capacities 1024 and 2048
+    assert np.array_equal(bits.numpy(), np.concatenate(
+        [np.packbits(w, bitorder="little") for w in want]))
+
+
+ARGS = [expr_op(Op.Mul, c(RD), expr_op(Op.Minus, _I(1), c(RD))),
+        expr_op(Op.Plus, c(RF), expr_value(RDatum.dec("0.5"))),
+        expr_op(Op.Minus, c(RD), _I(3))]
+
+
+def _ref_argspec(expr, rb):
+    from tidb_tpu.copr.columnar_region import ArgPlaneSpec as RArg
+    from tidb_tpu.ops.exprc import compile_arg_plane as rcap
+    colpb = {cid: _pbcol(cid) for cid in rb.columns}
+    return RArg(rcap(expr, rb, colpb), rb)
+
+
+def _states_case(rb, seed):
+    """(gid, [(op, values key, contrib)], G) of one region: region-local
+    group ids over the live rows, sink G for the rest."""
+    rng = np.random.default_rng(seed)
+    G = int(rng.integers(0, 6)) if rb.n_rows else 0
+    mask = rb.row_mask() & (rng.random(rb.capacity) > 0.2)
+    gid = np.full(rb.capacity, G, np.int64)
+    if G:
+        gid[mask] = rng.integers(0, G, int(mask.sum()))
+    else:
+        mask[:] = False
+    cd = rb.columns
+    specs = [("sum", None, mask),
+             ("sum", RI, mask & cd[RI].valid),
+             ("min", RI, mask & cd[RI].valid),
+             ("max", RI, mask & cd[RI].valid),
+             ("min", RF, mask & cd[RF].valid & ~np.signbit(cd[RF].values)),
+             ("max", RF, mask & cd[RF].valid),
+             ("min", RS, mask & cd[RS].valid),
+             ("cnt", 0, mask), ("sum", 0, mask),
+             ("cnt", 1, mask), ("plane", 1, mask), ("pvalid", 1, mask),
+             ("max", 2, mask)]
+    return gid, specs, G
+
+
+def test_region_agg_states_batched_matches_jax():
+    """Ragged states over four regions (one with G_r = 0, one with no live
+    row), bucketed segment offsets, sentinels for groups no row reaches,
+    wrapping int64 sums, decimal / float / int argument planes and the
+    row-space plane / pvalid readbacks."""
+    from tidb_tpu_torch.copr.columnar_region import ArgPlaneSpec
+    rbs, pbs = _regions(23)
+    cases = [_states_case(rb, 100 + r) for r, rb in enumerate(rbs)]
+    assert any(G == 0 for _g, _s, G in cases)
+    ref_segs = []
+    for rb, (gid, specs, G) in zip(rbs, cases):
+        args = [_ref_argspec(a, rb) for a in ARGS]
+        ref_segs.append((gid, [(op, _ref_val(op, key, rb, args), ok)
+                               for op, key, ok in specs], G))
+    want = rk.region_agg_states_batched(ref_segs)
+    regions, progs = _port_regions(pbs, None, [carry.expr_from(a)
+                                               for a in ARGS])
+    bits, outs = pk.region_filter_batched(regions, "cpu")
+    cpu = torch.device("cpu")
+    port_segs, base = [], 0
+    for pb, aps, (gid, specs, G) in zip(pbs, progs, cases):
+        cap = pb.capacity
+        args = [ArgPlaneSpec(ap, outs[j][0][base:base + cap],
+                             outs[j][1][base:base + cap])
+                for j, ap in enumerate(aps)]
+        planes = pk.batch_planes(pb, cpu)
+        port_segs.append((gid, [
+            (op, _port_val(op, key, planes, args), ok)
+            for op, key, ok in specs], G, pb.n_rows))
+        base += cap
+    got = pk.region_agg_states_batched(port_segs, "cpu")
+    for r, (g_r, w_r) in enumerate(zip(got, want)):
+        for j, (g, w) in enumerate(zip(g_r, w_r)):
+            w = np.asarray(w)
+            assert g.shape == w.shape, (r, j)
+            assert np.array_equal(g.astype(w.dtype), w), (r, j, g, w)
+
+
+def _is_arg(op, key) -> bool:
+    """Spec keys 0..2 of cnt/plane/pvalid and of the listed sum/max name
+    an ARGS plane; other keys name a column."""
+    return op in ("cnt", "plane", "pvalid") or (op, key) in (("sum", 0),
+                                                             ("max", 2))
+
+
+def _ref_val(op, key, rb, args):
+    if key is None:
+        return None
+    return args[key] if _is_arg(op, key) else rb.columns[key].values
+
+
+def _port_val(op, key, planes, args):
+    if key is None:
+        return None
+    return args[key] if _is_arg(op, key) else planes[key][0]
+
+
+def test_bucket_segments_matches_jax():
+    for n in (0, 1, 7, 8, 9, 100, 2500, 1 << 20):
+        assert pk.bucket_segments(n) == rk.bucket_segments(n)
+
+
+@pytest.mark.parametrize("R,G", [(2, 1), (8, 4), (3, 70)])
+def test_combine_region_partials_matches_jax(R, G):
+    rng = np.random.default_rng(R * 100 + G)
+    si = rng.integers(-1000, 1000, (R, G)).astype(np.int64)
+    si[0, 0] = I64_MAX
+    si[-1, 0] = I64_MAX            # wraps as jnp.sum does
+    mi = rng.integers(I64_MIN, I64_MAX, (R, G), dtype=np.int64)
+    mi[:, -1] = I64_MAX            # the sentinel of a group no region saw
+    mf = rng.integers(-100, 100, (R, G)) * 0.5
+    mf[0, :] = np.inf
+    states = [si, mi, mi, mf, mf]
+    ops = ["sum", "min", "max", "min", "max"]
+    want = rk.combine_region_partials(states, ops)
+    got = pk.combine_region_partials(states, ops, "cpu")
+    for g, w, op in zip(got, want, ops):
+        assert g.dtype == w.dtype and np.array_equal(g, w), op
+
+
+def test_region_agg_states_matches_jax():
+    """One region's states (the serial call, R = 1) with every op."""
+    from tidb_tpu_torch.copr.columnar_region import ArgPlaneSpec
+    rbs, pbs = _regions(31)
+    rb, pb = rbs[1], pbs[1]
+    gid, specs, G = _states_case(rb, 7)
+    args = [_ref_argspec(a, rb) for a in ARGS]
+    want = rk.region_agg_states(
+        gid, [(op, _ref_val(op, key, rb, args), ok)
+              for op, key, ok in specs], G)
+    regions, progs = _port_regions([pb], None, [carry.expr_from(a)
+                                                 for a in ARGS])
+    _bits, outs = pk.region_filter_batched(regions, "cpu")
+    pargs = [ArgPlaneSpec(ap, outs[j][0], outs[j][1])
+             for j, ap in enumerate(progs[0])]
+    planes = pk.batch_planes(pb, torch.device("cpu"))
+    got = pk.region_agg_states(
+        gid, [(op, _port_val(op, key, planes, pargs), ok)
+              for op, key, ok in specs], G, pb.n_rows, "cpu")
+    for j, (g, w) in enumerate(zip(got, want)):
+        w = np.asarray(w)
+        assert np.array_equal(g.astype(w.dtype), w), (j, g, w)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import gc
 import math
+import sys
 from decimal import Decimal
 
 import torch  # noqa: F401  (loaded here, before the freeze below)

@@ -115,3 +115,15 @@ def batch_from(ref_batch) -> col.ColumnBatch:
                "dictionary": cd.dictionary, "tp": cd.tp,
                "dec_scale": cd.dec_scale, "max_abs": cd.max_abs}
          for cid, cd in ref_batch.columns.items()})
+
+
+def cluster_from(ref_store, read_ts: int) -> tuple[list, list]:
+    """(KV pairs, split keys) of a reference cluster store as seen at
+    `read_ts`: every pair its snapshot at that timestamp iterates, and the
+    start key of each of its regions but the first — what
+    cluster.store.DistStore takes to hold the same data in the same
+    regions."""
+    pairs = [(bytes(k), bytes(v)) for k, v in
+             ref_store.get_snapshot(read_ts).iterate(b"", None)]
+    splits = [bytes(r.start) for r in ref_store.cluster.regions[1:]]
+    return pairs, splits

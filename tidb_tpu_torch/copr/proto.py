@@ -1,6 +1,7 @@
 """The pushdown wire IR: SelectRequest / SelectResponse / Expr (copy of
-tidb_tpu/copr/proto.py without the columnar payloads: the port always
-answers chunks of partial rows)."""
+tidb_tpu/copr/proto.py). The in-process client answers chunks of partial
+rows; a region of the cluster store answers a pushed-down aggregate with
+a columnar payload of partial states (`SelectResponse.columnar`)."""
 
 from __future__ import annotations
 
@@ -51,6 +52,33 @@ AGG_NAME = {
     ExprType.AGG_GROUP_CONCAT: "group_concat",
 }
 AGG_TYPE_BY_NAME = {v: k for k, v in AGG_NAME.items()}
+
+# aggregates whose EXPRESSION arguments ops.exprc.compile_arg_plane can
+# lower into the states pass, and the arithmetic grammar it takes
+ARG_PLANE_AGGS = ("count", "sum", "avg", "min", "max")
+
+_ARG_PLANE_BINOPS = (Op.Plus, Op.Minus, Op.Mul, Op.Div, Op.IntDiv, Op.Mod)
+_ARG_PLANE_UNOPS = (Op.UnaryMinus, Op.UnaryPlus)
+
+
+def arg_plane_shape_ok(name: str, e: "Expr") -> bool:
+    """Structural gate for EXPRESSION aggregate arguments: arithmetic over
+    column refs / constants, reduced by a plane-expressible aggregate. The
+    contextual rules (kinds, bounds) need the packed batch and run in
+    exprc.compile_arg_plane."""
+    if name not in ARG_PLANE_AGGS:
+        return False
+    if e.tp in (ExprType.VALUE, ExprType.COLUMN_REF):
+        return True
+    if e.tp != ExprType.OPERATOR or not e.children:
+        return False
+    if len(e.children) == 1:
+        ok = e.op in _ARG_PLANE_UNOPS
+    elif len(e.children) == 2:
+        ok = e.op in _ARG_PLANE_BINOPS
+    else:
+        ok = False
+    return ok and all(arg_plane_shape_ok(name, c) for c in e.children)
 
 
 @dataclass
@@ -122,7 +150,8 @@ class ByItem:
 @dataclass
 class SelectRequest:
     """tipb.SelectRequest. The port serves table scans (`table_info`);
-    an index request (`index_info`) is outside slice 1."""
+    an index request (`index_info`) raises Unsupported. `columnar_hint`
+    asks a region of the cluster store for a columnar payload."""
     start_ts: int
     table_info: PBTableInfo | None = None
     index_info: object | None = None
@@ -159,6 +188,8 @@ class Chunk:
 class SelectResponse:
     chunks: list[Chunk] = field(default_factory=list)
     error: str | None = None
+    # a region's columnar payload (ops.columnar.ColumnarAggStates)
+    columnar: object | None = None
 
     def row_count(self) -> int:
         return sum(len(c.rows_meta) for c in self.chunks)

@@ -39,7 +39,9 @@ FLOAT_TYPES = frozenset((TypeFloat, TypeDouble))
 TIME_TYPES = frozenset((TypeDate, TypeNewDate, TypeDatetime, TypeTimestamp))
 
 # ---- column flags (mysql/const.go) ----
+NotNullFlag = 1
 UnsignedFlag = 32
+BinaryFlag = 128
 
 
 def has_unsigned_flag(flag: int) -> bool:

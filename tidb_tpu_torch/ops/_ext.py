@@ -6,7 +6,9 @@ build takes seconds, and all sources compile in parallel. Libraries go to
 `build/tidb_tpu_torch/` beside the package (listed in .gitignore), named
 by a hash of their sources, so an unchanged source is not rebuilt.
 
-No `--use_fast_math`: f64 division must stay IEEE.
+No `--use_fast_math`: f64 division must stay IEEE; and `-fmad=false`
+(below), so that f64 planes computed by a kernel are bit-identical to
+the plain versions'.
 """
 
 from __future__ import annotations
@@ -24,15 +26,22 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "build", "tidb_tpu_torch")
 
-SOURCES = ("expr_vm", "scalar_agg", "seg_agg_onehot", "seg_agg_sorted")
+SOURCES = ("expr_vm", "scalar_agg", "seg_agg_onehot", "seg_agg_sorted",
+           "seg_states_ragged", "combine_partials")
+# -fmad=false: no multiply-add contraction, so every f64 a * b + c rounds
+# twice exactly as the plain versions (and the reference) round it
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signature of every exported function: (argtypes, restype)
 SIGNATURES = {
     "expr_vm": {
         "expr_vm_launch": ([_L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P], _I),
+        "expr_vm_ragged_tile": ([], _I),
+        "expr_vm_ragged_launch": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P], _I),
     },
     "scalar_agg": {
         "scalar_agg_blocks": ([_L], _I),
@@ -45,6 +54,19 @@ SIGNATURES = {
     "seg_agg_sorted": {
         "seg_sorted_pieces_count": ([_L], _I),
         "seg_sorted_launch": ([_L, _P, _P, _P, _L, _I, _P, _P, _P, _P], _I),
+    },
+    "seg_states_ragged": {
+        "seg_states_tile": ([], _I),
+        "seg_states_pieces_count": ([_L], _I),
+        "seg_states_smem_bytes": ([_I, _I], _L),
+        "seg_states_smem_limit": ([], _L),
+        "seg_states_tiles_launch": ([_I, _P, _I, _P, _P, _I, _P, _P, _P, _I,
+                                     _L, _P, _P, _P], _I),
+        "seg_states_sorted_launch": ([_L, _P, _P, _P, _I, _L, _I, _P, _P,
+                                      _P, _P, _P, _P], _I),
+    },
+    "combine_partials": {
+        "combine_partials_launch": ([_I, _I, _P, _P, _P, _L, _P], _I),
     },
 }
 
@@ -65,7 +87,8 @@ def nvcc_path() -> str:
 
 def _source_hash(name: str) -> str:
     h = hashlib.sha1()
-    for fn in (f"{name}.cu", "common.cuh"):
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fn in (f"{name}.cu", *headers):
         with open(os.path.join(CSRC, fn), "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -1,5 +1,8 @@
 """Columnar batches: the coprocessor's in-memory data format (copy of
-tidb_tpu/ops/columnar.py:35-383 and :538-560, :1636).
+tidb_tpu/ops/columnar.py:35-383 and :538-560, :1636), and the grouped
+partial STATES a region answers a pushed-down aggregate with
+(AggStateCol :1087, ColumnarAggStates :1148, ColumnarStatesSet :1282,
+dec_canonical :1103, agg_partial_field_types :1056).
 
 Each region-range scan is packed once into column arrays — a values plane
 and a validity plane per column, strings dictionary-encoded, temporals as
@@ -122,6 +125,66 @@ class ColumnBatch:
             codes[:] = 0
         ent = (codes, uniq)
         cache[cid] = ent
+        return ent
+
+
+    def tuple_codes(self, cids: list[int]) -> tuple[np.ndarray, np.ndarray]:
+        """Host-built composite codes over a TUPLE of group columns:
+        (codes int64[capacity], percol int64[G, k]). Each live row maps
+        to the dense id (0..G-1, sorted order) of its distinct
+        (col_1, ..., col_k) combination; percol[g, j] is column j's code
+        for group g (== the column's size means NULL)."""
+        cache = getattr(self, "_tuple_code_cache", None)
+        if cache is None:
+            cache = self._tuple_code_cache = {}
+        key = tuple(cids)
+        ent = cache.get(key)
+        if ent is not None:
+            return ent
+        live = self.row_mask()
+        percol_planes, radices = [], []
+        for cid in cids:
+            cd = self.columns[cid]
+            if cd.kind == K_STR:
+                size = len(cd.dictionary)
+                codes = cd.values.astype(np.int64)
+            else:
+                codes, uniq = self.group_codes(cid)
+                size = len(uniq)
+            # NULL → reserved per-column slot
+            percol_planes.append(np.where(cd.valid, codes, size))
+            radices.append(size + 1)
+        prod = 1
+        for r in radices:
+            prod *= r
+        k = len(cids)
+        if prod < (1 << 62):
+            # the tuple packed into one int64 (mixed radix), compacted
+            keys = np.zeros(self.capacity, dtype=np.int64)
+            for codes, r in zip(percol_planes, radices):
+                keys = keys * r + codes
+            uniq_keys = np.unique(keys[live])
+            out = np.searchsorted(uniq_keys, keys).astype(np.int64)
+            G = len(uniq_keys)
+            if G:
+                np.minimum(out, G - 1, out=out)  # pad rows in-range
+            else:
+                out[:] = 0
+            percol = np.empty((G, k), dtype=np.int64)
+            rem = uniq_keys.copy()
+            for j in range(k - 1, -1, -1):
+                percol[:, j] = rem % radices[j]
+                rem //= radices[j]
+        else:
+            # cross product beyond int64: compact rows directly
+            stacked = np.stack(percol_planes, axis=1)
+            uniq_rows, inv = np.unique(stacked[live], axis=0,
+                                       return_inverse=True)
+            out = np.zeros(self.capacity, dtype=np.int64)
+            out[live] = np.reshape(inv, -1)
+            percol = uniq_rows.astype(np.int64)
+        ent = (out, percol)
+        cache[key] = ent
         return ent
 
 
@@ -296,3 +359,197 @@ def _pack_str_column(raw: list, va: np.ndarray, cap: int, n: int) -> ColumnData:
         codes[:n] = [code_of[v] if ok else -1
                      for v, ok in zip(raw, va[:n])]
     return ColumnData(K_STR, codes, va, uniq)
+
+
+# ---------------------------------------------------------------------------
+# grouped partial STATES: a region's answer to a pushed-down aggregate
+# ---------------------------------------------------------------------------
+
+def _expr_field_type(e, col_pb: dict):
+    """Result FieldType of a pushed-down argument EXPRESSION: the
+    arithmetic inference of the planner (merge_numeric, then Div over
+    non-floats promotes to decimal)."""
+    from tidb_tpu_torch.copr.proto import ExprType
+    from tidb_tpu_torch.sqlast.opcode import Op
+    from tidb_tpu_torch.types.field_type import (
+        field_type_from_pb_column, merge_numeric, new_field_type)
+    if e.tp == ExprType.COLUMN_REF and e.val in col_pb:
+        return field_type_from_pb_column(col_pb[e.val])
+    if e.tp == ExprType.VALUE:
+        d = e.val
+        if d is None or d.is_null():
+            return new_field_type(my.TypeNull)
+        if d.kind == Kind.FLOAT64:
+            return new_field_type(my.TypeDouble)
+        if d.kind == Kind.DECIMAL:
+            ft = new_field_type(my.TypeNewDecimal)
+            ft.decimal = max(-d.val.as_tuple().exponent, 0)
+            return ft
+        return new_field_type(my.TypeLonglong)
+    if e.tp == ExprType.OPERATOR and e.children:
+        if len(e.children) == 1:
+            return _expr_field_type(e.children[0], col_pb)
+        rt = merge_numeric(_expr_field_type(e.children[0], col_pb),
+                           _expr_field_type(e.children[1], col_pb))
+        if e.op == Op.Div and rt.tp not in (my.TypeDouble, my.TypeFloat):
+            rt = new_field_type(my.TypeNewDecimal)
+        return rt
+    return new_field_type(my.TypeLonglong)
+
+
+def agg_partial_field_types(aggregates, col_pb: dict):
+    """Field types of the partial-row layout [groupKey, f0 parts, ...]
+    (count first if the aggregate needs one, then the value)."""
+    from tidb_tpu_torch.copr.proto import AGG_NAME, ExprType
+    from tidb_tpu_torch.types.field_type import (
+        FieldType, agg_field_type, field_type_from_pb_column,
+        new_field_type)
+    fts = [new_field_type(my.TypeBlob)]
+    for e in aggregates:
+        name = AGG_NAME[e.tp]
+        arg = e.children[0] if e.children else None
+        if arg is not None and arg.tp == ExprType.COLUMN_REF \
+                and arg.val in col_pb:
+            arg_ft = field_type_from_pb_column(col_pb[arg.val])
+        elif arg is not None:
+            arg_ft = _expr_field_type(arg, col_pb)
+        else:
+            arg_ft = FieldType(my.TypeLonglong)
+        need_count = name in ("count", "avg")
+        need_value = name in ("sum", "avg", "min", "max", "first_row",
+                              "group_concat")
+        if need_count:
+            fts.append(new_field_type(my.TypeLonglong))
+        if need_value:
+            fts.append(agg_field_type(name, arg_ft))
+        if not need_count and not need_value:
+            fts.append(new_field_type(my.TypeLonglong))
+    return fts
+
+
+@dataclass
+class AggStateCol:
+    """One aggregate's per-group partial states. `values` is the
+    combinable numeric state (int64/f64, `op` its monoid); datum-mode
+    states (string min/max, first_row) carry per-group flattened Datums
+    in `datums` and merge on the host."""
+    name: str                       # count|sum|avg|min|max|first_row
+    counts: np.ndarray              # int64[G] contributing rows
+    values: np.ndarray | None = None   # int64/f64[G] numeric state
+    op: str | None = None           # "sum" | "min" | "max"
+    kind: str | None = None         # value kind: "i64" | "f64" | "dec"
+    dec_scale: int = 0
+    pb_col: PBColumnInfo | None = None   # arg column (datum decode)
+    datums: list | None = None      # datum-mode per-group values
+
+
+def dec_canonical(d: Decimal) -> Decimal:
+    """Codec-canonical Decimal: trailing zero digits trimmed, the form the
+    storage codec round-trips (not Decimal.normalize(), which rounds to
+    the context precision)."""
+    sign, digits, exp = d.as_tuple()
+    dl = list(digits)
+    while len(dl) > 1 and dl[-1] == 0:
+        dl.pop()
+        exp += 1
+    if dl == [0]:
+        return Decimal(0)
+    return Decimal((sign, tuple(dl), exp))
+
+
+class ColumnarAggStates:
+    """One region's pushed-down aggregate answered as grouped partial
+    STATES: codec-encoded group keys in the region's first-appearance
+    order plus one AggStateCol per requested aggregate. A region ships it
+    with the filter and the states still pending (`_pending`); the
+    statement finisher (copr.columnar_region.finish_states_batch) fills
+    in the keys and states for every region at once."""
+
+    is_agg_states = True
+
+    def __init__(self, group_keys, aggs, aggregates, col_pb: dict,
+                 pending=None):
+        self._group_keys = group_keys
+        self._aggs = aggs
+        self._pending = pending
+        self._aggregates = aggregates      # request Expr list
+        self._col_pb = col_pb
+        self._fts: list | None = None
+        self.cache_info: dict | None = None
+        self.region_id: int | None = None
+        self.region_epoch: tuple | None = None
+        self.device = None
+
+    @property
+    def aggs(self) -> list[AggStateCol]:
+        if self._aggs is None:
+            raise errors.TiDBError("partial states still pending: the "
+                                   "statement finisher has not run")
+        return self._aggs
+
+    @property
+    def group_keys(self) -> list[bytes]:
+        if self._group_keys is None:
+            raise errors.TiDBError("group keys still pending: the "
+                                   "statement finisher has not run")
+        return self._group_keys
+
+    @group_keys.setter
+    def group_keys(self, keys: list[bytes]) -> None:
+        self._group_keys = keys
+
+    def states_pending(self) -> bool:
+        return self._aggs is None and self._pending is not None
+
+    def filter_pending(self) -> bool:
+        return (self._aggs is None and self._pending is not None
+                and getattr(self._pending, "is_filter", False))
+
+    def fulfill_states(self, aggs: list[AggStateCol]) -> None:
+        if self._aggs is None:
+            self._aggs = aggs
+            self._pending = None
+
+    def __len__(self) -> int:
+        return len(self.group_keys)
+
+    def field_types(self) -> list:
+        if self._fts is None:
+            self._fts = agg_partial_field_types(self._aggregates,
+                                                self._col_pb)
+        return self._fts
+
+    def value_ft(self, i: int):
+        """Field type of aggregate i's value slot."""
+        fts = self.field_types()
+        j = 1
+        for k, st in enumerate(self.aggs):
+            if st.name in ("count", "avg"):
+                if k == i and st.name == "count":
+                    return fts[j]
+                j += 1
+            if st.name != "count":
+                if k == i:
+                    return fts[j]
+                j += 1
+        return fts[-1]
+
+
+class ColumnarStatesSet:
+    """A multi-region pushed-aggregate response: one ColumnarAggStates
+    per region task, in task order."""
+
+    is_agg_states = True
+
+    def __init__(self, parts: list):
+        assert parts, "empty states set"
+        self.parts = parts
+
+    def __len__(self) -> int:
+        return sum(len(p) for p in self.parts)
+
+    def region_ids(self) -> list:
+        return [getattr(p, "region_id", None) for p in self.parts]
+
+    def region_epochs(self) -> list:
+        return [getattr(p, "region_epoch", None) for p in self.parts]

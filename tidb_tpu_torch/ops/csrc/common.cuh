@@ -63,8 +63,33 @@ enum RedOp {
 __device__ __forceinline__ double as_f64(i64 b) { return __longlong_as_double(b); }
 __device__ __forceinline__ i64 as_i64(double d) { return __double_as_longlong(d); }
 
+// The value half of a reduction's monoid, shared by every kernel that
+// reduces (K2..K4 through Acc, K6 and K7 on bare values): its identity
+// (the exact sentinel of an extremum) and its merge, `a` first in the
+// fixed order. Counts and int64 sums add with two's complement wrap.
+__device__ __forceinline__ i64 val_ident(int op) {
+  switch (op) {
+    case R_MIN_I: case R_FIRST: return I64_MAX_V;
+    case R_MAX_I: return I64_MIN_V;
+    case R_MIN_F: return as_i64(F64_MAX_V);
+    case R_MAX_F: return as_i64(-F64_MAX_V);
+    default: return 0;   // counts, int sums, and +0.0 for f64 sums
+  }
+}
+
+__device__ __forceinline__ i64 val_merge(int op, i64 a, i64 b) {
+  switch (op) {
+    case R_SUM_F: return as_i64(as_f64(a) + as_f64(b));
+    case R_MIN_I: case R_FIRST: return b < a ? b : a;
+    case R_MAX_I: return b > a ? b : a;
+    case R_MIN_F: return as_f64(b) < as_f64(a) ? b : a;
+    case R_MAX_F: return as_f64(b) > as_f64(a) ? b : a;
+    default: return (i64)((u64)a + (u64)b);
+  }
+}
+
 // The accumulator of one reduction over some rows: a count and a 64-bit
-// value (int64, or the bits of an f64).
+// value (int64, or the bits of an f64; 0 for R_COUNT).
 struct Acc {
   i64 n;
   i64 v;
@@ -73,44 +98,21 @@ struct Acc {
 __device__ __forceinline__ Acc acc_init(int op) {
   Acc a;
   a.n = 0;
-  switch (op) {
-    case R_MIN_I: case R_FIRST: a.v = I64_MAX_V; break;
-    case R_MAX_I: a.v = I64_MIN_V; break;
-    case R_MIN_F: a.v = as_i64(F64_MAX_V); break;
-    case R_MAX_F: a.v = as_i64(-F64_MAX_V); break;
-    case R_SUM_F: a.v = as_i64(0.0); break;
-    default: a.v = 0;
-  }
+  a.v = val_ident(op);
   return a;
 }
 
 // Fold one value in (the caller has decided it contributes).
 __device__ __forceinline__ void acc_add(int op, Acc& a, i64 x) {
   a.n += 1;
-  switch (op) {
-    case R_SUM_I: a.v = (i64)((u64)a.v + (u64)x); break;   // two's complement wrap
-    case R_SUM_F: a.v = as_i64(as_f64(a.v) + as_f64(x)); break;
-    case R_MIN_I: case R_FIRST: a.v = x < a.v ? x : a.v; break;
-    case R_MAX_I: a.v = x > a.v ? x : a.v; break;
-    case R_MIN_F: a.v = as_f64(x) < as_f64(a.v) ? x : a.v; break;
-    case R_MAX_F: a.v = as_f64(x) > as_f64(a.v) ? x : a.v; break;
-    default: break;
-  }
+  if (op != R_COUNT) a.v = val_merge(op, a.v, x);
 }
 
 // Combine two partial accumulators; `a` comes first in the fixed order.
 __device__ __forceinline__ Acc acc_merge(int op, Acc a, Acc b) {
   Acc r;
   r.n = a.n + b.n;
-  switch (op) {
-    case R_SUM_I: r.v = (i64)((u64)a.v + (u64)b.v); break;
-    case R_SUM_F: r.v = as_i64(as_f64(a.v) + as_f64(b.v)); break;
-    case R_MIN_I: case R_FIRST: r.v = b.v < a.v ? b.v : a.v; break;
-    case R_MAX_I: r.v = b.v > a.v ? b.v : a.v; break;
-    case R_MIN_F: r.v = as_f64(b.v) < as_f64(a.v) ? b.v : a.v; break;
-    case R_MAX_F: r.v = as_f64(b.v) > as_f64(a.v) ? b.v : a.v; break;
-    default: r.v = 0;
-  }
+  r.v = val_merge(op, a.v, b.v);
   return r;
 }
 
@@ -138,4 +140,13 @@ __device__ __forceinline__ Acc warp_merge(int op, Acc a) {
     a = acc_merge(op, a, b);
   }
   return a;
+}
+
+// First index in a[lo, hi) (ascending) whose value is >= key.
+__device__ __forceinline__ i64 lower_bound_i64(const i64* a, i64 lo, i64 hi, i64 key) {
+  while (lo < hi) {
+    const i64 mid = lo + ((hi - lo) >> 1);
+    if (a[mid] < key) lo = mid + 1; else hi = mid;
+  }
+  return lo;
 }

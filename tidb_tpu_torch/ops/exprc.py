@@ -988,3 +988,192 @@ def run_program_plain(fin: Finalized, plane_list: list, live: torch.Tensor):
 
 def _cmp(k: int, x, y):
     return (x == y, x != y, x < y, x <= y, x > y, x >= y)[k]
+
+
+# ---------------------------------------------------------------------------
+# aggregate-argument planes (the port of tidb_tpu/ops/exprc.py:770-997):
+# an aggregate over an arithmetic EXPRESSION (TPC-H Q1's
+# sum(l_extendedprice * (1 - l_discount))) evaluates as a plane program
+# beside the WHERE, in the same K5 launch, feeding the states pass. The
+# contextual typing refuses every shape whose plane could differ from the
+# row engine:
+#   * IntDiv/Mod only in pure-int context;
+#   * decimal operands feeding a float context must fit the f64
+#     exact-integer window (< 2^53 scaled);
+#   * int/decimal results carry a whole-tree |value| bound with every
+#     intermediate proven below DEC_ABS_LIMIT.
+# Every reject depends on the expression and whole-batch metadata only,
+# never on which rows a WHERE keeps.
+# ---------------------------------------------------------------------------
+
+_ARG_ARITH_OPS = (Op.Plus, Op.Minus, Op.Mul, Op.Div, Op.IntDiv, Op.Mod)
+_ARG_UNARY_OPS = (Op.UnaryMinus, Op.UnaryPlus)
+F64_EXACT_INT = 1 << 53
+
+
+class ArgPlaneProg:
+    """A compiled aggregate-argument plane program: the CompiledExpr (a
+    register of the program it was compiled into), the columns it reads,
+    its structural signature, and the kind / scale / |value| bound of the
+    plane it yields (max_abs None for f64)."""
+
+    __slots__ = ("compiled", "cids", "kind", "scale", "max_abs", "sig")
+
+    def __init__(self, compiled: CompiledExpr, cids: tuple, sig: tuple):
+        self.compiled = compiled
+        self.cids = cids
+        self.kind = compiled.kind
+        self.scale = compiled.scale
+        self.max_abs = compiled.max_abs
+        self.sig = sig
+
+
+def _arg_cids(e: Expr, out: set) -> None:
+    if e.tp == ExprType.COLUMN_REF:
+        out.add(e.val)
+    for c in (e.children or ()):
+        _arg_cids(c, out)
+
+
+def _arg_static_kind(e: Expr, batch: col.ColumnBatch, colpb: dict):
+    """Static value kind (col.K_* or None for a NULL constant) of an
+    argument node under the row engine's contextual typing; raises
+    Unsupported for any shape whose plane could differ from it."""
+    if e.tp == ExprType.VALUE:
+        d = e.val
+        if d is None or not isinstance(d, Datum):
+            raise Unsupported("arg-plane constant is not a datum")
+        if d.is_null():
+            return None
+        if d.kind in (Kind.INT64, Kind.UINT64):
+            return col.K_I64
+        if d.kind == Kind.FLOAT64:
+            return col.K_F64
+        if d.kind == Kind.DECIMAL:
+            return col.K_DEC
+        raise Unsupported(f"arg-plane constant kind {d.kind!r}")
+    if e.tp == ExprType.COLUMN_REF:
+        cd = batch.columns.get(e.val)
+        c = colpb.get(e.val)
+        if cd is None or c is None:
+            raise Unsupported("arg-plane column not packed")
+        if cd.kind == col.K_STR:
+            raise Unsupported("string column in arithmetic argument")
+        if my.has_unsigned_flag(c.flag):
+            raise Unsupported("unsigned column in arithmetic argument")
+        if cd.kind == col.K_I64 and c.tp not in my.INTEGER_TYPES:
+            raise Unsupported("temporal/bit column in arithmetic argument")
+        return cd.kind
+    if e.tp == ExprType.OPERATOR:
+        if len(e.children) == 1:
+            if e.op not in _ARG_UNARY_OPS:
+                raise Unsupported(f"arg-plane unary op {e.op!r}")
+            return _arg_static_kind(e.children[0], batch, colpb)
+        if len(e.children) != 2 or e.op not in _ARG_ARITH_OPS:
+            raise Unsupported(f"arg-plane op {getattr(e, 'op', None)!r}")
+        ka = _arg_static_kind(e.children[0], batch, colpb)
+        kb = _arg_static_kind(e.children[1], batch, colpb)
+        f64 = col.K_F64 in (ka, kb)
+        dec = col.K_DEC in (ka, kb)
+        if e.op == Op.Div and not f64:
+            raise Unsupported("Div outside float context")
+        if e.op in (Op.IntDiv, Op.Mod) and (f64 or dec):
+            raise Unsupported("IntDiv/Mod outside int context")
+        if f64 and dec:
+            for ch, k in ((e.children[0], ka), (e.children[1], kb)):
+                if k != col.K_DEC:
+                    continue
+                b = _arg_bound(ch, batch)
+                if b is None or b >= F64_EXACT_INT:
+                    raise Unsupported(
+                        "decimal too wide for exact float conversion")
+        if f64:
+            return col.K_F64
+        if dec:
+            return col.K_DEC
+        return col.K_F64 if e.op == Op.Div else col.K_I64
+    raise Unsupported(f"arg-plane expr type {e.tp!r}")
+
+
+def _arg_scale(e: Expr, batch: col.ColumnBatch) -> int:
+    """Decimal scale of an int/dec argument node (0 for ints/floats)."""
+    if e.tp == ExprType.VALUE:
+        d = e.val
+        if not d.is_null() and d.kind == Kind.DECIMAL:
+            return max(0, -d.val.as_tuple().exponent)
+        return 0
+    if e.tp == ExprType.COLUMN_REF:
+        return batch.columns[e.val].dec_scale
+    if len(e.children) == 1:
+        return _arg_scale(e.children[0], batch)
+    sa = _arg_scale(e.children[0], batch)
+    sb = _arg_scale(e.children[1], batch)
+    if e.op == Op.Mul:
+        return sa + sb
+    if e.op in (Op.Plus, Op.Minus):
+        return max(sa, sb)
+    return 0
+
+
+def _arg_bound(e: Expr, batch: col.ColumnBatch):
+    """Scaled-int |value| bound of an argument node, every intermediate
+    guarded below DEC_ABS_LIMIT; None once float context is entered.
+    Raises Unsupported when a needed bound is unprovable."""
+    if e.tp == ExprType.VALUE:
+        d = e.val
+        if d.is_null():
+            return 0
+        if d.kind in (Kind.INT64, Kind.UINT64):
+            return _dec_guard(abs(int(d.val)), "argument constant")
+        if d.kind == Kind.FLOAT64:
+            return None
+        scale = max(0, -d.val.as_tuple().exponent)
+        return _dec_guard(abs(int(d.val * (10 ** scale))),
+                          "argument constant")
+    if e.tp == ExprType.COLUMN_REF:
+        cd = batch.columns[e.val]
+        if cd.kind == col.K_F64:
+            return None
+        if cd.max_abs is None:
+            raise Unsupported("argument column carries no bound")
+        return _dec_guard(int(cd.max_abs), "argument column")
+    if len(e.children) == 1:
+        return _arg_bound(e.children[0], batch)
+    ma = _arg_bound(e.children[0], batch)
+    mb = _arg_bound(e.children[1], batch)
+    if ma is None or mb is None or e.op == Op.Div:
+        return None
+    if e.op == Op.Mul:
+        return _dec_guard(ma * mb, "argument product")
+    if e.op in (Op.Plus, Op.Minus):
+        sa = _arg_scale(e.children[0], batch)
+        sb = _arg_scale(e.children[1], batch)
+        s = max(sa, sb)
+        return _dec_guard(ma * 10 ** (s - sa) + mb * 10 ** (s - sb),
+                          "argument sum")
+    if e.op == Op.IntDiv:
+        return ma
+    return min(ma, mb)  # Mod: |a mod b| <= min(|a|, |b|)
+
+
+def compile_arg_plane(e: Expr, batch: col.ColumnBatch, colpb: dict,
+                      prog: Program | None = None) -> ArgPlaneProg:
+    """Compile an aggregate's argument expression into `prog` (a fresh
+    program when None) as an ArgPlaneProg, or raise Unsupported. Every
+    reject is mask-independent, which lets the region handler certify a
+    deferred filter against it before the filter has run."""
+    cids: set = set()
+    _arg_cids(e, cids)
+    if not cids:
+        raise Unsupported("argument expression references no column")
+    if _arg_static_kind(e, batch, colpb) is None:
+        raise Unsupported("NULL-only argument expression")
+    cids_t = tuple(sorted(cids))
+    sig_cols = tuple((cid, batch.columns[cid].kind, batch.columns[cid].tp,
+                      batch.columns[cid].dec_scale) for cid in cids_t)
+    compiled = compile_expr(e, batch, prog)
+    if compiled.kind not in (col.K_I64, col.K_F64, col.K_DEC):
+        raise Unsupported(f"argument kind {compiled.kind!r} not aggregable")
+    if compiled.kind != col.K_F64 and compiled.max_abs is None:
+        compiled.max_abs = _arg_bound(e, batch)
+    return ArgPlaneProg(compiled, cids_t, (repr(e),) + sig_cols)

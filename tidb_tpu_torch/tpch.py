@@ -11,7 +11,10 @@ package's planner for
       l_shipdate date, l_commitdate date, l_receiptdate date,
       l_shipinstruct char(25), l_shipmode char(10), l_comment varchar(44),
       primary key (l_orderkey, l_linenumber))
-whose column ids are 1..16 and whose handle is the row id. Values follow
+whose column ids are 1..16 and whose handle is the row id, plus one
+column the specification lacks, l_fdiscount double (id 17, the discount
+as a binary float), so that a statement can aggregate a DOUBLE column
+(the float_expr shape of the JAX package's TPC-H sweep). Values follow
 dbgen's distributions (§4.2.3): sparse order keys, 1-7 lines per order,
 the part/supplier bridge, retail price from the part key, order dates
 over [1992-01-01, 1998-08-02], ship/commit/receipt offsets, and return
@@ -46,6 +49,7 @@ C_QUANTITY, C_EXTENDEDPRICE, C_DISCOUNT, C_TAX = 5, 6, 7, 8
 C_RETURNFLAG, C_LINESTATUS = 9, 10
 C_SHIPDATE, C_COMMITDATE, C_RECEIPTDATE = 11, 12, 13
 C_SHIPINSTRUCT, C_SHIPMODE, C_COMMENT = 14, 15, 16
+C_FDISCOUNT = 17
 
 _DEC = dict(tp=my.TypeNewDecimal, flen=15, decimal=2)
 COLUMNS = {
@@ -62,6 +66,7 @@ COLUMNS = {
     C_SHIPINSTRUCT: dict(tp=my.TypeString, flen=25),
     C_SHIPMODE: dict(tp=my.TypeString, flen=10),
     C_COMMENT: dict(tp=my.TypeVarchar, flen=44),
+    C_FDISCOUNT: dict(tp=my.TypeDouble, flen=22),
 }
 
 SHIPINSTRUCT = [b"DELIVER IN PERSON", b"COLLECT COD", b"NONE",
@@ -121,7 +126,7 @@ def generate(n_rows: int, seed: int) -> dict:
     receiptdate = _EPOCH + receipt.astype("timedelta64[D]")
     returned = receiptdate <= _CURRENT
     returnflag = np.where(returned, rng.integers(0, 2, n_rows) * 2, 1)
-    return {
+    out = {
         C_ORDERKEY: orderkey.astype(np.int64),
         C_PARTKEY: partkey.astype(np.int64),
         C_SUPPKEY: suppkey.astype(np.int64),
@@ -139,6 +144,8 @@ def generate(n_rows: int, seed: int) -> dict:
         C_SHIPMODE: rng.integers(0, 7, n_rows).astype(np.int64),
         C_COMMENT: rng.integers(0, 1 << 20, n_rows).astype(np.int64),
     }
+    out[C_FDISCOUNT] = out[C_DISCOUNT] / 100.0
+    return out
 
 
 def packed_dates(d: np.ndarray) -> np.ndarray:
@@ -184,18 +191,24 @@ def kv_pairs(data: dict):
         lists[cid] = [Datum.bytes_(_text(cid, v)) for v in lists[cid]]
     for cid in (C_ORDERKEY, C_PARTKEY, C_SUPPKEY, C_LINENUMBER):
         lists[cid] = [Datum.i64(v) for v in lists[cid]]
+    lists[C_FDISCOUNT] = [Datum.f64(v) for v in lists[C_FDISCOUNT]]
     for i in range(n):
         yield (tc.encode_row_key(TABLE_ID, i + 1),
                tc.encode_row(cids, [lists[cid][i] for cid in cids]))
 
 
-def batch(data: dict, cids) -> col.ColumnBatch:
-    """The packed ColumnBatch of the given columns, built straight from
-    the arrays (what pack_ranges yields for these rows)."""
-    n = data[C_ORDERKEY].shape[0]
+def batch(data: dict, cids, lo: int = 0, hi: int | None = None
+          ) -> col.ColumnBatch:
+    """The packed ColumnBatch of the given columns over rows [lo, hi)
+    (handles lo + 1 .. hi), built straight from the arrays (what
+    pack_ranges yields for these rows)."""
+    if hi is None:
+        hi = data[C_ORDERKEY].shape[0]
+    data = {cid: data[cid][lo:hi] for cid in cids}
+    n = hi - lo
     cap = col.bucket_capacity(n)
     handles = np.full(cap, col.I64_MIN, dtype=np.int64)
-    handles[:n] = np.arange(1, n + 1)
+    handles[:n] = np.arange(lo + 1, hi + 1)
     valid = np.zeros(cap, dtype=bool)
     valid[:n] = True
     cols = {}
@@ -220,12 +233,40 @@ def batch(data: dict, cids) -> col.ColumnBatch:
             cols[cid] = col.ColumnData(kind, vals, valid.copy(), dictionary,
                                        tp=c["tp"])
             continue
+        if kind == col.K_F64:
+            vals = np.zeros(cap, dtype=np.float64)
+            vals[:n] = raw
+            cols[cid] = col.ColumnData(kind, vals, valid.copy(), tp=c["tp"])
+            continue
         vals[:n] = raw
         cols[cid] = col.ColumnData(
             kind, vals, valid.copy(), tp=c["tp"],
             dec_scale=c.get("decimal", 0) if kind == col.K_DEC else 0,
             max_abs=int(np.abs(raw).max()) if n else 0)
     return col.ColumnBatch(n, cap, handles, cols)
+
+
+def region_bounds(n_rows: int, n_regions: int) -> list:
+    """[(lo, hi)) row ranges of `n_regions` regions split by handle, the
+    last taking the remainder (the split of the JAX package's bench)."""
+    step = max(n_rows // n_regions, 1)
+    cuts = [min(step * i, n_rows) for i in range(n_regions)] + [n_rows]
+    return list(zip(cuts[:-1], cuts[1:]))
+
+
+def split_keys(n_rows: int, n_regions: int) -> list:
+    """The row keys that split the table into those regions."""
+    return [tc.encode_row_key(TABLE_ID, lo + 1)
+            for lo, _hi in region_bounds(n_rows, n_regions)[1:]]
+
+
+def region_batches(data: dict, cids, n_regions: int) -> list:
+    """One ColumnBatch per region of the handle-range split: what each
+    region packs for these columns (its own string dictionaries and
+    bounds)."""
+    n = data[C_ORDERKEY].shape[0]
+    return [batch(data, cids, lo, hi)
+            for lo, hi in region_bounds(n, n_regions)]
 
 
 def store_request(sel: SelectRequest) -> kv.Request:
@@ -396,4 +437,141 @@ def q1_expected(data: dict) -> dict:
                 int(m.sum()), int(q[m].sum()), int(p[m].sum()),
                 int(dp.sum()), int((dp * (100 + t[m])).sum()),
                 int(d[m].sum()))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the TPC-H sweep of the JAX package's bench (bench.py:1103 TPCH_SWEEP_SQLS)
+# over this lineitem, as the planner pushes each shape to the cluster
+# store: a columnar_hint aggregate, group columns as first_row
+# ---------------------------------------------------------------------------
+
+def hinted(sel: SelectRequest) -> SelectRequest:
+    sel.columnar_hint = True
+    return sel
+
+
+def minmax_expr() -> SelectRequest:
+    """select l_returnflag, min(l_extendedprice - l_discount),
+    max(l_extendedprice + l_tax) group by l_returnflag."""
+    c = expr_column
+    return SelectRequest(
+        start_ts=1,
+        table_info=table_info([C_EXTENDEDPRICE, C_DISCOUNT, C_TAX,
+                               C_RETURNFLAG]),
+        group_by=[ByItem(c(C_RETURNFLAG))],
+        aggregates=[
+            expr_agg("min", [expr_op(Op.Minus, c(C_EXTENDEDPRICE),
+                                     c(C_DISCOUNT))]),
+            expr_agg("max", [expr_op(Op.Plus, c(C_EXTENDEDPRICE),
+                                     c(C_TAX))]),
+            expr_agg("first_row", [c(C_RETURNFLAG)])])
+
+
+def float_expr() -> SelectRequest:
+    """select l_returnflag, sum(l_fdiscount * 2), avg(l_fdiscount + 0.5)
+    group by l_returnflag (float expression arguments)."""
+    c = expr_column
+    return SelectRequest(
+        start_ts=1,
+        table_info=table_info([C_FDISCOUNT, C_RETURNFLAG]),
+        group_by=[ByItem(c(C_RETURNFLAG))],
+        aggregates=[
+            expr_agg("sum", [expr_op(Op.Mul, c(C_FDISCOUNT),
+                                     expr_value(Datum.i64(2)))]),
+            expr_agg("avg", [expr_op(Op.Plus, c(C_FDISCOUNT),
+                                     expr_value(_dec("0.5")))]),
+            expr_agg("first_row", [c(C_RETURNFLAG)])])
+
+
+def dec_group() -> SelectRequest:
+    """select l_quantity, count(*), sum(l_extendedprice) group by
+    l_quantity (a decimal group key)."""
+    c = expr_column
+    return SelectRequest(
+        start_ts=1,
+        table_info=table_info([C_QUANTITY, C_EXTENDEDPRICE]),
+        group_by=[ByItem(c(C_QUANTITY))],
+        aggregates=[expr_agg("count", [expr_value(_one())]),
+                    expr_agg("sum", [c(C_EXTENDEDPRICE)]),
+                    expr_agg("first_row", [c(C_QUANTITY)])])
+
+
+def date_group() -> SelectRequest:
+    """select l_shipdate, count(*), sum(l_extendedprice * (1 -
+    l_discount)) group by l_shipdate (a date group key)."""
+    c = expr_column
+    return SelectRequest(
+        start_ts=1,
+        table_info=table_info([C_EXTENDEDPRICE, C_DISCOUNT, C_SHIPDATE]),
+        group_by=[ByItem(c(C_SHIPDATE))],
+        aggregates=[
+            expr_agg("count", [expr_value(_one())]),
+            expr_agg("sum", [expr_op(Op.Mul, c(C_EXTENDEDPRICE),
+                                     expr_op(Op.Minus, expr_value(_one()),
+                                             c(C_DISCOUNT)))]),
+            expr_agg("first_row", [c(C_SHIPDATE)])])
+
+
+SWEEP = (("q1full", q1), ("q6", q6), ("minmax_expr", minmax_expr),
+         ("float_expr", float_expr), ("dec_group", dec_group),
+         ("date_group", date_group))
+
+
+def sweep_request(name: str) -> SelectRequest:
+    return hinted(dict(SWEEP)[name]())
+
+
+def sweep_expected(name: str, data: dict) -> dict:
+    """A sweep shape computed straight from the arrays with numpy: {group
+    key: [aggregate values without the first_row columns]}, decimals as
+    exact Decimals, floats as numpy's sums. Keys: the return flag (str),
+    the quantity (Decimal), the ship date (datetime.date); () for q6."""
+    d2 = lambda v, s=2: Decimal(int(v)).scaleb(-s)  # noqa: E731
+    price, disc, tax = (data[C_EXTENDEDPRICE], data[C_DISCOUNT],
+                        data[C_TAX])
+    flag = data[C_RETURNFLAG]
+    out = {}
+    if name == "q1full":
+        for (f, s), v in q1_expected(data).items():
+            cnt, sq, sp, sdp, sch, sd = v
+            out[(f.decode(), s.decode())] = [
+                d2(sq), d2(sp), d2(sdp, 4), d2(sch, 6), d2(sq) / cnt,
+                d2(sp) / cnt, d2(sd) / cnt, cnt]
+    elif name == "q6":
+        ship = data[C_SHIPDATE]
+        m = ((ship >= np.datetime64("1994-01-01"))
+             & (ship < np.datetime64("1995-01-01")) & (disc >= 5)
+             & (disc <= 7) & (data[C_QUANTITY] < 2400))
+        out[()] = [d2((price[m] * disc[m]).sum(), 4) if m.any() else None]
+    elif name in ("minmax_expr", "float_expr"):
+        for fi in range(3):
+            m = flag == fi
+            if not m.any():
+                continue
+            if name == "minmax_expr":
+                vals = [d2((price[m] - disc[m]).min()),
+                        d2((price[m] + tax[m]).max())]
+            else:
+                fd = data[C_FDISCOUNT][m]
+                vals = [float((fd * 2).sum()),
+                        float((fd + 0.5).sum() / m.sum())]
+            out[RETURNFLAG[fi].decode()] = vals
+    elif name in ("dec_group", "date_group"):
+        key = data[C_QUANTITY] if name == "dec_group" else data[C_SHIPDATE]
+        uniq, inv = np.unique(key, return_inverse=True)
+        cnt = np.bincount(inv)
+        if name == "dec_group":
+            sums = np.zeros(len(uniq), np.int64)
+            np.add.at(sums, inv, price)
+            for u, c, s in zip(uniq.tolist(), cnt.tolist(), sums.tolist()):
+                out[d2(u)] = [c, d2(s)]
+        else:
+            sums = np.zeros(len(uniq), np.int64)
+            np.add.at(sums, inv, price * (100 - disc))
+            for u, c, s in zip(uniq.astype(dt.date).tolist(), cnt.tolist(),
+                               sums.tolist()):
+                out[u] = [c, d2(s, 4)]
+    else:
+        raise KeyError(name)
     return out
