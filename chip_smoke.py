@@ -38,7 +38,20 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    plain versions on the card at Q1's shapes and on edge cases (NULL
    predicates, live rows not a multiple of 32, regions with no survivor
    and G_r = 0, R = 64, spans above K6's shared-memory limit).
-6. A JSON line of per-kernel numbers, the nvidia-smi line, and last
+6. Phase E, slice 3 on Phase B's SF1 batch (its planes resident): the
+   statements of tpch.SLICE3 through GpuClient.serve, each against numpy
+   (counts, decimals and row ids exact) with its launches counted — a
+   ranked group-by of 75k groups that answers at the top rung of the rank
+   ladder (and, repeated, starts there), one of 430k groups that
+   overflows the ladder into host tuple codes, scalar and grouped
+   DISTINCT, and TopN over one key and over three (k = 100 and 5000);
+   their times (median of 10, host clock; the two group-by shapes one
+   run, their repeat) and splits by phase; K8, K9 and K10 against their
+   plain versions on the card at those shapes and on edge cases (NULL
+   keys beside filtered rows, int64 extremes under DESC, BIGINT keys
+   above 2^53 in both orders, -0.0 beside +0.0, no live row, k = 1 and
+   k above the live rows, lengths no multiple of a tile), bit for bit.
+7. A JSON line of per-kernel numbers, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
 Any failure raises: no phase catches its own failure.
@@ -92,6 +105,12 @@ KERNELS = {
                        "tidb_tpu/ops/kernels.py:903"),
     "seg_agg_sorted": ("tidb_tpu_torch/ops/csrc/seg_agg_sorted.cu",
                        "tidb_tpu/ops/kernels.py:903"),
+    "rank_groups": ("tidb_tpu_torch/ops/csrc/rank_groups.cu",
+                    "tidb_tpu/ops/kernels.py:989"),
+    "distinct_runs": ("tidb_tpu_torch/ops/csrc/distinct_runs.cu",
+                      "tidb_tpu/ops/kernels.py:807"),
+    "topk_select": ("tidb_tpu_torch/ops/csrc/topk_select.cu",
+                    "tidb_tpu/ops/kernels.py:1980"),
     "expr_vm_ragged": ("tidb_tpu_torch/ops/csrc/expr_vm.cu",
                        "tidb_tpu/ops/kernels.py:1552"),
     "seg_states_ragged": ("tidb_tpu_torch/ops/csrc/seg_states_ragged.cu",
@@ -229,7 +248,7 @@ def phase_a(n_rows: int, seed: int, device=None) -> dict:
           f"launches {launches}")
     if gpu.device.type == "cuda":
         for k, v in launches.items():
-            need(v > 0 or k in CLUSTER_KERNELS,
+            need(v > 0 or k in CLUSTER_KERNELS or k in SLICE3_KERNELS,
                  f"kernel {k} never launched on the main path")
     return launches
 
@@ -468,13 +487,17 @@ def edge_reductions(batch, device, rng):
             R(kernels.R_MAX_I, const_bits=3, never=True)]
 
 
-def phase_b(n_rows: int, seed: int, device, edge_cap: int) -> dict:
+def phase_b(n_rows: int, seed: int, device, edge_cap: int) -> tuple:
+    """Returns (per-kernel results, the rows, the batch), the batch holding
+    Phase E's columns too."""
     ms = timer(device)
     t0 = time.perf_counter()
     data = tpch.generate(n_rows, seed)
     cids = [tpch.C_SUPPKEY, tpch.C_QUANTITY, tpch.C_EXTENDEDPRICE,
             tpch.C_DISCOUNT, tpch.C_TAX, tpch.C_RETURNFLAG,
-            tpch.C_LINESTATUS, tpch.C_SHIPDATE]
+            tpch.C_LINESTATUS, tpch.C_SHIPDATE, tpch.C_ORDERKEY,
+            tpch.C_LINENUMBER, tpch.C_COMMITDATE, tpch.C_RECEIPTDATE,
+            tpch.C_SHIPMODE]
     batch = tpch.batch(data, cids)
     kernels.batch_planes(batch, device)
     kernels.device_live(batch, device)
@@ -625,7 +648,12 @@ def phase_b(n_rows: int, seed: int, device, edge_cap: int) -> dict:
     print(f"phase B: Q1 device time (K1 + K3 + readback) {q1_dev:.4f} ms; "
           f"segments Q1 {S1}, l_suppkey {SS}; of seg_agg_sorted's time the "
           f"stable torch.sort of the group ids takes {sort_ms:.4f} ms")
-    return out
+    # the plain version of build_filter_fn: K1's plain version + nonzero
+    filter_plain_ms = ms(lambda: torch.nonzero(run_program_plain(
+        ffn.program, fplanes, q6.live)[0]))
+    print(f"phase B: build_filter_fn plain version (K1 plain + "
+          f"torch.nonzero) {filter_plain_ms:.4f} ms")
+    return out, data, batch
 
 
 # ---------------------------------------------------------------------------
@@ -1064,6 +1092,354 @@ def phase_d(n_rows: int, seed: int, device, R: int = 8) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase E: ranked group-by, DISTINCT and TopN at SF1 (slice 3)
+# ---------------------------------------------------------------------------
+
+SLICE3_KERNELS = ("rank_groups", "distinct_runs", "topk_select")
+# launches per statement on the card: the first run of each statement of
+# tpch.SLICE3 in order, then the repeats of the two group-by shapes, which
+# start at the memoized rung (ranked_dates) or go straight to tuple codes
+E_LAUNCHES = {
+    "ranked_dates": {"expr_vm": 1, "rank_groups": 3, "seg_agg_sorted": 1},
+    "tuple_dates": {"expr_vm": 2, "rank_groups": 3, "seg_agg_sorted": 1},
+    "scalar_distinct": {"expr_vm": 1, "distinct_runs": 4, "scalar_agg": 4},
+    "grouped_distinct": {"expr_vm": 1, "seg_agg_onehot": 1,
+                         "distinct_runs": 1, "seg_agg_sorted": 1},
+    "topn_price": {"expr_vm": 1, "topk_select": 1},
+    "topn_multi": {"expr_vm": 1, "topk_select": 1},
+    "topn_multi_5000": {"expr_vm": 1, "topk_select": 1},
+    "ranked_dates repeat": {"expr_vm": 1, "rank_groups": 1,
+                            "seg_agg_sorted": 1},
+    "tuple_dates repeat": {"expr_vm": 1, "seg_agg_sorted": 1},
+}
+
+
+def cents(d) -> int:
+    return int(d.val.scaleb(2))
+
+
+def check_slice3(name: str, resp, data: dict, what: str) -> None:
+    """A slice-3 statement's partial rows against numpy
+    (tpch.slice3_expected): counts, decimals and row ids exact."""
+    want = tpch.slice3_expected(name.split()[0], data)
+    rows = list(iter_response_rows(resp))
+    if name.startswith(("ranked_dates", "tuple_dates")):
+        got = {(ds[5].val.dt.date(), ds[6].val.dt.date()):
+               [ds[1].val, cents(ds[2]), cents(ds[4])]
+               for _h, ds in rows if ds[3].val == ds[1].val}
+        need(len(got) == len(rows) == len(want) and got == {
+            k: [c, q, p] for k, (c, q, p) in want.items()},
+            f"{what} {name}: groups differ from numpy")
+    elif name == "scalar_distinct":
+        (_h, ds), = rows
+        got = [ds[1].val, ds[2].val, cents(ds[3]), (ds[4].val, cents(ds[5]))]
+        need(got == [want[0], want[1], want[2][1], want[3]],
+             f"{what} {name}: {got} vs numpy {want}")
+    elif name == "grouped_distinct":
+        got = {(ds[3].val, ds[4].val): [ds[1].val, ds[2].val]
+               for _h, ds in rows}
+        need(got == want, f"{what} {name}: {got} vs numpy {want}")
+    else:
+        got = [h for h, _ds in rows]
+        need(got == want, f"{what} {name}: row ids differ from numpy")
+
+
+def check_k8(prep, S: int, what: str) -> float:
+    got = kernels.rank_groups(prep.order, prep.mask, prep.cols, S)
+    want = kernels.rank_groups_plain(prep.order, prep.mask, prep.cols, S)
+    for g, w, part in zip(got, want, ("gid", "ngroups", "starts", "rep",
+                                      "nonnull")):
+        need(torch.equal(g, w), f"{what}: K8 {part} differs from its plain "
+             "version")
+    return max(max_err(g, w) for g, w in zip(got, want))
+
+
+def check_k9(args: tuple, what: str) -> float:
+    got = kernels.distinct_runs(*args)
+    want = kernels.distinct_runs_plain(*args)
+    need(torch.equal(got, want), f"{what}: K9 differs from its plain version")
+    return max_err(got, want)
+
+
+def check_k10(mask, keys: list, k: int, what: str) -> float:
+    gi, gn = kernels.topk_select(mask, keys, k)
+    wi, wn = kernels.topk_select_plain(mask, keys, k)
+    need(torch.equal(gn, wn), f"{what}: K10 live count {gn} vs {wn}")
+    need(torch.equal(gi, wi), f"{what}: K10 row ids differ from its plain "
+         "version")
+    return max(max_err(gi, wi), max_err(gn, wn))
+
+
+def e_statements(client, batch, data) -> tuple:
+    """Each tpch.SLICE3 statement once through GpuClient.serve, launches
+    counted per statement; then the repeats of the group-by shapes, whose
+    time and split (kernels.SPLIT) are kept. Returns (the requests by
+    name, the launches of the whole run, {repeat: (ms, split)})."""
+    sels = {name: make() for name, make in tpch.SLICE3}
+    order = [(name, sels[name]) for name, _m in tpch.SLICE3] + [
+        ("ranked_dates repeat", sels["ranked_dates"]),
+        ("tuple_dates repeat", sels["tuple_dates"])]
+    cuda = client.device.type == "cuda"
+    zero_launches()
+    total = {k: 0 for k in kernels.LAUNCHES}
+    repeats = {}
+    for name, sel in order:
+        before = dict(kernels.LAUNCHES)
+        tuples = client.stats["tuple_grouped"]
+        if name.endswith("repeat"):
+            kernels.SPLIT = {}
+        t0 = time.perf_counter()
+        resp = client.serve(sel, batch)
+        if cuda:
+            torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        if name.endswith("repeat"):
+            repeats[name] = (took * 1e3, kernels.SPLIT)
+            kernels.SPLIT = None
+        delta = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                 if v != before[k]}
+        check_slice3(name, resp, data, "phase E")
+        if name.startswith("ranked_dates"):
+            need(client.last_rank_cap == client._RANK_CAPS[-1],
+                 f"{name}: answered at rung {client.last_rank_cap}")
+        if name.startswith("tuple_dates"):
+            need(client.stats["tuple_grouped"] == tuples + 1,
+                 f"{name}: did not take the tuple codes")
+        if cuda:
+            need(delta == E_LAUNCHES[name],
+                 f"{name}: launches {delta}, want {E_LAUNCHES[name]}")
+        for k, v in delta.items():
+            total[k] += v
+        print(f"  {name}: {resp.row_count()} rows equal to numpy in "
+              f"{took:.2f} s; launches {delta}")
+    return sels, total, repeats
+
+
+def edge_topn(device, seed: int) -> list:
+    """(mask, keys, k, what) cases for K10: NULL keys beside filtered rows
+    under DESC and ASC (the reference's single-key fault), int64 extremes
+    under DESC (its multi-key wrap), BIGINT keys above 2^53 in both index
+    orders, -0.0 beside +0.0, k = 1, k >= live rows, no live row, live
+    counts and lengths that are no multiple of the tile, four keys with
+    many ties."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(device)  # noqa: E731
+    cases = []
+    # fault 1: (id, a, c) = (1,0,5.0) (2,1,NULL) (3,1,3.0) (4,0,9.0), a > 0
+    c = t(np.array([5.0, 0.0, 3.0, 9.0]))
+    c_ok = t(np.array([True, False, True, True]))
+    m = t(np.array([False, True, True, False]))
+    for desc in (True, False):
+        cases.append((m, [((c, c_ok), desc)], 2, f"null key desc={desc}"))
+    # fault 2 and the f64 cast: int64 extremes and keys above 2^53
+    big = np.array([-(1 << 63), 5, (1 << 53) + 1, 1 << 53, 7, (1 << 63) - 1],
+                   np.int64)
+    for arr in (big, big[::-1].copy()):
+        ids = t(np.arange(len(arr), dtype=np.int64))
+        ok = t(np.ones(len(arr), bool))
+        live = t(np.ones(len(arr), bool))
+        for desc in (True, False):
+            cases.append((live, [((t(arr), ok), desc), ((ids, ok), False)],
+                          3, f"int64 extremes desc={desc}"))
+            cases.append((live, [((t(arr), ok), desc)], 2,
+                          f"one int64 key desc={desc}"))
+    n = 3 * 1024 + 517
+    zeros = np.where(rng.random(n) < 0.5, -0.0, 0.0)
+    ok = t(rng.random(n) > 0.2)
+    live = t(rng.random(n) > 0.3)
+    cases.append((live, [((t(zeros), ok), False)], 40, "-0.0 and +0.0"))
+    keys = [((t(rng.integers(0, 3, n).astype(np.int64)), ok), True),
+            ((t(rng.integers(-2, 2, n) * 0.5), t(rng.random(n) > 0.3)),
+             False),
+            ((t(rng.integers(0, 2, n).astype(np.int64)),
+              t(rng.random(n) > 0.5)), True),
+            ((t(rng.standard_normal(n)), t(rng.random(n) > 0.1)), False)]
+    for k in (1, 37, 1500, n):
+        cases.append((live, keys, k, f"four keys k={k}"))
+    none = t(np.zeros(n, bool))
+    cases.append((none, keys, 10, "no live row"))
+    few = t(np.arange(n) % 997 == 3)
+    cases.append((few, keys[:2], 100, "k above the live rows"))
+    return cases
+
+
+def edge_rank(device, seed: int) -> list:
+    """(order, mask, cols, S, what) cases for K8: NULLs, -0.0 beside
+    +0.0, an int and an f64 column, no live row, S below the group count,
+    a length that is no multiple of the tile."""
+    rng = np.random.default_rng(seed)
+    n = 5 * 1024 + 333
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(device)  # noqa: E731
+    a = t(rng.integers(-3, 4, n).astype(np.int64))
+    f = t(np.where(rng.random(n) < 0.3, -0.0, rng.integers(0, 3, n) * 1.5))
+    a_ok, f_ok = t(rng.random(n) > 0.2), t(rng.random(n) > 0.2)
+    cases = []
+    for live_p, S, what in ((0.7, 1025, "mixed"), (0.7, 5, "overflow"),
+                            (0.0, 17, "no live row")):
+        mask = t(rng.random(n) < live_p)
+        keys = []
+        for v, ok in reversed([(a, a_ok), (f, f_ok)]):
+            keys.append(torch.where(ok, kernels.orderable(v),
+                                    torch.zeros_like(a)))
+            keys.append((~ok).to(torch.uint8))
+        keys.append((~mask).to(torch.uint8))
+        order, _ = kernels.lexsort(keys)
+        cases.append((order, mask, [(a, a_ok), (f, f_ok)], S, what))
+    return cases
+
+
+def edge_distinct(device, seed: int) -> list:
+    """K9 argument tuples: I64_MAX and +inf values, -0.0 beside +0.0, no
+    contributing row, scalar and grouped."""
+    rng = np.random.default_rng(seed)
+    n = 4 * 1024 + 77
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(device)  # noqa: E731
+    iv = rng.integers(-5, 5, n).astype(np.int64)
+    iv[::13] = (1 << 63) - 1
+    fv = rng.integers(-3, 3, n) * 0.25
+    fv[::7] = -0.0
+    fv[::11] = np.inf
+    gid = t(rng.integers(0, 9, n).astype(np.int64))
+    out = []
+    for v in (t(iv), t(fv)):
+        for p in (0.6, 0.0):
+            contrib = t(rng.random(n) < p)
+            for g in (None, gid):
+                perm, key, gs = kernels.distinct_sort(v, contrib, g)
+                out.append(((perm, key, contrib, gs),
+                            f"{v.dtype} contrib {p} "
+                            f"{'grouped' if g is not None else 'scalar'}"))
+    return out
+
+
+def phase_e(data: dict, batch, device, seed: int) -> dict:
+    ms = timer(device)
+    client = GpuClient(MemStore([], []), device)
+    t0 = time.perf_counter()
+    sels, launches, repeats = e_statements(client, batch, data)
+    print(f"phase E: statements equal to numpy in "
+          f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+    if device.type == "cuda":
+        for k in SLICE3_KERNELS:
+            need(launches[k] > 0, f"kernel {k} never launched on phase E")
+    # the group-by shapes emit 75k and 430k partial rows in Python (seconds
+    # a run): their time is their repeat's, one run at the memoized rung
+    stmt = {name.split()[0]: {"ms": ms_, "runs": 1, "split": split}
+            for name, (ms_, split) in repeats.items()}
+    for name, sel in sels.items():
+        if name in stmt:
+            continue
+        runs = 10
+        wall = host_ms(lambda: client.serve(sel, batch), runs)
+        kernels.SPLIT = {}
+        client.serve(sel, batch)
+        split, kernels.SPLIT = kernels.SPLIT, None
+        stmt[name] = {"ms": wall, "runs": runs, "split": split}
+        print(f"  {name}: statement {wall:.3f} ms median of {runs} (host "
+              f"clock); split " + ", ".join(f"{k} {v:.3f}"
+                                            for k, v in split.items()))
+    print("phase E statements: " + json.dumps(stmt))
+    planes = kernels.batch_planes(batch, device)
+    live = kernels.device_live(batch, device)
+    n = batch.capacity
+    out = {}
+
+    # K8 at ranked_dates' and tuple_dates' shapes (the top rung), edges
+    preps, rfns = {}, {}
+    for name in ("ranked_dates", "tuple_dates"):
+        sel = sels[name]
+        prog = Program(batch)
+        specs = kernels.lower_aggregates(sel, batch, prog)
+        rfns[name] = kernels.build_ranked_group_fn(
+            prog, None, specs, kernels.lower_group_by(sel, batch).cids)
+        preps[name] = rfns[name].prepare(planes, live)
+    S = client._RANK_CAPS[-1]
+    err = max(check_k8(p, S, f"K8 {name}") for name, p in preps.items())
+    for order, mask, cols, S_e, what in edge_rank(device, seed):
+        err = max(err, check_k8(kernels.RankedPrep(mask, {}, order, cols),
+                                S_e, f"K8 edge {what}"))
+    prep = preps["ranked_dates"]
+    k8_bytes = n * (8 + 1) + sum(n * 9 for _c in prep.cols) + n * 8 + 8 \
+        + S * 8 * (1 + len(prep.cols)) + S * len(prep.cols)
+    sort_ms = ms(lambda: rfns["ranked_dates"].prepare(planes, live), runs=5)
+    out["rank_groups"] = dict(
+        ms=ms(lambda: kernels.rank_groups(prep.order, prep.mask, prep.cols,
+                                          S)),
+        plain_ms=ms(lambda: kernels.rank_groups_plain(
+            prep.order, prep.mask, prep.cols, S)),
+        library_ms=None, max_abs_err=err,
+        bound=bound(k8_bytes, n * len(prep.cols)))
+    print(f"phase E: ranked_dates' K1 + lexsort (5 stable sorts of {n} "
+          f"rows): {sort_ms:.4f} ms")
+
+    # K9 at scalar_distinct's four specs and grouped_distinct's, edges
+    k9_args = []
+    sd = Request(sels["scalar_distinct"], batch, device)
+    mask3, _g, outs3 = sd.k1()
+    for spec in sd.specs:
+        v, ok = kernels.arg_plane(spec, sd.planes, outs3, n, device)
+        contrib = mask3 & ok
+        perm, key, _gs = kernels.distinct_sort(v, contrib)
+        k9_args.append(((perm, key, contrib, None), "scalar_distinct"))
+    gd = Request(sels["grouped_distinct"], batch, device)
+    mask4, gid4, outs4 = gd.k1()
+    spec = gd.specs[0]
+    v, ok = kernels.arg_plane(spec, gd.planes, outs4, n, device)
+    contrib4 = mask4 & ok
+    perm4, key4, gs4 = kernels.distinct_sort(v, contrib4, gid4)
+    k9_args.append(((perm4, key4, contrib4, gs4), "grouped_distinct"))
+    err = max(check_k9(a, f"K9 {what}") for a, what in k9_args)
+    for a, what in edge_distinct(device, seed + 1):
+        err = max(err, check_k9(a, f"K9 edge {what}"))
+    # timed at count(distinct l_orderkey)'s shape
+    (perm, key, contrib, _n), _w = k9_args[1]
+    sorted_keys = key[perm][contrib[perm]]
+    out["distinct_runs"] = dict(
+        ms=ms(lambda: kernels.distinct_runs(perm, key, contrib)),
+        plain_ms=ms(lambda: kernels.distinct_runs_plain(perm, key, contrib,
+                                                        None)),
+        library_ms=ms(lambda: torch.unique_consecutive(sorted_keys)),
+        max_abs_err=err, bound=bound(n * (8 + 8 + 1 + 1), n))
+
+    # K10 at topn_price's, topn_multi's and topn_multi_5000's shapes, edges
+    k10 = {}
+    for name in ("topn_price", "topn_multi", "topn_multi_5000"):
+        sel = sels[name]
+        prog = Program(batch)
+        where = compile_expr(sel.where, batch, prog)
+        keys = [(compile_expr(b.expr, batch, prog), b.desc)
+                for b in sel.order_by]
+        fn = kernels.build_topn_fn(prog, where, keys, sel.limit)
+        mask, keys_p = fn.inputs(planes, live)
+        k10[name] = (mask, keys_p, sel.limit)
+    err = max(check_k10(*a, f"K10 {name}") for name, a in k10.items())
+    for mask, keys_p, k, what in edge_topn(device, seed + 2):
+        err = max(err, check_k10(mask, keys_p, k, f"K10 edge {what}"))
+    mask, keys_p, k = k10["topn_price"]
+    (price, price_ok), _desc = keys_p[0]
+    score = torch.where(mask & price_ok, price.to(torch.float64),
+                        torch.full_like(price, -np.inf, dtype=torch.float64))
+    out["topk_select"] = dict(
+        ms=ms(lambda: kernels.topk_select(mask, keys_p, k)),
+        plain_ms=ms(lambda: kernels.topk_select_plain(mask, keys_p, k)),
+        library_ms=ms(lambda: torch.topk(score, k)), max_abs_err=err,
+        bound=bound(n * (1 + 9) + 8 * k + 8, n))
+    for name in ("topn_multi", "topn_multi_5000"):
+        mask, keys_p, k = k10[name]
+        t_k = ms(lambda: kernels.topk_select(mask, keys_p, k))
+        t_p = ms(lambda: kernels.topk_select_plain(mask, keys_p, k))
+        b = bound(n * (1 + 9 * len(keys_p)) + 8 * k + 8, n * len(keys_p))
+        print(f"phase E: K10 at {name}'s shape (k {k}, {len(keys_p)} "
+              f"keys): {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+              f"{b[0]:.4f} ms by {b[1]}")
+    for name, r in out.items():
+        print(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']}, bound {r['bound'][0]:.4f} ms by "
+              f"{r['bound'][1]}), max_abs_err {r['max_abs_err']}")
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1072,8 +1448,12 @@ def main() -> int:
     print_versions()
     build()
     launches = phase_a(tpch.SF001_ROWS, seed=1, device=None)
-    results = phase_b(tpch.SF1_ROWS, seed=2, device=device,
-                      edge_cap=1 << 20)
+    results, data, batch = phase_b(tpch.SF1_ROWS, seed=2, device=device,
+                                   edge_cap=1 << 20)
+    e_results, e_launches = phase_e(data, batch, device, seed=5)
+    del data, batch
+    launches.update({k: e_launches[k] for k in SLICE3_KERNELS})
+    results.update(e_results)
     launches.update(phase_c(tpch.SF001_ROWS, seed=1, device=device))
     results.update(phase_d(tpch.SF1_ROWS, seed=2, device=device))
     rows = []

@@ -1,15 +1,16 @@
-"""Slice 1 as a whole: SQL through the JAX package, requests through the
-port.
+"""The in-process path as a whole: SQL through the JAX package, requests
+through the port.
 
 Each statement runs through a JAX Session whose store answers with a
 recording TpuClient (dispatch floor 0, tidb_tpu_columnar_scan = 0). The
 recorded kv.Requests and the store's KV pairs then go through
 GpuClient(device="cpu"); its decoded partial rows must equal TpuClient's
 and the CPU engine's (copr/region_handler.handle_request). Statements:
-the aggregate, filter and radix group-by QUERIES of test_tpu_copr.py,
-TPC-H Q1 over DECIMAL(15,2) columns, bench.py's Q1 over DOUBLE columns,
-and Q6. Requests outside the slice (DISTINCT, TopN) must raise the port's
-Unsupported.
+every QUERY of test_tpu_copr.py (filters, aggregates, radix group-by,
+DISTINCT and TopN), TPC-H Q1 over DECIMAL(15,2) columns, bench.py's Q1
+over DOUBLE columns, and Q6. Requests outside the port (HAVING, an index
+request, a group tuple count beyond the segment ceiling, more than four
+ORDER BY items) must raise the port's Unsupported.
 
 Tolerance: exact, except f64 sums (relative 1e-12).
 """
@@ -17,14 +18,14 @@ Tolerance: exact, except f64 sums (relative 1e-12).
 import pytest
 
 import bench
-from tidb_tpu.copr.region_handler import handle_request
-from tidb_tpu.session import Session, new_store
-
-from tidb_tpu_torch import tpch
+from tidb_tpu_torch import carry, tpch
+from tidb_tpu_torch.copr.proto import Expr, ExprType
+from tidb_tpu_torch.kv.memstore import MemStore
+from tidb_tpu_torch.ops.client import GpuClient
 from tidb_tpu_torch.ops.exprc import Unsupported
 
-from torch_parity import (RecordingClient, assert_rows_equal, by_group_key,
-                          port_answer, ref_rows)
+from torch_parity import (RecordingClient, check_statement, release,
+                          run_recorded, session, shrink_ranked, table_pairs)
 
 T_QUERIES = [
     "select id from t where a > 25 order by id",
@@ -67,15 +68,29 @@ T_QUERIES = [
     "select id from t limit 3",
     "select sum(c) from t where id > 100",
     "select b, sum(c) from t group by b order by b",
-]
-
-# outside slice 1: DISTINCT and TopN kernels are not ported yet
-T_OUT_OF_SLICE = [
+    # DISTINCT (K9) and TopN (K10), served since slice 3
     "select count(distinct b) from t",
     "select count(distinct a) from t",
     "select id from t order by a desc limit 3",
     "select id from t order by c limit 2",
 ]
+
+# outside the port: each recorded statement's requests must raise the
+# port's Unsupported ("having" adds a HAVING to a recorded group-by
+# request; "tuple ceiling" runs with RADIX_MAX_SEGMENTS = 8 and the rank
+# ladder (3, 5) on both packages, where 7 group tuples + 2 exceed 8)
+HAVING_BASE = "select b, count(*) from t group by b order by b"
+T_OUT_OF_SLICE = {
+    "having": HAVING_BASE,
+    "index request": "select a from tix where a = 30",
+    "tuple ceiling": "select a, b, count(*) from t group by a, b",
+    "five order by items": "select id from t order by a, b, c, d, id "
+                           "limit 3",
+}
+# a word of the Unsupported message each case must raise with
+OUT_OF_SLICE_REASON = {"having": "having", "index request": "index",
+                       "tuple ceiling": "ceiling",
+                       "five order by items": "ORDER BY items"}
 
 TPCH_Q1 = (
     "select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty, "
@@ -114,15 +129,6 @@ _LINEITEM = (
     "primary key (l_orderkey, l_linenumber))")
 
 
-def _session(url: str):
-    store = new_store(url)
-    s = Session(store)
-    s.execute("set global tidb_tpu_columnar_scan = 0")
-    rec = RecordingClient(store, dispatch_floor_rows=0)
-    store.set_client(rec)
-    return store, s, rec
-
-
 def _lineitem_values(n: int, seed: int) -> str:
     data = tpch.generate(n, seed)
     rows = []
@@ -145,19 +151,11 @@ def _lineitem_values(n: int, seed: int) -> str:
     return ", ".join(rows)
 
 
-def _run(session, rec, sql):
-    rec.requests.clear()
-    rec.responses.clear()
-    session.execute(sql)
-    assert rec.requests, sql
-    return list(zip(rec.requests, rec.responses))
-
-
 @pytest.fixture(scope="module")
 def recorded():
     """{statement: (store, [(kv.Request, TpuClient partials)])}."""
     out = {}
-    store, s, rec = _session("memory://torch_copr_t")
+    store, s, rec = session("memory://torch_copr_t")
     s.execute("create database test")
     s.execute("use test")
     s.execute("create table t (id bigint primary key, a int, "
@@ -168,67 +166,65 @@ def recorded():
         "(3, 30, 'x', 3.5, '2024-03-01'), (4, 40, 'z', null, '2024-04-20'), "
         "(5, 50, 'y', 4.5, null), (6, 30, null, 0.5, '2024-01-01'), "
         "(7, -5, 'xx', -1.5, '2023-12-31')")
-    for sql in T_QUERIES + T_OUT_OF_SLICE:
-        out[sql] = (store, _run(s, rec, sql))
+    for sql in T_QUERIES + [T_OUT_OF_SLICE["five order by items"]]:
+        out[sql] = (store, run_recorded(s, rec, sql))
+    s.execute("create table tix (id bigint primary key, a int, "
+              "index ia (a))")
+    s.execute("insert into tix values (1, 10), (2, 30), (3, 30)")
+    sql = T_OUT_OF_SLICE["index request"]
+    out[sql] = (store, run_recorded(s, rec, sql))
+    with pytest.MonkeyPatch.context() as mp:
+        shrink_ranked(mp, 8, (3, 5))
+        sql = T_OUT_OF_SLICE["tuple ceiling"]
+        out[sql] = (store, run_recorded(s, rec, sql))
 
-    store, s, rec = _session("memory://torch_copr_dec")
+    store, s, rec = session("memory://torch_copr_dec")
     s.execute("create database tpch")
     s.execute("use tpch")
     s.execute(_LINEITEM)
     s.execute("insert into lineitem values " + _lineitem_values(400, 11))
     for name, sql in DEC_QUERIES.items():
-        out[name] = (store, _run(s, rec, sql))
+        out[name] = (store, run_recorded(s, rec, sql))
 
     store, s, _tbl, _load = bench.build_store(419)
     s.execute("set global tidb_tpu_columnar_scan = 0")
     rec = RecordingClient(store, dispatch_floor_rows=0)
     store.set_client(rec)
     for name, sql in DOUBLE_QUERIES.items():
-        out[name] = (store, _run(s, rec, sql))
-    return out
-
-
-def _check_statement(recorded, key):
-    store, reqs = recorded[key]
-    for req, parts in reqs:
-        sel = req.data
-        got, client = port_answer(store, req)
-        assert client.stats["gpu_requests"] == 1
-        assert sum(client.stats["launches"].values()) == 0  # plain on CPU
-        tpu = [r for part in parts for r in ref_rows(part)]
-        snap = store.get_snapshot(sel.start_ts)
-        cpu = ref_rows(handle_request(snap, sel, req.key_ranges))
-        if sel.aggregates or sel.group_by:
-            got, tpu, cpu = (by_group_key(x) for x in (got, tpu, cpu))
-        assert_rows_equal(got, tpu, f"{key} vs TpuClient")
-        if not cpu and not sel.group_by:
-            # over a range holding no row the CPU engine sends no partial
-            # row where the device engines send the empty one (counts 0,
-            # the rest NULL); the SQL final aggregation reads both alike
-            (_h, row), = got
-            assert all(v is None or v == 0 for _k, v in row[1:]), row
-            continue
-        assert_rows_equal(got, cpu, f"{key} vs CPU engine")
+        out[name] = (store, run_recorded(s, rec, sql))
+    yield out
+    release(out)
 
 
 @pytest.mark.parametrize("sql", T_QUERIES)
 def test_test_tpu_copr_queries(recorded, sql):
-    _check_statement(recorded, sql)
+    check_statement(*recorded[sql], sql)
 
 
 @pytest.mark.parametrize("name", sorted(DEC_QUERIES) + sorted(DOUBLE_QUERIES))
 def test_tpch(recorded, name):
-    _check_statement(recorded, name)
+    check_statement(*recorded[name], name)
 
 
-@pytest.mark.parametrize("sql", T_OUT_OF_SLICE)
-def test_out_of_slice_raises(recorded, sql):
+@pytest.mark.parametrize("case", sorted(T_OUT_OF_SLICE))
+def test_out_of_slice_raises(recorded, case, monkeypatch):
+    sql = T_OUT_OF_SLICE[case]
+    if case == "tuple ceiling":
+        shrink_ranked(monkeypatch, 8, (3, 5))
     store, reqs = recorded[sql]
     raised = 0
     for req, _parts in reqs:
+        preq = carry.kv_request_from(req)
+        if case == "having":
+            preq.data.having = Expr(ExprType.VALUE, val=None)
+        sel = req.data
+        table = (sel.table_info or sel.index_info).table_id
+        client = GpuClient(MemStore.from_pairs(
+            table_pairs(store, sel.start_ts, table)), device="cpu")
         try:
-            port_answer(store, req)
-        except Unsupported:
+            client.send(preq)
+        except Unsupported as e:
+            assert OUT_OF_SLICE_REASON[case] in str(e), (case, e)
             raised += 1
     assert raised >= 1, sql
 
@@ -236,7 +232,6 @@ def test_out_of_slice_raises(recorded, sql):
 def test_q1_shape_is_the_flagship(recorded):
     """The DECIMAL Q1 the planner sends is the one chip_smoke.py drives:
     the same WHERE, group-by and aggregates over the same column kinds."""
-    from tidb_tpu_torch import carry
     _store, reqs = recorded["q1 decimal"]
     (req, _parts), = reqs
     got = carry.request_from(req.data)

@@ -2,9 +2,10 @@
 
 The AST scan covers every module of tidb_tpu_torch (cluster/, distsql/
 and executor/ included) and chip_smoke.py; the subprocess tests run TPC-H
-Q1 through GpuClient(device="cpu"), and through the cluster path over
-two regions, in a fresh interpreter (tests/conftest.py imports jax into
-this one) and look at what got loaded.
+Q1 through GpuClient(device="cpu"), the slice-3 shapes (a ranked
+group-by, DISTINCT, TopN) through it too, and Q1 through the cluster
+path over two regions, in a fresh interpreter (tests/conftest.py imports
+jax into this one) and look at what got loaded.
 """
 
 import ast
@@ -84,6 +85,25 @@ print("LOADED", bad)
 """
 
 
+_DRIVE_SLICE3 = r"""
+import sys
+sys.path.insert(0, {root!r})
+from tidb_tpu_torch import tpch
+from tidb_tpu_torch.kv.memstore import MemStore
+from tidb_tpu_torch.ops.client import GpuClient
+data = tpch.generate(500, seed=3)
+store = MemStore.from_pairs(tpch.kv_pairs(data))
+client = GpuClient(store, device="cpu")
+for name, make in tpch.SLICE3:
+    resp = client.send(tpch.store_request(make())).next()
+    assert resp.row_count() >= 1, name
+assert client.stats["gpu_requests"] == len(tpch.SLICE3)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "tidb_tpu"))
+print("LOADED", bad)
+"""
+
+
 _DRIVE_CLUSTER_Q1 = r"""
 import sys
 sys.path.insert(0, {root!r})
@@ -117,6 +137,10 @@ def _run_without_jax(script: str) -> None:
 
 def test_q1_runs_without_jax():
     _run_without_jax(_DRIVE_Q1)
+
+
+def test_slice3_runs_without_jax():
+    _run_without_jax(_DRIVE_SLICE3)
 
 
 def test_cluster_q1_runs_without_jax():

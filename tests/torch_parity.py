@@ -16,7 +16,9 @@ import torch  # noqa: F401  (loaded here, before the freeze below)
 
 from tidb_tpu import tablecodec as rtc
 from tidb_tpu.copr.proto import iter_response_rows as ref_iter_rows
+from tidb_tpu.copr.region_handler import handle_request
 from tidb_tpu.ops import TpuClient
+from tidb_tpu.session import Session, new_store
 
 from tidb_tpu_torch import carry
 from tidb_tpu_torch.copr.proto import iter_response_rows as port_iter_rows
@@ -132,3 +134,80 @@ def port_answer(store, req) -> list:
     client = GpuClient(MemStore.from_pairs(pairs), device="cpu")
     resp = client.send(carry.kv_request_from(req)).next()
     return port_rows(resp), client
+
+
+def release(recorded: dict) -> None:
+    """Drop a module's recorded stores and collect them now: the
+    reference's device planes unpin their memory-budget charge when
+    collected, and a collection landing inside a later test file would
+    move the budget that file measured (tests/test_spill.py sizes its
+    passes from the charge it finds)."""
+    recorded.clear()
+    gc.collect()
+
+
+def session(url: str):
+    """(store, Session, RecordingClient): a JAX store whose client records
+    what it answers (dispatch floor 0, tidb_tpu_columnar_scan = 0)."""
+    store = new_store(url)
+    s = Session(store)
+    s.execute("set global tidb_tpu_columnar_scan = 0")
+    rec = RecordingClient(store, dispatch_floor_rows=0)
+    store.set_client(rec)
+    return store, s, rec
+
+
+def run_recorded(session_, rec, sql) -> list:
+    """[(kv.Request, TpuClient's partial responses)] of one statement."""
+    rec.requests.clear()
+    rec.responses.clear()
+    session_.execute(sql)
+    assert rec.requests, sql
+    return list(zip(rec.requests, rec.responses))
+
+
+def shrink_ranked(mp, radix_max: int, rank_caps: tuple) -> None:
+    """The radix ceiling and the rank ladder, shrunk on both packages (mp:
+    a pytest MonkeyPatch)."""
+    from tidb_tpu.ops import client as rclient, kernels as rkernels
+    from tidb_tpu_torch.ops import kernels as pkernels
+    mp.setattr(rkernels, "RADIX_MAX_SEGMENTS", radix_max)
+    mp.setattr(pkernels, "RADIX_MAX_SEGMENTS", radix_max)
+    mp.setattr(rclient.TpuClient, "_RANK_CAPS", rank_caps)
+    mp.setattr(GpuClient, "_RANK_CAPS", rank_caps)
+
+
+def answers(store, req, parts) -> tuple:
+    """(port, TpuClient, CPU engine) decoded partial rows of one recorded
+    request, and the port's client; aggregate rows in group-key order."""
+    sel = req.data
+    got, client = port_answer(store, req)
+    tpu = [r for part in parts for r in ref_rows(part)]
+    snap = store.get_snapshot(sel.start_ts)
+    cpu = ref_rows(handle_request(snap, sel, req.key_ranges))
+    if sel.aggregates or sel.group_by:
+        got, tpu, cpu = (by_group_key(x) for x in (got, tpu, cpu))
+    return got, tpu, cpu, client
+
+
+def check_statement(store, reqs, what: str) -> list:
+    """Each recorded request of a statement through the port (plain
+    versions): its partial rows must equal TpuClient's and the CPU
+    engine's. Returns the port's clients."""
+    clients = []
+    for req, parts in reqs:
+        sel = req.data
+        got, tpu, cpu, client = answers(store, req, parts)
+        clients.append(client)
+        assert client.stats["gpu_requests"] == 1
+        assert sum(client.stats["launches"].values()) == 0  # plain on CPU
+        assert_rows_equal(got, tpu, f"{what} vs TpuClient")
+        if not cpu and not sel.group_by:
+            # over a range holding no row the CPU engine sends no partial
+            # row where the device engines send the empty one (counts 0,
+            # the rest NULL); the SQL final aggregation reads both alike
+            (_h, row), = got
+            assert all(v is None or v == 0 for _k, v in row[1:]), row
+            continue
+        assert_rows_equal(got, cpu, f"{what} vs CPU engine")
+    return clients

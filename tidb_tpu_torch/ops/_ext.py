@@ -27,7 +27,8 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "build", "tidb_tpu_torch")
 
 SOURCES = ("expr_vm", "scalar_agg", "seg_agg_onehot", "seg_agg_sorted",
-           "seg_states_ragged", "combine_partials")
+           "rank_groups", "distinct_runs", "topk_select", "seg_states_ragged",
+           "combine_partials")
 # -fmad=false: no multiply-add contraction, so every f64 a * b + c rounds
 # twice exactly as the plain versions (and the reference) round it
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -54,6 +55,19 @@ SIGNATURES = {
     "seg_agg_sorted": {
         "seg_sorted_pieces_count": ([_L], _I),
         "seg_sorted_launch": ([_L, _P, _P, _P, _L, _I, _P, _P, _P, _P], _I),
+    },
+    "rank_groups": {
+        "rank_groups_blocks": ([_L], _L),
+        "rank_groups_launch": ([_L, _P, _P, _I, _P, _L, _P, _P, _P, _P, _P,
+                                _P, _P, _P, _P], _I),
+    },
+    "distinct_runs": {
+        "distinct_runs_launch": ([_L, _P, _P, _P, _P, _P, _P], _I),
+    },
+    "topk_select": {
+        "topk_tile": ([], _I),
+        "topk_select_launch": ([_L, _L, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                                _P, _P], _I),
     },
     "seg_states_ragged": {
         "seg_states_tile": ([], _I),

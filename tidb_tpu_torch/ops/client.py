@@ -4,19 +4,26 @@
 Per request:
   1. a columnar batch for (table, columns, ranges, data version) — packed
      once, cached, its planes resident on the device;
-  2. the WHERE and every aggregate argument compile into ONE bytecode
-     program (ops.exprc) that kernel K1 runs, then K2/K3/K4 reduce
-     (ops.kernels), or the filter's survivors are gathered;
+  2. the WHERE, every aggregate argument and every ORDER BY expression
+     compile into ONE bytecode program (ops.exprc) that kernel K1 runs;
+     then K2/K3/K4 reduce (ops.kernels), a group-by beyond the radix
+     ceiling is ranked (sort, K8, K4's pass) up the _RANK_CAPS ladder and
+     else compacted to host tuple codes, DISTINCT aggregates sort and K9
+     marks their runs, TopN selects with K10, or the filter's survivors
+     are gathered;
   3. results go back as the SAME partial-row chunk protocol the CPU engine
      and TpuClient emit (TpuClient under tidb_tpu_columnar_scan=0: the
      port never answers the columnar payloads).
 
-A request outside slice 1 (index scans, TopN, HAVING, DISTINCT, ranked
-group-by) raises Unsupported: the port has no CPU engine to hand it to.
+A request outside the port (index scans, HAVING, ORDER BY without LIMIT,
+more than kernels.TOPN_MAX_KEYS ORDER BY items, a group tuple count beyond
+the segment ceiling) raises Unsupported: the port has no CPU engine to
+hand it to.
 """
 
 from __future__ import annotations
 
+import itertools
 from decimal import Decimal
 
 import numpy as np
@@ -33,6 +40,17 @@ from tidb_tpu_torch.ops import kernels
 from tidb_tpu_torch.ops.exprc import Program, Unsupported, compile_expr
 from tidb_tpu_torch.types.datum import NULL, Datum, Kind
 from tidb_tpu_torch.types.time_types import Duration, Time
+
+
+_batch_ids = itertools.count(1)
+
+
+def _batch_uid(batch) -> int:
+    """A number naming one packed batch for the life of the process."""
+    uid = getattr(batch, "_uid", None)
+    if uid is None:
+        uid = batch._uid = next(_batch_ids)
+    return uid
 
 
 def _n_outputs(spec) -> int:
@@ -67,8 +85,12 @@ class GpuClient(kv.Client):
         self.store = store
         self.device = resolve_device(device)
         self._batch_cache: dict = {}
+        # rung of _RANK_CAPS a repeated ranked statement starts at
+        self._rank_cap_start: dict = {}
         self.stats = {"gpu_requests": 0, "batch_packs": 0, "batch_hits": 0,
+                      "ranked": 0, "tuple_grouped": 0,
                       "launches": {k: 0 for k in kernels.LAUNCHES}}
+        self.last_rank_cap = None     # the rung the last ranked answer took
 
     # ------------------------------------------------------------------
 
@@ -126,7 +148,7 @@ class GpuClient(kv.Client):
         if sel.is_agg():
             return self._run_aggregate(sel, batch, prog, where)
         if sel.order_by:
-            raise Unsupported("TopN is not ported yet")
+            return self._run_topn(sel, batch, prog, where)
         return self._run_filter(sel, batch, prog, where)
 
     def _dispatch(self, fn, planes, live):
@@ -150,16 +172,27 @@ class GpuClient(kv.Client):
         live = kernels.device_live(batch, self.device)
         if sel.group_by:
             gspec = kernels.lower_group_by(sel, batch)
-            if gspec.kind != "radix":
-                raise Unsupported("group cardinality beyond the radix "
-                                  "ceiling needs the ranked kernel, not "
-                                  "ported yet")
+            if gspec.kind == "rank":
+                # device sort and rank up the ladder; composite tuple
+                # codes only when the ladder overflows
+                try:
+                    return self._run_ranked(sel, batch, prog, where, specs,
+                                            gspec, planes, live)
+                except Unsupported:
+                    tspec = kernels.lower_tuple_group(gspec, batch)
+                    if tspec is None:
+                        raise Unsupported("group tuple cardinality exceeds "
+                                          "the segment ceiling") from None
+                    gspec = tspec
+                    self.stats["tuple_grouped"] += 1
             planes = self._with_group_planes(batch, gspec, planes)
             fn = kernels.build_grouped_agg_fn(prog, where, specs,
-                                              gspec.plane_keys, gspec.sizes)
+                                              gspec.plane_keys,
+                                              gspec.kernel_sizes)
             outs = self._dispatch(fn, planes, live)
-            return self._emit_grouped(sel, batch, specs, gspec, fn.radices,
-                                      outs)
+            with kernels.phase("emit", self.device):
+                return self._emit_grouped(sel, batch, specs, gspec,
+                                          fn.radices, outs)
         fn = kernels.build_scalar_agg_fn(prog, where, specs)
         outs = self._dispatch(fn, planes, live)
         return self._emit_scalar(sel, batch, specs, outs)
@@ -174,9 +207,11 @@ class GpuClient(kv.Client):
 
     def _with_group_planes(self, batch, gspec, planes):
         """Add host-built group-code planes (device-cached on the batch):
-        per-column numeric codes; the valid plane is the column's own."""
+        per-column numeric codes (the valid plane is the column's own) or
+        the composite tuple-code plane (NULLs folded into the codes, so its
+        valid plane is all true)."""
         extra = [k for k in gspec.plane_keys
-                 if k <= kernels.GC_BASE]
+                 if kernels.is_group_code_key(k) or kernels.is_tuple_key(k)]
         if not extra:
             return planes
         cache = getattr(batch, "_device_gcodes", None)
@@ -184,13 +219,20 @@ class GpuClient(kv.Client):
             cache = batch._device_gcodes = {}
         planes = dict(planes)
         for key in extra:
-            cid = kernels.GC_BASE - key
-            ck = (str(self.device), cid)
-            arr = cache.get(ck)
-            if arr is None:
-                codes, _uniq = batch.group_codes(cid)
-                arr = cache[ck] = torch.from_numpy(codes).to(self.device)
-            planes[key] = (arr, planes[cid][1])
+            ck = (str(self.device), key)
+            ent = cache.get(ck)
+            if ent is None:
+                if kernels.is_tuple_key(key):
+                    codes, _percol = batch.tuple_codes(gspec.cids)
+                    ent = (torch.from_numpy(codes).to(self.device),
+                           torch.ones(batch.capacity, dtype=torch.bool,
+                                      device=self.device))
+                else:
+                    codes, _uniq = batch.group_codes(kernels.GC_BASE - key)
+                    ent = torch.from_numpy(codes).to(self.device)
+                cache[ck] = ent
+            planes[key] = ent if kernels.is_tuple_key(key) else \
+                (ent, planes[kernels.GC_BASE - key][1])
         return planes
 
     def _group_datum(self, cid: int, decoder, code: int) -> Datum:
@@ -214,13 +256,19 @@ class GpuClient(kv.Client):
         n_segments = row_count.shape[0]
         live_gids = np.nonzero(row_count[:n_segments - 1] > 0)[0]
         for gid in live_gids.tolist():
-            # decode mixed-radix gid → per-column codes
-            codes = []
-            rem = gid
-            for radix in reversed(radices):
-                codes.append(rem % radix)
-                rem //= radix
-            codes.reverse()
+            if gspec.kind == "tuple":
+                # the composite id indexes the host-built per-column codes
+                if gid >= gspec.n_groups:   # the kernel's unused NULL slot
+                    continue
+                codes = gspec.percol[gid].tolist()
+            else:
+                # decode mixed-radix gid → per-column codes
+                codes = []
+                rem = gid
+                for radix in reversed(radices):
+                    codes.append(rem % radix)
+                    rem //= radix
+                codes.reverse()
             gvals = []
             for code, size, cid, dec in zip(codes, gspec.sizes, gspec.cids,
                                             gspec.decoders):
@@ -231,6 +279,77 @@ class GpuClient(kv.Client):
             i = 1  # outs[0] is row_count
             for spec, e in zip(specs, sel.aggregates):
                 row.extend(self._partial_datums(spec, e, outs, i, gid))
+                i += _n_outputs(spec)
+            rows.append((0, row))
+        return self._agg_response(rows)
+
+    # escalation ladder of segment buckets for a ranked group-by (the last
+    # slot of each is the dead-row sink); overflow → next bucket → tuple
+    # codes
+    _RANK_CAPS = (1025, 16385, 262145)
+
+    def _run_ranked(self, sel, batch, prog, where, specs, gspec, planes,
+                    live) -> SelectResponse:
+        """The rank ladder of the reference's _run_ranked, with its memo of
+        the rung a repeated statement starts at. The K1 pass and the sort
+        do not depend on the rung, so they run once per statement; each
+        rung tried runs K8, and the one that holds the groups the
+        reductions."""
+        ck = (_batch_uid(batch), repr(sel.where), repr(sel.aggregates),
+              repr(sel.group_by))
+        start = self._rank_cap_start.get(ck, self._RANK_CAPS[0])
+        if start > self._RANK_CAPS[-1]:
+            # memoized overflow: repeats go straight to the tuple fallback
+            raise Unsupported("group cardinality exceeds rank buckets "
+                              "(memoized)")
+        fn = kernels.build_ranked_group_fn(prog, where, specs, gspec.cids)
+        prep = self._dispatch(fn.prepare, planes, live)
+        ngroups = -1
+        for cap in self._RANK_CAPS:
+            if cap < start:
+                continue
+            ngroups, outs = self._dispatch(
+                lambda p, lv, cap=cap: fn(prep, p, cap), planes, live)
+            if outs is not None:
+                self._rank_cap_start[ck] = cap
+                if len(self._rank_cap_start) > 256:
+                    self._rank_cap_start.pop(
+                        next(iter(self._rank_cap_start)))
+                self.last_rank_cap = cap
+                self.stats["ranked"] += 1
+                with kernels.phase("emit", self.device):
+                    return self._emit_ranked(sel, batch, specs, gspec, outs,
+                                             ngroups)
+        self._rank_cap_start[ck] = self._RANK_CAPS[-1] + 1
+        raise Unsupported(f"group cardinality {ngroups} exceeds rank buckets")
+
+    def _emit_ranked(self, sel, batch, specs, gspec, outs,
+                     ngroups: int) -> SelectResponse:
+        rows: list = []
+        # outs: [ngroups, row_count, (rep, nonnull) per group column, aggs…]
+        base = 2 + 2 * len(gspec.cids)
+        for g in range(ngroups):
+            gvals = []
+            for j, cid in enumerate(gspec.cids):
+                if not outs[2 + 2 * j + 1][g]:
+                    gvals.append(NULL)
+                    continue
+                rep = outs[2 + 2 * j][g]
+                cd = batch.columns[cid]
+                if cd.kind == col.K_STR:
+                    gvals.append(Datum.bytes_(cd.dictionary[int(rep)]))
+                elif cd.kind == col.K_F64:
+                    gvals.append(Datum.f64(float(rep)))
+                elif cd.kind == col.K_DEC:
+                    gvals.append(Datum.dec(
+                        Decimal(int(rep)) / (Decimal(10) ** cd.dec_scale)))
+                else:
+                    gvals.append(self._i64_datum(cid, int(rep)))
+            gk = codec.encode_value(gvals)
+            row: list[Datum] = [Datum.bytes_(gk)]
+            i = base
+            for spec, e in zip(specs, sel.aggregates):
+                row.extend(self._partial_datums(spec, e, outs, i, g))
                 i += _n_outputs(spec)
             rows.append((0, row))
         return self._agg_response(rows)
@@ -346,6 +465,25 @@ class GpuClient(kv.Client):
         if sel.limit is not None:
             idx = idx[: sel.limit]
         return self._emit_rows(batch, idx)
+
+    def _run_topn(self, sel, batch, prog, where) -> SelectResponse:
+        if sel.limit is None:
+            raise Unsupported("topn lowering needs keys + limit")
+        k = min(sel.limit, batch.capacity)
+        keys = [(compile_expr(item.expr, batch, prog), item.desc)
+                for item in sel.order_by]
+        fn = kernels.build_topn_fn(prog, where, keys, k)
+        planes = kernels.batch_planes(batch, self.device)
+        live = kernels.device_live(batch, self.device)
+
+        def run(p, lv):
+            idx, n_live = fn(p, lv)
+            with kernels.phase("readback", self.device):
+                return idx.cpu().numpy()[:int(n_live[0])]
+
+        idx = self._dispatch(run, planes, live)
+        with kernels.phase("emit", self.device):
+            return self._emit_rows(batch, idx)
 
     def _emit_rows(self, batch, idx) -> SelectResponse:
         writer = ChunkWriter()

@@ -1,18 +1,26 @@
 """Aggregation/filter kernels over columnar batches (the port of
 tidb_tpu/ops/kernels.py: batch_planes :202, device_live :384, AggSpec /
-lower_aggregates :399-430, GroupSpec / lower_group_by :475-552 (radix
-kind), build_scalar_agg_fn :713, build_grouped_agg_fn :903,
-build_filter_fn :1970, and for the cluster region path
-combine_region_partials :1082, region_agg_states :1204, bucket_segments
-:1343, region_agg_states_batched :1356, region_filter_batched :1552).
+lower_aggregates :399-430, GroupSpec / lower_group_by / lower_tuple_group
+:475-575, _orderable_i64 :577, build_scalar_agg_fn :713,
+_sorted_boundary_sums :695, _distinct_reduce :807, _grouped_distinct :864,
+build_grouped_agg_fn :903, build_ranked_group_fn :989, build_filter_fn
+:1970, build_topn_fn :1980, build_topn_fn_multi :2080, and for the cluster
+region path combine_region_partials :1082, region_agg_states :1204,
+bucket_segments :1343, region_agg_states_batched :1356,
+region_filter_batched :1552).
 
 Every request runs as K1 (`expr_vm`: WHERE mask, aggregate arguments and
 group id in one pass) followed, for aggregates, by K2 (`scalar_agg`) or,
 grouped, by K3 (`seg_agg_onehot`, S <= ONEHOT_SEGMENTS_MAX) or K4
-(`seg_agg_sorted`, above). Each wrapper launches its hand-written CUDA
-kernel for tensors on the card and runs its plain PyTorch version for
-tensors on the CPU; any other case raises. `LAUNCHES` counts the kernel
-launches (not the plain runs) per kernel.
+(`seg_agg_sorted`, above). A group-by beyond the radix ceiling is ranked:
+a stable lexsort of the group columns, K8 (`rank_groups`: group ids in
+sorted space, representatives) and K4's segmented pass in sorted space.
+DISTINCT aggregates sort by (group, contributing first, value), K9
+(`distinct_runs`) marks the run openers and K2 or K4's pass totals them.
+TopN is K10 (`topk_select`) over K1's mask and key planes. Each wrapper
+launches its hand-written CUDA kernel for tensors on the card and runs its
+plain PyTorch version for tensors on the CPU; any other case raises.
+`LAUNCHES` counts the kernel launches (not the plain runs) per kernel.
 
 A statement over R regions runs K5 (`expr_vm_ragged`: every region's
 WHERE and aggregate-argument programs in one launch, bit-packed survivor
@@ -70,7 +78,8 @@ GC_BASE = -1000
 # counted); K6 counts its two routes apart: spans within its shared-memory
 # limit (seg_states_ragged) and larger ones (seg_states_ragged_sorted)
 LAUNCHES = {"expr_vm": 0, "scalar_agg": 0, "seg_agg_onehot": 0,
-            "seg_agg_sorted": 0, "expr_vm_ragged": 0, "seg_states_ragged": 0,
+            "seg_agg_sorted": 0, "rank_groups": 0, "distinct_runs": 0,
+            "topk_select": 0, "expr_vm_ragged": 0, "seg_states_ragged": 0,
             "seg_states_ragged_sorted": 0, "combine_partials": 0}
 
 # calls of the cluster path's statement-level wrappers, kernel or plain
@@ -151,9 +160,16 @@ def device_live(batch: col.ColumnBatch, device: torch.device) -> torch.Tensor:
 class AggSpec:
     """One pushed aggregate lowered to its masked-reduction pieces."""
 
-    def __init__(self, name: str, arg: CompiledExpr | None):
+    def __init__(self, name: str, arg: CompiledExpr | None,
+                 distinct: bool = False):
         self.name = name
         self.arg = arg
+        self.distinct = distinct
+
+    @property
+    def dedup(self) -> bool:
+        """Takes the DISTINCT route (MIN/MAX DISTINCT are plain MIN/MAX)."""
+        return self.distinct and self.name in ("count", "sum", "avg")
 
 
 def lower_aggregates(req: SelectRequest, batch: col.ColumnBatch,
@@ -163,9 +179,10 @@ def lower_aggregates(req: SelectRequest, batch: col.ColumnBatch,
         name = AGG_NAME[e.tp]
         if name not in ("count", "sum", "avg", "min", "max", "first_row"):
             raise Unsupported(f"aggregate {name} not lowered yet")
-        if e.distinct:
-            # the reference's sort-based distinct kernels come later
-            raise Unsupported(f"distinct {name} not ported yet")
+        if e.distinct and name == "first_row":
+            raise Unsupported("distinct first_row")
+        if e.distinct and len(e.children) != 1:
+            raise Unsupported("distinct over other than one argument")
         if name == "first_row":
             # exact first-row semantics need a host-side gather by row
             # position, which needs the argument to be a plain column
@@ -181,23 +198,64 @@ def lower_aggregates(req: SelectRequest, batch: col.ColumnBatch,
             # every row contributing the batch's max magnitude
             _dec_guard((arg.max_abs or 0) * max(batch.n_rows, 1),
                        "aggregate sum")
-        specs.append(AggSpec(name, arg))
+        specs.append(AggSpec(name, arg, bool(e.distinct)))
     return specs
 
 
+# planes-dict keys for host-built composite TUPLE codes (tuple_codes): one
+# interned negative key per group-column tuple, below every per-column
+# group-code key
+TUPLE_BASE = -1_000_000
+_tuple_keys: dict[tuple, int] = {}
+
+
+def tuple_code_key(cids) -> int:
+    t = tuple(cids)
+    key = _tuple_keys.get(t)
+    if key is None:
+        key = TUPLE_BASE - len(_tuple_keys)
+        _tuple_keys[t] = key
+    return key
+
+
+def is_group_code_key(key: int) -> bool:
+    return TUPLE_BASE < key <= GC_BASE
+
+
+def is_tuple_key(key: int) -> bool:
+    return key <= TUPLE_BASE
+
+
 class GroupSpec:
-    """Lowered group-by. 'radix': mixed-radix code over per-column
-    dictionary codes (K_STR codes from the pack dictionary, numeric/time
-    codes from ColumnBatch.group_codes). 'rank' marks a cross product
-    beyond RADIX_MAX_SEGMENTS, whose kernel is not ported yet."""
+    """Lowered group-by, one of three id schemes:
+
+    - 'radix': mixed-radix code over per-column dictionary codes (K_STR
+      codes from the pack dictionary, numeric/time codes from
+      ColumnBatch.group_codes), computed by K1.
+    - 'tuple': one host-built composite code over the whole group tuple
+      (ColumnBatch.tuple_codes), the compaction of a radix space whose
+      cross product overflows RADIX_MAX_SEGMENTS; kernel_sizes is
+      [n_groups] and percol decodes ids back to per-column codes.
+    - 'rank': a device sort of the group columns and ranks over the
+      sorted rows (build_ranked_group_fn); any cardinality, no host
+      pass."""
 
     def __init__(self, kind: str, cids: list[int], sizes: list[int],
-                 plane_keys=None, decoders=None):
-        self.kind = kind
+                 col_kinds: list[str], plane_keys=None, decoders=None):
+        self.kind = kind          # "radix" | "tuple" | "rank"
         self.cids = cids
-        self.sizes = sizes
+        self.sizes = sizes        # radix/tuple: per-column dict sizes
+        self.col_kinds = col_kinds
+        # radix/tuple: planes-dict key per group plane (the cid itself for
+        # K_STR, group_code_key(cid) for host-built numeric/time planes,
+        # tuple_code_key(cids), a single key, for composite codes)
         self.plane_keys = plane_keys or []
+        # radix/tuple: per-column ("str", dict) | ("num", uniq) | ("dec", …)
         self.decoders = decoders or []
+        # sizes handed to build_grouped_agg_fn ([n_groups] for tuple)
+        self.kernel_sizes = sizes
+        self.percol = None        # tuple: int64[G, k] per-column codes
+        self.n_groups = None      # tuple: G
 
 
 def lower_group_by(req: SelectRequest, batch: col.ColumnBatch) -> GroupSpec:
@@ -213,27 +271,57 @@ def lower_group_by(req: SelectRequest, batch: col.ColumnBatch) -> GroupSpec:
         kinds.append(cd.kind)
     # sizes clamp to >= 1 so the mixed-radix math stays nonzero; the
     # kernel's NULL slot and the emit threshold use the SAME clamped size
-    sizes, decoders = [], []
-    for cid in cids:
-        cd = batch.columns[cid]
-        if cd.kind == col.K_STR:
-            sizes.append(max(len(cd.dictionary), 1))
-            decoders.append(("str", cd.dictionary))
-        else:
-            _codes, uniq = batch.group_codes(cid)
-            sizes.append(max(len(uniq), 1))
-            if cd.kind == col.K_DEC:
-                decoders.append(("dec", uniq, cd.dec_scale))
-            else:
-                decoders.append(("num", uniq))
+    sizes, decoders = _col_sizes_decoders(batch, cids, floor=1)
     plane_keys = [cid if kind == col.K_STR else group_code_key(cid)
                   for cid, kind in zip(cids, kinds)]
     num_segments = 1
     for s in sizes:
         num_segments *= s + 1
     if num_segments + 1 <= RADIX_MAX_SEGMENTS:
-        return GroupSpec("radix", cids, sizes, plane_keys, decoders)
-    return GroupSpec("rank", cids, [])
+        return GroupSpec("radix", cids, sizes, kinds, plane_keys, decoders)
+    return GroupSpec("rank", cids, [], kinds)
+
+
+def _col_sizes_decoders(batch: col.ColumnBatch, cids: list[int],
+                        floor: int) -> tuple[list[int], list]:
+    """Per-group-column (sizes, decoders) shared by the radix and tuple
+    lowerings. `floor=1` for radix (see lower_group_by); `floor=0` for
+    tuple, whose percol codes use the UNCLAMPED size as the NULL code, so
+    the emit threshold must match it exactly."""
+    sizes, decoders = [], []
+    for cid in cids:
+        cd = batch.columns[cid]
+        if cd.kind == col.K_STR:
+            sizes.append(max(len(cd.dictionary), floor))
+            decoders.append(("str", cd.dictionary))
+        else:
+            _codes, uniq = batch.group_codes(cid)
+            sizes.append(max(len(uniq), floor))
+            if cd.kind == col.K_DEC:
+                decoders.append(("dec", uniq, cd.dec_scale))
+            else:
+                decoders.append(("num", uniq))
+    return sizes, decoders
+
+
+def lower_tuple_group(gspec: GroupSpec,
+                      batch: col.ColumnBatch) -> GroupSpec | None:
+    """Compact a rank-lowered group-by into composite TUPLE codes: one host
+    pass builds dense ids over the distinct group tuples, so the grouped
+    route (K1 + K3/K4) applies even when the per-column cross product
+    overflows RADIX_MAX_SEGMENTS. None when even the distinct-tuple count
+    exceeds the segment ceiling."""
+    _codes, percol = batch.tuple_codes(gspec.cids)
+    n_groups = percol.shape[0]
+    if n_groups + 2 > RADIX_MAX_SEGMENTS:
+        return None
+    sizes, decoders = _col_sizes_decoders(batch, gspec.cids, floor=0)
+    spec = GroupSpec("tuple", gspec.cids, sizes, gspec.col_kinds,
+                     [tuple_code_key(gspec.cids)], decoders)
+    spec.kernel_sizes = [n_groups]
+    spec.percol = percol
+    spec.n_groups = n_groups
+    return spec
 
 
 # ---------------------------------------------------------------------------
@@ -338,10 +426,20 @@ def build_scalar_agg_fn(prog: Program, where: CompiledExpr | None,
     fin = prog.finalize(where, outputs)
 
     def fn(planes, live):
-        mask, _gid, outs = run_k1(fin, planes, live, outputs, False)
-        reds = [spec_reduction(s, planes, outs) for s in specs]
-        n, acc = scalar_agg(mask, reds)
-        return _agg_outputs(specs, _unpack(reds, n, acc))
+        with phase("k1", live.device):
+            mask, _gid, outs = run_k1(fin, planes, live, outputs, False)
+        per = [None] * len(specs)
+        plain = [i for i, s in enumerate(specs) if not s.dedup]
+        if plain:
+            reds = [spec_reduction(specs[i], planes, outs) for i in plain]
+            with phase("reduce", live.device):
+                n, acc = scalar_agg(mask, reds)
+                for i, r in zip(plain, _unpack(reds, n, acc)):
+                    per[i] = r
+        for i, s in enumerate(specs):
+            if s.dedup:
+                per[i] = distinct_totals(s, planes, outs, mask, None, 0)
+        return _agg_outputs(specs, per)
 
     fn.program = fin
     return fn
@@ -365,14 +463,25 @@ def build_grouped_agg_fn(prog: Program, where: CompiledExpr | None,
                         sink=num_segments - 1)
 
     def fn(planes, live):
-        mask, gid, outs = run_k1(fin, planes, live, outputs, True)
-        reds = [Red(R_COUNT)] + [spec_reduction(s, planes, outs) for s in specs]
-        if num_segments <= ONEHOT_SEGMENTS_MAX:
-            n, acc = seg_agg_onehot(gid, mask, num_segments, reds)
-        else:
-            n, acc = seg_agg_sorted(gid, mask, num_segments, reds)
-        per_red = _unpack(reds, n, acc)
-        return [per_red[0][0]] + _agg_outputs(specs, per_red[1:])
+        with phase("k1", live.device):
+            mask, gid, outs = run_k1(fin, planes, live, outputs, True)
+        plain = [i for i, s in enumerate(specs) if not s.dedup]
+        reds = [Red(R_COUNT)] + [spec_reduction(specs[i], planes, outs)
+                                 for i in plain]
+        with phase("reduce", live.device):
+            if num_segments <= ONEHOT_SEGMENTS_MAX:
+                n, acc = seg_agg_onehot(gid, mask, num_segments, reds)
+            else:
+                n, acc = seg_agg_sorted(gid, mask, num_segments, reds)
+            per_red = _unpack(reds, n, acc)
+        per = [None] * len(specs)
+        for i, r in zip(plain, per_red[1:]):
+            per[i] = r
+        for i, s in enumerate(specs):
+            if s.dedup:
+                per[i] = distinct_totals(s, planes, outs, mask, gid,
+                                         num_segments)
+        return [per_red[0][0]] + _agg_outputs(specs, per)
 
     fn.num_segments = num_segments
     fn.radices = radices
@@ -389,6 +498,426 @@ def build_filter_fn(prog: Program, where: CompiledExpr | None):
 
     fn.program = fin
     return fn
+
+
+# ---------------------------------------------------------------------------
+# slice 3: DISTINCT, ranked group-by and TopN on the in-process path
+# ---------------------------------------------------------------------------
+
+def orderable(v: torch.Tensor) -> torch.Tensor:
+    """Monotone, equality-preserving int64 sort key of a value plane (the
+    reference's _orderable_i64): int64 planes as they are; f64 with -0.0
+    made +0.0 (SQL equality) and its bits mapped from sign-magnitude to
+    two's complement, so that int64 order is the float order."""
+    if v.dtype != torch.float64:
+        return v.to(torch.int64)
+    b = torch.where(v == 0.0, torch.zeros_like(v), v).view(torch.int64)
+    return torch.where(b < 0, b ^ I64_MAX, b)
+
+
+def _flag(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.uint8)
+
+
+def lexsort(keys: list) -> tuple:
+    """Stable lexicographic row order: keys least-significant first
+    (np.lexsort's order), each an integer tensor [n]; equal rows keep their
+    row order. One stable torch.sort per key. Returns (permutation, the
+    most significant key in sorted order)."""
+    perm = last = None
+    for k in keys:
+        last, idx = torch.sort(k if perm is None else k[perm], stable=True)
+        perm = idx if perm is None else perm[idx]
+    return perm, last
+
+
+def arg_plane(spec: AggSpec, planes: dict, outs: dict, n: int, dev):
+    """(values, valid) of an aggregate's argument as [n] planes."""
+    arg = spec.arg
+    const = getattr(arg, "const", None)
+    if const is not None:
+        bits, valid = const
+        v = torch.full((n,), bits, dtype=torch.int64, device=dev)
+        if arg.dt == "f":
+            v = v.view(torch.float64)
+        return v, torch.full((n,), bool(valid), dtype=torch.bool, device=dev)
+    if arg.cid is not None:
+        return planes[arg.cid]
+    return outs[arg.reg]
+
+
+def seg_agg_presorted(gid_sorted: torch.Tensor, order: torch.Tensor,
+                      mask: torch.Tensor, num_segments: int,
+                      reds: list[Red]):
+    """K4's segmented pass over ids already sorted (nondecreasing) under
+    the permutation `order`; mask and values stay in row order (the pass
+    reads row order[i] at sorted position i)."""
+    if _device_kind(mask) == "cpu":
+        gid = torch.empty_like(gid_sorted)
+        gid[order] = gid_sorted
+        return seg_agg_plain(gid, mask, num_segments, reds)
+    dev = mask.device
+    n = mask.shape[0]
+    _check_gid(gid_sorted, mask, dev)
+    _check_plane(order, n, (torch.int64,), "order", dev)
+    lib = _ext.lib("seg_agg_sorted")
+    desc = _red_desc(reds, n, dev)
+    part = torch.empty(len(reds) * lib.seg_sorted_pieces_count(n) * 4,
+                       dtype=torch.int64, device=dev)
+    out = torch.empty(len(reds) * num_segments * 2, dtype=torch.int64,
+                      device=dev)
+    rc = lib.seg_sorted_launch(
+        n, gid_sorted.data_ptr(), order.data_ptr(), mask.data_ptr(),
+        num_segments, len(reds), desc.data_ptr(), part.data_ptr(),
+        out.data_ptr(), _stream(dev))
+    _ext.check(rc, "seg_agg_sorted")
+    LAUNCHES["seg_agg_sorted"] += 1
+    out = out.view(len(reds), num_segments, 2)
+    return out[..., 0], out[..., 1]
+
+
+def distinct_sort(v: torch.Tensor, contrib: torch.Tensor, gid=None):
+    """The lexsort of the DISTINCT kernels: rows by (group id, contributing
+    first, orderable value). Returns (perm, key, gid in sorted order or
+    None)."""
+    key = orderable(v)
+    keys = [key, _flag(~contrib)] + ([gid] if gid is not None else [])
+    perm, last = lexsort(keys)
+    return perm, key, (last if gid is not None else None)
+
+
+def distinct_totals(spec: AggSpec, planes: dict, outs: dict,
+                    mask: torch.Tensor, gid, num_segments: int):
+    """One DISTINCT aggregate's (count, sum) — numpy scalars, or [S]
+    arrays per group id `gid` (row order) — the port of _distinct_reduce
+    and _grouped_distinct: rows lexsorted by (group, contributing first,
+    orderable value), K9 marks the run openers, and K2 (scalar) or K4's
+    pass (grouped) counts them and sums their values."""
+    dev = mask.device
+    v, ok = arg_plane(spec, planes, outs, mask.shape[0], dev)
+    contrib = mask & ok
+    with phase("sort", dev):
+        perm, key, gid_s = distinct_sort(v, contrib, gid)
+    with phase("k9", dev):
+        firsts = distinct_runs(perm, key, contrib, gid_s)
+    if spec.name == "count":
+        red = Red(R_COUNT)
+    elif v.dtype == torch.float64:
+        # the (-0.0, +0.0) run adds 0
+        red = Red(R_SUM_F, torch.where(v == 0.0, torch.zeros_like(v), v))
+    else:
+        red = Red(R_SUM_I, v.to(torch.int64))
+    with phase("reduce", dev):
+        if gid is None:
+            cnt, acc = scalar_agg(firsts, [red])
+        else:
+            cnt, acc = seg_agg_presorted(gid_s, perm, firsts, num_segments,
+                                         [red])
+        (res,) = _unpack([red], cnt, acc)
+    return res
+
+
+class RankedPrep:
+    """What a ranked group-by's statement computes once, whatever the
+    rung: K1's mask and argument planes, and the lexsort permutation."""
+
+    __slots__ = ("mask", "outs", "order", "cols")
+
+    def __init__(self, mask, outs, order, cols):
+        self.mask = mask
+        self.outs = outs
+        self.order = order
+        self.cols = cols
+
+
+def build_ranked_group_fn(prog: Program, where: CompiledExpr | None,
+                          specs: list[AggSpec], group_cids: list[int]):
+    """Group-by over any columns by sort and rank (the port of the
+    reference's build_ranked_group_fn, its ids batch-local). fn.prepare(
+    planes, live) runs K1 and the stable lexsort (liveness first, then the
+    columns in declaration order, null flag before value); fn(prep,
+    planes, S) runs K8 with S segments and, when the groups fit (ngroups
+    <= S - 1), the reductions in sorted space with K4's pass. It returns
+    (ngroups, outs) with outs = [ngroups, row_count[S], (representative,
+    non-null) per group column, per-spec outputs…], or (ngroups, None) when
+    the groups overflow S - 1 (the caller takes the next rung)."""
+    outputs = program_outputs(specs)
+    fin = prog.finalize(where, outputs)
+
+    def prepare(planes, live) -> RankedPrep:
+        with phase("k1", live.device):
+            mask, _gid, outs = run_k1(fin, planes, live, outputs, False)
+        cols = [planes[cid] for cid in group_cids]
+        with phase("sort", live.device):
+            keys = []
+            for v, ok in reversed(cols):
+                keys.append(torch.where(ok, orderable(v),
+                                        torch.zeros((), dtype=torch.int64,
+                                                    device=v.device)))
+                keys.append(_flag(~ok))
+            keys.append(_flag(~mask))          # live rows first
+            order, _last = lexsort(keys)
+        return RankedPrep(mask, outs, order, cols)
+
+    def run(prep: RankedPrep, planes, S: int):
+        dev = prep.mask.device
+        with phase("k8", dev):
+            gid_s, ngroups, _starts, rep, nonnull = rank_groups(
+                prep.order, prep.mask, prep.cols, S)
+            ngroups = int(ngroups[0])
+        if ngroups > S - 1:
+            return ngroups, None
+        plain = [i for i, s in enumerate(specs) if not s.dedup]
+        reds = [Red(R_COUNT)] + [spec_reduction(specs[i], planes, prep.outs)
+                                 for i in plain]
+        with phase("reduce", dev):
+            n, acc = seg_agg_presorted(gid_s, prep.order, prep.mask, S, reds)
+            per_red = _unpack(reds, n, acc)
+        per = [None] * len(specs)
+        for i, r in zip(plain, per_red[1:]):
+            per[i] = r
+        if any(s.dedup for s in specs):
+            gid = torch.empty_like(gid_s)
+            gid[prep.order] = gid_s
+            for i, s in enumerate(specs):
+                if s.dedup:
+                    per[i] = distinct_totals(s, planes, prep.outs, prep.mask,
+                                             gid, S)
+        rep, nonnull = rep.cpu().numpy(), nonnull.cpu().numpy()
+        head = [np.int64(ngroups), per_red[0][0]]
+        for c, (v, _ok) in enumerate(prep.cols):
+            r = rep[c].view(np.float64) if v.dtype == torch.float64 \
+                else rep[c]
+            head.extend([r, nonnull[c]])
+        return ngroups, head + _agg_outputs(specs, per)
+
+    fn = run
+    fn.prepare = prepare
+    fn.program = fin
+    return fn
+
+
+# at most this many ORDER BY items (K10's key table)
+TOPN_MAX_KEYS = 4
+
+
+def build_topn_fn(prog: Program, where: CompiledExpr | None,
+                  keys: list, k: int):
+    """Top-k row indices over ORDER BY items `keys` [(CompiledExpr, desc)]
+    (the port of build_topn_fn and build_topn_fn_multi, one builder for
+    one key or several): fn(planes, live) → (idx int64[min(k, cap)],
+    n_live) with n_live = min(live rows, k). Order: per item, NULL first
+    ascending and last descending, values compared natively; ties by row
+    position. K1 writes the mask and a key plane for each item that is an
+    expression and not a plain column; K10 selects."""
+    if len(keys) > TOPN_MAX_KEYS:
+        raise Unsupported(f"{len(keys)} ORDER BY items exceed "
+                          f"{TOPN_MAX_KEYS}")
+    for e, _desc in keys:
+        if e.kind == "strconst":
+            raise Unsupported("string constant as ORDER BY item")
+    # a constant item orders no row before another
+    keys = [(e, bool(d)) for e, d in keys
+            if getattr(e, "const", None) is None]
+    seen, outputs = set(), []
+    for e, _d in keys:
+        if e.cid is None and e.reg not in seen:
+            seen.add(e.reg)
+            outputs.append(e)
+    fin = prog.finalize(where, outputs)
+
+    def inputs(planes, live):
+        """K10's inputs: K1's mask and [((values, valid), desc)]."""
+        with phase("k1", live.device):
+            mask, _gid, outs = run_k1(fin, planes, live, outputs, False)
+        return mask, [(planes[e.cid] if e.cid is not None else outs[e.reg],
+                       d) for e, d in keys]
+
+    def fn(planes, live):
+        mask, planes_k = inputs(planes, live)
+        with phase("k10", live.device):
+            return topk_select(mask, planes_k, k)
+
+    fn.inputs = inputs
+    fn.program = fin
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# K8 rank_groups, K9 distinct_runs, K10 topk_select and their plain versions
+# ---------------------------------------------------------------------------
+
+def rank_groups_plain(order, mask, cols: list, S: int):
+    n = order.shape[0]
+    dev = order.device
+    live_s = mask[order]
+    change = torch.zeros(n, dtype=torch.bool, device=dev)
+    change[:1] = True                  # row 0 always opens a group
+    for v, ok in cols:
+        ks = torch.where(ok, orderable(v), torch.zeros(
+            (), dtype=torch.int64, device=dev))[order]
+        os_ = ok[order]
+        change[1:] |= (ks[1:] != ks[:-1]) | (os_[1:] != os_[:-1])
+    newgrp = change & live_s
+    rank = torch.cumsum(newgrp.to(torch.int64), 0) - 1
+    sink = torch.full_like(rank, S - 1)
+    gid_s = torch.where(live_s, torch.minimum(rank, sink), sink)
+    ngroups = newgrp.sum(dtype=torch.int64).reshape(1)
+    pos = torch.nonzero(newgrp & (rank < S)).squeeze(1)
+    r = rank[pos]
+    starts = torch.full((S,), -1, dtype=torch.int64, device=dev)
+    starts[r] = pos
+    rows = order[pos]
+    rep = torch.zeros((len(cols), S), dtype=torch.int64, device=dev)
+    nonnull = torch.zeros((len(cols), S), dtype=torch.bool, device=dev)
+    for c, (v, ok) in enumerate(cols):
+        vi = v.view(torch.int64) if v.dtype == torch.float64 else v
+        rep[c, r] = vi[rows]
+        nonnull[c, r] = ok[rows]
+    return gid_s, ngroups, starts, rep, nonnull
+
+
+def rank_groups(order: torch.Tensor, mask: torch.Tensor, cols: list, S: int):
+    """K8 over rows in lexsort order `order` (live rows first): (gid_s
+    int64[n] group id per sorted position — the inclusive count of group
+    openers minus one, clamped to S - 1, dead rows S - 1; ngroups int64[1];
+    starts int64[S], the sorted position opening each group, -1 where none;
+    rep int64[ncol, S], each column's value (f64 bits) at the group's
+    opener; nonnull bool[ncol, S]). A row opens a group when it is live and
+    row 0 or any column's (null flag, value) differs from the previous
+    row's."""
+    if S < 1 or not cols:
+        raise errors.DeviceError("rank_groups needs S >= 1 and a column")
+    if _device_kind(mask) == "cpu":
+        return rank_groups_plain(order, mask, cols, S)
+    dev = mask.device
+    n = mask.shape[0]
+    _check_plane(mask, n, (torch.bool,), "mask", dev)
+    _check_plane(order, n, (torch.int64,), "order", dev)
+    tab = []
+    for c, (v, ok) in enumerate(cols):
+        _check_plane(v, n, (torch.int64, torch.float64), f"column {c}", dev)
+        _check_plane(ok, n, (torch.bool,), f"column {c} valid", dev)
+        tab.append([v.data_ptr(), ok.data_ptr(),
+                    int(v.dtype == torch.float64)])
+    t_tab = torch.tensor(tab, dtype=torch.int64).reshape(-1).to(dev)
+    lib = _ext.lib("rank_groups")
+    blocks = lib.rank_groups_blocks(n)
+    opens = torch.empty(n, dtype=torch.uint8, device=dev)
+    totals = torch.empty(blocks, dtype=torch.int64, device=dev)
+    offs = torch.empty(blocks, dtype=torch.int64, device=dev)
+    gid_s = torch.empty(n, dtype=torch.int64, device=dev)
+    ngroups = torch.empty(1, dtype=torch.int64, device=dev)
+    starts = torch.empty(S, dtype=torch.int64, device=dev)
+    rep = torch.empty((len(cols), S), dtype=torch.int64, device=dev)
+    nonnull = torch.empty((len(cols), S), dtype=torch.bool, device=dev)
+    rc = lib.rank_groups_launch(
+        n, order.data_ptr(), mask.data_ptr(), len(cols), t_tab.data_ptr(),
+        S, opens.data_ptr(), totals.data_ptr(), offs.data_ptr(),
+        gid_s.data_ptr(), ngroups.data_ptr(), starts.data_ptr(),
+        rep.data_ptr(), nonnull.data_ptr(), _stream(dev))
+    _ext.check(rc, "rank_groups")
+    LAUNCHES["rank_groups"] += 1
+    return gid_s, ngroups, starts, rep, nonnull
+
+
+def distinct_runs_plain(perm, key, contrib, gid_s):
+    n = perm.shape[0]
+    ks = key[perm]
+    new = torch.ones(n, dtype=torch.bool, device=perm.device)
+    new[1:] = ks[1:] != ks[:-1]
+    if gid_s is not None:
+        new[1:] |= gid_s[1:] != gid_s[:-1]
+    firsts = torch.empty(n, dtype=torch.bool, device=perm.device)
+    firsts[perm] = contrib[perm] & new
+    return firsts
+
+
+def distinct_runs(perm: torch.Tensor, key: torch.Tensor,
+                  contrib: torch.Tensor, gid_s=None) -> torch.Tensor:
+    """K9 over rows lexsorted by (group id, contributing first, orderable
+    key) under `perm`; gid_s the group ids in sorted order (None: one
+    group). Returns firsts bool[n] in ROW order: a contributing row that
+    opens a run, i.e. is sorted first or differs from the previous sorted
+    row in group or key."""
+    if _device_kind(contrib) == "cpu":
+        return distinct_runs_plain(perm, key, contrib, gid_s)
+    dev = contrib.device
+    n = contrib.shape[0]
+    _check_plane(contrib, n, (torch.bool,), "contrib", dev)
+    _check_plane(perm, n, (torch.int64,), "perm", dev)
+    _check_plane(key, n, (torch.int64,), "key", dev)
+    if gid_s is not None:
+        _check_plane(gid_s, n, (torch.int64,), "sorted group id", dev)
+    firsts = torch.empty(n, dtype=torch.bool, device=dev)
+    rc = _ext.lib("distinct_runs").distinct_runs_launch(
+        n, perm.data_ptr(), key.data_ptr(), contrib.data_ptr(),
+        0 if gid_s is None else gid_s.data_ptr(), firsts.data_ptr(),
+        _stream(dev))
+    _ext.check(rc, "distinct_runs")
+    LAUNCHES["distinct_runs"] += 1
+    return firsts
+
+
+def topk_select_plain(mask, keys: list, k: int):
+    n = mask.shape[0]
+    sk = []
+    zero = torch.zeros((), dtype=torch.int64, device=mask.device)
+    for (v, ok), desc in reversed(keys):
+        o = orderable(v)
+        if desc:
+            o = ~o                  # reverses the order, never wraps
+        sk.append(torch.where(ok, o, zero))
+        sk.append(_flag(~ok if desc else ok))   # NULL first asc, last desc
+    sk.append(_flag(~mask))                     # dead rows last
+    kk = min(k, n)
+    perm, _ = lexsort(sk)
+    n_live = torch.clamp(mask.sum(dtype=torch.int64), max=kk).reshape(1)
+    return perm[:kk].contiguous(), n_live
+
+
+def topk_select(mask: torch.Tensor, keys: list, k: int):
+    """K10: (idx int64[min(k, n)], n_live int64[1]) — the first k rows in
+    the order (live first; per ORDER BY item (values, valid), desc: null
+    rank, then the value, int64 or f64 with -0.0 == +0.0, reversed for
+    DESC; then row position), and min(live rows, k)."""
+    if len(keys) > TOPN_MAX_KEYS:
+        raise errors.DeviceError(f"K10 takes at most {TOPN_MAX_KEYS} keys")
+    if _device_kind(mask) == "cpu":
+        return topk_select_plain(mask, keys, k)
+    dev = mask.device
+    n = mask.shape[0]
+    _check_plane(mask, n, (torch.bool,), "mask", dev)
+    kk = min(int(k), n)
+    if kk <= 0:
+        return (torch.empty(0, dtype=torch.int64, device=dev),
+                torch.zeros(1, dtype=torch.int64, device=dev))
+    tab = []
+    for j, ((v, ok), desc) in enumerate(keys):
+        _check_plane(v, n, (torch.int64, torch.float64), f"key {j}", dev)
+        _check_plane(ok, n, (torch.bool,), f"key {j} valid", dev)
+        tab.append([v.data_ptr(), ok.data_ptr(),
+                    int(v.dtype == torch.float64), int(bool(desc))])
+    t_tab = torch.tensor(tab or [[0, 0, 0, 0]],
+                         dtype=torch.int64).reshape(-1).to(dev)
+    lib = _ext.lib("topk_select")
+    tile = lib.topk_tile()
+    n_tiles = (n + tile - 1) // tile
+    cand = n_tiles * min(kk, tile)
+    enc = torch.empty(max(len(keys), 1) * n, dtype=torch.int64, device=dev)
+    flg = torch.empty(n, dtype=torch.uint8, device=dev)
+    buf_a = torch.empty(cand, dtype=torch.int64, device=dev)
+    buf_b = torch.empty(cand, dtype=torch.int64, device=dev)
+    count = torch.empty(1, dtype=torch.int64, device=dev)
+    idx = torch.empty(kk, dtype=torch.int64, device=dev)
+    n_live = torch.empty(1, dtype=torch.int64, device=dev)
+    rc = lib.topk_select_launch(
+        n, kk, mask.data_ptr(), len(keys), t_tab.data_ptr(), enc.data_ptr(),
+        flg.data_ptr(), buf_a.data_ptr(), buf_b.data_ptr(), count.data_ptr(),
+        idx.data_ptr(), n_live.data_ptr(), _stream(dev))
+    _ext.check(rc, "topk_select")
+    LAUNCHES["topk_select"] += 1
+    return idx, n_live
 
 
 # ---------------------------------------------------------------------------
@@ -631,24 +1160,9 @@ def seg_agg_sorted(gid: torch.Tensor, mask: torch.Tensor, num_segments: int,
     the segmented reduction kernel over the sorted runs."""
     if _device_kind(mask) == "cpu":
         return seg_agg_plain(gid, mask, num_segments, reds)
-    dev = mask.device
-    _check_gid(gid, mask, dev)
-    n = mask.shape[0]
+    _check_gid(gid, mask, mask.device)
     gid_sorted, order = torch.sort(gid, stable=True)
-    lib = _ext.lib("seg_agg_sorted")
-    desc = _red_desc(reds, n, dev)
-    part = torch.empty(len(reds) * lib.seg_sorted_pieces_count(n) * 4,
-                       dtype=torch.int64, device=dev)
-    out = torch.empty(len(reds) * num_segments * 2, dtype=torch.int64,
-                      device=dev)
-    rc = lib.seg_sorted_launch(
-        n, gid_sorted.data_ptr(), order.data_ptr(), mask.data_ptr(),
-        num_segments, len(reds), desc.data_ptr(), part.data_ptr(),
-        out.data_ptr(), _stream(dev))
-    _ext.check(rc, "seg_agg_sorted")
-    LAUNCHES["seg_agg_sorted"] += 1
-    out = out.view(len(reds), num_segments, 2)
-    return out[..., 0], out[..., 1]
+    return seg_agg_presorted(gid_sorted, order, mask, num_segments, reds)
 
 
 # ---------------------------------------------------------------------------

@@ -575,3 +575,169 @@ def sweep_expected(name: str, data: dict) -> dict:
     else:
         raise KeyError(name)
     return out
+
+
+# ---------------------------------------------------------------------------
+# ranked group-by, DISTINCT aggregates and TopN over this lineitem, as the
+# planner pushes each to the in-process coprocessor (group columns as
+# first_row aggregates)
+# ---------------------------------------------------------------------------
+
+def _by_two_dates(second: int) -> SelectRequest:
+    c = expr_column
+    return SelectRequest(
+        start_ts=1,
+        table_info=table_info([C_QUANTITY, C_EXTENDEDPRICE, C_SHIPDATE,
+                               second]),
+        group_by=[ByItem(c(C_SHIPDATE)), ByItem(c(second))],
+        aggregates=[expr_agg("count", [expr_value(_one())]),
+                    expr_agg("sum", [c(C_QUANTITY)]),
+                    expr_agg("avg", [c(C_EXTENDEDPRICE)]),
+                    expr_agg("first_row", [c(C_SHIPDATE)]),
+                    expr_agg("first_row", [c(second)])])
+
+
+def ranked_dates() -> SelectRequest:
+    """select l_shipdate, l_receiptdate, count(*), sum(l_quantity),
+    avg(l_extendedprice) group by l_shipdate, l_receiptdate: a radix cross
+    product of about 2.5k x 2.5k dates, beyond RADIX_MAX_SEGMENTS, so the
+    group-by is ranked."""
+    return _by_two_dates(C_RECEIPTDATE)
+
+
+def tuple_dates() -> SelectRequest:
+    """The same over (l_shipdate, l_commitdate), whose groups (about 430k
+    at SF1) overflow every rung of the rank ladder: host tuple codes."""
+    return _by_two_dates(C_COMMITDATE)
+
+
+def _in_1994():
+    c = expr_column
+    return expr_op(Op.AndAnd,
+                   expr_op(Op.GE, c(C_SHIPDATE),
+                           expr_value(Datum.string("1994-01-01"))),
+                   expr_op(Op.LT, c(C_SHIPDATE),
+                           expr_value(Datum.string("1995-01-01"))))
+
+
+def scalar_distinct() -> SelectRequest:
+    """select count(distinct l_suppkey), count(distinct l_orderkey),
+    sum(distinct l_quantity), avg(distinct l_discount) where l_shipdate
+    in 1994."""
+    c = expr_column
+    return SelectRequest(
+        start_ts=1,
+        table_info=table_info([C_ORDERKEY, C_SUPPKEY, C_QUANTITY,
+                               C_DISCOUNT, C_SHIPDATE]),
+        where=_in_1994(),
+        aggregates=[expr_agg("count", [c(C_SUPPKEY)], distinct=True),
+                    expr_agg("count", [c(C_ORDERKEY)], distinct=True),
+                    expr_agg("sum", [c(C_QUANTITY)], distinct=True),
+                    expr_agg("avg", [c(C_DISCOUNT)], distinct=True)])
+
+
+def grouped_distinct() -> SelectRequest:
+    """select l_returnflag, l_linestatus, count(distinct l_orderkey),
+    count(*) group by l_returnflag, l_linestatus."""
+    c = expr_column
+    return SelectRequest(
+        start_ts=1,
+        table_info=table_info([C_ORDERKEY, C_RETURNFLAG, C_LINESTATUS]),
+        group_by=[ByItem(c(C_RETURNFLAG)), ByItem(c(C_LINESTATUS))],
+        aggregates=[expr_agg("count", [c(C_ORDERKEY)], distinct=True),
+                    expr_agg("count", [expr_value(_one())]),
+                    expr_agg("first_row", [c(C_RETURNFLAG)]),
+                    expr_agg("first_row", [c(C_LINESTATUS)])])
+
+
+def topn_price() -> SelectRequest:
+    """select l_orderkey, l_extendedprice where l_shipdate > '1995-03-15'
+    order by l_extendedprice desc limit 10."""
+    c = expr_column
+    return SelectRequest(
+        start_ts=1,
+        table_info=table_info([C_ORDERKEY, C_EXTENDEDPRICE, C_SHIPDATE]),
+        where=expr_op(Op.GT, c(C_SHIPDATE),
+                      expr_value(Datum.string("1995-03-15"))),
+        order_by=[ByItem(c(C_EXTENDEDPRICE), desc=True)], limit=10)
+
+
+def topn_multi(limit: int = 100) -> SelectRequest:
+    """select l_orderkey, l_linenumber where l_shipmode in ('MAIL',
+    'SHIP') order by l_receiptdate desc, l_extendedprice, l_orderkey
+    limit `limit`."""
+    c = expr_column
+    return SelectRequest(
+        start_ts=1,
+        table_info=table_info([C_ORDERKEY, C_LINENUMBER, C_EXTENDEDPRICE,
+                               C_RECEIPTDATE, C_SHIPMODE]),
+        where=_in(c(C_SHIPMODE), [b"MAIL", b"SHIP"]),
+        order_by=[ByItem(c(C_RECEIPTDATE), desc=True),
+                  ByItem(c(C_EXTENDEDPRICE)), ByItem(c(C_ORDERKEY))],
+        limit=limit)
+
+
+SLICE3 = (("ranked_dates", ranked_dates), ("tuple_dates", tuple_dates),
+          ("scalar_distinct", scalar_distinct),
+          ("grouped_distinct", grouped_distinct),
+          ("topn_price", topn_price), ("topn_multi", topn_multi),
+          ("topn_multi_5000", lambda: topn_multi(5000)))
+
+
+def slice3_expected(name: str, data: dict):
+    """A slice-3 statement computed straight from the arrays with numpy.
+    Grouped shapes: {group key: [values]} (dates as datetime.date, flags
+    as bytes; counts, and decimals as int64 cents). scalar_distinct: the
+    four distinct totals [count, count, (count, cents), (count, cents)].
+    TopN shapes: the row handles in order."""
+    n = data[C_ORDERKEY].shape[0]
+    rows = np.arange(n)
+    if name in ("ranked_dates", "tuple_dates"):
+        second = C_RECEIPTDATE if name == "ranked_dates" else C_COMMITDATE
+        a = (data[C_SHIPDATE] - _EPOCH).astype(np.int64)
+        b = (data[second] - _EPOCH).astype(np.int64)
+        key = a * (1 << 20) + b
+        uniq, inv = np.unique(key, return_inverse=True)
+        cnt = np.bincount(inv)
+        order = np.argsort(inv, kind="stable")
+        starts = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+        sq = np.add.reduceat(data[C_QUANTITY][order], starts)
+        sp = np.add.reduceat(data[C_EXTENDEDPRICE][order], starts)
+        da = (_EPOCH + (uniq >> 20).astype("timedelta64[D]")).astype(dt.date)
+        db = (_EPOCH + (uniq & ((1 << 20) - 1)).astype("timedelta64[D]")) \
+            .astype(dt.date)
+        return {(x, y): [c_, q, p] for x, y, c_, q, p in zip(
+            da.tolist(), db.tolist(), cnt.tolist(), sq.tolist(),
+            sp.tolist())}
+    if name == "scalar_distinct":
+        ship = data[C_SHIPDATE]
+        m = (ship >= np.datetime64("1994-01-01")) \
+            & (ship < np.datetime64("1995-01-01"))
+        q = np.unique(data[C_QUANTITY][m])
+        d = np.unique(data[C_DISCOUNT][m])
+        return [len(np.unique(data[C_SUPPKEY][m])),
+                len(np.unique(data[C_ORDERKEY][m])),
+                (len(q), int(q.sum())), (len(d), int(d.sum()))]
+    if name == "grouped_distinct":
+        out = {}
+        for fi in range(3):
+            for si in range(2):
+                m = (data[C_RETURNFLAG] == fi) & (data[C_LINESTATUS] == si)
+                if m.any():
+                    out[(RETURNFLAG[fi], LINESTATUS[si])] = [
+                        len(np.unique(data[C_ORDERKEY][m])), int(m.sum())]
+        return out
+    if name == "topn_price":
+        cand = rows[data[C_SHIPDATE] > np.datetime64("1995-03-15")]
+        order = np.lexsort([cand, -data[C_EXTENDEDPRICE][cand]])
+        return (cand[order][:10] + 1).tolist()
+    if name in ("topn_multi", "topn_multi_5000"):
+        limit = 100 if name == "topn_multi" else 5000
+        mode = data[C_SHIPMODE]
+        cand = rows[(mode == SHIPMODE.index(b"MAIL"))
+                    | (mode == SHIPMODE.index(b"SHIP"))]
+        receipt = (data[C_RECEIPTDATE][cand] - _EPOCH).astype(np.int64)
+        order = np.lexsort([cand, data[C_ORDERKEY][cand],
+                            data[C_EXTENDEDPRICE][cand], -receipt])
+        return (cand[order][:limit] + 1).tolist()
+    raise KeyError(name)
