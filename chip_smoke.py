@@ -51,7 +51,25 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    keys beside filtered rows, int64 extremes under DESC, BIGINT keys
    above 2^53 in both orders, -0.0 beside +0.0, no live row, k = 1 and
    k above the live rows, lengths no multiple of a tile), bit for bit.
-7. A JSON line of per-kernel numbers, the nvidia-smi line, and last
+7. Phase F, joins at SF1 on Phase B's lineitem batch (its planes
+   resident) and orders (one row per order of that lineitem, about 1.5M
+   rows), partsupp (800,000) and a 4-row priority table built straight
+   into batches: three statements through XSelectTableExec →
+   HashJoinExec → HashAggExec (fused_agg.try_fused_agg) on the card —
+   lineitem ⋈ orders on TPC-H Q3's key and dates grouped by
+   o_orderpriority (K1 x2, K11, K12), lineitem ⋈ partsupp on Q9's key
+   pair (K1 x2, K13 x2 in domain mode, K11, K12), orders LEFT JOIN prio on
+   a string key (K1 x2, K13 x2 in remap mode, K11, K12) — each equal to
+   numpy (counts and integers exact, f64 sums 1e-9 relative, groups in
+   first-appearance order), its pairs equal to the plain versions' on
+   the CPU, its launches exactly those; the statement time (host clock,
+   median of 3) and its split by phase; K11, K12 and K13 against their
+   plain versions on the card at the full shapes (6,001,215 probe rows x
+   about 1.5M build rows; f2's composite keys) and on edge cases (I64_MAX
+   and I64_MIN keys beside NULLs, +-inf, -0.0 against +0.0, NULLs on both
+   sides, empty sides, 8 x 3000 duplicates, one key with 2^20 matches,
+   f64 keys; every K13 mode), bit for bit.
+8. A JSON line of per-kernel numbers, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
 Any failure raises: no phase catches its own failure.
@@ -73,12 +91,16 @@ from decimal import Decimal  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from tidb_tpu_torch import distsql, tpch  # noqa: E402
+from tidb_tpu_torch import carry, distsql, tpch  # noqa: E402
 from tidb_tpu_torch.cluster.rpc import clip_ranges  # noqa: E402
 from tidb_tpu_torch.cluster.store import DistStore  # noqa: E402
 from tidb_tpu_torch.copr import columnar_region  # noqa: E402
 from tidb_tpu_torch.copr.plane_cache import PlaneCache  # noqa: E402
+from tidb_tpu_torch.copr import dictionary  # noqa: E402
 from tidb_tpu_torch.executor import fused_agg  # noqa: E402
+from tidb_tpu_torch.executor.distsql_exec import XSelectTableExec  # noqa
+from tidb_tpu_torch.executor.executors import (  # noqa: E402
+    HashAggExec, HashJoinExec)
 from tidb_tpu_torch.copr.proto import (  # noqa: E402
     AGG_NAME, Expr, ExprType, SelectRequest, expr_column, expr_op, expr_value,
     iter_response_rows)
@@ -120,6 +142,12 @@ KERNELS = {
         "tidb_tpu/ops/kernels.py:1356"),
     "combine_partials": ("tidb_tpu_torch/ops/csrc/combine_partials.cu",
                          "tidb_tpu/ops/kernels.py:1082"),
+    "join_build": ("tidb_tpu_torch/ops/csrc/join_build.cu",
+                   "tidb_tpu/ops/kernels.py:1666"),
+    "join_probe": ("tidb_tpu_torch/ops/csrc/join_probe.cu",
+                   "tidb_tpu/ops/kernels.py:1688"),
+    "dict_remap": ("tidb_tpu_torch/ops/csrc/dict_remap.cu",
+                   "tidb_tpu/ops/kernels.py:1877"),
 }
 # K6 has two routes, each counted: spans within its shared-memory limit
 # (seg_states_ragged) and larger ones (seg_states_ragged_sorted)
@@ -248,7 +276,8 @@ def phase_a(n_rows: int, seed: int, device=None) -> dict:
           f"launches {launches}")
     if gpu.device.type == "cuda":
         for k, v in launches.items():
-            need(v > 0 or k in CLUSTER_KERNELS or k in SLICE3_KERNELS,
+            need(v > 0 or k in CLUSTER_KERNELS or k in SLICE3_KERNELS
+                 or k in JOIN_KERNELS,
                  f"kernel {k} never launched on the main path")
     return launches
 
@@ -489,7 +518,7 @@ def edge_reductions(batch, device, rng):
 
 def phase_b(n_rows: int, seed: int, device, edge_cap: int) -> tuple:
     """Returns (per-kernel results, the rows, the batch), the batch holding
-    Phase E's columns too."""
+    Phase E's and Phase F's columns too."""
     ms = timer(device)
     t0 = time.perf_counter()
     data = tpch.generate(n_rows, seed)
@@ -497,7 +526,7 @@ def phase_b(n_rows: int, seed: int, device, edge_cap: int) -> tuple:
             tpch.C_DISCOUNT, tpch.C_TAX, tpch.C_RETURNFLAG,
             tpch.C_LINESTATUS, tpch.C_SHIPDATE, tpch.C_ORDERKEY,
             tpch.C_LINENUMBER, tpch.C_COMMITDATE, tpch.C_RECEIPTDATE,
-            tpch.C_SHIPMODE]
+            tpch.C_SHIPMODE, tpch.C_PARTKEY, tpch.C_FDISCOUNT]
     batch = tpch.batch(data, cids)
     kernels.batch_planes(batch, device)
     kernels.device_live(batch, device)
@@ -1440,6 +1469,260 @@ def phase_e(data: dict, batch, device, seed: int) -> dict:
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase F: joins at SF1
+# ---------------------------------------------------------------------------
+
+JOIN_KERNELS = ("join_build", "join_probe", "dict_remap")
+# launches per statement on the card: each scan's filter (K1), then the
+# join's kernels
+F_LAUNCHES = {
+    "f1_q3_join": {"expr_vm": 2, "join_build": 1, "join_probe": 1},
+    "f2_partsupp": {"expr_vm": 2, "dict_remap": 2, "join_build": 1,
+                    "join_probe": 1},
+    "f3_prio_outer": {"expr_vm": 2, "dict_remap": 2, "join_build": 1,
+                      "join_probe": 1},
+}
+
+
+def f_statement(client, name: str, batches: dict) -> tuple:
+    """(HashJoinExec, HashAggExec) of a join statement over the admitted
+    batches: two XSelectTableExec scans through the client's send."""
+    left, right, plan, aggs, group_by = tpch.join_statement(name)
+    kids = []
+    for sel in (left, right):
+        req = tpch.store_request(sel)
+        client.admit(sel, req.key_ranges, batches[sel.table_info.table_id])
+        kids.append(XSelectTableExec(client, sel, req.key_ranges))
+    join = HashJoinExec(kids[0], kids[1], plan)
+    return join, HashAggExec(join, aggs, group_by)
+
+
+def check_join_rows(name: str, rows: list, tables: dict, what: str) -> None:
+    want = tpch.join_expected(name, tables)
+    need(len(rows) == len(want), f"{what} {name}: {len(rows)} rows, "
+         f"want {len(want)}")
+    for got, exp in zip(rows, want):
+        need(len(got) == len(exp), f"{what} {name}: row width differs")
+        for d, w in zip(got, exp):
+            v = d.val.encode() if isinstance(d.val, str) else d.val
+            if isinstance(w, float):
+                need(isinstance(v, float)
+                     and abs(v - w) <= F64_SWEEP_RTOL * abs(w),
+                     f"{what} {name}: {v!r} vs numpy {w!r}")
+            else:
+                need(v == w, f"{what} {name}: {v!r} vs numpy {w!r}")
+
+
+def plain_join_pairs(join) -> tuple:
+    """The same join over the same scan answers on the CPU: the plain
+    versions of K13, K11 and K12 (no launch)."""
+    res = join.device_join_result()
+    kids = [carry.SideExec(col.ColumnarScanResult(s.batch, s.sel,
+                                                  s.pb_cols),
+                           len(c.schema))
+            for s, c in zip((res.lside, res.rside), join.children)]
+    cpu = HashJoinExec(kids[0], kids[1], join.plan, device="cpu")
+    out = cpu.device_join_result()
+    return out.l_idx, out.r_idx
+
+
+def check_join_kernels(rk, rv, lk, lv, what: str) -> float:
+    """K11 and K12 against their plain versions on the same card
+    tensors: words, order and pairs bit for bit."""
+    w, o = kernels.join_build(rk, rv)
+    wp, op = kernels.join_build_plain(rk, rv)
+    need(torch.equal(w, wp) and torch.equal(o, op),
+         f"{what}: K11 differs from its plain version")
+    p = kernels.join_probe(w, o, lk, lv)
+    pp = kernels.join_probe_plain(wp, op, lk, lv)
+    need(torch.equal(p.to(torch.int64), pp),
+         f"{what}: K12 differs from its plain version")
+    return max(max_err(w, wp), max_err(o, op), max_err(p.to(torch.int64),
+                                                          pp))
+
+
+def check_k13(cols: list, n: int, what: str) -> float:
+    got = kernels.dict_remap(cols, n)
+    want = kernels.dict_remap_plain(cols, n)
+    need(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+         f"{what}: K13 differs from its plain version")
+    return max(max_err(got[0], want[0]), max_err(got[1], want[1]))
+
+
+def edge_joins(device, seed: int) -> list:
+    """(rkey, rvalid, lkey, lvalid, what) cases for K11 + K12."""
+    big, small, inf = (1 << 63) - 1, -(1 << 63), float("inf")
+    t = lambda a, dt=None: torch.tensor(a, dtype=dt, device=device)  # noqa
+    i64, f64, b = torch.int64, torch.float64, torch.bool
+    rng = np.random.default_rng(seed)
+    cases = [
+        ([big, big, 5], [True, False, True], [big, 0], [True, True],
+         i64, "I64_MAX beside NULLs"),
+        ([3, small, small, big], [True] * 4, [small, 3, small],
+         [True, True, False], i64, "I64_MIN"),
+        ([inf, 1.0, 2.0, -inf, -inf], [True, True, False, True, True],
+         [inf, 1.0, -inf], [True] * 3, f64, "+-inf"),
+        ([0.0, -0.0, 0.0], [True, True, False], [-0.0, 0.0, 1.0],
+         [True] * 3, f64, "-0.0 against +0.0"),
+        ([2, 2, 1], [False, True, False], [1, 2, 2], [False, True, False],
+         i64, "NULLs on both sides"),
+        ([], [], [1, 2], [True, True], i64, "empty right"),
+        ([1], [True], [], [], i64, "empty left"),
+        ([7] * 3000, [True] * 3000, [7] * 8, [True] * 8, i64,
+         "8 x 3000 duplicates"),
+        ([5] * (1 << 20), [True] * (1 << 20), [6, 5, 4], [True] * 3, i64,
+         "one key with 2^20 matches"),
+    ]
+    out = [(t(rk, dt), t(rv, b), t(lk, dt), t(lv, b), what)
+           for rk, rv, lk, lv, dt, what in cases]
+    n = 100_003
+    keys = rng.integers(-500, 500, (2, n)) * 0.25
+    keys[0, ::97] = -0.0
+    keys[1, ::89] = inf
+    out.append((t(keys[0]), t(rng.random(n) > 0.1), t(keys[1]),
+                t(rng.random(n) > 0.1), "f64 keys"))
+    return out
+
+
+def edge_remaps(device, seed: int) -> list:
+    """(K13 columns, n, what): every mode, an empty remap table, int64
+    extremes, +-inf and -0.0 in a domain, mixed radix."""
+    rng = np.random.default_rng(seed)
+    n = 40_009
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa
+    RC = kernels.RemapCol
+    valid = rng.random(n) > 0.2
+    codes = RC(kernels.REMAP_CODES, t(np.where(valid, rng.integers(0, 9, n),
+                                               -1)), t(valid), None, 8, 1)
+    table = rng.permutation(12)[:7].astype(np.int64)
+    remap = RC(kernels.REMAP_TABLE, t(rng.integers(-1, 9, n)),
+               t(rng.random(n) > 0.2), t(table), 11, 9)
+    empty = RC(kernels.REMAP_TABLE, t(np.full(n, -1, np.int64)),
+               t(np.zeros(n, bool)), t(np.zeros(0, np.int64)), 2, 9)
+    iv = rng.integers(-(1 << 40), 1 << 40, n)
+    iv[::17], iv[::19] = (1 << 63) - 1, -(1 << 63)
+    ivalid = rng.random(n) > 0.1
+    idom = np.unique(iv[ivalid])
+    dom_i = RC(kernels.REMAP_DOMAIN, t(iv), t(ivalid), t(idom),
+               len(idom) - 1, 3)
+    fv = rng.integers(-6, 6, n) * 0.25
+    fv[::13], fv[::11], fv[::7] = np.inf, -np.inf, -0.0
+    fvalid = rng.random(n) > 0.1
+    fdom = np.unique(np.where(fv == 0.0, 0.0, fv)[fvalid])
+    dom_f = RC(kernels.REMAP_DOMAIN, t(fv), t(fvalid), t(fdom),
+               len(fdom) - 1, 7)
+    return [([codes], n, "codes"), ([remap, codes], n, "remap"),
+            ([empty, codes], n, "empty remap table"),
+            ([dom_i, codes], n, "int64 domain"),
+            ([dom_f, remap, codes], n, "f64 domain")]
+
+
+def phase_f(data: dict, batch, device, seed: int) -> tuple:
+    ms = timer(device)
+    t0 = time.perf_counter()
+    tables = tpch.join_data(data, seed)
+    batches = {tid: tpch.join_batch(tables, tid)
+               for tid in (tpch.ORDERS_ID, tpch.PARTSUPP_ID, tpch.PRIO_ID)}
+    batches[tpch.TABLE_ID] = batch
+    client = GpuClient(MemStore([], []), device)
+    print(f"phase F: orders {len(tables[tpch.ORDERS_ID][tpch.O_ORDERKEY])}"
+          f" rows, partsupp {len(tables[tpch.PARTSUPP_ID][tpch.PS_PARTKEY])}"
+          f", prio 4 built in {time.perf_counter() - t0:.1f} s")
+    total = {k: 0 for k in kernels.LAUNCHES}
+    stmt, joins = {}, {}
+    for name in tpch.JOINS:
+        zero_launches()
+        t1 = time.perf_counter()
+        join, agg = f_statement(client, name, batches)
+        rows = agg.drain()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        took = (time.perf_counter() - t1) * 1e3
+        delta = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        check_join_rows(name, rows, tables, "phase F")
+        need(delta == F_LAUNCHES[name] or device.type != "cuda",
+             f"{name}: launches {delta}, want {F_LAUNCHES[name]}")
+        need(join.join_stats["path"] == "device", f"{name}: not on device")
+        for k, v in delta.items():
+            total[k] += v
+        res = join.device_join_result()
+        pl, pr = plain_join_pairs(join)
+        need(np.array_equal(res.l_idx, pl) and np.array_equal(res.r_idx, pr),
+             f"{name}: pairs differ from the plain versions'")
+        joins[name] = join
+        print(f"  {name}: {len(rows)} rows equal to numpy, {len(res)} "
+              f"pairs equal to the plain versions' (first run {took:.1f} "
+              f"ms); launches {delta}")
+        runs = 3
+        wall = host_ms(lambda: f_statement(client, name, batches)[1].drain(),
+                       runs)
+        kernels.SPLIT = {}
+        f_statement(client, name, batches)[1].drain()
+        split, kernels.SPLIT = kernels.SPLIT, None
+        stmt[name] = {"ms": wall, "runs": runs, "pairs": len(res),
+                      "rows": len(rows), "split": split}
+        print(f"  {name}: statement {wall:.3f} ms median of {runs} (host "
+              f"clock); split " + ", ".join(f"{k} {v:.3f}"
+                                            for k, v in split.items()))
+    print("phase F statements: " + json.dumps(stmt))
+    out = {}
+
+    # K11 + K12 at the unfiltered full shape: every lineitem row probes
+    # every orders row by order key
+    n_l = batch.n_rows
+    n_o = batches[tpch.ORDERS_ID].n_rows
+    lk, lv = (p[:n_l] for p in kernels.batch_planes(batch, device)
+              [tpch.C_ORDERKEY])
+    rk, rv = (p[:n_o] for p in kernels.batch_planes(
+        batches[tpch.ORDERS_ID], device)[tpch.O_ORDERKEY])
+    err = check_join_kernels(rk, rv, lk, lv, "K11/K12 full shape")
+    for erk, erv, elk, elv, what in edge_joins(device, seed + 11):
+        err = max(err, check_join_kernels(erk, erv, elk, elv,
+                                          f"K11/K12 edge {what}"))
+    words, order = kernels.join_build(rk, rv)
+    pairs = kernels.join_probe(words, order, lk, lv)
+    nv, n_pairs = words.shape[0], pairs.shape[1]
+    out["join_build"] = dict(
+        ms=ms(lambda: kernels.join_build(rk, rv)),
+        plain_ms=ms(lambda: kernels.join_build_plain(rk, rv)),
+        library_ms=ms(lambda: torch.sort(rk, stable=True)),
+        max_abs_err=err, bound=bound(n_o * 9 + nv * 16, n_o))
+    out["join_probe"] = dict(
+        ms=ms(lambda: kernels.join_probe(words, order, lk, lv)),
+        plain_ms=ms(lambda: kernels.join_probe_plain(words, order, lk, lv)),
+        library_ms=None, max_abs_err=err,
+        bound=bound(n_l * 9 + nv * 16 + pairs.numel()
+                    * pairs.element_size(),
+                    n_l * 2 * max(int(nv).bit_length(), 1)))
+    print(f"phase F: K11/K12 full shape {n_l} probe x {n_o} build rows, "
+          f"{n_pairs} pairs")
+
+    # K13 at f2's composite keys (the lineitem side), and edge cases
+    j2 = joins["f2_partsupp"].device_join_result()
+    pairs2 = [(c[0].index, c[1].index, False)
+              for c in joins["f2_partsupp"].plan.eq_conditions]
+    l_specs, _r = dictionary.build_join_specs(
+        j2.lside, j2.rside, pairs2, dictionary.DEFAULT_MAX_NDV_RATIO)
+    cols = kernels.remap_cols(l_specs, device)
+    n2 = len(j2.lside)
+    err = check_k13(cols, n2, "K13 f2_partsupp")
+    for ecols, en, what in edge_remaps(device, seed + 13):
+        err = max(err, check_k13(ecols, en, f"K13 edge {what}"))
+    tlen = [0 if c.table is None else c.table.numel() for c in cols]
+    out["dict_remap"] = dict(
+        ms=ms(lambda: kernels.dict_remap(cols, n2)),
+        plain_ms=ms(lambda: kernels.dict_remap_plain(cols, n2)),
+        library_ms=None, max_abs_err=err,
+        bound=bound(n2 * 9 * (len(cols) + 1) + 8 * sum(tlen),
+                    n2 * sum(max(t_, 2).bit_length() for t_ in tlen)))
+    for name, r in out.items():
+        print(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']}, bound {r['bound'][0]:.4f} ms by "
+              f"{r['bound'][1]}), max_abs_err {r['max_abs_err']}")
+    return out, total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1451,9 +1734,12 @@ def main() -> int:
     results, data, batch = phase_b(tpch.SF1_ROWS, seed=2, device=device,
                                    edge_cap=1 << 20)
     e_results, e_launches = phase_e(data, batch, device, seed=5)
+    f_results, f_launches = phase_f(data, batch, device, seed=2)
     del data, batch
     launches.update({k: e_launches[k] for k in SLICE3_KERNELS})
+    launches.update({k: f_launches[k] for k in JOIN_KERNELS})
     results.update(e_results)
+    results.update(f_results)
     launches.update(phase_c(tpch.SF001_ROWS, seed=1, device=device))
     results.update(phase_d(tpch.SF1_ROWS, seed=2, device=device))
     rows = []

@@ -1,11 +1,13 @@
 """The port imports neither JAX nor anything of the JAX package.
 
-The AST scan covers every module of tidb_tpu_torch (cluster/, distsql/
-and executor/ included) and chip_smoke.py; the subprocess tests run TPC-H
-Q1 through GpuClient(device="cpu"), the slice-3 shapes (a ranked
-group-by, DISTINCT, TopN) through it too, and Q1 through the cluster
-path over two regions, in a fresh interpreter (tests/conftest.py imports
-jax into this one) and look at what got loaded.
+The AST scan covers every module of tidb_tpu_torch (cluster/, distsql/,
+executor/ and the join path's modules included) and chip_smoke.py; the
+subprocess tests run TPC-H Q1 through GpuClient(device="cpu"), the
+slice-3 shapes (a ranked group-by, DISTINCT, TopN) through it too, Q1
+through the cluster path over two regions, and a join statement through
+XSelectTableExec → HashJoinExec → HashAggExec, in a fresh interpreter
+(tests/conftest.py imports jax into this one) and look at what got
+loaded. Without CUDA, the join path asked for the card raises.
 """
 
 import ast
@@ -14,6 +16,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -64,6 +67,10 @@ def test_scan_finds_the_port():
     for sub in ("cluster", "distsql", "executor"):
         assert any(os.path.join("tidb_tpu_torch", sub, "") in p
                    for p in files), sub
+    for mod in (("copr", "dictionary.py"), ("executor", "executors.py"),
+                ("executor", "distsql_exec.py"), ("plan.py",)):
+        assert any(p.endswith(os.path.join("tidb_tpu_torch", *mod))
+                   for p in files), mod
     assert len(files) >= 25
 
 
@@ -126,6 +133,40 @@ print("LOADED", bad)
 """
 
 
+_DRIVE_JOIN = r"""
+import sys
+sys.path.insert(0, {root!r})
+from tidb_tpu_torch import tpch
+from tidb_tpu_torch.executor.distsql_exec import XSelectTableExec
+from tidb_tpu_torch.executor.executors import HashAggExec, HashJoinExec
+from tidb_tpu_torch.kv.memstore import MemStore
+from tidb_tpu_torch.ops.client import GpuClient
+data = tpch.generate(2000, seed=3)
+tables = tpch.join_data(data, 3)
+lineitem = [tpch.C_ORDERKEY, tpch.C_PARTKEY, tpch.C_SUPPKEY,
+            tpch.C_FDISCOUNT, tpch.C_SHIPDATE]
+client = GpuClient(MemStore([], []), device="cpu")
+for name in tpch.JOINS:
+    left, right, plan, aggs, group_by = tpch.join_statement(name)
+    kids = []
+    for sel in (left, right):
+        tid = sel.table_info.table_id
+        req = tpch.store_request(sel)
+        client.admit(sel, req.key_ranges, tpch.join_batch(
+            tables, tid, lineitem if tid == tpch.TABLE_ID else None))
+        kids.append(XSelectTableExec(client, sel, req.key_ranges))
+    join = HashJoinExec(kids[0], kids[1], plan)
+    rows = HashAggExec(join, aggs, group_by).drain()
+    got = [[d.val.encode() if isinstance(d.val, str) else d.val
+            for d in row] for row in rows]
+    assert got == tpch.join_expected(name, tables), name
+    assert join.join_stats["path"] == "device", join.join_stats
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "tidb_tpu"))
+print("LOADED", bad)
+"""
+
+
 def _run_without_jax(script: str) -> None:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", script.format(root=ROOT)],
@@ -145,3 +186,27 @@ def test_slice3_runs_without_jax():
 
 def test_cluster_q1_runs_without_jax():
     _run_without_jax(_DRIVE_CLUSTER_Q1)
+
+
+def test_join_runs_without_jax():
+    _run_without_jax(_DRIVE_JOIN)
+
+
+def test_join_path_without_cuda_raises():
+    """The card is the default: without CUDA a client, or a join with no
+    device of its own, raises DeviceError instead of running the plain
+    versions."""
+    from tidb_tpu_torch import carry, tpch
+    from tidb_tpu_torch.errors import DeviceError
+    from tidb_tpu_torch.executor.executors import HashJoinExec
+    from tidb_tpu_torch.kv.memstore import MemStore
+    from tidb_tpu_torch.ops import columnar as col
+    from tidb_tpu_torch.ops.client import GpuClient
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the card is there")
+    with pytest.raises(DeviceError, match="CUDA is not available"):
+        GpuClient(MemStore([], []))
+    _l, _r, plan, _a, _g = tpch.join_statement("f1_q3_join")
+    side = carry.SideExec(col.RowsSide([]), 4)
+    with pytest.raises(DeviceError, match="CUDA is not available"):
+        HashJoinExec(side, side, plan)

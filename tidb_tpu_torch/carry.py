@@ -10,12 +10,15 @@ from __future__ import annotations
 
 import numpy as np
 
-from tidb_tpu_torch import errors
+from tidb_tpu_torch import errors, plan
 from tidb_tpu_torch.copr import proto
+from tidb_tpu_torch.executor.distsql_exec import Executor
+from tidb_tpu_torch.executor.executors import HashAggExec
 from tidb_tpu_torch.kv import kv
 from tidb_tpu_torch.ops import columnar as col
 from tidb_tpu_torch.sqlast.opcode import Op
 from tidb_tpu_torch.types.datum import Datum, Kind
+from tidb_tpu_torch.types.field_type import FieldType
 from tidb_tpu_torch.types.time_types import Duration, Time
 
 
@@ -127,3 +130,85 @@ def cluster_from(ref_store, read_ts: int) -> tuple[list, list]:
              ref_store.get_snapshot(read_ts).iterate(b"", None)]
     splits = [bytes(r.start) for r in ref_store.cluster.regions[1:]]
     return pairs, splits
+
+
+# ---------------------------------------------------------------------------
+# the join path: plans, aggregates and join sides
+# ---------------------------------------------------------------------------
+
+def field_type_from(ft) -> FieldType | None:
+    if ft is None:
+        return None
+    return FieldType(ft.tp, ft.flag, ft.flen, ft.decimal, list(ft.elems),
+                     getattr(ft, "collate", "utf8_bin"))
+
+
+def expression_from(e):
+    """A reference Column or Constant as the port's; any other expression
+    as a plan.Residual, which the port refuses."""
+    name = type(e).__name__
+    if name == "Column":
+        return plan.Column(e.index, field_type_from(e.ret_type))
+    if name == "Constant":
+        return plan.Constant(datum_from(e.value))
+    return plan.Residual(repr(e))
+
+
+def join_plan_from(ref_plan) -> plan.Join:
+    """A reference plan.Join as the port's."""
+    j = plan.Join(int(ref_plan.join_type))
+    j.eq_conditions = [(expression_from(a), expression_from(b))
+                       for a, b in ref_plan.eq_conditions]
+    j.left_conditions = [expression_from(e)
+                         for e in ref_plan.left_conditions]
+    j.right_conditions = [expression_from(e)
+                          for e in ref_plan.right_conditions]
+    j.other_conditions = [expression_from(e)
+                          for e in ref_plan.other_conditions]
+    return j
+
+
+def agg_func_from(f) -> plan.AggFunc:
+    """A reference AggregationFunction, with its result over no row."""
+    return plan.AggFunc(f.name, [expression_from(a) for a in f.args],
+                        plan.AggFunctionMode(int(f.mode)), bool(f.distinct),
+                        datum_from(f.get_result(f.create_context())))
+
+
+def agg_from(ref_agg, child) -> HashAggExec:
+    """A reference HashAggExec's aggregate functions and group-by, over
+    the port executor `child`."""
+    return HashAggExec(child, [agg_func_from(f) for f in ref_agg.agg_funcs],
+                       [expression_from(g) for g in ref_agg.group_by])
+
+
+def side_from(ref_side):
+    """A reference join side as the port's: a RowsSide's rows as port
+    datums, a ColumnarScanResult's batch (batch_from), selection and
+    columns."""
+    if hasattr(ref_side, "batch"):
+        return col.ColumnarScanResult(
+            batch_from(ref_side.batch), np.asarray(ref_side.sel),
+            [column_info_from(c) for c in ref_side.pb_cols])
+    return col.RowsSide([[datum_from(d) for d in row]
+                         for row in ref_side.rows()])
+
+
+class SideExec(Executor):
+    """A join child that serves a carried side: its planes when it is a
+    ColumnarScanResult, else its rows. `width` is the child's column
+    count."""
+
+    def __init__(self, side, width: int):
+        self.side = side
+        self.schema = [None] * width
+        self._rows = None
+
+    def columnar_result(self):
+        return self.side if isinstance(self.side, col.ColumnarScanResult) \
+            else None
+
+    def next(self):
+        if self._rows is None:
+            self._rows = iter(self.side.rows())
+        return next(self._rows, None)

@@ -188,10 +188,13 @@ class Chunk:
 class SelectResponse:
     chunks: list[Chunk] = field(default_factory=list)
     error: str | None = None
-    # a region's columnar payload (ops.columnar.ColumnarAggStates)
+    # a columnar payload: a region's ops.columnar.ColumnarAggStates, or a
+    # scan's ColumnarScanResult
     columnar: object | None = None
 
     def row_count(self) -> int:
+        if hasattr(self.columnar, "iter_raw_with_handles"):
+            return len(self.columnar)
         return sum(len(c.rows_meta) for c in self.chunks)
 
 
@@ -223,7 +226,12 @@ class ChunkWriter:
 
 
 def iter_response_rows(resp: SelectResponse):
-    """Yield (handle, datums) decoded from chunks."""
+    """Yield (handle, datums) decoded from chunks; a columnar scan answer
+    yields the same flattened datums from its planes."""
+    scan = getattr(resp.columnar, "iter_raw_with_handles", None)
+    if scan is not None:
+        yield from scan()
+        return
     for chunk in resp.chunks:
         pos = 0
         mv = memoryview(chunk.rows_data)

@@ -1,6 +1,7 @@
 """distsql: send one coprocessor request and collect its partial results
 (the port of tidb_tpu/distsql/__init__.py:67 SelectResult, :98-213
-columnar, :266 select, cut to the cluster path's columnar payloads).
+columnar, :266 select, cut to the columnar payloads: the cluster path's
+partial states and an in-process scan's planes).
 
 Reference: distsql/distsql.go:277 Select.
 """
@@ -21,11 +22,12 @@ class SelectResult:
         self._resp = resp
 
     def columnar(self):
-        """Drain every partial and finish the statement: the one region's
-        ColumnarAggStates payload, or a ColumnarStatesSet of them in task
-        order, with filter and states fulfilled; None when no region
-        answered. A region answering rows, or a mix of payload kinds,
-        raises Unsupported (the port has no row path yet)."""
+        """Drain every partial and finish the statement: a single scan's
+        ColumnarScanResult, or the one region's ColumnarAggStates payload,
+        or a ColumnarStatesSet of them in task order, with filter and
+        states fulfilled; None when no region answered. A partial
+        answering rows, a mix of payload kinds, or scan planes over several
+        regions raise Unsupported (the port has no row path yet)."""
         parts = []
         while True:
             part = self._resp.next()
@@ -37,6 +39,9 @@ class SelectResult:
         if not parts:
             return None
         payloads = [p.columnar for p in parts]
+        if len(payloads) == 1 and \
+                isinstance(payloads[0], col.ColumnarScanResult):
+            return payloads[0]
         if not all(getattr(p, "is_agg_states", False) for p in payloads):
             raise Unsupported("a response mixing rows and columnar "
                               "payloads comes in a later slice")

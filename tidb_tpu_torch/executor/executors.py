@@ -1,0 +1,237 @@
+"""The join and aggregate executors over columnar children (the port of
+tidb_tpu/executor/executors.py:688 HashJoinExec's vector route and
+:529 HashAggExec's fused route).
+
+HashJoinExec sends every equi-join to the device, as the reference's does
+at or above its dispatch floor: a single int64/f64 key straight to K11
+(join_build) + K12 (join_probe), gathered from the scans' resident planes;
+string and multi-column keys through the dictionary tier
+(copr.dictionary) and K13 (dict_remap), then K11 + K12. The pairs come
+back in left-scan order, ties in right-scan order — the row engine's
+emission order — and stay columnar (ops.columnar.DeviceJoinResult): an
+aggregate above reads the gathered planes (executor.fused_agg), anything
+else pulls materialized rows.
+
+There is no row engine in the port and no floor: every join on the card
+runs the kernels, and with device="cpu" their plain PyTorch versions
+(the reference's _numpy_pairs arithmetic). Shapes the reference hands to
+its row engine raise Unsupported: join types other than INNER and LEFT
+OUTER, conditions beyond the equi-keys, ci collations, keys outside the
+dictionary tier. A kernel that fails raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from tidb_tpu_torch import mysqldef as my
+from tidb_tpu_torch.copr import dictionary
+from tidb_tpu_torch.executor import fused_agg
+from tidb_tpu_torch.executor.distsql_exec import Executor
+from tidb_tpu_torch.ops import columnar as col, kernels
+from tidb_tpu_torch.ops.client import resolve_device
+from tidb_tpu_torch.ops.exprc import Unsupported
+from tidb_tpu_torch.plan import Column, Join
+
+
+def _is_str(c: Column) -> bool:
+    return c.ret_type is not None and c.ret_type.tp in my.STRING_TYPES
+
+
+def _is_ci(c: Column) -> bool:
+    return c.ret_type is not None and c.ret_type.is_ci_collation()
+
+
+class HashJoinExec(Executor):
+    """Equi-join of two children (left, right) under a plan.Join. The
+    device is the caller's, else the left child's client's, else the
+    card (which raises DeviceError where there is no CUDA)."""
+
+    def __init__(self, child_left: Executor, child_right: Executor,
+                 plan: Join, device=None):
+        self.children = [child_left, child_right]
+        self.plan = plan
+        self.schema = list(child_left.schema) + list(child_right.schema)
+        if device is None:
+            client = getattr(child_left, "client", None)
+            device = getattr(client, "device", None)
+        self.device = resolve_device(device)
+        self.join_stats: dict = {}   # path and per-phase timings
+        self._right_width = len(child_right.schema)
+        self._vector_tried = False
+        self._device = None          # the DeviceJoinResult
+        self._vector_iter = None
+
+    # ---- the sides ----
+
+    @staticmethod
+    def _side(child):
+        """A child's answer as a join side: its columnar scan payload, or
+        its drained rows."""
+        get = getattr(child, "columnar_result", None)
+        side = get() if get is not None else None
+        return side if side is not None else col.RowsSide(child.drain())
+
+    @staticmethod
+    def _side_key(side, c: Column):
+        """(values, valid) host planes of one int64/f64 key column."""
+        kind, vals, valid = side.column_plane(c.index)
+        if kind not in ("i64", "f64"):
+            raise Unsupported(f"a join key of plane kind {kind} (decimal, "
+                              f"time, unsigned) needs the row engine")
+        return vals, valid
+
+    @staticmethod
+    def _side_device_keys(lside, rside, lcol: Column, rcol: Column):
+        """(lkey, lvalid, rkey, rvalid) tensors gathered on the device from
+        both sides' resident planes, or None when a side has none."""
+        gl = getattr(lside, "device_plane", None)
+        gr = getattr(rside, "device_plane", None)
+        if gl is None or gr is None:
+            return None
+        dl, dr = gl(lcol.index), gr(rcol.index)
+        if dl is None or dr is None or dl[0].dtype != dr[0].dtype:
+            return None
+        return (dl[0], dl[1], dr[0], dr[1])
+
+    # ---- the routes ----
+
+    def _try_vector_join(self) -> None:
+        plan = self.plan
+        if not plan.eq_conditions:
+            raise Unsupported("a join without equality conditions needs "
+                              "the row engine")
+        if plan.join_type not in (Join.INNER, Join.LEFT_OUTER):
+            raise Unsupported(f"join type {plan.join_type} needs the row "
+                              f"engine")
+        if plan.left_conditions or plan.right_conditions or \
+                plan.other_conditions:
+            raise Unsupported("join conditions beyond the equi-keys need "
+                              "the row expression evaluator")
+        for pair in plan.eq_conditions:
+            if not all(isinstance(c, Column) for c in pair):
+                raise Unsupported("an equality condition over an "
+                                  "expression needs the row engine")
+        if any(_is_ci(c) for pair in plan.eq_conditions for c in pair):
+            raise Unsupported("a ci-collation join key needs the row "
+                              "engine's casefolded codec keys")
+        if len(plan.eq_conditions) > 1 or \
+                any(_is_str(c) for pair in plan.eq_conditions for c in pair):
+            self._try_dict_join()
+            return
+        lcol, rcol = plan.eq_conditions[0]
+        rside = self._side(self.children[1])
+        lside = self._side(self.children[0])
+        with kernels.phase("side_planes", self.device):
+            rkey, rvalid = self._side_key(rside, rcol)
+            lkey, lvalid = self._side_key(lside, lcol)
+            device_keys = None
+            if rkey.dtype != lkey.dtype:
+                # an int side against a float side never matches under the
+                # row engine's codec keys: match nothing / outer-pad
+                lvalid = np.zeros_like(lvalid)
+                lkey = lkey.astype(rkey.dtype)
+            else:
+                device_keys = self._side_device_keys(lside, rside, lcol,
+                                                     rcol)
+        self._start_device(lside, rside, lkey, lvalid, rkey, rvalid,
+                           device_keys)
+
+    def _try_dict_join(self) -> None:
+        """String / multi-column equi-join: each key pair into one shared
+        domain (copr.dictionary), the composite key-tuple codes built on
+        the device by K13, one launch per side, then K11 + K12."""
+        plan = self.plan
+        rside = self._side(self.children[1])
+        lside = self._side(self.children[0])
+        pairs = [(lc.index, rc.index, _is_str(lc) or _is_str(rc))
+                 for lc, rc in plan.eq_conditions]
+        with kernels.phase("side_planes", self.device):
+            try:
+                specs = dictionary.build_join_specs(
+                    lside, rside, pairs, dictionary.DEFAULT_MAX_NDV_RATIO)
+            except dictionary.DictBail as e:
+                raise Unsupported(f"join keys outside the dictionary "
+                                  f"tier: {e}") from None
+        stats = self.join_stats
+        stats["dict_keys"] = True
+        stats["key_cols"] = len(plan.eq_conditions)
+        if specs is None:
+            # provably matchless (a cross-kind pair or a vacuous side)
+            stats["path"] = "matchless"
+            empty = np.zeros(0, np.int64)
+            with kernels.phase("finish", self.device):
+                self._finish_pairs(lside, rside, empty, empty.copy())
+            return
+        l_specs, r_specs = specs
+        with kernels.phase("k13", self.device):
+            lk, lv = kernels.dict_remap_keys(l_specs, len(lside), self.device)
+            rk, rv = kernels.dict_remap_keys(r_specs, len(rside), self.device)
+        self._start_device(lside, rside, None, None, None, None,
+                           (lk, lv, rk, rv))
+
+    def _start_device(self, lside, rside, lkey, lvalid, rkey, rvalid,
+                      device_keys) -> None:
+        stats = self.join_stats
+        li, ri = kernels.join_match_pairs(lkey, lvalid, rkey, rvalid,
+                                          stats=stats,
+                                          device_keys=device_keys,
+                                          device=self.device)
+        with kernels.phase("finish", self.device):
+            self._finish_pairs(lside, rside, li, ri)
+        stats["path"] = "device"
+        if device_keys is not None:
+            stats["device_resident_keys"] = True
+
+    def _finish_pairs(self, lside, rside, li, ri) -> None:
+        """Add the LEFT OUTER pads, merged back stably into left-scan
+        order, and expose the columnar DeviceJoinResult."""
+        if self.plan.join_type == Join.LEFT_OUTER:
+            matched = np.bincount(li, minlength=len(lside))
+            pad_l = np.flatnonzero(matched == 0)
+            if len(pad_l):
+                li = np.concatenate([li, pad_l])
+                ri = np.concatenate([ri, np.full(len(pad_l), -1, np.int64)])
+                # pads never share a left index with a match
+                perm = np.argsort(li, kind="stable")
+                li, ri = li[perm], ri[perm]
+        self._device = col.DeviceJoinResult(
+            lside, rside, li, ri, len(self.children[0].schema),
+            self._right_width)
+
+    def device_join_result(self):
+        """Run the join (once) and expose its columnar result."""
+        if not self._vector_tried:
+            self._vector_tried = True
+            self._try_vector_join()
+        return self._device
+
+    def next(self):
+        if self._vector_iter is None:
+            self._vector_iter = self.device_join_result().iter_rows(
+                stats=self.join_stats)
+        return next(self._vector_iter, None)
+
+
+class HashAggExec(Executor):
+    """COMPLETE-mode hash aggregation over a join or a scan, answered by
+    the fused route (executor.fused_agg.try_fused_agg) alone: the port has
+    no row loop, so an aggregate outside the fusable subset raises
+    Unsupported."""
+
+    def __init__(self, child: Executor, agg_funcs: list, group_by: list):
+        self.children = [child]
+        self.agg_funcs = agg_funcs
+        self.group_by = group_by
+        self.schema = list(agg_funcs)
+        self._rows = None
+        self._pos = 0
+
+    def next(self):
+        if self._rows is None:
+            self._rows = fused_agg.try_fused_agg(self)
+        if self._pos >= len(self._rows):
+            return None
+        row = self._rows[self._pos]
+        self._pos += 1
+        return row

@@ -1,7 +1,22 @@
-"""FINAL aggregation over grouped partial STATES (the port of
-tidb_tpu/executor/fused_agg.py:499-580 _StatesCombine, :630-830
-_try_final_states and :833 _merge_datum_states).
+"""Aggregates fused over columnar inputs (the port of
+tidb_tpu/executor/fused_agg.py:226 try_fused_agg, :241 _try_fused, :327
+_group_codes, :361 _arg_plane, :379 _fused_func, _has_neg_zero, :859
+_sum_avg_datums, :875 _minmax_datums; and, for the cluster path, :499-580
+_StatesCombine, :630-830 _try_final_states and :833 _merge_datum_states).
 
+COMPLETE mode: `try_fused_agg(agg)` answers a HashAgg over a join's
+DeviceJoinResult or a scan's ColumnarScanResult straight from the
+gathered planes, row for row what the reference's row loop returns:
+groups in first-appearance order (NULL keys one group), int SUM/AVG exact
+(int64 with an overflow pre-guard, then Decimal), float SUM/AVG by
+np.add.at, an unbuffered scatter-add in row order, so the rounding
+sequence is the row loop's. Where the reference gives the fusion back to
+its row loop (None: DISTINCT, decimal, time or unsigned arguments, string
+MIN/MAX, -0.0 in a float plane, a sum that could wrap) the port raises
+Unsupported: it has no row loop. The reductions stay on the host, in the
+reference's order: a device reduction would change the last ulp.
+
+FINAL mode:
 `final_states(sel, result)` turns the per-region ColumnarAggStates of one
 statement into the final aggregate rows: the regions' group keys unify in
 TASK order (the row protocol's partial arrival order, so the global
@@ -34,8 +49,9 @@ from tidb_tpu_torch.types.datum import NULL, Datum
 I64_SENTINEL_MIN = (1 << 63) - 1   # "min" monoid identity (int planes)
 I64_SENTINEL_MAX = -(1 << 63)      # "max" monoid identity
 
+# "fused" counts COMPLETE-mode aggregates answered from planes
 stats = {"final_states": 0, "partial_combines": 0,
-         "last_combine_regions": 0, "last_groups": 0}
+         "last_combine_regions": 0, "last_groups": 0, "fused": 0}
 
 
 class _StatesCombine:
@@ -304,3 +320,232 @@ def _merge_datum_states(name: str, sts, maps, G: int) -> list:
             if (c > 0) == (name == "max") and c != 0:
                 vals[g] = d
     return [NULL if v is None else v for v in vals]
+
+
+# ---------------------------------------------------------------------------
+# COMPLETE mode over a single-batch join or scan result
+# ---------------------------------------------------------------------------
+
+_FUSABLE = ("count", "sum", "avg", "min", "max", "first_row")
+
+I64_MAX = (1 << 63) - 1
+I64_MIN = -(1 << 63)
+
+
+def _has_neg_zero(vals, mask) -> bool:
+    """-0.0 changes fused SUM/MIN/MAX output identity (the row loop keeps
+    the first-seen zero sign, numpy reductions normalize it)."""
+    z = (vals == 0.0) & np.signbit(vals) & mask
+    return bool(np.any(z))
+
+
+def try_fused_agg(agg) -> list:
+    """The result rows of a COMPLETE-mode HashAgg (`agg_funcs`,
+    `group_by`, `children`) over a join (device_join_result) or a scan
+    (columnar_result); raises Unsupported outside the fusable subset."""
+    out = _try_fused(agg)
+    stats["fused"] += 1
+    return out
+
+
+def _try_fused(agg) -> list:
+    from tidb_tpu_torch.plan import AggFunctionMode, Column, Constant
+
+    for f in agg.agg_funcs:
+        if f.mode != AggFunctionMode.COMPLETE or f.distinct:
+            raise Unsupported("a DISTINCT or FINAL-mode aggregate over a "
+                              "join needs the row loop")
+        if f.name not in _FUSABLE or len(f.args) > 1:
+            raise Unsupported(f"aggregate {f.name} needs the row loop")
+        for a in f.args:
+            if not isinstance(a, (Column, Constant)):
+                raise Unsupported("an aggregate over an expression needs "
+                                  "the row loop")
+    for g in agg.group_by:
+        if not isinstance(g, Column) or (
+                g.ret_type is not None and g.ret_type.is_ci_collation()):
+            raise Unsupported("a group key over an expression or a ci "
+                              "collation needs the row loop")
+    child = agg.children[0]
+    if hasattr(child, "device_join_result"):
+        res = child.device_join_result()
+    else:
+        res = child.columnar_result()
+    if res is None:
+        raise Unsupported("the aggregate's child answered rows")
+    n = len(res)
+    # a join's device, or a scan's client's
+    device = getattr(child, "device", None) or child.client.device
+
+    with kernels.phase("group_codes", device):
+        if agg.group_by:
+            codes = []
+            for g in agg.group_by:
+                c = _group_codes(res, g.index)
+                if c is None:
+                    raise Unsupported("a group key with no plane")
+                codes.append(c)
+            if len(codes) == 1:
+                _u, first_idx, gid = np.unique(
+                    codes[0], return_index=True, return_inverse=True)
+                G = len(_u)
+            else:
+                mat = np.stack(codes, axis=1)
+                _u, first_idx, gid = np.unique(
+                    mat, axis=0, return_index=True, return_inverse=True)
+                G = _u.shape[0]
+            gid = np.reshape(gid, -1)
+            if G == 0:
+                return []   # GROUP BY over empty input emits no rows
+        else:
+            if n == 0:
+                # aggregates over an empty input still yield one row
+                return [[f.empty for f in agg.agg_funcs]]
+            gid = np.zeros(n, dtype=np.int64)
+            first_idx = np.zeros(1, dtype=np.int64)
+            G = 1
+    with kernels.phase("reductions", device):
+        cols = [_fused_func(res, f, gid, G, first_idx, n)
+                for f in agg.agg_funcs]
+    with kernels.phase("emit", device):
+        emit = np.argsort(first_idx, kind="stable")
+        return [[c[g] for c in cols] for g in emit.tolist()]
+
+
+def _group_codes(res, j: int):
+    """Dense group codes for output column j; NULL → -1 (one group). None
+    when the plane can't represent the column with codec-key-equal
+    grouping."""
+    get_codes = getattr(res, "dict_code_plane", None)
+    if get_codes is not None:
+        ent = get_codes(j)
+        if ent is not None:
+            # string group keys ride their dictionary codes (injective over
+            # bytes, NULL = -1): no bytes materialize
+            codes, valid, _dom = ent
+            return np.where(valid, codes, -1).astype(np.int64)
+    kind, vals, valid = res.column_plane(j)
+    if kind is None:
+        return None
+    if kind == "str":
+        uniq = sorted(set(vals[valid].tolist()))
+        m = {b: i for i, b in enumerate(uniq)}
+        return np.fromiter(
+            (m[v] if ok else -1
+             for v, ok in zip(vals.tolist(), valid.tolist())),
+            dtype=np.int64, count=len(vals))
+    if kind == "f64":
+        # -0.0 groups WITH 0.0 (the codec key normalizes it)
+        vals = np.where(vals == 0.0, 0.0, vals)
+    uniq = np.unique(vals[valid])
+    codes = np.searchsorted(uniq, vals).astype(np.int64)
+    codes[~valid] = -1
+    return codes
+
+
+def _arg_plane(res, f, n: int):
+    """(kind, values, valid) plane of an aggregate argument: a gathered
+    column or a broadcast constant; None when unsupported."""
+    from tidb_tpu_torch.plan import Constant
+    from tidb_tpu_torch.types.datum import Kind
+
+    arg = f.args[0] if f.args else None
+    if arg is None or isinstance(arg, Constant):
+        const = arg.value if arg is not None else Datum.i64(1)
+        if const.is_null():
+            return "i64", np.zeros(n, np.int64), np.zeros(n, bool)
+        if const.kind == Kind.INT64:
+            return ("i64", np.full(n, int(const.val), np.int64),
+                    np.ones(n, bool))
+        if const.kind == Kind.FLOAT64:
+            return ("f64", np.full(n, float(const.val), np.float64),
+                    np.ones(n, bool))
+        return None
+    return res.column_plane(arg.index)
+
+
+def _fused_func(res, f, gid, G: int, first_idx, n: int) -> list:
+    """Per-group result datums (unique-order indexing) of one aggregate."""
+    from tidb_tpu_torch.plan import Column, Constant
+
+    name = f.name
+    if name == "first_row":
+        arg = f.args[0] if f.args else None
+        if isinstance(arg, Constant):
+            return [arg.value] * G
+        if not isinstance(arg, Column):
+            raise Unsupported("first_row over an expression")
+        return res.gather_datums(arg.index, first_idx)
+
+    plane = _arg_plane(res, f, n)
+    if plane is None or plane[0] is None:
+        raise Unsupported(f"{name} over an argument with no plane "
+                          f"(decimal, time, unsigned) needs the row loop")
+    kind, vals, valid = plane
+    if name == "count":
+        return [Datum.i64(int(c)) for c in np.bincount(gid[valid],
+                                                       minlength=G)]
+    if kind == "str":
+        raise Unsupported(f"string {name} needs collation-aware compares")
+    ok = valid
+
+    if name in ("sum", "avg"):
+        if kind == "i64":
+            vk = vals[ok]
+            if len(vk):
+                mx = max(abs(int(vk.min())), abs(int(vk.max())))
+                if mx and mx * len(vk) >= (1 << 63):
+                    raise Unsupported("an int sum that could wrap needs "
+                                      "the row loop's Decimal sum")
+            cnt = np.bincount(gid[ok], minlength=G)
+            sums = np.zeros(G, np.int64)
+            np.add.at(sums, gid[ok], vk)
+        else:
+            # float sums accumulate in ROW order (np.add.at, unbuffered)
+            if _has_neg_zero(vals, ok):
+                raise Unsupported("-0.0 in a float sum needs the row loop")
+            cnt = np.bincount(gid[ok], minlength=G)
+            sums = np.zeros(G, np.float64)
+            np.add.at(sums, gid[ok], vals[ok])
+        return _sum_avg_datums(name, kind, cnt, sums, G)
+
+    if name in ("min", "max"):
+        is_min = name == "min"
+        if kind == "i64":
+            init = I64_MAX if is_min else I64_MIN
+            dtype = np.int64
+        else:
+            if _has_neg_zero(vals, ok):
+                raise Unsupported("-0.0 in a float extremum needs the row "
+                                  "loop")
+            init = np.inf if is_min else -np.inf
+            dtype = np.float64
+        reduce_at = np.minimum.at if is_min else np.maximum.at
+        cnt = np.bincount(gid[ok], minlength=G)
+        red = np.full(G, init, dtype)
+        reduce_at(red, gid[ok], vals[ok])
+        return _minmax_datums(kind, cnt, red, G)
+    raise Unsupported(f"aggregate {name} needs the row loop")
+
+
+def _sum_avg_datums(name: str, kind: str, cnt, sums, G: int) -> list:
+    out = []
+    for g in range(G):
+        c = int(cnt[g])
+        if c == 0:
+            out.append(NULL)
+        elif name == "sum":
+            out.append(Datum.f64(float(sums[g])) if kind == "f64"
+                       else Datum.dec(Decimal(int(sums[g]))))
+        else:
+            out.append(Datum.f64(float(sums[g]) / c) if kind == "f64"
+                       else Datum.dec(Decimal(int(sums[g]))
+                                      / Decimal(c)))
+    return out
+
+
+def _minmax_datums(kind: str, cnt, red, G: int) -> list:
+    return [NULL if int(cnt[g]) == 0
+            else (Datum.f64(float(red[g])) if kind == "f64"
+                  else Datum.i64(int(red[g])))
+            for g in range(G)]

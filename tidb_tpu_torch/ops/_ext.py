@@ -28,7 +28,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
 
 SOURCES = ("expr_vm", "scalar_agg", "seg_agg_onehot", "seg_agg_sorted",
            "rank_groups", "distinct_runs", "topk_select", "seg_states_ragged",
-           "combine_partials")
+           "combine_partials", "join_build", "join_probe", "dict_remap")
 # -fmad=false: no multiply-add contraction, so every f64 a * b + c rounds
 # twice exactly as the plain versions (and the reference) round it
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -81,6 +81,19 @@ SIGNATURES = {
     },
     "combine_partials": {
         "combine_partials_launch": ([_I, _I, _P, _P, _P, _L, _P], _I),
+    },
+    "join_build": {
+        "join_build_blocks": ([_L], _L),
+        "join_build_launch": ([_L, _P, _P, _I, _P, _P, _P, _P, _P, _P], _I),
+    },
+    "join_probe": {
+        "join_probe_blocks": ([_L], _L),
+        "join_probe_count_launch": ([_L, _P, _P, _I, _P, _L, _P, _P, _P, _P,
+                                     _P, _P], _I),
+        "join_probe_expand_launch": ([_L, _L, _P, _P, _P, _I, _P, _P], _I),
+    },
+    "dict_remap": {
+        "dict_remap_launch": ([_L, _I, _P, _P, _P, _P], _I),
     },
 }
 

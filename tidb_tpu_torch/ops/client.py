@@ -11,9 +11,13 @@ Per request:
      else compacted to host tuple codes, DISTINCT aggregates sort and K9
      marks their runs, TopN selects with K10, or the filter's survivors
      are gathered;
-  3. results go back as the SAME partial-row chunk protocol the CPU engine
-     and TpuClient emit (TpuClient under tidb_tpu_columnar_scan=0: the
-     port never answers the columnar payloads).
+  3. aggregates go back as the SAME partial-row chunk protocol the CPU
+     engine and TpuClient emit (TpuClient under tidb_tpu_columnar_scan=0);
+     a scan or TopN that carries `columnar_hint` (a plane-aware executor
+     asked for it) is answered with its planes and selection index
+     (ops.columnar.ColumnarScanResult), as TpuClient does with
+     tidb_tpu_columnar_scan on — the port has no such switch: the hint
+     alone decides.
 
 A request outside the port (index scans, HAVING, ORDER BY without LIMIT,
 more than kernels.TOPN_MAX_KEYS ORDER BY items, a group tuple count beyond
@@ -103,14 +107,27 @@ class GpuClient(kv.Client):
         self.stats["gpu_requests"] += 1
         return _SingleResponse(resp)
 
+    def _batch_key(self, sel: SelectRequest, ranges) -> tuple:
+        """(cache key, data version) of the batch `sel` reads."""
+        src = sel.table_info
+        sig = tuple((c.column_id, c.tp, c.flag, c.flen, c.decimal,
+                     c.pk_handle, repr(c.default_val)) for c in src.columns)
+        key = (src.table_id, sig, tuple((r.start, r.end) for r in ranges))
+        return key, self.store.data_version_at(sel.start_ts,
+                                               tc.table_prefix(src.table_id))
+
+    def admit(self, sel: SelectRequest, ranges, batch: col.ColumnBatch
+              ) -> None:
+        """Serve `sel` over `ranges` from `batch`, packed by the caller
+        straight from its arrays (what packing the store's rows would
+        give): send then finds it where it keeps the batches it packed."""
+        key, version = self._batch_key(sel, ranges)
+        self._batch_cache[key] = (batch, version)
+
     def _get_batch(self, sel: SelectRequest, ranges) -> col.ColumnBatch:
         src = sel.table_info
         cols = src.columns
-        sig = tuple((c.column_id, c.tp, c.flag, c.flen, c.decimal,
-                     c.pk_handle, repr(c.default_val)) for c in cols)
-        key = (src.table_id, sig, tuple((r.start, r.end) for r in ranges))
-        version = self.store.data_version_at(sel.start_ts,
-                                             tc.table_prefix(src.table_id))
+        key, version = self._batch_key(sel, ranges)
         ent = self._batch_cache.get(key)
         if ent is not None and ent[1] == version:
             self.stats["batch_hits"] += 1
@@ -457,14 +474,17 @@ class GpuClient(kv.Client):
         fn = kernels.build_filter_fn(prog, where)
         planes = kernels.batch_planes(batch, self.device)
         live = kernels.device_live(batch, self.device)
-        idx = self._dispatch(
-            lambda p, lv: torch.nonzero(fn(p, lv)[0]).squeeze(1).cpu()
-            .numpy(), planes, live)
+
+        def run(p, lv):
+            idx_d = torch.nonzero(fn(p, lv)[0]).squeeze(1)
+            return idx_d, idx_d.cpu().numpy()
+
+        idx_d, idx = self._dispatch(run, planes, live)
         if sel.desc:
-            idx = idx[::-1]
-        if sel.limit is not None:
-            idx = idx[: sel.limit]
-        return self._emit_rows(batch, idx)
+            idx, idx_d = idx[::-1], None
+        if sel.limit is not None and sel.limit < len(idx):
+            idx, idx_d = idx[: sel.limit], None
+        return self._emit_rows(sel, batch, idx, idx_d)
 
     def _run_topn(self, sel, batch, prog, where) -> SelectResponse:
         if sel.limit is None:
@@ -483,9 +503,16 @@ class GpuClient(kv.Client):
 
         idx = self._dispatch(run, planes, live)
         with kernels.phase("emit", self.device):
-            return self._emit_rows(batch, idx)
+            return self._emit_rows(sel, batch, idx)
 
-    def _emit_rows(self, batch, idx) -> SelectResponse:
+    def _emit_rows(self, sel, batch, idx, idx_device=None) -> SelectResponse:
+        """The filter/TopN survivors: under `columnar_hint` the scan's
+        planes and selection index (ColumnarScanResult; `idx_device`, the
+        same index on the card where the filter left it), else rows."""
+        if sel.columnar_hint:
+            return SelectResponse(columnar=col.ColumnarScanResult(
+                batch, np.asarray(idx, dtype=np.int64), list(self._cur_cols),
+                device=self.device, sel_device=idx_device))
         writer = ChunkWriter()
         planes = batch.columns
         for i in idx.tolist():

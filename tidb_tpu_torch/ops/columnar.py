@@ -553,3 +553,413 @@ class ColumnarStatesSet:
 
     def region_epochs(self) -> list:
         return [getattr(p, "region_epoch", None) for p in self.parts]
+
+
+# ---------------------------------------------------------------------------
+# a scan's columnar answer and the sides of a device join (copy of
+# tidb_tpu/ops/columnar.py:560 plane_datums_batch, :593 ColumnarScanResult,
+# :1341 RowsSide, :1400 rows_plane, :1442 DeviceJoinResult, :1598
+# _side_gather, :1607 materialize_join_rows; the pure-Python branches, no
+# region segments). Rows materialize only for a consumer that pulls rows;
+# an aggregate above a join reads the gathered planes (join→agg fusion,
+# executor.fused_agg). Every side speaks gather_datums, the batched twin
+# of the reference's per-cell datum_at, so the port carries no datum_at.
+# ---------------------------------------------------------------------------
+
+def plane_datums_batch(cd: ColumnData, c: PBColumnInfo,
+                       rows: np.ndarray) -> list[Datum]:
+    """plane_datum over a batch of plane cells: one numpy gather per
+    plane, the same branch per kind."""
+    vals = cd.values[rows]
+    valid = cd.valid[rows].tolist()
+    if cd.kind == K_STR:
+        dic = cd.dictionary
+        return [Datum.bytes_(dic[v]) if ok else NULL
+                for v, ok in zip(vals.tolist(), valid)]
+    if cd.kind == K_F64:
+        return [Datum.f64(v) if ok else NULL
+                for v, ok in zip(vals.tolist(), valid)]
+    if cd.kind == K_DEC:
+        scale = Decimal(10) ** cd.dec_scale
+        return [Datum.dec(Decimal(v) / scale) if ok else NULL
+                for v, ok in zip(vals.tolist(), valid)]
+    if c.tp in my.TIME_TYPES:
+        return [Datum(Kind.TIME, Time.from_packed_int(v, c.tp)) if ok
+                else NULL for v, ok in zip(vals.tolist(), valid)]
+    if c.tp == my.TypeDuration:
+        return [Datum(Kind.DURATION, Duration(v)) if ok else NULL
+                for v, ok in zip(vals.tolist(), valid)]
+    return [Datum.i64(v) if ok else NULL
+            for v, ok in zip(vals.tolist(), valid)]
+
+
+class ColumnarScanResult:
+    """A scan's columnar answer: the packed ColumnBatch plus the selection
+    index (filter survivors, in emission order) and the output column
+    metadata. Doubles as a device-join SIDE: column_plane / gather_datums /
+    rows give what rows_plane over the materialized rows would,
+    value for value. The batch is the client's shared cache: read-only;
+    every gather copies. `device` is where the client keeps the batch's
+    planes (kernels.batch_planes); `sel_device` the selection on it, when
+    the filter left it there."""
+
+    def __init__(self, batch: ColumnBatch, sel: np.ndarray,
+                 pb_cols: list[PBColumnInfo], device=None, sel_device=None):
+        self.batch = batch
+        self.sel = np.asarray(sel, dtype=np.int64)
+        self.pb_cols = pb_cols
+        self.device = device
+        self._sel_device = sel_device
+        self._fts: list | None = None
+        self._plane_cache: dict = {}
+        self._device_plane_cache: dict = {}
+        self._rows_cache: list | None = None
+
+    def __len__(self) -> int:
+        return len(self.sel)
+
+    def handles(self) -> np.ndarray:
+        return self.batch.handles[self.sel]
+
+    def _ft(self, j: int):
+        if self._fts is None:
+            from tidb_tpu_torch.types.field_type import \
+                field_type_from_pb_column
+            self._fts = [field_type_from_pb_column(c) for c in self.pb_cols]
+        return self._fts[j]
+
+    def column_plane(self, j: int):
+        """Output column j as a (kind, values, valid) plane, kind one of
+        "i64" / "f64" / "str" — or (None, None, None) when the column's
+        datum kind has no plane mapping (unsigned bigint, time, duration,
+        decimal). The gate is rows_plane's over the row path."""
+        ent = self._plane_cache.get(j)
+        if ent is not None:
+            return ent
+        c = self.pb_cols[j]
+        cd = self.batch.columns[c.column_id]
+        sel = self.sel
+        valid = cd.valid[sel]
+        if not valid.any():
+            # all-NULL: a (vacuously) numeric plane, like rows_plane
+            ent = ("i64", np.zeros(len(sel), np.int64), valid)
+        elif cd.kind == K_STR:
+            vals = np.empty(len(sel), dtype=object)
+            dic = self._emit_dictionary(j, cd)
+            vals[:] = [dic[code] if ok else None
+                       for code, ok in zip(cd.values[sel].tolist(),
+                                           valid.tolist())]
+            ent = ("str", vals, valid)
+        elif cd.kind == K_F64:
+            ent = ("f64", cd.values[sel], valid)
+        elif cd.kind == K_I64 and c.tp in my.INTEGER_TYPES and \
+                not (c.tp == my.TypeLonglong and my.has_unsigned_flag(c.flag)):
+            ent = ("i64", cd.values[sel], valid)
+        else:
+            ent = (None, None, None)
+        self._plane_cache[j] = ent
+        return ent
+
+    def device_plane(self, j: int):
+        """Output column j as (values, valid) tensors on the client's
+        device, gathered there from the batch's resident planes — or None
+        when the column's plane is not a plain numeric one (or a vacuous
+        all-NULL coercion). Kind and dtype agree with column_plane(j)."""
+        ent = self._device_plane_cache.get(j, False)
+        if ent is not False:
+            return ent
+        out = None
+        if self.device is not None:
+            c = self.pb_cols[j]
+            cd = self.batch.columns[c.column_id]
+            kind, _v, _va = self.column_plane(j)
+            if (kind == "f64" and cd.kind == K_F64) or \
+                    (kind == "i64" and cd.kind == K_I64):
+                import torch
+
+                from tidb_tpu_torch.ops import kernels
+                if self._sel_device is None:
+                    self._sel_device = torch.from_numpy(self.sel).to(
+                        self.device)
+                dv, dva = kernels.batch_planes(self.batch,
+                                               self.device)[c.column_id]
+                out = kernels.gather_plane(dv, dva, self._sel_device)
+        self._device_plane_cache[j] = out
+        return out
+
+    def dict_code_plane(self, j: int):
+        """Output column j as DICTIONARY CODES: (codes int64 in emission
+        order, -1 on NULLs, valid, LocalDomain of the batch's sorted
+        dictionary). None when the column is not a K_STR plane, or when
+        the row path's utf-8 round trip would REWRITE a dictionary entry
+        (two raw entries could collapse to one emitted value, so code
+        identity would differ from byte identity)."""
+        ent = self._plane_cache.get(("dict", j))
+        if ent is not None:
+            return ent if ent != () else None
+        out = None
+        c = self.pb_cols[j]
+        cd = self.batch.columns.get(c.column_id)
+        if cd is not None and cd.kind == K_STR and \
+                self._dict_utf8_clean(j, cd):
+            from tidb_tpu_torch.copr.dictionary import LocalDomain
+            sel = self.sel
+            valid = cd.valid[sel]
+            codes = np.where(valid, cd.values[sel], -1)
+            out = (codes.astype(np.int64), valid,
+                   LocalDomain(cd.dictionary))
+        self._plane_cache[("dict", j)] = out if out is not None else ()
+        return out
+
+    def _dict_utf8_clean(self, j: int, cd: ColumnData) -> bool:
+        """True when the emitted dictionary equals the stored one: binary
+        columns always, decode-to-string columns when every entry survives
+        the utf-8 replacement round trip unchanged."""
+        from tidb_tpu_torch.types.convert import bytes_decode_to_string
+        if not bytes_decode_to_string(self._ft(j)):
+            return True
+        clean = getattr(cd, "_utf8_clean", None)
+        if clean is None:
+            clean = all(b.decode("utf-8", "replace").encode("utf-8") == b
+                        for b in cd.dictionary)
+            cd._utf8_clean = clean
+        return clean
+
+    def _emit_dictionary(self, j: int, cd: ColumnData) -> list[bytes]:
+        """Dictionary bytes as the ROW path carries them: non-binary
+        string columns round-trip through utf-8 with replacement."""
+        from tidb_tpu_torch.types.convert import bytes_decode_to_string
+        if bytes_decode_to_string(self._ft(j)):
+            return [b.decode("utf-8", "replace").encode("utf-8")
+                    for b in cd.dictionary]
+        return cd.dictionary
+
+    def rows(self) -> list[list[Datum]]:
+        """Materialized executor rows (typed, unflattened)."""
+        if self._rows_cache is None:
+            every = np.arange(len(self.sel))
+            cols = [self.gather_datums(j, every)
+                    for j in range(len(self.pb_cols))]
+            self._rows_cache = [list(t) for t in zip(*cols)]
+        return self._rows_cache
+
+    def gather_datums(self, j: int, idx) -> list[Datum]:
+        """Exact typed datums (unflattened) of output rows `idx`
+        (positions into sel), column j: one plane gather."""
+        if self._rows_cache is not None:
+            return [self._rows_cache[int(i)][j] for i in idx]
+        from tidb_tpu_torch.types.convert import (
+            unflatten_datum, unflatten_identity_kinds)
+        c = self.pb_cols[j]
+        cd = self.batch.columns[c.column_id]
+        ft = self._ft(j)
+        idk = unflatten_identity_kinds(ft)
+        rows = self.sel[np.asarray(idx, dtype=np.int64)]
+        return [d if d.kind in idk else unflatten_datum(d, ft)
+                for d in plane_datums_batch(cd, c, rows)]
+
+    def iter_rows_with_handles(self):
+        return iter(zip(self.handles().tolist(), self.rows()))
+
+    def iter_raw_with_handles(self):
+        """(handle, storage-flattened datums) pairs: what decoding this
+        response's chunks would have yielded."""
+        cols = list(self.pb_cols)
+        cds = [self.batch.columns[c.column_id] for c in cols]
+        raw = [plane_datums_batch(cd, c, self.sel) for cd, c in
+               zip(cds, cols)]
+        return iter(zip(self.handles().tolist(),
+                        [list(t) for t in zip(*raw)] if raw
+                        else [[] for _ in self.sel]))
+
+
+class RowsSide:
+    """Row-list side of a device join: drained executor rows behind the
+    plane/rows/datum protocol ColumnarScanResult speaks."""
+
+    def __init__(self, rows: list):
+        self._rows = rows
+        self._plane_cache: dict = {}
+
+    def __len__(self) -> int:
+        return len(self._rows)
+
+    def rows(self) -> list:
+        return self._rows
+
+    def column_plane(self, j: int):
+        ent = self._plane_cache.get(j)
+        if ent is None:
+            ent = self._plane_cache[j] = rows_plane(self._rows, j)
+        return ent
+
+    def gather_datums(self, j: int, idx) -> list:
+        rows = self._rows
+        return [rows[int(i)][j] for i in idx]
+
+
+_JOIN_KINDS = (int(Kind.NULL), int(Kind.INT64), int(Kind.FLOAT64),
+               int(Kind.STRING), int(Kind.BYTES))
+
+
+def rows_plane(rows, idx: int):
+    """One column of materialized executor rows → (kind, values, valid):
+    "i64" / "f64" numpy planes or "str" (an object plane of bytes);
+    (None, None, None) when the column mixes kinds or holds a kind with no
+    plane mapping — mixed int/float stays off the join because the row
+    engine's codec keys treat int 1 and float 1.0 as distinct values."""
+    k_null, k_int, k_f64, k_str, k_bytes = _JOIN_KINDS
+    n = len(rows)
+    if n == 0:
+        return "i64", np.zeros(0, np.int64), np.zeros(0, bool)
+    kinds = np.fromiter((r[idx].kind for r in rows), dtype=np.int16, count=n)
+    present = set(np.unique(kinds).tolist())
+    valid = kinds != k_null
+    if present == {k_null}:   # all-NULL: a (vacuously) numeric plane
+        return "i64", np.zeros(n, np.int64), valid
+    if present <= {k_null, k_str, k_bytes}:
+        vals = np.empty(n, dtype=object)
+        vals[:] = [r[idx].get_bytes() if m else None
+                   for r, m in zip(rows, valid.tolist())]
+        return "str", vals, valid
+    if not present <= {k_null, k_int, k_f64}:
+        return None, None, None
+    if k_int in present and k_f64 in present:
+        return None, None, None
+    dtype = np.float64 if k_f64 in present else np.int64
+    vals = np.fromiter(
+        (r[idx].val if m else 0 for r, m in zip(rows, valid.tolist())),
+        dtype=dtype, count=n)
+    return ("f64" if dtype == np.float64 else "i64"), vals, valid
+
+
+class DeviceJoinResult:
+    """Columnar view of a join's output: the two sides (RowsSide row lists
+    or ColumnarScanResult scan payloads) plus the FINAL emission-order
+    index pairs (r_idx == -1 marks a LEFT OUTER pad row). Column planes
+    gather lazily per column; rows materialize only for a consumer that
+    pulls them."""
+
+    def __init__(self, lside, rside, l_idx: np.ndarray, r_idx: np.ndarray,
+                 left_width: int, right_width: int):
+        self.lside = lside
+        self.rside = rside
+        self.l_idx = l_idx
+        self.r_idx = r_idx
+        self.left_width = left_width
+        self.right_width = right_width
+        self._plane_cache: dict = {}
+
+    def __len__(self) -> int:
+        return len(self.l_idx)
+
+    def column_plane(self, j: int):
+        """Output column j (left columns first) gathered into a plane:
+        (kind, values, valid) or (None, None, None). Right-side planes
+        fold the outer pads in as NULLs."""
+        ent = self._plane_cache.get(j)
+        if ent is not None:
+            return ent
+        if j < self.left_width:
+            kind, vals, valid = self.lside.column_plane(j)
+            if kind is not None:
+                vals, valid = vals[self.l_idx], valid[self.l_idx]
+        else:
+            kind, vals, valid = self.rside.column_plane(j - self.left_width)
+            if kind is not None:
+                pad = self.r_idx < 0
+                idx = np.where(pad, 0, self.r_idx)
+                if len(self.rside):
+                    vals, valid = vals[idx], valid[idx] & ~pad
+                else:
+                    vals = np.zeros(len(self.r_idx),
+                                    vals.dtype if kind != "str" else object)
+                    valid = np.zeros(len(self.r_idx), bool)
+        ent = (kind, vals, valid)
+        self._plane_cache[j] = ent
+        return ent
+
+    def dict_code_plane(self, j: int):
+        """Output column j's dictionary codes gathered through the pairs
+        (-1 on NULLs and LEFT OUTER pads), or None when the source side
+        has no code plane."""
+        ent = self._plane_cache.get(("dict", j))
+        if ent is not None:
+            return ent if ent != () else None
+        out = None
+        if j < self.left_width:
+            get = getattr(self.lside, "dict_code_plane", None)
+            src = get(j) if get is not None else None
+            if src is not None:
+                codes, valid, dom = src
+                out = (codes[self.l_idx], valid[self.l_idx], dom)
+        else:
+            get = getattr(self.rside, "dict_code_plane", None)
+            src = get(j - self.left_width) if get is not None else None
+            if src is not None:
+                codes, valid, dom = src
+                pad = self.r_idx < 0
+                idx = np.where(pad, 0, self.r_idx)
+                if len(self.rside):
+                    out = (np.where(pad, -1, codes[idx]),
+                           valid[idx] & ~pad, dom)
+                else:
+                    out = (np.full(len(self.r_idx), -1, np.int64),
+                           np.zeros(len(self.r_idx), bool), dom)
+        self._plane_cache[("dict", j)] = out if out is not None else ()
+        return out
+
+    def gather_datums(self, j: int, idx) -> list:
+        """The source datums of output rows `idx`, column j, through the
+        pairs (LEFT OUTER pads as NULLs)."""
+        gidx = np.asarray(idx, dtype=np.int64)
+        if j < self.left_width:
+            return self.lside.gather_datums(j, self.l_idx[gidx])
+        r = self.r_idx[gidx]
+        pad = r < 0
+        if not len(self.rside) or pad.all():
+            return [NULL] * len(gidx)
+        vals = self.rside.gather_datums(j - self.left_width,
+                                        np.where(pad, 0, r))
+        return [NULL if p else v for p, v in zip(pad.tolist(), vals)]
+
+    def iter_rows(self, chunk: int = 1 << 16, stats: dict | None = None):
+        """Stream output rows, `chunk` pairs per assembly call; `stats`
+        accumulates the assembly time under "emit_s"."""
+        import time
+        n = len(self.l_idx)
+        t0 = time.time()
+        lrows, rrows = self.lside.rows(), self.rside.rows()
+        if stats is not None:
+            stats["emit_s"] = stats.get("emit_s", 0.0) + (time.time() - t0)
+        for start in range(0, n, chunk):
+            t0 = time.time()
+            rows = materialize_join_rows(
+                lrows, rrows, self.l_idx[start:start + chunk],
+                self.r_idx[start:start + chunk], self.right_width)
+            if stats is not None:
+                stats["emit_s"] = stats.get("emit_s", 0.0) + \
+                    (time.time() - t0)
+            yield from rows
+
+
+def materialize_join_rows(lrows, rrows, l_idx, r_idx,
+                          right_width: int) -> list:
+    """Assemble joined rows from match index pairs (r_idx -1 → LEFT OUTER
+    NULL pad), in bulk (map over C iterators). Cyclic GC pauses for the
+    allocation burst."""
+    import gc
+    gc_was_on = gc.isenabled()
+    if gc_was_on:
+        gc.disable()
+    try:
+        pad = [NULL] * right_width
+        lget, rget = lrows.__getitem__, rrows.__getitem__
+        if len(r_idx) and int(r_idx.min()) >= 0:
+            return list(map(list.__add__, map(lget, l_idx.tolist()),
+                            map(rget, r_idx.tolist())))
+        return [lget(l) + (rget(r) if r >= 0 else pad)
+                for l, r in zip(l_idx.tolist(), r_idx.tolist())]
+    finally:
+        if gc_was_on:
+            gc.enable()

@@ -150,3 +150,22 @@ __device__ __forceinline__ i64 lower_bound_i64(const i64* a, i64 lo, i64 hi, i64
   }
   return lo;
 }
+
+// First index in a[lo, hi) (ascending) whose value is > key.
+__device__ __forceinline__ i64 upper_bound_i64(const i64* a, i64 lo, i64 hi, i64 key) {
+  while (lo < hi) {
+    const i64 mid = lo + ((hi - lo) >> 1);
+    if (a[mid] <= key) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// The int64 order word of a join key (the plain versions' kernels.orderable):
+// an int64 key as it is; an f64 key with -0.0 made +0.0 (SQL equality),
+// its sign-magnitude bits mapped to two's complement, so that int64 order
+// is the float order and equal keys have equal words.
+__device__ __forceinline__ i64 key_word(i64 bits, int is_f64) {
+  if (!is_f64) return bits;
+  if (as_f64(bits) == 0.0) return 0;
+  return bits < 0 ? bits ^ I64_MAX_V : bits;
+}

@@ -29,13 +29,12 @@
 // column's value and valid byte gathered through it (random reads, twice:
 // this row and the previous), 1 B of opener flag and 8 B of group id
 // written and read back.
-#include "common.cuh"
+#include "scan.cuh"
 
 #define K8_THREADS 256
 #define K8_ITEMS 4
 #define K8_TILE (K8_THREADS * K8_ITEMS)
 #define K8_COL 3            // (values pointer, valid pointer, is_f64)
-#define K8_SCAN_THREADS 1024
 
 // Does sorted row b open a new group after sorted row a?
 __device__ __forceinline__ bool k8_differs(const i64* cols, int ncols, i64 a, i64 b) {
@@ -52,31 +51,6 @@ __device__ __forceinline__ bool k8_differs(const i64* cols, int ncols, i64 a, i6
     }
   }
   return false;
-}
-
-// Inclusive scan of x over the block (blockDim.x a multiple of 32);
-// warp_tot is 32 int64 of shared memory.
-__device__ __forceinline__ i64 block_scan_incl(i64 x, i64* warp_tot) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int off = 1; off < 32; off <<= 1) {
-    const i64 y = __shfl_up_sync(0xffffffffu, x, off);
-    if (lane >= off) x += y;
-  }
-  if (lane == 31) warp_tot[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    i64 t = lane < nwarps ? warp_tot[lane] : 0;
-    for (int off = 1; off < 32; off <<= 1) {
-      const i64 y = __shfl_up_sync(0xffffffffu, t, off);
-      if (lane >= off) t += y;
-    }
-    if (lane < nwarps) warp_tot[lane] = t;
-  }
-  __syncthreads();
-  const i64 r = x + (warp == 0 ? 0 : warp_tot[warp - 1]);
-  __syncthreads();                      // warp_tot is free for the next scan
-  return r;
 }
 
 __global__ void __launch_bounds__(K8_THREADS)
@@ -105,25 +79,6 @@ k8_open(i64 n, const i64* __restrict__ order, const unsigned char* __restrict__ 
   for (int j = 0; j < K8_ITEMS; ++j)
     if (base + j < n) local[base + j] = before + cnt[j];
   if (threadIdx.x == blockDim.x - 1) block_total[blockIdx.x] = incl;
-}
-
-__global__ void __launch_bounds__(K8_SCAN_THREADS)
-k8_scan_totals(i64 nb, const i64* __restrict__ total, i64* __restrict__ off,
-               i64* __restrict__ ngroups) {
-  __shared__ i64 warp_tot[32];
-  __shared__ i64 chunk;
-  i64 carry = 0;
-  for (i64 b0 = 0; b0 < nb; b0 += blockDim.x) {
-    const i64 b = b0 + threadIdx.x;
-    const i64 x = b < nb ? total[b] : 0;
-    const i64 incl = block_scan_incl(x, warp_tot);
-    if (b < nb) off[b] = carry + incl - x;
-    if (threadIdx.x == blockDim.x - 1) chunk = incl;
-    __syncthreads();
-    carry += chunk;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) *ngroups = carry;
 }
 
 __global__ void k8_finish(i64 n, const i64* __restrict__ order,
@@ -166,7 +121,7 @@ extern "C" int rank_groups_launch(i64 n, const i64* order, const unsigned char* 
                                                block_total);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  k8_scan_totals<<<1, K8_SCAN_THREADS, 0, st>>>(nb, block_total, block_off, ngroups);
+  scan_totals<<<1, SCAN_TOTALS_THREADS, 0, st>>>(nb, block_total, block_off, ngroups);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   k8_finish<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(n, order, mask, ncols, cols, opens,

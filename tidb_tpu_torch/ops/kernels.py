@@ -80,7 +80,8 @@ GC_BASE = -1000
 LAUNCHES = {"expr_vm": 0, "scalar_agg": 0, "seg_agg_onehot": 0,
             "seg_agg_sorted": 0, "rank_groups": 0, "distinct_runs": 0,
             "topk_select": 0, "expr_vm_ragged": 0, "seg_states_ragged": 0,
-            "seg_states_ragged_sorted": 0, "combine_partials": 0}
+            "seg_states_ragged_sorted": 0, "combine_partials": 0,
+            "join_build": 0, "join_probe": 0, "dict_remap": 0}
 
 # calls of the cluster path's statement-level wrappers, kernel or plain
 CALLS = {"region_filter_batched": 0, "region_agg_states_batched": 0,
@@ -918,6 +919,248 @@ def topk_select(mask: torch.Tensor, keys: list, k: int):
     _ext.check(rc, "topk_select")
     LAUNCHES["topk_select"] += 1
     return idx, n_live
+
+
+# ---------------------------------------------------------------------------
+# joins: K11 join_build, K12 join_probe, K13 dict_remap and their plain
+# versions; join_match_pairs drives K11 + K12
+# ---------------------------------------------------------------------------
+
+def gather_plane(values: torch.Tensor, valid: torch.Tensor,
+                 sel: torch.Tensor) -> tuple:
+    """A batch plane gathered by a selection index on the plane's device
+    (the reference's gather_plane): data movement, two index_selects."""
+    return values.index_select(0, sel), valid.index_select(0, sel)
+
+
+def join_build_plain(rkey: torch.Tensor, rvalid: torch.Tensor) -> tuple:
+    rows = torch.nonzero(rvalid).squeeze(1)
+    words, perm = torch.sort(orderable(rkey)[rows], stable=True)
+    return words, rows[perm]
+
+
+def join_build(rkey: torch.Tensor, rvalid: torch.Tensor) -> tuple:
+    """K11: (words int64[n_valid], order int64[n_valid]) — the order words
+    (`orderable`: -0.0 == +0.0) of the valid right keys, sorted stably, and
+    the right row of each; equal keys keep right-scan order."""
+    if _device_kind(rvalid) == "cpu":
+        return join_build_plain(rkey, rvalid)
+    dev = rvalid.device
+    n = rvalid.shape[0]
+    _check_plane(rkey, n, (torch.int64, torch.float64), "build key", dev)
+    _check_plane(rvalid, n, (torch.bool,), "build valid", dev)
+    if n == 0:
+        empty = torch.empty(0, dtype=torch.int64, device=dev)
+        return empty, empty
+    lib = _ext.lib("join_build")
+    nb = lib.join_build_blocks(n)
+    totals = torch.empty(nb, dtype=torch.int64, device=dev)
+    offs = torch.empty(nb, dtype=torch.int64, device=dev)
+    n_valid = torch.empty(1, dtype=torch.int64, device=dev)
+    words = torch.empty(n, dtype=torch.int64, device=dev)
+    rows = torch.empty(n, dtype=torch.int64, device=dev)
+    rc = lib.join_build_launch(
+        n, rkey.data_ptr(), rvalid.data_ptr(), int(rkey.dtype == torch.float64),
+        totals.data_ptr(), offs.data_ptr(), n_valid.data_ptr(),
+        words.data_ptr(), rows.data_ptr(), _stream(dev))
+    _ext.check(rc, "join_build")
+    LAUNCHES["join_build"] += 1
+    nv = int(n_valid.item())
+    sorted_words, perm = torch.sort(words[:nv], stable=True)
+    return sorted_words, rows[:nv][perm]
+
+
+def join_probe_plain(words, order, lkey, lvalid) -> torch.Tensor:
+    lw = orderable(lkey)
+    lo = torch.searchsorted(words, lw)
+    hi = torch.searchsorted(words, lw, right=True)
+    counts = torch.where(lvalid, hi - lo, torch.zeros_like(lo))
+    li = torch.repeat_interleave(
+        torch.arange(lkey.shape[0], dtype=torch.int64, device=lkey.device),
+        counts)
+    starts = torch.cumsum(counts, 0) - counts
+    within = torch.arange(li.shape[0], dtype=torch.int64,
+                          device=lkey.device) - starts[li]
+    return torch.stack([li, order[lo[li] + within]])
+
+
+def join_probe(words: torch.Tensor, order: torch.Tensor, lkey: torch.Tensor,
+               lvalid: torch.Tensor) -> torch.Tensor:
+    """K12: pairs [2, total] — the (left row, right row) of every match of
+    a valid left key among K11's sorted words, in left-scan order with ties
+    in right-scan order; int32 on the card when both sides are shorter than
+    2^31, else int64."""
+    if _device_kind(lvalid) == "cpu":
+        return join_probe_plain(words, order, lkey, lvalid)
+    dev = lvalid.device
+    nl, nv = lvalid.shape[0], words.shape[0]
+    _check_plane(lkey, nl, (torch.int64, torch.float64), "probe key", dev)
+    _check_plane(lvalid, nl, (torch.bool,), "probe valid", dev)
+    _check_plane(words, nv, (torch.int64,), "build words", dev)
+    _check_plane(order, nv, (torch.int64,), "build order", dev)
+    narrow = nl < (1 << 31) and nv < (1 << 31)
+    dt = torch.int32 if narrow else torch.int64
+    if nl == 0:
+        return torch.empty((2, 0), dtype=dt, device=dev)
+    lib = _ext.lib("join_probe")
+    nb = lib.join_probe_blocks(nl)
+    lo = torch.empty(nl, dtype=torch.int64, device=dev)
+    offs = torch.empty(nl, dtype=torch.int64, device=dev)
+    totals = torch.empty(nb, dtype=torch.int64, device=dev)
+    block_off = torch.empty(nb, dtype=torch.int64, device=dev)
+    total_d = torch.empty(1, dtype=torch.int64, device=dev)
+    rc = lib.join_probe_count_launch(
+        nl, lkey.data_ptr(), lvalid.data_ptr(),
+        int(lkey.dtype == torch.float64), words.data_ptr(), nv,
+        lo.data_ptr(), offs.data_ptr(), totals.data_ptr(),
+        block_off.data_ptr(), total_d.data_ptr(), _stream(dev))
+    _ext.check(rc, "join_probe")
+    LAUNCHES["join_probe"] += 1
+    # the exact total sizes the output: no capacity bucket, no retry
+    total = int(total_d.item())
+    out = torch.empty(2 * total, dtype=dt, device=dev)
+    if total:
+        rc = lib.join_probe_expand_launch(
+            total, nl, lo.data_ptr(), offs.data_ptr(), order.data_ptr(),
+            int(narrow), out.data_ptr(), _stream(dev))
+        _ext.check(rc, "join_probe expand")
+    return out.view(2, total)
+
+
+def join_match_pairs(lkey, lvalid, rkey, rvalid, stats: dict | None = None,
+                     device_keys=None, device=None) -> tuple:
+    """(l_idx, r_idx) int64 numpy match pairs of an equi-join on one int64
+    or f64 key, in left-scan order with ties in right-scan order: K11 over
+    the right keys, K12 over the left, one readback of the pairs. The key
+    planes come as host numpy (copied to `device`) or, with
+    `device_keys` = (lkey, lvalid, rkey, rvalid), as tensors already on the
+    device (the host planes are then not read and may be None). `stats`
+    receives build_s, probe_s and n_pairs."""
+    if device_keys is None:
+        dev = _device(device)
+        device_keys = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                            for a in (lkey, lvalid, rkey, rvalid))
+    lk, lv, rk, rv = device_keys
+    dev = lv.device
+    if lk.dtype != rk.dtype:
+        raise errors.DeviceError(f"join keys of {lk.dtype} and {rk.dtype}")
+    t0 = time.perf_counter()
+    with phase("k11", dev):
+        words, order = join_build(rk, rv)
+    t1 = time.perf_counter()
+    with phase("k12", dev):
+        pairs = join_probe(words, order, lk, lv)
+    with phase("pairs_readback", dev):
+        host = pairs.cpu().numpy()
+    l_idx = host[0].astype(np.int64)
+    r_idx = host[1].astype(np.int64)
+    if stats is not None:
+        stats["build_s"] = t1 - t0
+        stats["probe_s"] = time.perf_counter() - t1
+        stats["n_pairs"] = len(l_idx)
+    return l_idx, r_idx
+
+
+# K13 per-column modes: the contract with ops/csrc/dict_remap.cu
+REMAP_CODES, REMAP_TABLE, REMAP_DOMAIN = range(3)
+_REMAP_MODES = {"codes": REMAP_CODES, "remap": REMAP_TABLE,
+                "domain": REMAP_DOMAIN}
+
+
+class RemapCol:
+    """One key column of K13: its mode, value and valid planes, its table
+    (remap: local code → domain code; domain: the sorted values; None for
+    codes), the largest code and its mixed-radix stride."""
+
+    __slots__ = ("mode", "values", "valid", "table", "cmax", "stride")
+
+    def __init__(self, mode: int, values, valid, table, cmax: int,
+                 stride: int):
+        self.mode = mode
+        self.values = values
+        self.valid = valid
+        self.table = table
+        self.cmax = cmax
+        self.stride = stride
+
+
+def dict_remap_plain(cols: list, n: int) -> tuple:
+    dev = cols[0].valid.device
+    key = torch.zeros(n, dtype=torch.int64, device=dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    for c in cols:
+        if c.mode == REMAP_CODES:
+            code = c.values.clamp(0, c.cmax)
+        elif c.mode == REMAP_TABLE:
+            tlen = c.table.shape[0]
+            code = c.table[c.values.clamp(0, tlen - 1)].clamp(0, c.cmax) \
+                if tlen else torch.zeros(n, dtype=torch.int64, device=dev)
+        else:
+            v = c.values
+            if v.dtype == torch.float64:
+                v = torch.where(v == 0.0, torch.zeros_like(v), v)
+            code = torch.searchsorted(c.table, v).clamp(0, c.cmax)
+        key += code * c.stride
+        valid &= c.valid
+    return key, valid
+
+
+def dict_remap(cols: list, n: int) -> tuple:
+    """K13: (key int64[n], valid bool[n]) — the composite key-tuple code of
+    one join side, the sum over its key columns of code * stride, and the
+    AND of their valid planes."""
+    if not cols:
+        raise errors.DeviceError("dict_remap needs a key column")
+    if _device_kind(cols[0].valid) == "cpu":
+        return dict_remap_plain(cols, n)
+    dev = cols[0].valid.device
+    tab = []
+    for j, c in enumerate(cols):
+        _check_plane(c.valid, n, (torch.bool,), f"key {j} valid", dev)
+        if c.mode == REMAP_CODES or c.mode == REMAP_TABLE:
+            _check_plane(c.values, n, (torch.int64,), f"key {j} codes", dev)
+        else:
+            _check_plane(c.values, n, (torch.int64, torch.float64),
+                         f"key {j} values", dev)
+        tlen = 0
+        if c.mode != REMAP_CODES:
+            want = torch.int64 if c.mode == REMAP_TABLE else c.values.dtype
+            tlen = c.table.shape[0]
+            _check_plane(c.table, tlen, (want,), f"key {j} table", dev)
+        tab.append([c.mode, int(c.values.dtype == torch.float64),
+                    c.values.data_ptr(), c.valid.data_ptr(),
+                    c.table.data_ptr() if tlen else 0, tlen, c.cmax,
+                    c.stride])
+    key = torch.empty(n, dtype=torch.int64, device=dev)
+    valid = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return key, valid
+    t_tab = torch.tensor(tab, dtype=torch.int64).reshape(-1).to(dev)
+    rc = _ext.lib("dict_remap").dict_remap_launch(
+        n, len(cols), t_tab.data_ptr(), key.data_ptr(), valid.data_ptr(),
+        _stream(dev))
+    _ext.check(rc, "dict_remap")
+    LAUNCHES["dict_remap"] += 1
+    return key, valid
+
+
+def remap_cols(specs: list, device) -> list:
+    """copr.dictionary KeySpecs (host numpy planes and tables) as K13's
+    columns on `device`."""
+    dev = _device(device)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return [RemapCol(_REMAP_MODES[s.mode], t(s.values), t(s.valid),
+                     None if s.mode == "codes" else t(s.table),
+                     max(s.size - 1, 0), int(s.stride)) for s in specs]
+
+
+def dict_remap_keys(specs: list, n: int, device) -> tuple:
+    """The composite key plane of one join side on `device` (the
+    reference's dict_remap_keys): its KeySpecs through K13."""
+    return dict_remap(remap_cols(specs, device), n)
 
 
 # ---------------------------------------------------------------------------

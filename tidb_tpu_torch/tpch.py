@@ -36,8 +36,10 @@ from tidb_tpu_torch.copr.proto import (ByItem, Expr, ExprType, PBColumnInfo,
                                        expr_column, expr_op, expr_value)
 from tidb_tpu_torch.kv import kv
 from tidb_tpu_torch.ops import columnar as col
+from tidb_tpu_torch.plan import AggFunc, Column, Constant, Join
 from tidb_tpu_torch.sqlast.opcode import Op
 from tidb_tpu_torch.types.datum import Datum, Kind
+from tidb_tpu_torch.types.field_type import field_type_from_pb_column
 from tidb_tpu_torch.types.time_types import Time
 
 TABLE_ID = 100
@@ -82,14 +84,20 @@ _EPOCH = np.datetime64("1992-01-01")
 _CURRENT = np.datetime64("1995-06-17")
 
 
-def column_info(cid: int) -> PBColumnInfo:
-    c = COLUMNS[cid]
+def _column_info(spec: dict, cid: int) -> PBColumnInfo:
+    c = spec[cid]
     return PBColumnInfo(column_id=cid, tp=c["tp"], flen=c["flen"],
                         decimal=c.get("decimal", -1))
 
 
-def table_info(cids) -> PBTableInfo:
-    return PBTableInfo(TABLE_ID, [column_info(c) for c in cids])
+def column_info(cid: int) -> PBColumnInfo:
+    return _column_info(COLUMNS, cid)
+
+
+def table_info(cids, table_id: int = TABLE_ID,
+               spec: dict | None = None) -> PBTableInfo:
+    spec = COLUMNS if spec is None else spec
+    return PBTableInfo(table_id, [_column_info(spec, c) for c in cids])
 
 
 def generate(n_rows: int, seed: int) -> dict:
@@ -98,25 +106,16 @@ def generate(n_rows: int, seed: int) -> dict:
     int64 indices into SHIPINSTRUCT / SHIPMODE / RETURNFLAG / LINESTATUS
     (comments as an index into a small phrase table)."""
     rng = np.random.default_rng(seed)
-    sf = n_rows / SF1_ROWS
-    n_orders = n_rows // 3 + 8                      # 1-7 lines, mean 4
-    lines = rng.integers(1, 8, n_orders)
-    while lines.sum() < n_rows:
-        lines = np.concatenate([lines, rng.integers(1, 8, n_orders)])
-    order_idx = np.repeat(np.arange(lines.shape[0]), lines)[:n_rows]
+    lines, order_idx, odate = _draw_orders(rng, n_rows)
     first = np.concatenate([[0], np.cumsum(lines)[:-1]])
     linenumber = np.arange(n_rows) - first[order_idx] + 1
-    orderkey = (order_idx // 8) * 32 + order_idx % 8 + 1
-    span = int((np.datetime64("1998-12-31") - 151 - _EPOCH)
-               .astype(int))
-    orderdate = rng.integers(0, span + 1, lines.shape[0])[order_idx]
+    orderkey = _order_keys(order_idx)
+    orderdate = odate[order_idx]
 
-    n_parts = max(int(200_000 * sf), 1)
-    n_supp = max(int(10_000 * sf), 1)
+    n_parts, n_supp = _parts_suppliers(n_rows)
     partkey = rng.integers(1, n_parts + 1, n_rows)
     j = rng.integers(0, 4, n_rows)
-    suppkey = (partkey + j * (n_supp // 4 + (partkey - 1) // n_supp)) \
-        % n_supp + 1
+    suppkey = _supplier(partkey, j, n_supp)
     retail = 90_000 + (partkey // 10) % 20_001 + 100 * (partkey % 1000)
     quantity = rng.integers(1, 51, n_rows)
     ship = orderdate + rng.integers(1, 122, n_rows)
@@ -146,6 +145,36 @@ def generate(n_rows: int, seed: int) -> dict:
     }
     out[C_FDISCOUNT] = out[C_DISCOUNT] / 100.0
     return out
+
+
+def _draw_orders(rng, n_rows: int) -> tuple:
+    """The orders behind `n_rows` lineitem rows: lines per order (1-7,
+    mean 4), each row's order, and each order's date (days since
+    1992-01-01)."""
+    n_orders = n_rows // 3 + 8
+    lines = rng.integers(1, 8, n_orders)
+    while lines.sum() < n_rows:
+        lines = np.concatenate([lines, rng.integers(1, 8, n_orders)])
+    order_idx = np.repeat(np.arange(lines.shape[0]), lines)[:n_rows]
+    span = int((np.datetime64("1998-12-31") - 151 - _EPOCH)
+               .astype(int))
+    return lines, order_idx, rng.integers(0, span + 1, lines.shape[0])
+
+
+def _order_keys(order_idx: np.ndarray) -> np.ndarray:
+    """dbgen's sparse order keys: 8 used of every 32."""
+    return (order_idx // 8) * 32 + order_idx % 8 + 1
+
+
+def _parts_suppliers(n_rows: int) -> tuple:
+    sf = n_rows / SF1_ROWS
+    return max(int(200_000 * sf), 1), max(int(10_000 * sf), 1)
+
+
+def _supplier(partkey: np.ndarray, j, n_supp: int) -> np.ndarray:
+    """The j-th (0..3) supplier of a part: the bridge formula of §4.2.3."""
+    return (partkey + j * (n_supp // 4 + (partkey - 1) // n_supp)) \
+        % n_supp + 1
 
 
 def packed_dates(d: np.ndarray) -> np.ndarray:
@@ -202,8 +231,17 @@ def batch(data: dict, cids, lo: int = 0, hi: int | None = None
     """The packed ColumnBatch of the given columns over rows [lo, hi)
     (handles lo + 1 .. hi), built straight from the arrays (what
     pack_ranges yields for these rows)."""
+    return table_batch(COLUMNS, data, cids, {
+        C_RETURNFLAG: RETURNFLAG, C_LINESTATUS: LINESTATUS,
+        C_SHIPINSTRUCT: SHIPINSTRUCT, C_SHIPMODE: SHIPMODE}, lo, hi)
+
+
+def table_batch(spec: dict, data: dict, cids, words: dict, lo: int = 0,
+                hi: int | None = None) -> col.ColumnBatch:
+    """`batch` for any table: `spec` its columns' types by id, `data` its
+    arrays (strings as indices into `words[cid]`)."""
     if hi is None:
-        hi = data[C_ORDERKEY].shape[0]
+        hi = next(iter(data.values())).shape[0]
     data = {cid: data[cid][lo:hi] for cid in cids}
     n = hi - lo
     cap = col.bucket_capacity(n)
@@ -212,21 +250,19 @@ def batch(data: dict, cids, lo: int = 0, hi: int | None = None
     valid = np.zeros(cap, dtype=bool)
     valid[:n] = True
     cols = {}
-    dicts = {C_RETURNFLAG: RETURNFLAG, C_LINESTATUS: LINESTATUS,
-             C_SHIPINSTRUCT: SHIPINSTRUCT, C_SHIPMODE: SHIPMODE}
     for cid in cids:
-        c = COLUMNS[cid]
-        kind = col.column_phys_kind(column_info(cid))
+        c = spec[cid]
+        kind = col.column_phys_kind(_column_info(spec, cid))
         raw = data[cid]
         if c["tp"] == my.TypeDate:
             raw = packed_dates(raw)
         vals = np.zeros(cap, dtype=np.int64)
         if kind == col.K_STR:
             # the sorted dictionary of the values present; codes index it
-            words = dicts[cid]
-            dictionary = sorted({words[k] for k in np.unique(raw).tolist()})
+            words_ = words[cid]
+            dictionary = sorted({words_[k] for k in np.unique(raw).tolist()})
             code_of = {w: i for i, w in enumerate(dictionary)}
-            lut = np.array([code_of.get(w, -1) for w in words],
+            lut = np.array([code_of.get(w, -1) for w in words_],
                            dtype=np.int64)
             vals[:n] = lut[raw]
             vals[n:] = -1
@@ -270,7 +306,7 @@ def region_batches(data: dict, cids, n_regions: int) -> list:
 
 
 def store_request(sel: SelectRequest) -> kv.Request:
-    start, end = tc.encode_record_range(TABLE_ID)
+    start, end = tc.encode_record_range(sel.table_info.table_id)
     return kv.Request(kv.REQ_TYPE_SELECT, sel, [kv.KeyRange(start, end)])
 
 
@@ -741,3 +777,250 @@ def slice3_expected(name: str, data: dict):
                             data[C_EXTENDEDPRICE][cand], -receipt])
         return (cand[order][:limit] + 1).tolist()
     raise KeyError(name)
+
+
+# ---------------------------------------------------------------------------
+# orders, partsupp and a priority dimension, consistent with `generate`'s
+# lineitem, and the join statements over them (TPC-H v3 §1.4 types):
+#   orders (o_orderkey bigint, o_custkey bigint, o_orderstatus char(1),
+#     o_totalprice decimal(15,2), o_orderdate date,
+#     o_orderpriority char(15), o_shippriority int)
+#   partsupp (ps_partkey bigint, ps_suppkey bigint, ps_availqty int,
+#     ps_supplycost decimal(15,2))
+#   prio (pd_name char(15), pd_rank int): four of the five priorities
+# ---------------------------------------------------------------------------
+
+ORDERS_ID, PARTSUPP_ID, PRIO_ID = 101, 102, 103
+O_ORDERKEY, O_CUSTKEY, O_ORDERSTATUS, O_TOTALPRICE = 1, 2, 3, 4
+O_ORDERDATE, O_ORDERPRIORITY, O_SHIPPRIORITY = 5, 6, 7
+PS_PARTKEY, PS_SUPPKEY, PS_AVAILQTY, PS_SUPPLYCOST = 1, 2, 3, 4
+PD_NAME, PD_RANK = 1, 2
+
+_BIGINT = dict(tp=my.TypeLonglong, flen=20)
+_INT = dict(tp=my.TypeLong, flen=11)
+ORDER_COLUMNS = {
+    O_ORDERKEY: _BIGINT, O_CUSTKEY: _BIGINT,
+    O_ORDERSTATUS: dict(tp=my.TypeString, flen=1), O_TOTALPRICE: _DEC,
+    O_ORDERDATE: dict(tp=my.TypeDate, flen=10),
+    O_ORDERPRIORITY: dict(tp=my.TypeString, flen=15), O_SHIPPRIORITY: _INT,
+}
+PARTSUPP_COLUMNS = {PS_PARTKEY: _BIGINT, PS_SUPPKEY: _BIGINT,
+                    PS_AVAILQTY: _INT, PS_SUPPLYCOST: _DEC}
+PRIO_COLUMNS = {PD_NAME: dict(tp=my.TypeString, flen=15), PD_RANK: _INT}
+
+ORDERPRIORITY = [b"1-URGENT", b"2-HIGH", b"3-MEDIUM", b"4-NOT SPECIFIED",
+                 b"5-LOW"]
+ORDERSTATUS = [b"F", b"O", b"P"]
+PRIO_NAMES = ORDERPRIORITY[:4]     # 5-LOW pads under a LEFT OUTER join
+
+
+def orders(data: dict, seed: int) -> dict:
+    """One row per order that `generate(n, seed)` gave `data`'s lineitem
+    rows: the same sparse keys and order dates; o_orderstatus from the
+    lines' statuses (F all shipped, O none, P some); o_totalprice the sum
+    of extendedprice * (1 + tax) * (1 - discount) over the lines, in
+    cents rounded half up; o_custkey (never a multiple of 3) and
+    o_orderpriority drawn from a second stream of the seed;
+    o_shippriority 0."""
+    n_rows = data[C_ORDERKEY].shape[0]
+    _lines, order_idx, odate = _draw_orders(np.random.default_rng(seed),
+                                            n_rows)
+    n = int(order_idx[-1]) + 1 if n_rows else 0
+    starts = np.flatnonzero(np.r_[True, order_idx[1:] != order_idx[:-1]])
+    status = data[C_LINESTATUS]
+    lo = np.minimum.reduceat(status, starts)
+    hi = np.maximum.reduceat(status, starts)
+    line_price = (data[C_EXTENDEDPRICE] * (100 + data[C_TAX])
+                  * (100 - data[C_DISCOUNT]) + 5000) // 10000
+    rng = np.random.default_rng([seed, 2])
+    n_cust = max(int(150_000 * n_rows / SF1_ROWS), 3)
+    c = rng.integers(0, 2 * (n_cust // 3), n)
+    return {
+        O_ORDERKEY: _order_keys(np.arange(n)).astype(np.int64),
+        O_CUSTKEY: (3 * (c // 2) + 1 + c % 2).astype(np.int64),
+        O_ORDERSTATUS: np.where(hi == 0, 0, np.where(lo == 1, 1, 2))
+        .astype(np.int64),
+        O_TOTALPRICE: np.add.reduceat(line_price, starts).astype(np.int64),
+        O_ORDERDATE: _EPOCH + odate[:n].astype("timedelta64[D]"),
+        O_ORDERPRIORITY: rng.integers(0, 5, n).astype(np.int64),
+        O_SHIPPRIORITY: np.zeros(n, np.int64),
+    }
+
+
+def partsupp(n_rows: int, seed: int) -> dict:
+    """Four rows per part of `generate(n_rows, ...)`'s part range, the
+    suppliers j = 0..3 of the bridge formula that draws l_suppkey."""
+    n_parts, n_supp = _parts_suppliers(n_rows)
+    part = np.repeat(np.arange(1, n_parts + 1, dtype=np.int64), 4)
+    j = np.tile(np.arange(4, dtype=np.int64), n_parts)
+    rng = np.random.default_rng([seed, 3])
+    return {PS_PARTKEY: part,
+            PS_SUPPKEY: _supplier(part, j, n_supp).astype(np.int64),
+            PS_AVAILQTY: rng.integers(1, 10_000, 4 * n_parts)
+            .astype(np.int64),
+            PS_SUPPLYCOST: rng.integers(100, 100_001, 4 * n_parts)
+            .astype(np.int64)}
+
+
+def prio() -> dict:
+    return {PD_NAME: np.arange(4, dtype=np.int64),
+            PD_RANK: np.arange(1, 5, dtype=np.int64)}
+
+
+# table id → (columns by id, words of its string columns)
+JOIN_TABLES = {
+    TABLE_ID: (COLUMNS, {C_RETURNFLAG: RETURNFLAG, C_LINESTATUS: LINESTATUS,
+                         C_SHIPINSTRUCT: SHIPINSTRUCT, C_SHIPMODE: SHIPMODE}),
+    ORDERS_ID: (ORDER_COLUMNS, {O_ORDERSTATUS: ORDERSTATUS,
+                                O_ORDERPRIORITY: ORDERPRIORITY}),
+    PARTSUPP_ID: (PARTSUPP_COLUMNS, {}),
+    PRIO_ID: (PRIO_COLUMNS, {PD_NAME: PRIO_NAMES}),
+}
+
+
+def join_data(data: dict, seed: int) -> dict:
+    """{table id: arrays} of the four tables the join statements read,
+    `data` being generate(n, seed)."""
+    n = data[C_ORDERKEY].shape[0]
+    return {TABLE_ID: data, ORDERS_ID: orders(data, seed),
+            PARTSUPP_ID: partsupp(n, seed), PRIO_ID: prio()}
+
+
+def join_batch(tables: dict, table_id: int, cids=None) -> col.ColumnBatch:
+    """The batch of one table of `join_data`, of `cids` (default: every
+    column; lineitem's comment has no word list, so pass its columns)."""
+    spec, words = JOIN_TABLES[table_id]
+    return table_batch(spec, tables[table_id],
+                       sorted(spec) if cids is None else cids, words)
+
+
+def _scan(table_id: int, cids, where=None) -> SelectRequest:
+    spec, _w = JOIN_TABLES[table_id]
+    return SelectRequest(start_ts=1,
+                         table_info=table_info(cids, table_id, spec),
+                         where=where)
+
+
+def _key(table_id: int, cid: int, index: int) -> Column:
+    spec, _w = JOIN_TABLES[table_id]
+    return Column(index, field_type_from_pb_column(_column_info(spec, cid)))
+
+
+def join_statement(name: str) -> tuple:
+    """(left scan, right scan, plan.Join, aggregate functions, group-by)
+    of a join statement as the planner builds it:
+    f1_q3_join   select o_orderpriority, count(*), sum(l_fdiscount),
+                 min(l_suppkey), max(o_custkey) from lineitem join orders
+                 on l_orderkey = o_orderkey where l_shipdate >
+                 '1995-03-15' and o_orderdate < '1995-03-15' group by
+                 o_orderpriority (TPC-H Q3's join and dates);
+    f2_partsupp  select count(*), sum(ps_availqty), max(ps_availqty),
+                 min(l_orderkey) from lineitem join partsupp on
+                 l_partkey = ps_partkey and l_suppkey = ps_suppkey (Q9's
+                 key pair);
+    f3_prio_outer select pd_rank, count(*), count(pd_rank),
+                 max(o_orderkey) from orders left join prio on
+                 o_orderpriority = pd_name group by pd_rank."""
+    one = [Constant(Datum.i64(1))]
+    c = expr_column
+    if name == "f1_q3_join":
+        left = _scan(TABLE_ID, [C_ORDERKEY, C_SUPPKEY, C_FDISCOUNT,
+                                C_SHIPDATE],
+                     expr_op(Op.GT, c(C_SHIPDATE),
+                             expr_value(_date("1995-03-15"))))
+        right = _scan(ORDERS_ID, [O_ORDERKEY, O_ORDERDATE, O_CUSTKEY,
+                                  O_ORDERPRIORITY],
+                      expr_op(Op.LT, c(O_ORDERDATE),
+                              expr_value(_date("1995-03-15"))))
+        join = Join(Join.INNER)
+        join.eq_conditions = [(_key(TABLE_ID, C_ORDERKEY, 0),
+                               _key(ORDERS_ID, O_ORDERKEY, 0))]
+        aggs = [AggFunc("count", one), AggFunc("sum", [Column(2)]),
+                AggFunc("min", [Column(1)]), AggFunc("max", [Column(6)]),
+                AggFunc("first_row", [Column(7)])]
+        return left, right, join, aggs, [_key(ORDERS_ID, O_ORDERPRIORITY,
+                                              7)]
+    if name == "f2_partsupp":
+        left = _scan(TABLE_ID, [C_ORDERKEY, C_PARTKEY, C_SUPPKEY])
+        right = _scan(PARTSUPP_ID, [PS_PARTKEY, PS_SUPPKEY, PS_AVAILQTY,
+                                    PS_SUPPLYCOST])
+        join = Join(Join.INNER)
+        join.eq_conditions = [
+            (_key(TABLE_ID, C_PARTKEY, 1), _key(PARTSUPP_ID, PS_PARTKEY, 0)),
+            (_key(TABLE_ID, C_SUPPKEY, 2), _key(PARTSUPP_ID, PS_SUPPKEY, 1))]
+        aggs = [AggFunc("count", one), AggFunc("sum", [Column(5)]),
+                AggFunc("max", [Column(5)]), AggFunc("min", [Column(0)])]
+        return left, right, join, aggs, []
+    if name == "f3_prio_outer":
+        left = _scan(ORDERS_ID, [O_ORDERKEY, O_ORDERPRIORITY])
+        right = _scan(PRIO_ID, [PD_NAME, PD_RANK])
+        join = Join(Join.LEFT_OUTER)
+        join.eq_conditions = [(_key(ORDERS_ID, O_ORDERPRIORITY, 1),
+                               _key(PRIO_ID, PD_NAME, 0))]
+        aggs = [AggFunc("count", one), AggFunc("count", [Column(3)]),
+                AggFunc("max", [Column(0)]), AggFunc("first_row", [Column(3)])]
+        return left, right, join, aggs, [_key(PRIO_ID, PD_RANK, 3)]
+    raise KeyError(name)
+
+
+JOINS = ("f1_q3_join", "f2_partsupp", "f3_prio_outer")
+
+
+def _first_appearance(keys: np.ndarray) -> tuple:
+    """(group id per row, rows' groups in first-appearance order)."""
+    _u, first, inv = np.unique(keys, return_index=True, return_inverse=True)
+    order = np.argsort(first, kind="stable")
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order))
+    return rank[inv.reshape(-1)], len(order)
+
+
+def join_expected(name: str, tables: dict) -> list:
+    """A join statement's result rows computed straight from the arrays
+    with numpy, groups in first-appearance order: python ints, floats,
+    Decimals (int sums), bytes (strings) and None (NULL)."""
+    data, od = tables[TABLE_ID], tables[ORDERS_ID]
+    if name == "f1_q3_join":
+        cut = np.datetime64("1995-03-15")
+        rows = np.flatnonzero(data[C_SHIPDATE] > cut)
+        order = np.searchsorted(od[O_ORDERKEY], data[C_ORDERKEY][rows])
+        keep = od[O_ORDERDATE][order] < cut
+        rows, order = rows[keep], order[keep]
+        gid, G = _first_appearance(od[O_ORDERPRIORITY][order])
+        cnt = np.bincount(gid, minlength=G)
+        fsum = np.zeros(G)
+        np.add.at(fsum, gid, data[C_FDISCOUNT][rows])
+        mn = np.full(G, col.I64_MAX)
+        np.minimum.at(mn, gid, data[C_SUPPKEY][rows])
+        mx = np.full(G, -1)
+        np.maximum.at(mx, gid, od[O_CUSTKEY][order])
+        prio_ = np.zeros(G, np.int64)
+        prio_[gid] = od[O_ORDERPRIORITY][order]
+        return [[int(cnt[g]), float(fsum[g]), int(mn[g]), int(mx[g]),
+                 ORDERPRIORITY[prio_[g]]] for g in range(G)]
+    if name == "f2_partsupp":
+        ps = tables[PARTSUPP_ID]
+        m = int(max(data[C_SUPPKEY].max(), ps[PS_SUPPKEY].max())) + 1
+        lk = data[C_PARTKEY] * m + data[C_SUPPKEY]
+        rk = ps[PS_PARTKEY] * m + ps[PS_SUPPKEY]
+        order = np.argsort(rk, kind="stable")
+        lo = np.searchsorted(rk[order], lk)
+        cnt = np.searchsorted(rk[order], lk, side="right") - lo
+        li = np.repeat(np.arange(len(lk)), cnt)
+        within = np.arange(len(li)) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+        avail = ps[PS_AVAILQTY][order[lo[li] + within]]
+        return [[len(li), Decimal(int(avail.sum())), int(avail.max()),
+                 int(data[C_ORDERKEY][li].min())]]
+    if name == "f3_prio_outer":
+        rank = np.array([1, 2, 3, 4, -1])[od[O_ORDERPRIORITY]]
+        gid, G = _first_appearance(rank)
+        cnt = np.bincount(gid, minlength=G)
+        nonnull = np.bincount(gid[rank >= 0], minlength=G)
+        mx = np.full(G, -1)
+        np.maximum.at(mx, gid, od[O_ORDERKEY])
+        first = np.zeros(G, np.int64)
+        first[gid] = rank
+        return [[int(cnt[g]), int(nonnull[g]), int(mx[g]),
+                 None if first[g] < 0 else int(first[g])] for g in range(G)]
+    raise KeyError(name)
+

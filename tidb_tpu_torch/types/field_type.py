@@ -1,6 +1,7 @@
 """FieldType: column type metadata (copy of tidb_tpu/types/field_type.py,
 cut to what the final aggregate needs to type its results: the aggregate
-result types and the arithmetic merge of argument expressions)."""
+result types and the arithmetic merge of argument expressions, and the
+collation a join key carries)."""
 
 from __future__ import annotations
 
@@ -10,16 +11,18 @@ UNSPECIFIED_LENGTH = -1
 
 
 class FieldType:
-    __slots__ = ("tp", "flag", "flen", "decimal", "elems")
+    __slots__ = ("tp", "flag", "flen", "decimal", "elems", "collate")
 
     def __init__(self, tp: int = my.TypeNull, flag: int = 0,
                  flen: int = UNSPECIFIED_LENGTH,
-                 decimal: int = UNSPECIFIED_LENGTH, elems=None):
+                 decimal: int = UNSPECIFIED_LENGTH, elems=None,
+                 collate: str = "utf8_bin"):
         self.tp = tp
         self.flag = flag
         self.flen = flen
         self.decimal = decimal
         self.elems = elems or []
+        self.collate = collate
 
     def is_unsigned(self) -> bool:
         return my.has_unsigned_flag(self.flag)
@@ -36,9 +39,14 @@ class FieldType:
     def is_time(self) -> bool:
         return self.tp in my.TIME_TYPES
 
+    def is_ci_collation(self) -> bool:
+        """Case-insensitive string column (utf8_general_ci etc.)."""
+        return self.is_string() and bool(self.collate) \
+            and self.collate.endswith("_ci")
+
     def clone(self) -> "FieldType":
         return FieldType(self.tp, self.flag, self.flen, self.decimal,
-                         list(self.elems))
+                         list(self.elems), self.collate)
 
 
 def new_field_type(tp: int) -> FieldType:
