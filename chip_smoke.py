@@ -81,6 +81,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -91,7 +92,7 @@ from decimal import Decimal  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from tidb_tpu_torch import carry, distsql, tpch  # noqa: E402
+from tidb_tpu_torch import carry, distsql, mysqldef as my, tpch  # noqa
 from tidb_tpu_torch.cluster.rpc import clip_ranges  # noqa: E402
 from tidb_tpu_torch.cluster.store import DistStore  # noqa: E402
 from tidb_tpu_torch.copr import columnar_region  # noqa: E402
@@ -102,8 +103,8 @@ from tidb_tpu_torch.executor.distsql_exec import XSelectTableExec  # noqa
 from tidb_tpu_torch.executor.executors import (  # noqa: E402
     HashAggExec, HashJoinExec)
 from tidb_tpu_torch.copr.proto import (  # noqa: E402
-    AGG_NAME, Expr, ExprType, SelectRequest, expr_column, expr_op, expr_value,
-    iter_response_rows)
+    AGG_NAME, AGG_TYPE_BY_NAME, ByItem, Expr, ExprType, SelectRequest,
+    expr_agg, expr_column, expr_op, expr_value, iter_response_rows)
 from tidb_tpu_torch.kv.memstore import MemStore  # noqa: E402
 from tidb_tpu_torch.ops import _ext, kernels  # noqa: E402
 from tidb_tpu_torch.ops import columnar as col  # noqa: E402
@@ -148,6 +149,12 @@ KERNELS = {
                    "tidb_tpu/ops/kernels.py:1688"),
     "dict_remap": ("tidb_tpu_torch/ops/csrc/dict_remap.cu",
                    "tidb_tpu/ops/kernels.py:1877"),
+    "slot_filter": ("tidb_tpu_torch/ops/csrc/slot_filter.cu",
+                    "tidb_tpu/ops/sched.py:1021"),
+    "slot_agg": ("tidb_tpu_torch/ops/csrc/slot_agg.cu",
+                 "tidb_tpu/ops/sched.py:439"),
+    "slot_topn": ("tidb_tpu_torch/ops/csrc/slot_topn.cu",
+                  "tidb_tpu/ops/sched.py:532"),
 }
 # K6 has two routes, each counted: spans within its shared-memory limit
 # (seg_states_ragged) and larger ones (seg_states_ragged_sorted)
@@ -277,7 +284,7 @@ def phase_a(n_rows: int, seed: int, device=None) -> dict:
     if gpu.device.type == "cuda":
         for k, v in launches.items():
             need(v > 0 or k in CLUSTER_KERNELS or k in SLICE3_KERNELS
-                 or k in JOIN_KERNELS,
+                 or k in JOIN_KERNELS or k in SLOT_KERNELS,
                  f"kernel {k} never launched on the main path")
     return launches
 
@@ -1723,6 +1730,388 @@ def phase_f(data: dict, batch, device, seed: int) -> tuple:
     return out, total
 
 
+# ---------------------------------------------------------------------------
+# Phase G: the micro-batch tier at SF1
+# ---------------------------------------------------------------------------
+
+SLOT_KERNELS = ("slot_filter", "slot_agg", "slot_topn")
+G_THREADS, G_PER_THREAD = 64, 25
+
+
+def g_rows(resp) -> list:
+    return [(h, [d.val for d in ds]) for h, ds in iter_response_rows(resp)]
+
+
+def g_traffic(store, tables, work, micro_batch: bool, device) -> tuple:
+    """Every session thread sends its statements through one
+    GpuClient(store) (default floor and window; the tier on or off), all
+    released together by a barrier. Returns (rows by (thread, i),
+    latencies in ms, wall seconds, the client, the launches of the run)."""
+    data, words = tables
+    client = GpuClient(store, device, micro_batch=micro_batch)
+    for shape in tpch.G_SHAPES:         # pack each shape's batch once
+        client.send(tpch.g_statement(shape, 0)).next()
+    rows, lat, errs = {}, [], []
+    lock = threading.Lock()
+    barrier = threading.Barrier(len(work) + 1)
+
+    def session(t):
+        try:
+            barrier.wait()
+            for i, (shape, lit) in enumerate(work[t]):
+                req = tpch.g_statement(shape, lit)
+                t0 = time.perf_counter()
+                got = g_rows(client.send(req).next())
+                took = (time.perf_counter() - t0) * 1e3
+                with lock:
+                    rows[(t, i)] = got
+                    lat.append(took)
+        except Exception as e:      # raised again below, after the join
+            with lock:
+                errs.append(e)
+
+    threads = [threading.Thread(target=session, args=(t,))
+               for t in range(len(work))]
+    for th in threads:
+        th.start()
+    zero_launches()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    need(not any(th.is_alive() for th in threads), "phase G: a session hung")
+    if errs:
+        raise errs[0]
+    return rows, lat, wall, client, dict(kernels.LAUNCHES)
+
+
+def slot_inputs(batch, sels: list, device) -> dict:
+    """The tier's lowering of statements of one shape over `batch` (the
+    code MicroBatcher._prepare runs): the shared program, one pool row per
+    statement, the planes, and K15's reductions / K16's keys where the
+    shape has them."""
+    from tidb_tpu_torch.ops import sched
+    pools, fin, aggs, topn = [], None, None, None
+    for sel in sels:
+        lw = sched._Lowerer(batch)
+        emit = None
+        if sel.where is not None:
+            emit, _sig = lw.lower(sel.where)
+        f = lw.program(batch, emit)
+        need(fin is None or np.array_equal(f.meta, fin.meta),
+             "statements of one shape lowered to different programs")
+        fin = f
+        pools.append(f.pool)
+        if sel.aggregates:
+            aggs = sched._lower_slot_aggs(sel, batch)
+            need(aggs is not None, "aggregates outside the slot kind")
+        if sel.order_by:
+            topn = sched._lower_slot_topn(sel, batch)
+            need(topn is not None, "ORDER BY outside the slot kind")
+    planes = kernels.batch_planes(batch, device)
+    out = dict(fin=fin, pools=torch.from_numpy(np.stack(pools)).to(device),
+               plane_list=[planes[key][w] for key, w in fin.plane_keys],
+               live=kernels.device_live(batch, device), reds=None, keys=None,
+               k=0)
+    if aggs is not None:
+        out["reds"] = [kernels.Red(kernels.R_COUNT, const_bits=1)] + [
+            a.red(planes) for a in aggs]
+    if topn is not None:
+        out["keys"] = [(planes[cid], desc) for cid, desc, _k in topn[0]]
+        out["k"] = topn[1]
+    return out
+
+
+def check_slots(a: dict, what: str) -> dict:
+    """K14 (and K15, K16 where the inputs have them) against their plain
+    versions on the card, bit for bit. Returns max_abs_err per kernel."""
+    args = (a["fin"], a["pools"], a["plane_list"], a["live"])
+    words = kernels.slot_filter(*args)
+    pw = kernels.slot_filter_plain(*args)
+    need(torch.equal(words, pw), f"{what}: K14 differs from its plain "
+         "version")
+    errs = {"slot_filter": max_err(words, pw)}
+    if a["reds"] is not None:
+        kn, kacc = kernels.slot_agg(*args, a["reds"])
+        pn, pacc = kernels.slot_agg_plain(*args, a["reds"])
+        need(torch.equal(kn, pn), f"{what}: K15 counts differ")
+        for r, red in enumerate(a["reds"]):
+            ka, pa = kacc[:, r], pacc[:, r]
+            if red.op in kernels.F_OPS:
+                ka, pa = ka.view(torch.float64), pa.view(torch.float64)
+            need(torch.equal(ka, pa), f"{what}: K15 reduction {r} differs")
+        errs["slot_agg"] = max(max_err(kn, pn), max_err(kacc, pacc))
+    if a["keys"] is not None:
+        gi, gn = kernels.slot_topn(words, a["keys"], a["k"])
+        wi, wn = kernels.slot_topn_plain(pw, a["keys"], a["k"])
+        need(torch.equal(gn, wn), f"{what}: K16 live counts {gn} vs {wn}")
+        need(torch.equal(gi, wi), f"{what}: K16 row ids differ")
+        errs["slot_topn"] = max(max_err(gi, wi), max_err(gn, wn))
+    return errs
+
+
+G_ECOLS = {1: dict(tp=my.TypeLonglong, flen=20),    # a: int64 extremes
+           2: dict(tp=my.TypeDouble, flen=22),      # f: -0.0 beside +0.0
+           3: dict(tp=my.TypeNewDecimal, flen=15, decimal=2),
+           4: dict(tp=my.TypeString, flen=4),       # s: dictionary codes
+           5: dict(tp=my.TypeDouble, flen=22)}      # g: no -0.0 (extrema)
+G_EWORDS = [b"aa", b"ab", b"ba", b"bb", b"cc"]
+
+
+def g_edge_batch(seed: int) -> col.ColumnBatch:
+    """NULLs in every column, int64 extremes, -0.0 beside +0.0, and live
+    rows that are no multiple of 32."""
+    rng = np.random.default_rng(seed)
+    n = 4096 - 37
+    a = rng.integers(-50, 50, n).astype(np.int64)
+    a[::11] = (1 << 63) - 1
+    a[::13] = -(1 << 63)
+    a[::17] = -((1 << 63) - 1)
+    f = rng.integers(-4, 4, n) * 0.5
+    f[::5] = -0.0
+    data = {1: a, 2: f, 3: rng.integers(-9999, 9999, n).astype(np.int64),
+            4: rng.integers(0, len(G_EWORDS), n).astype(np.int64),
+            5: rng.standard_normal(n) * 1e3}
+    b = tpch.table_batch(G_ECOLS, data, sorted(G_ECOLS), {4: G_EWORDS})
+    for cid, cd in b.columns.items():
+        cd.valid[:n] &= rng.random(n) > 0.15
+    return b
+
+
+def g_edge_cases(batch) -> list:
+    """(statements, what) cases for K14/K15/K16 on the edge batch: NULL
+    planes, int64 extremes under DESC, -0.0 keys, k above the live rows,
+    an empty slot, one slot."""
+    c = expr_column
+    ti = tpch.table_info(sorted(G_ECOLS), 200, G_ECOLS)
+
+    def sel(where, aggs=(), order=(), limit=None):
+        return SelectRequest(start_ts=1, table_info=ti, where=where,
+                             aggregates=list(aggs), order_by=list(order),
+                             limit=limit)
+
+    def agg(name, cid):
+        return Expr(ExprType(AGG_TYPE_BY_NAME[name]), children=[c(cid)])
+
+    def iv(v):
+        return expr_value(Datum.i64(v))
+
+    aggs = [agg("count", 1), agg("sum", 3), agg("min", 1), agg("max", 1),
+            agg("min", 5), agg("max", 5), agg("max", 3), agg("min", 4)]
+    # a < -2^63 keeps no row: two empty slots
+    lits = list(range(-40, 40, 3)) + [-(1 << 63)] * 2
+    cases = [
+        ([sel(expr_op(Op.LT, c(1), iv(x)), aggs) for x in lits],
+         "a < x with NULLs, 29 slots, two empty"),
+        ([sel(expr_op(Op.OrOr, expr_op(Op.GE, c(2), expr_value(
+            Datum.f64(x / 4))), Expr(ExprType.IS_NULL, children=[c(1)])))
+          for x in range(-12, 12)], "f >= x or a is null"),
+        ([sel(expr_op(Op.EQ, c(4), expr_value(Datum.bytes_(w))))
+          for w in G_EWORDS + [b"zz"]], "s = w, one absent"),
+        ([sel(expr_op(Op.GT, c(3), expr_value(Datum.dec(Decimal(x)))))
+          for x in ("-50.5", "0.25", "99.99")], "d > decimal"),
+        ([sel(expr_op(Op.LT, c(1), iv(7)), aggs)], "one slot"),
+        ([sel(Expr(ExprType.OPERATOR, op=Op.Not, children=[
+            expr_op(Op.EQ, c(1), iv(x))]), order=[ByItem(c(1), True),
+                                                 ByItem(c(2), False)],
+              limit=128) for x in range(-3, 3)],
+         "not (a = x) order by a desc (int64 extremes), f limit 128"),
+        ([sel(expr_op(Op.GT, c(1), iv(x)), order=[ByItem(c(2), False)],
+              limit=50) for x in (45, 48, 49, 200)],
+         "a > x order by f (-0.0) limit 50: k above the live rows"),
+        ([sel(expr_op(Op.LE, c(3), iv(x)), order=[
+            ByItem(c(4), True), ByItem(c(3), False), ByItem(c(1), True)],
+              limit=7) for x in (-5000, 0, 5000)], "three keys limit 7"),
+    ]
+    return cases
+
+
+def slot_bytes(a: dict, kernel: str) -> int:
+    """Bytes the kernel must move: its planes and live plane read once,
+    its outputs written once (K16 reads the mask words in place of the
+    program's planes)."""
+    n = a["live"].shape[0]
+    k = a["pools"].shape[0]
+    words = k * n // 8
+    prog = _nbytes(a["plane_list"] + [a["live"], a["pools"]])
+    if kernel == "slot_filter":
+        return prog + words
+    if kernel == "slot_agg":
+        reds = [t for r in a["reds"] for t in (r.values, r.valid)]
+        return _nbytes(a["plane_list"] + [a["live"], a["pools"]] + reds) \
+            + k * len(a["reds"]) * 16
+    keys = [t for (v, ok), _d in a["keys"] for t in (v, ok)]
+    return _nbytes(keys) + words + k * (a["k"] + 1) * 8
+
+
+def slot_ops(a: dict, kernel: str) -> int:
+    """Operations the kernel must do: one per program instruction per row
+    and slot (K14), plus one per reduction (K15); K16's comparisons of a
+    merge of every slot's live rows down to k, n log2(k + 1) a slot."""
+    n = a["live"].shape[0]
+    k = a["pools"].shape[0]
+    instr = a["fin"].n_instr + 1
+    if kernel == "slot_filter":
+        return k * n * instr
+    if kernel == "slot_agg":
+        return k * n * (instr + len(a["reds"]))
+    return k * n * max(int(np.log2(a["k"] + 1)), 1) * len(a["keys"])
+
+
+def phase_g(lineitem, device, seed: int) -> tuple:
+    """The tier at TPC-H SF1's supplier table (10,000 rows, capacity
+    16,384: under the 16,384-row floor at its real size). Returns
+    (per-kernel results, the launches of the tier's run)."""
+    ms = timer(device)
+    t0 = time.perf_counter()
+    data, words = tpch.supplier(tpch.SF1_SUPPLIERS, seed)
+    store = MemStore.from_pairs(tpch.supplier_pairs(data, words))
+    rng = np.random.default_rng(seed)
+    work = [[(tpch.G_SHAPES[(t + i) % len(tpch.G_SHAPES)], None)
+             for i in range(G_PER_THREAD)] for t in range(G_THREADS)]
+    work = [[(sh, tpch.g_literal(sh, rng)) for sh, _ in w] for w in work]
+    print(f"phase G: {tpch.SF1_SUPPLIERS} supplier rows encoded into the "
+          f"store in {time.perf_counter() - t0:.1f} s; {G_THREADS} sessions "
+          f"x {G_PER_THREAD} statements")
+    # the two modes in turns (tier, solo, solo, tier) within this call:
+    # host clocks on a shared machine drift between runs
+    runs = {"tier": [], "solo": []}
+    for on in (True, False, False, True):
+        rows, lat, wall, client, launches = g_traffic(
+            store, (data, words), work, on, device)
+        mode = "tier" if on else "solo"
+        for t, w in enumerate(work):
+            for i, (shape, lit) in enumerate(w):
+                same_g(rows[(t, i)], tpch.g_expected(shape, lit, data,
+                                                     words),
+                       f"phase G {mode} {shape} {lit}")
+        n = len(lat)
+        st = client.stats
+        runs[mode].append((rows, launches, n / wall))
+        print(f"phase G {mode}: {n} statements equal to numpy in "
+              f"{wall:.3f} s: {n / wall:.1f} statements/s, latency p50 "
+              f"{np.percentile(lat, 50):.3f} ms p99 "
+              f"{np.percentile(lat, 99):.3f} ms (host clock)")
+        print(f"  {mode}: small_batched {st['small_batched']} small_solo "
+              f"{st['small_solo']} batched launches {st['batched_launches']}"
+              f" mean slots per launch "
+              f"{st['batched_slots'] / max(st['batched_launches'], 1):.3f} "
+              f"slots histogram {dict(sorted(st['batch_sizes'].items()))} "
+              f"stall degrades {st['stall_degrades']}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+    first = runs["tier"][0][0]
+    need(all(r[0] == first for mode in runs for r in runs[mode]),
+         "phase G: the runs answered differently")
+    print("phase G in turns (tier, solo, solo, tier): tier " + ", ".join(
+        f"{r[2]:.1f}" for r in runs["tier"]) + " statements/s; solo "
+        + ", ".join(f"{r[2]:.1f}" for r in runs["solo"]))
+    launches = runs["tier"][0][1]
+    if device.type == "cuda":
+        for k in SLOT_KERNELS:
+            need(launches[k] > 0, f"kernel {k} never launched in phase G")
+    need(all(r[1][k] == 0 for r in runs["solo"] for k in SLOT_KERNELS),
+         "phase G: the solo run launched a slot kernel")
+    # one session alone: each shape's statement time on the solo route
+    # (the traffic gate keeps a lone thread there), median of 20
+    client = GpuClient(store, device)
+    alone = {}
+    for shape in tpch.G_SHAPES:
+        req = tpch.g_statement(shape, 7)
+        alone[shape] = host_ms(lambda: client.send(req).next(), 20)
+    need(client.stats["small_batched"] == 0, "phase G: a lone session "
+         "took the tier")
+    print("phase G: one session, statement time by shape (ms, median of "
+          "20, host clock): " + ", ".join(f"{k} {v:.3f}"
+                                          for k, v in alone.items()))
+
+    # the kernels at the tier's shape: 32 statements on the supplier batch
+    client = GpuClient(store, device)
+    for shape in tpch.G_SHAPES:
+        client.send(tpch.g_statement(shape, 0)).next()
+    out, err = {}, {k: 0.0 for k in SLOT_KERNELS}
+    tier = {}
+    for shape in ("g_nation", "g_agg", "g_topn"):
+        reqs = [tpch.g_statement(shape, x % 25) for x in range(32)]
+        batch = client._get_batch(reqs[0].data, reqs[0].key_ranges)
+        tier[shape] = slot_inputs(batch, [r.data for r in reqs], device)
+        for kname, e in check_slots(tier[shape], f"K14-16 {shape}").items():
+            err[kname] = max(err[kname], e)
+    one = slot_inputs(batch, [reqs[0].data], device)
+    for kname, e in check_slots(one, "K14-16 one slot").items():
+        err[kname] = max(err[kname], e)
+    eb = g_edge_batch(seed + 3)
+    for sels, what in g_edge_cases(eb):
+        for kname, e in check_slots(slot_inputs(eb, sels, device),
+                                    f"edge {what}").items():
+            err[kname] = max(err[kname], e)
+    print("phase G: K14, K15 and K16 equal their plain versions at k = 32 "
+          "on the supplier batch, one slot, and edge cases")
+
+    def timed(a: dict, kernel: str, runs_: int = 20) -> dict:
+        args = (a["fin"], a["pools"], a["plane_list"], a["live"])
+        if kernel == "slot_filter":
+            kern = lambda: kernels.slot_filter(*args)  # noqa: E731
+            plain = lambda: kernels.slot_filter_plain(*args)  # noqa: E731
+        elif kernel == "slot_agg":
+            kern = lambda: kernels.slot_agg(*args, a["reds"])  # noqa: E731
+            plain = lambda: kernels.slot_agg_plain(  # noqa: E731
+                *args, a["reds"])
+        else:
+            words_ = kernels.slot_filter(*args)
+            kern = lambda: kernels.slot_topn(  # noqa: E731
+                words_, a["keys"], a["k"])
+            plain = lambda: kernels.slot_topn_plain(  # noqa: E731
+                words_, a["keys"], a["k"])
+        return dict(ms=ms(kern, runs=runs_),
+                    plain_ms=ms(plain, runs=max(runs_ // 4, 3)),
+                    library_ms=None, max_abs_err=err[kernel],
+                    bound=bound(slot_bytes(a, kernel), slot_ops(a, kernel)))
+
+    for kname, shape in zip(SLOT_KERNELS, ("g_nation", "g_agg", "g_topn")):
+        out[kname] = timed(tier[shape], kname)
+    # the stress shape: 32 statements over Phase B's SF1 lineitem planes
+    c = expr_column
+    ti = tpch.table_info([tpch.C_ORDERKEY, tpch.C_QUANTITY,
+                          tpch.C_EXTENDEDPRICE, tpch.C_SHIPDATE])
+    one_ = expr_value(Datum.i64(1))
+    stress = []
+    for j in range(32):
+        where = expr_op(Op.AndAnd, expr_op(
+            Op.LT, c(tpch.C_QUANTITY), expr_value(Datum.dec(Decimal(
+                10 + j)))), expr_op(Op.LE, c(tpch.C_SHIPDATE), expr_value(
+                    tpch._date(f"199{2 + j % 7}-0{1 + j % 9}-15"))))
+        stress.append(SelectRequest(
+            start_ts=1, table_info=ti, where=where,
+            aggregates=[expr_agg("count", [one_]),
+                        expr_agg("sum", [c(tpch.C_QUANTITY)]),
+                        expr_agg("max", [c(tpch.C_EXTENDEDPRICE)])],
+            order_by=[ByItem(c(tpch.C_EXTENDEDPRICE), True),
+                      ByItem(c(tpch.C_ORDERKEY), False)], limit=100))
+    sa = slot_inputs(lineitem, stress, device)
+    for kname, e in check_slots(sa, "K14-16 stress").items():
+        err[kname] = max(err[kname], e)
+    for kname in SLOT_KERNELS:
+        r = timed(sa, kname, runs_=5)
+        out[kname]["stress"] = r
+        print(f"phase G stress (32 slots over {lineitem.capacity} lineitem "
+              f"rows): {kname} {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+              f"ms, bound {r['bound'][0]:.4f} ms by {r['bound'][1]}")
+    for kname in SLOT_KERNELS:
+        out[kname]["max_abs_err"] = err[kname]
+        r = out[kname]
+        print(f"  {kname} at the tier's shape: {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms by "
+              f"{r['bound'][1]}), max_abs_err {r['max_abs_err']}")
+    return out, launches
+
+
+def same_g(got: list, want: list, what: str) -> None:
+    need(got == want, f"{what}: {got[:3]} ... vs numpy {want[:3]} ... "
+         f"({len(got)} vs {len(want)} rows)")
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1735,11 +2124,14 @@ def main() -> int:
                                    edge_cap=1 << 20)
     e_results, e_launches = phase_e(data, batch, device, seed=5)
     f_results, f_launches = phase_f(data, batch, device, seed=2)
+    g_results, g_launches = phase_g(batch, device, seed=9)
     del data, batch
     launches.update({k: e_launches[k] for k in SLICE3_KERNELS})
     launches.update({k: f_launches[k] for k in JOIN_KERNELS})
+    launches.update({k: g_launches[k] for k in SLOT_KERNELS})
     results.update(e_results)
     results.update(f_results)
+    results.update(g_results)
     launches.update(phase_c(tpch.SF001_ROWS, seed=1, device=device))
     results.update(phase_d(tpch.SF1_ROWS, seed=2, device=device))
     rows = []

@@ -167,6 +167,43 @@ print("LOADED", bad)
 """
 
 
+_DRIVE_TIER = r"""
+import sys, threading, time
+sys.path.insert(0, {root!r})
+from tidb_tpu_torch import tpch
+from tidb_tpu_torch.copr.proto import iter_response_rows
+from tidb_tpu_torch.kv.memstore import MemStore
+from tidb_tpu_torch.ops.client import GpuClient
+data, words = tpch.supplier(800, seed=3)
+store = MemStore.from_pairs(tpch.supplier_pairs(data, words))
+client = GpuClient(store, device="cpu", batch_window_ms=300)
+client.send(tpch.g_statement("g_topn", 0)).next()    # pack the batch once
+sched = client._sched
+sched._last_multi = time.monotonic()        # traffic: the gate is open
+def gather(_w):                             # the leader waits for all four
+    while len(sched._queue) < 4:
+        time.sleep(0.005)
+sched._gather = gather
+out = {{}}
+barrier = threading.Barrier(4)
+def run(t):
+    barrier.wait()
+    resp = client.send(tpch.g_statement("g_topn", t)).next()
+    out[t] = [(h, [d.val for d in ds]) for h, ds in iter_response_rows(resp)]
+ths = [threading.Thread(target=run, args=(t,)) for t in range(4)]
+for th in ths:
+    th.start()
+for th in ths:
+    th.join(60)
+for t in range(4):
+    assert out[t] == tpch.g_expected("g_topn", t, data, words), t
+assert client.stats["batch_sizes"] == {{4: 1}}, client.stats
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "tidb_tpu"))
+print("LOADED", bad)
+"""
+
+
 def _run_without_jax(script: str) -> None:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", script.format(root=ROOT)],
@@ -190,6 +227,27 @@ def test_cluster_q1_runs_without_jax():
 
 def test_join_runs_without_jax():
     _run_without_jax(_DRIVE_JOIN)
+
+
+def test_tier_runs_without_jax():
+    _run_without_jax(_DRIVE_TIER)
+
+
+def test_tier_client_without_cuda_raises():
+    """A client with the micro-batch tier on asks for the card like any
+    other: without CUDA it raises, and a slot kernel handed a tensor on no
+    supported device raises rather than running its plain version."""
+    from tidb_tpu_torch.errors import DeviceError
+    from tidb_tpu_torch.kv.memstore import MemStore
+    from tidb_tpu_torch.ops import kernels
+    from tidb_tpu_torch.ops.client import GpuClient
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the card is there")
+    with pytest.raises(DeviceError, match="CUDA is not available"):
+        GpuClient(MemStore([], []), micro_batch=True, batch_window_ms=2)
+    words = torch.zeros((2, 16), dtype=torch.int64, device="meta")
+    with pytest.raises(DeviceError, match="no kernel for device"):
+        kernels.slot_topn(words, [], 4)
 
 
 def test_join_path_without_cuda_raises():

@@ -28,14 +28,16 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
 
 SOURCES = ("expr_vm", "scalar_agg", "seg_agg_onehot", "seg_agg_sorted",
            "rank_groups", "distinct_runs", "topk_select", "seg_states_ragged",
-           "combine_partials", "join_build", "join_probe", "dict_remap")
+           "combine_partials", "join_build", "join_probe", "dict_remap",
+           "slot_filter", "slot_agg", "slot_topn")
 # -fmad=false: no multiply-add contraction, so every f64 a * b + c rounds
 # twice exactly as the plain versions (and the reference) round it
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_uint
 # C signature of every exported function: (argtypes, restype)
 SIGNATURES = {
     "expr_vm": {
@@ -94,6 +96,20 @@ SIGNATURES = {
     },
     "dict_remap": {
         "dict_remap_launch": ([_L, _I, _P, _P, _P, _P], _I),
+    },
+    "slot_filter": {
+        "slot_filter_launch": ([_L, _I, _P, _I, _P, _I, _P, _P, _I, _U, _P,
+                                _P, _P], _I),
+    },
+    "slot_agg": {
+        "slot_agg_blocks": ([_L], _I),
+        "slot_agg_launch": ([_L, _I, _P, _I, _P, _I, _P, _P, _I, _U, _P, _I,
+                             _P, _P, _P, _P], _I),
+    },
+    "slot_topn": {
+        "slot_topn_tile": ([], _I),
+        "slot_topn_launch": ([_L, _I, _L, _P, _I, _P, _P, _P, _P, _P, _P,
+                              _P, _P, _P], _I),
     },
 }
 

@@ -19,15 +19,25 @@ Per request:
      tidb_tpu_columnar_scan on — the port has no such switch: the hint
      alone decides.
 
+A request whose batch holds fewer rows than the dispatch floor (or whose
+planner estimate says so) takes `_route_small`: the micro-batch tier
+(ops.sched.MicroBatcher), where concurrent statements of one shape on one
+batch share a launch with their literals as per-slot parameters, else the
+solo route, which is `serve` on the card: the port has no CPU engine.
+
 A request outside the port (index scans, HAVING, ORDER BY without LIMIT,
 more than kernels.TOPN_MAX_KEYS ORDER BY items, a group tuple count beyond
 the segment ceiling) raises Unsupported: the port has no CPU engine to
 hand it to.
+
+The client keeps no per-request state: one client serves many sessions
+at once, so every decode table a statement needs travels with it
+(`_Decode`), and the shared caches and counters take the client's lock.
 """
 
 from __future__ import annotations
 
-import itertools
+import threading
 from decimal import Decimal
 
 import numpy as np
@@ -42,19 +52,17 @@ from tidb_tpu_torch.kv import kv
 from tidb_tpu_torch.ops import columnar as col
 from tidb_tpu_torch.ops import kernels
 from tidb_tpu_torch.ops.exprc import Program, Unsupported, compile_expr
+from tidb_tpu_torch.ops.sched import MicroBatcher, batch_uid
 from tidb_tpu_torch.types.datum import NULL, Datum, Kind
 from tidb_tpu_torch.types.time_types import Duration, Time
 
 
-_batch_ids = itertools.count(1)
-
-
-def _batch_uid(batch) -> int:
-    """A number naming one packed batch for the life of the process."""
-    uid = getattr(batch, "_uid", None)
-    if uid is None:
-        uid = batch._uid = next(_batch_ids)
-    return uid
+# Copies of the reference's sysvar defaults (tidb_tpu/sessionctx/
+# __init__.py:54 tidb_tpu_dispatch_floor, :117 tidb_tpu_batch_window_ms):
+# a request under DISPATCH_FLOOR_ROWS rows takes _route_small, whose
+# micro-batch tier gathers concurrent statements for BATCH_WINDOW_MS.
+DISPATCH_FLOOR_ROWS = 16384
+BATCH_WINDOW_MS = 2
 
 
 def _n_outputs(spec) -> int:
@@ -75,6 +83,22 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+class _Decode:
+    """The decode tables of one request: its batch, its columns and their
+    dictionaries. Built per statement and passed down, never kept on the
+    client, so that concurrent statements cannot read each other's."""
+
+    __slots__ = ("batch", "cols", "col_pb", "dict_for")
+
+    def __init__(self, sel: SelectRequest, batch: col.ColumnBatch):
+        self.batch = batch
+        self.cols = sel.table_info.columns
+        self.col_pb = {c.column_id: c for c in self.cols}
+        self.dict_for = {cid: cd.dictionary
+                         for cid, cd in batch.columns.items()
+                         if cd.kind == col.K_STR}
+
+
 class _SingleResponse(kv.Response):
     def __init__(self, resp: SelectResponse):
         self._resp = resp
@@ -85,16 +109,48 @@ class _SingleResponse(kv.Response):
 
 
 class GpuClient(kv.Client):
-    def __init__(self, store, device=None):
+    def __init__(self, store, device=None, dispatch_floor_rows=None,
+                 micro_batch=True, batch_window_ms=BATCH_WINDOW_MS):
         self.store = store
         self.device = resolve_device(device)
+        # below this many rows a request takes _route_small (0: never)
+        self.dispatch_floor_rows = (DISPATCH_FLOOR_ROWS
+                                    if dispatch_floor_rows is None
+                                    else int(dispatch_floor_rows))
+        # False pins every below-floor statement to the solo route
+        self.micro_batch = bool(micro_batch)
+        self.batch_window_ms = batch_window_ms
+        self._sched = MicroBatcher()
+        # guards the batch cache, the rank memo and the counters below,
+        # which concurrent sessions share
+        self._lock = threading.Lock()
         self._batch_cache: dict = {}
         # rung of _RANK_CAPS a repeated ranked statement starts at
         self._rank_cap_start: dict = {}
+        # small_batched / small_solo: below-floor statements answered by a
+        # shared launch / by the solo route; batched_launches and
+        # batched_slots: the tier's launches and the statements they
+        # carried (exactly one slot each); batch_sizes: launches by slot
+        # count; stall_degrades: statements whose gather window stalled
         self.stats = {"gpu_requests": 0, "batch_packs": 0, "batch_hits": 0,
                       "ranked": 0, "tuple_grouped": 0,
+                      "small_batched": 0, "small_solo": 0,
+                      "batched_launches": 0, "batched_slots": 0,
+                      "batch_sizes": {}, "stall_degrades": 0,
                       "launches": {k: 0 for k in kernels.LAUNCHES}}
         self.last_rank_cap = None     # the rung the last ranked answer took
+
+    def count(self, key: str, n: int = 1) -> None:
+        with self._lock:
+            self.stats[key] += n
+
+    def note_launch(self, slots: int) -> None:
+        """One launch of the micro-batch tier carrying `slots` statements."""
+        with self._lock:
+            self.stats["batched_launches"] += 1
+            self.stats["batched_slots"] += slots
+            sizes = self.stats["batch_sizes"]
+            sizes[slots] = sizes.get(slots, 0) + 1
 
     # ------------------------------------------------------------------
 
@@ -103,9 +159,37 @@ class GpuClient(kv.Client):
         if req.tp != kv.REQ_TYPE_SELECT or sel.table_info is None:
             raise Unsupported("only table scans are served (index "
                               "requests come with a later slice)")
-        resp = self._send_gpu(req, sel)
-        self.stats["gpu_requests"] += 1
+        floor = self.dispatch_floor_rows
+        if floor and sel.est_rows is not None and sel.est_rows < floor:
+            # the planner's estimate is under the floor: no pack first
+            return self._route_small(req, sel)
+        batch = self._get_batch(sel, req.key_ranges)
+        if floor and batch.n_rows < floor:
+            return self._route_small(req, sel, batch)
+        return self._solo(sel, batch)
+
+    def _solo(self, sel: SelectRequest, batch: col.ColumnBatch
+              ) -> kv.Response:
+        resp = self.serve(sel, batch)
+        self.count("gpu_requests")
         return _SingleResponse(resp)
+
+    def _route_small(self, req: kv.Request, sel: SelectRequest,
+                     batch: col.ColumnBatch | None = None) -> kv.Response:
+        """Below the dispatch floor: the micro-batch tier first (ops.sched;
+        statements of one shape on one batch within the gather window share
+        one launch), else the solo route — `serve` on the card, where the
+        reference answers on its CPU engine. A fault in a shared launch
+        raises in every statement it carried."""
+        if self.micro_batch:
+            resp = self._sched.submit(self, req, sel)
+            if resp is not None:
+                self.count("small_batched")
+                return resp
+        self.count("small_solo")
+        if batch is None:
+            batch = self._get_batch(sel, req.key_ranges)
+        return self._solo(sel, batch)
 
     def _batch_key(self, sel: SelectRequest, ranges) -> tuple:
         """(cache key, data version) of the batch `sel` reads."""
@@ -122,29 +206,29 @@ class GpuClient(kv.Client):
         straight from its arrays (what packing the store's rows would
         give): send then finds it where it keeps the batches it packed."""
         key, version = self._batch_key(sel, ranges)
-        self._batch_cache[key] = (batch, version)
+        with self._lock:
+            self._batch_cache[key] = (batch, version)
 
     def _get_batch(self, sel: SelectRequest, ranges) -> col.ColumnBatch:
         src = sel.table_info
         cols = src.columns
         key, version = self._batch_key(sel, ranges)
-        ent = self._batch_cache.get(key)
-        if ent is not None and ent[1] == version:
-            self.stats["batch_hits"] += 1
-            return ent[0]
+        with self._lock:
+            ent = self._batch_cache.get(key)
+            if ent is not None and ent[1] == version:
+                self.stats["batch_hits"] += 1
+                return ent[0]
+            self.stats["batch_packs"] += 1
         snapshot = self.store.get_snapshot(sel.start_ts)
         defaults = {c.column_id: c.default_val for c in cols
                     if c.default_val is not None}
-        self.stats["batch_packs"] += 1
         batch = col.pack_ranges(snapshot, src.table_id, cols, ranges,
                                 defaults)
-        self._batch_cache[key] = (batch, version)
-        if len(self._batch_cache) > 64:
-            self._batch_cache.pop(next(iter(self._batch_cache)))
+        with self._lock:
+            self._batch_cache[key] = (batch, version)
+            if len(self._batch_cache) > 64:
+                self._batch_cache.pop(next(iter(self._batch_cache)))
         return batch
-
-    def _send_gpu(self, req: kv.Request, sel: SelectRequest) -> SelectResponse:
-        return self.serve(sel, self._get_batch(sel, req.key_ranges))
 
     def serve(self, sel: SelectRequest, batch: col.ColumnBatch
               ) -> SelectResponse:
@@ -152,18 +236,11 @@ class GpuClient(kv.Client):
         packing; a caller holding planes drives the same path)."""
         if sel.having is not None:
             raise Unsupported("having not lowered")
-        # per-request decode tables for datum reconstruction
-        self._cur_batch = batch
-        self._cur_cols = sel.table_info.columns
-        self._col_pb = {c.column_id: c for c in self._cur_cols}
-        self._dict_for = {cid: cd.dictionary
-                          for cid, cd in batch.columns.items()
-                          if cd.kind == col.K_STR}
         prog = Program(batch)
         where = compile_expr(sel.where, batch, prog) \
             if sel.where is not None else None
         if sel.is_agg():
-            return self._run_aggregate(sel, batch, prog, where)
+            return self._run_aggregate(sel, _Decode(sel, batch), prog, where)
         if sel.order_by:
             return self._run_topn(sel, batch, prog, where)
         return self._run_filter(sel, batch, prog, where)
@@ -183,7 +260,9 @@ class GpuClient(kv.Client):
     # aggregation
     # ------------------------------------------------------------------
 
-    def _run_aggregate(self, sel, batch, prog, where) -> SelectResponse:
+    def _run_aggregate(self, sel, dec: _Decode, prog, where
+                       ) -> SelectResponse:
+        batch = dec.batch
         specs = kernels.lower_aggregates(sel, batch, prog)
         planes = kernels.batch_planes(batch, self.device)
         live = kernels.device_live(batch, self.device)
@@ -193,7 +272,7 @@ class GpuClient(kv.Client):
                 # device sort and rank up the ladder; composite tuple
                 # codes only when the ladder overflows
                 try:
-                    return self._run_ranked(sel, batch, prog, where, specs,
+                    return self._run_ranked(sel, dec, prog, where, specs,
                                             gspec, planes, live)
                 except Unsupported:
                     tspec = kernels.lower_tuple_group(gspec, batch)
@@ -201,24 +280,24 @@ class GpuClient(kv.Client):
                         raise Unsupported("group tuple cardinality exceeds "
                                           "the segment ceiling") from None
                     gspec = tspec
-                    self.stats["tuple_grouped"] += 1
+                    self.count("tuple_grouped")
             planes = self._with_group_planes(batch, gspec, planes)
             fn = kernels.build_grouped_agg_fn(prog, where, specs,
                                               gspec.plane_keys,
                                               gspec.kernel_sizes)
             outs = self._dispatch(fn, planes, live)
             with kernels.phase("emit", self.device):
-                return self._emit_grouped(sel, batch, specs, gspec,
+                return self._emit_grouped(sel, dec, specs, gspec,
                                           fn.radices, outs)
         fn = kernels.build_scalar_agg_fn(prog, where, specs)
         outs = self._dispatch(fn, planes, live)
-        return self._emit_scalar(sel, batch, specs, outs)
+        return self._emit_scalar(sel, dec, specs, outs)
 
-    def _emit_scalar(self, sel, batch, specs, outs) -> SelectResponse:
+    def _emit_scalar(self, sel, dec: _Decode, specs, outs) -> SelectResponse:
         row: list[Datum] = [Datum.bytes_(b"")]
         i = 0
         for spec, e in zip(specs, sel.aggregates):
-            row.extend(self._partial_datums(spec, e, outs, i, None))
+            row.extend(self._partial_datums(dec, spec, e, outs, i, None))
             i += _n_outputs(spec)
         return self._agg_response([(0, row)])
 
@@ -252,7 +331,8 @@ class GpuClient(kv.Client):
                 (ent, planes[kernels.GC_BASE - key][1])
         return planes
 
-    def _group_datum(self, cid: int, decoder, code: int) -> Datum:
+    def _group_datum(self, dec: _Decode, cid: int, decoder, code: int
+                     ) -> Datum:
         kind = decoder[0]
         if kind == "dec":
             _k, data, scale = decoder
@@ -264,9 +344,9 @@ class GpuClient(kv.Client):
         v = data[code]
         if isinstance(v, np.floating):
             return Datum.f64(float(v))
-        return self._i64_datum(cid, int(v))
+        return _i64_datum(dec, cid, int(v))
 
-    def _emit_grouped(self, sel, batch, specs, gspec, radices,
+    def _emit_grouped(self, sel, dec: _Decode, specs, gspec, radices,
                       outs) -> SelectResponse:
         rows: list = []
         row_count = outs[0]
@@ -287,15 +367,15 @@ class GpuClient(kv.Client):
                     rem //= radix
                 codes.reverse()
             gvals = []
-            for code, size, cid, dec in zip(codes, gspec.sizes, gspec.cids,
-                                            gspec.decoders):
+            for code, size, cid, decoder in zip(codes, gspec.sizes,
+                                                gspec.cids, gspec.decoders):
                 gvals.append(NULL if code >= size
-                             else self._group_datum(cid, dec, code))
+                             else self._group_datum(dec, cid, decoder, code))
             gk = codec.encode_value(gvals)
             row: list[Datum] = [Datum.bytes_(gk)]
             i = 1  # outs[0] is row_count
             for spec, e in zip(specs, sel.aggregates):
-                row.extend(self._partial_datums(spec, e, outs, i, gid))
+                row.extend(self._partial_datums(dec, spec, e, outs, i, gid))
                 i += _n_outputs(spec)
             rows.append((0, row))
         return self._agg_response(rows)
@@ -305,16 +385,17 @@ class GpuClient(kv.Client):
     # codes
     _RANK_CAPS = (1025, 16385, 262145)
 
-    def _run_ranked(self, sel, batch, prog, where, specs, gspec, planes,
-                    live) -> SelectResponse:
+    def _run_ranked(self, sel, dec: _Decode, prog, where, specs, gspec,
+                    planes, live) -> SelectResponse:
         """The rank ladder of the reference's _run_ranked, with its memo of
         the rung a repeated statement starts at. The K1 pass and the sort
         do not depend on the rung, so they run once per statement; each
         rung tried runs K8, and the one that holds the groups the
         reductions."""
-        ck = (_batch_uid(batch), repr(sel.where), repr(sel.aggregates),
+        ck = (batch_uid(dec.batch), repr(sel.where), repr(sel.aggregates),
               repr(sel.group_by))
-        start = self._rank_cap_start.get(ck, self._RANK_CAPS[0])
+        with self._lock:
+            start = self._rank_cap_start.get(ck, self._RANK_CAPS[0])
         if start > self._RANK_CAPS[-1]:
             # memoized overflow: repeats go straight to the tuple fallback
             raise Unsupported("group cardinality exceeds rank buckets "
@@ -328,19 +409,21 @@ class GpuClient(kv.Client):
             ngroups, outs = self._dispatch(
                 lambda p, lv, cap=cap: fn(prep, p, cap), planes, live)
             if outs is not None:
-                self._rank_cap_start[ck] = cap
-                if len(self._rank_cap_start) > 256:
-                    self._rank_cap_start.pop(
-                        next(iter(self._rank_cap_start)))
-                self.last_rank_cap = cap
-                self.stats["ranked"] += 1
+                with self._lock:
+                    self._rank_cap_start[ck] = cap
+                    if len(self._rank_cap_start) > 256:
+                        self._rank_cap_start.pop(
+                            next(iter(self._rank_cap_start)))
+                    self.last_rank_cap = cap
+                    self.stats["ranked"] += 1
                 with kernels.phase("emit", self.device):
-                    return self._emit_ranked(sel, batch, specs, gspec, outs,
+                    return self._emit_ranked(sel, dec, specs, gspec, outs,
                                              ngroups)
-        self._rank_cap_start[ck] = self._RANK_CAPS[-1] + 1
+        with self._lock:
+            self._rank_cap_start[ck] = self._RANK_CAPS[-1] + 1
         raise Unsupported(f"group cardinality {ngroups} exceeds rank buckets")
 
-    def _emit_ranked(self, sel, batch, specs, gspec, outs,
+    def _emit_ranked(self, sel, dec: _Decode, specs, gspec, outs,
                      ngroups: int) -> SelectResponse:
         rows: list = []
         # outs: [ngroups, row_count, (rep, nonnull) per group column, aggs…]
@@ -352,7 +435,7 @@ class GpuClient(kv.Client):
                     gvals.append(NULL)
                     continue
                 rep = outs[2 + 2 * j][g]
-                cd = batch.columns[cid]
+                cd = dec.batch.columns[cid]
                 if cd.kind == col.K_STR:
                     gvals.append(Datum.bytes_(cd.dictionary[int(rep)]))
                 elif cd.kind == col.K_F64:
@@ -361,12 +444,12 @@ class GpuClient(kv.Client):
                     gvals.append(Datum.dec(
                         Decimal(int(rep)) / (Decimal(10) ** cd.dec_scale)))
                 else:
-                    gvals.append(self._i64_datum(cid, int(rep)))
+                    gvals.append(_i64_datum(dec, cid, int(rep)))
             gk = codec.encode_value(gvals)
             row: list[Datum] = [Datum.bytes_(gk)]
             i = base
             for spec, e in zip(specs, sel.aggregates):
-                row.extend(self._partial_datums(spec, e, outs, i, g))
+                row.extend(self._partial_datums(dec, spec, e, outs, i, g))
                 i += _n_outputs(spec)
             rows.append((0, row))
         return self._agg_response(rows)
@@ -377,7 +460,8 @@ class GpuClient(kv.Client):
             writer.append_row(handle, row)
         return SelectResponse(chunks=writer.finish())
 
-    def _partial_datums(self, spec, agg_expr, outs, i, gid) -> list[Datum]:
+    def _partial_datums(self, dec: _Decode, spec, agg_expr, outs, i, gid
+                        ) -> list[Datum]:
         """Partial-row slice for one aggregate, layout-compatible with
         AggregationFunction.get_partial_result."""
         def at(j):
@@ -408,63 +492,15 @@ class GpuClient(kv.Client):
             # actual value host-side (exact CPU-engine semantics)
             if n == 0:
                 return [NULL]
-            return [self._col_datum_at(self._cur_batch,
-                                       agg_expr.children[0].val, int(v))]
+            return [_col_datum_at(dec, agg_expr.children[0].val, int(v))]
         if name in ("min", "max"):
             if n == 0:
                 return [NULL]
             if dec_scale is not None:
                 return [Datum.dec(Decimal(int(v))
                                   / (Decimal(10) ** dec_scale))]
-            return [self._phys_to_datum(agg_expr, v)]
+            return [_phys_to_datum(dec, agg_expr, v)]
         raise Unsupported(name)
-
-    def _i64_datum(self, cid: int, iv: int) -> Datum:
-        """Int-plane value → Datum via the column's MySQL type."""
-        pb = self._col_pb.get(cid)
-        tp = pb.tp if pb is not None else None
-        if tp in my.TIME_TYPES:
-            return Datum(Kind.TIME, Time.from_packed_int(iv, tp))
-        if tp == my.TypeDuration:
-            return Datum(Kind.DURATION, Duration(iv))
-        if pb is not None and my.has_unsigned_flag(pb.flag):
-            return Datum.u64(iv)
-        return Datum.i64(iv)
-
-    def _col_datum_at(self, batch, cid: int, i: int) -> Datum:
-        cd = batch.columns[cid]
-        if not cd.valid[i]:
-            return NULL
-        if cd.kind == col.K_STR:
-            return Datum.bytes_(cd.dictionary[int(cd.values[i])])
-        if cd.kind == col.K_F64:
-            return Datum.f64(float(cd.values[i]))
-        if cd.kind == col.K_DEC:
-            return Datum.dec(Decimal(int(cd.values[i]))
-                             / (Decimal(10) ** cd.dec_scale))
-        return self._i64_datum(cid, int(cd.values[i]))
-
-    def _phys_to_datum(self, agg_expr, v) -> Datum:
-        """Physical kernel value → Datum, reversing columnar.datum_to_phys
-        using the aggregate argument's column type."""
-        arg = agg_expr.children[0] if agg_expr.children else None
-        tp = None
-        if arg is not None and arg.tp == ExprType.COLUMN_REF:
-            pb = self._col_pb.get(arg.val)
-            tp = pb.tp if pb is not None else None
-        if isinstance(v, np.floating):
-            return Datum.f64(float(v))
-        iv = int(v)
-        if tp in my.TIME_TYPES:
-            return Datum(Kind.TIME, Time.from_packed_int(iv, tp))
-        if tp == my.TypeDuration:
-            return Datum(Kind.DURATION, Duration(iv))
-        if tp in my.STRING_TYPES:
-            # min/max over dict codes: decode via the arg column dictionary
-            d = self._dict_for.get(arg.val)
-            return Datum.bytes_(d[iv]) if d is not None and 0 <= iv < len(d) \
-                else NULL
-        return Datum.i64(iv)
 
     # ------------------------------------------------------------------
     # filter
@@ -505,18 +541,75 @@ class GpuClient(kv.Client):
         with kernels.phase("emit", self.device):
             return self._emit_rows(sel, batch, idx)
 
-    def _emit_rows(self, sel, batch, idx, idx_device=None) -> SelectResponse:
+    def _emit_rows(self, sel, batch, idx, idx_device=None, cols=None
+                   ) -> SelectResponse:
         """The filter/TopN survivors: under `columnar_hint` the scan's
         planes and selection index (ColumnarScanResult; `idx_device`, the
-        same index on the card where the filter left it), else rows."""
+        same index on the card where the filter left it), else rows.
+        `cols` defaults to the request's own columns."""
+        if cols is None:
+            cols = sel.table_info.columns
         if sel.columnar_hint:
             return SelectResponse(columnar=col.ColumnarScanResult(
-                batch, np.asarray(idx, dtype=np.int64), list(self._cur_cols),
+                batch, np.asarray(idx, dtype=np.int64), list(cols),
                 device=self.device, sel_device=idx_device))
         writer = ChunkWriter()
         planes = batch.columns
-        for i in idx.tolist():
-            row = [col.plane_datum(planes[c.column_id], c, i)
-                   for c in self._cur_cols]
+        for i in np.asarray(idx, dtype=np.int64).tolist():
+            row = [col.plane_datum(planes[c.column_id], c, i) for c in cols]
             writer.append_row(int(batch.handles[i]), row)
         return SelectResponse(chunks=writer.finish())
+
+
+# ---------------------------------------------------------------------------
+# datum reconstruction from a request's decode tables
+# ---------------------------------------------------------------------------
+
+def _i64_datum(dec: _Decode, cid: int, iv: int) -> Datum:
+    """Int-plane value → Datum via the column's MySQL type."""
+    pb = dec.col_pb.get(cid)
+    tp = pb.tp if pb is not None else None
+    if tp in my.TIME_TYPES:
+        return Datum(Kind.TIME, Time.from_packed_int(iv, tp))
+    if tp == my.TypeDuration:
+        return Datum(Kind.DURATION, Duration(iv))
+    if pb is not None and my.has_unsigned_flag(pb.flag):
+        return Datum.u64(iv)
+    return Datum.i64(iv)
+
+
+def _col_datum_at(dec: _Decode, cid: int, i: int) -> Datum:
+    cd = dec.batch.columns[cid]
+    if not cd.valid[i]:
+        return NULL
+    if cd.kind == col.K_STR:
+        return Datum.bytes_(cd.dictionary[int(cd.values[i])])
+    if cd.kind == col.K_F64:
+        return Datum.f64(float(cd.values[i]))
+    if cd.kind == col.K_DEC:
+        return Datum.dec(Decimal(int(cd.values[i]))
+                         / (Decimal(10) ** cd.dec_scale))
+    return _i64_datum(dec, cid, int(cd.values[i]))
+
+
+def _phys_to_datum(dec: _Decode, agg_expr, v) -> Datum:
+    """Physical kernel value → Datum, reversing columnar.datum_to_phys
+    using the aggregate argument's column type."""
+    arg = agg_expr.children[0] if agg_expr.children else None
+    tp = None
+    if arg is not None and arg.tp == ExprType.COLUMN_REF:
+        pb = dec.col_pb.get(arg.val)
+        tp = pb.tp if pb is not None else None
+    if isinstance(v, np.floating):
+        return Datum.f64(float(v))
+    iv = int(v)
+    if tp in my.TIME_TYPES:
+        return Datum(Kind.TIME, Time.from_packed_int(iv, tp))
+    if tp == my.TypeDuration:
+        return Datum(Kind.DURATION, Duration(iv))
+    if tp in my.STRING_TYPES:
+        # min/max over dict codes: decode via the arg column dictionary
+        d = dec.dict_for.get(arg.val)
+        return Datum.bytes_(d[iv]) if d is not None and 0 <= iv < len(d) \
+            else NULL
+    return Datum.i64(iv)

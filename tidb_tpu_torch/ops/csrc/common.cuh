@@ -116,11 +116,9 @@ __device__ __forceinline__ Acc acc_merge(int op, Acc a, Acc b) {
   return r;
 }
 
-// Whether row `row` contributes to reduction `d` under `mask`, and its
-// value. R_FIRST contributes every mask row with its row index.
-__device__ __forceinline__ bool red_take(const i64* d, const unsigned char* mask,
-                                         i64 row, i64* x) {
-  if (!mask[row]) return false;
+// Whether row `row`, which passes the mask, contributes to reduction `d`,
+// and its value. R_FIRST contributes every mask row with its row index.
+__device__ __forceinline__ bool red_value(const i64* d, i64 row, i64* x) {
   int op = (int)d[0];
   if (op == R_FIRST) { *x = row; return true; }
   int flags = (int)d[1];
@@ -129,6 +127,34 @@ __device__ __forceinline__ bool red_take(const i64* d, const unsigned char* mask
   if (valid != nullptr && !valid[row]) return false;
   *x = (flags & RED_CONST) ? d[2] : ((const i64*)d[3])[row];
   return true;
+}
+
+// The same under a mask plane.
+__device__ __forceinline__ bool red_take(const i64* d, const unsigned char* mask,
+                                         i64 row, i64* x) {
+  return mask[row] && red_value(d, row, x);
+}
+
+// Fixed-order tree over a block of THREADS accumulators, staged in the
+// shared arrays sn/sv; every thread calls it and gets the block's result.
+// The caller syncs before it reuses sn/sv.
+template <int THREADS>
+__device__ __forceinline__ Acc block_merge(int op, Acc a, i64* sn, i64* sv) {
+  const int t = threadIdx.x;
+  sn[t] = a.n;
+  sv[t] = a.v;
+  __syncthreads();
+  for (int s = THREADS / 2; s > 0; s >>= 1) {
+    if (t < s) {
+      Acc l = {sn[t], sv[t]}, h = {sn[t + s], sv[t + s]};
+      Acc m = acc_merge(op, l, h);
+      sn[t] = m.n;
+      sv[t] = m.v;
+    }
+    __syncthreads();
+  }
+  Acc r = {sn[0], sv[0]};
+  return r;
 }
 
 // Fixed-order warp reduction (butterfly down to lane 0).

@@ -31,22 +31,11 @@ __global__ void scalar_agg_partial(i64 n, const unsigned char* __restrict__ mask
       i64 x;
       if (red_take(d, mask, row, &x)) acc_add(op, a, x);
     }
-    sn[t] = a.n;
-    sv[t] = a.v;
-    __syncthreads();
-    for (int s = K2_THREADS / 2; s > 0; s >>= 1) {
-      if (t < s) {
-        Acc l = {sn[t], sv[t]}, h = {sn[t + s], sv[t + s]};
-        Acc m = acc_merge(op, l, h);
-        sn[t] = m.n;
-        sv[t] = m.v;
-      }
-      __syncthreads();
-    }
+    const Acc b = block_merge<K2_THREADS>(op, a, sn, sv);
     if (t == 0) {
       i64* p = partial + 2 * ((i64)r * gridDim.x + blockIdx.x);
-      p[0] = sn[0];
-      p[1] = sv[0];
+      p[0] = b.n;
+      p[1] = b.v;
     }
     __syncthreads();
   }

@@ -27,7 +27,7 @@
 // once per row; the order words and flags written once and read back per
 // tile; then the candidate lists, read and written per round (about
 // n / tile * min(k, tile) candidates in the first rounds).
-#include "common.cuh"
+#include "topk.cuh"
 
 #define K10_TILE 1024
 #define K10_THREADS 512
@@ -107,58 +107,18 @@ k10_tiles(i64 n, i64 k, const unsigned char* __restrict__ mask, int nk,
     atomicAdd(live_count, (unsigned long long)tot);
   }
   const K10Ord ord = {n, nk, enc, flg};
-  for (int size = 2; size <= K10_TILE; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < K10_TILE / 2; t += K10_THREADS) {
-        const int i = 2 * t - (t & (stride - 1));
-        const int j = i + stride;
-        const i64 a = slot[i], b = slot[j];
-        const bool a_after_b = a < 0 ? b >= 0 : (b >= 0 && ord.less(b, a));
-        if (a_after_b == ((i & size) == 0)) {
-          slot[i] = b;
-          slot[j] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
+  topk_tile_sort<K10_TILE, K10_THREADS>(slot, ord);
   const i64 stride_out = k < K10_TILE ? k : K10_TILE;
   const i64 len = k < m ? k : m;
   for (int j = threadIdx.x; j < len; j += K10_THREADS)
     out[(i64)blockIdx.x * stride_out + j] = slot[j];
 }
 
-// Length of candidate list j of a round whose lists cover `span` rows each.
-__device__ __forceinline__ i64 k10_len(i64 n, i64 k, i64 span, i64 j) {
-  const i64 lo = j * span;
-  const i64 c = (n - lo < span ? n - lo : span);
-  return c < k ? c : k;
-}
-
 __global__ void k10_merge(i64 n, i64 k, i64 span, const i64* __restrict__ in,
                           i64* __restrict__ out, int nk, const u64* __restrict__ enc,
                           const unsigned char* __restrict__ flg) {
-  const i64 s_in = k < span ? k : span;
-  const i64 nlists = (n + span - 1) / span;
-  const i64 e = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= nlists * s_in) return;
-  const i64 j = e / s_in, i = e - j * s_in;
-  if (i >= k10_len(n, k, span, j)) return;
   const K10Ord ord = {n, nk, enc, flg};
-  const i64 x = in[e];
-  const i64 o = j ^ 1;
-  i64 pos = i;
-  if (o < nlists) {
-    const i64* other = in + o * s_in;
-    i64 lo = 0, hi = k10_len(n, k, span, o);
-    while (lo < hi) {
-      const i64 mid = lo + ((hi - lo) >> 1);
-      if (ord.less(other[mid], x)) lo = mid + 1; else hi = mid;
-    }
-    pos += lo;
-  }
-  const i64 s_out = k < 2 * span ? k : 2 * span;
-  if (pos < k) out[(j >> 1) * s_out + pos] = x;
+  topk_merge_one(n, k, span, in, out, (i64)blockIdx.x * blockDim.x + threadIdx.x, ord);
 }
 
 __global__ void k10_finish(const i64* __restrict__ count, i64 k, i64* __restrict__ n_live) {

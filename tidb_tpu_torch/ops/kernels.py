@@ -7,7 +7,9 @@ build_grouped_agg_fn :903, build_ranked_group_fn :989, build_filter_fn
 :1970, build_topn_fn :1980, build_topn_fn_multi :2080, and for the cluster
 region path combine_region_partials :1082, region_agg_states :1204,
 bucket_segments :1343, region_agg_states_batched :1356,
-region_filter_batched :1552).
+region_filter_batched :1552), and for the micro-batch tier the slot kernels
+of tidb_tpu/ops/sched.py (the filter wrapper :1021-1037 of
+MicroBatcher._kernel, _build_agg_wrapper :439, _build_topn_wrapper :532).
 
 Every request runs as K1 (`expr_vm`: WHERE mask, aggregate arguments and
 group id in one pass) followed, for aggregates, by K2 (`scalar_agg`) or,
@@ -28,6 +30,12 @@ masks), K6 (`seg_states_ragged`: every region's grouped states in one
 launch) and, in the final aggregate, K7 (`combine_partials`: the merge
 over the region axis). `CALLS` counts the calls of their wrappers, kernel
 or plain alike.
+
+Statements of one shape that the micro-batch tier (ops.sched) gathers run
+one program over one batch with a constant pool per statement (slot):
+K14 (`slot_filter`: every slot's survivor mask, bit-packed), K15
+(`slot_agg`: every slot's where-pass count and masked reductions) and K16
+(`slot_topn`: every slot's first k rows over K14's masks).
 
 Outputs keep the reference's layout: a scalar aggregate gives (n,) for
 count and (n, value) for the others; a grouped one gives row_count[S]
@@ -81,7 +89,14 @@ LAUNCHES = {"expr_vm": 0, "scalar_agg": 0, "seg_agg_onehot": 0,
             "seg_agg_sorted": 0, "rank_groups": 0, "distinct_runs": 0,
             "topk_select": 0, "expr_vm_ragged": 0, "seg_states_ragged": 0,
             "seg_states_ragged_sorted": 0, "combine_partials": 0,
-            "join_build": 0, "join_probe": 0, "dict_remap": 0}
+            "join_build": 0, "join_probe": 0, "dict_remap": 0,
+            "slot_filter": 0, "slot_agg": 0, "slot_topn": 0}
+
+# K14 / K15 read each row's planes once into a table of this many entries
+# (ops/csrc/vm.cuh VM_ROW_PLANES); K15 folds at most SLOT_MAX_REDS
+# reductions per slot (ops/csrc/slot_agg.cu K15_MAX_RED)
+SLOT_MAX_PLANES = 16
+SLOT_MAX_REDS = 9
 
 # calls of the cluster path's statement-level wrappers, kernel or plain
 CALLS = {"region_filter_batched": 0, "region_agg_states_batched": 0,
@@ -1202,6 +1217,19 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _check_program_planes(fin: Finalized, plane_list: list,
+                          live: torch.Tensor) -> None:
+    dev = live.device
+    n = live.shape[0]
+    _check_plane(live, n, (torch.bool,), "live plane", dev)
+    if len(plane_list) != len(fin.plane_keys):
+        raise errors.DeviceError("plane list does not match the program")
+    for key_which, t in zip(fin.plane_keys, plane_list):
+        dtypes = (torch.bool,) if key_which[1] else (torch.int64,
+                                                     torch.float64)
+        _check_plane(t, n, dtypes, f"plane {key_which}", dev)
+
+
 def expr_vm(fin: Finalized, plane_list: list, live: torch.Tensor,
             want_gid: bool):
     """K1: (mask bool[n], gid int64[n] | None, [(values, valid)] per
@@ -1211,11 +1239,7 @@ def expr_vm(fin: Finalized, plane_list: list, live: torch.Tensor,
         return mask, (gid if want_gid else None), values
     dev = live.device
     n = live.shape[0]
-    _check_plane(live, n, (torch.bool,), "live plane", dev)
-    for key_which, t in zip(fin.plane_keys, plane_list):
-        dtypes = (torch.bool,) if key_which[1] else (torch.int64,
-                                                     torch.float64)
-        _check_plane(t, n, dtypes, f"plane {key_which}", dev)
+    _check_program_planes(fin, plane_list, live)
     where, out_regs, grp = fin.tail()
     if bool(grp) != want_gid:
         raise errors.DeviceError("group id requested without group planes")
@@ -1916,3 +1940,180 @@ def region_agg_states(gid: np.ndarray, specs: list, G: int, n_rows: int,
                       device) -> list:
     """One region's states: region_agg_states_batched with R = 1."""
     return region_agg_states_batched([(gid, specs, G, n_rows)], device)[0]
+
+
+# ---------------------------------------------------------------------------
+# the micro-batch tier: K14 slot_filter, K15 slot_agg, K16 slot_topn and
+# their plain versions. A slot is one statement: the shared program `fin`
+# run with the slot's row of `pools` (int64 [k, P]) as its constant pool.
+# ---------------------------------------------------------------------------
+
+def _slot_fin(fin: Finalized, pool: torch.Tensor) -> Finalized:
+    return Finalized(fin.meta, pool.cpu().numpy(), fin.lut, fin.plane_keys,
+                     fin.out_dts)
+
+
+def _slot_masks_plain(fin: Finalized, pools: torch.Tensor, plane_list: list,
+                      live: torch.Tensor) -> list:
+    return [run_program_plain(_slot_fin(fin, pools[s]), plane_list, live)[0]
+            for s in range(pools.shape[0])]
+
+
+def _slot_inputs(fin: Finalized, pools: torch.Tensor, plane_list: list,
+                 live: torch.Tensor) -> dict:
+    """The launch arguments K14 and K15 share, checked."""
+    dev = live.device
+    n = live.shape[0]
+    _check_program_planes(fin, plane_list, live)
+    if n % 64:
+        raise errors.DeviceError(f"slot kernels need rows in multiples of "
+                                 f"64, got {n}")
+    if pools.device != dev or pools.dtype != torch.int64 \
+            or pools.dim() != 2 or not pools.is_contiguous() \
+            or pools.shape[0] < 1 or pools.shape[1] < len(fin.pool):
+        raise errors.DeviceError("pools must be a contiguous int64 [k, P] "
+                                 "block on the planes' device")
+    if len(plane_list) > SLOT_MAX_PLANES:
+        raise errors.DeviceError(f"{len(plane_list)} planes exceed "
+                                 f"{SLOT_MAX_PLANES}")
+    if fin.meta.shape[0] > 1024:
+        raise errors.DeviceError("program exceeds the kernel's table")
+    valid_bits = sum(1 << i for i, (_key, which)
+                     in enumerate(fin.plane_keys) if which)
+    return dict(n=n, k=int(pools.shape[0]), P=int(pools.shape[1]),
+                meta=torch.from_numpy(fin.meta).to(dev),
+                lut=torch.from_numpy(fin.lut).to(dev),
+                planes=_ptr_table(plane_list, dev),
+                n_planes=len(plane_list), valid_bits=valid_bits)
+
+
+def slot_filter_plain(fin: Finalized, pools: torch.Tensor, plane_list: list,
+                      live: torch.Tensor) -> torch.Tensor:
+    words = [_pack_bits(m).view(torch.int64)
+             for m in _slot_masks_plain(fin, pools, plane_list, live)]
+    return torch.stack(words)
+
+
+def slot_filter(fin: Finalized, pools: torch.Tensor, plane_list: list,
+                live: torch.Tensor) -> torch.Tensor:
+    """K14: int64 [k, n / 64] — bit r % 64 of word r / 64 of row s is
+    live[r] & valid & truthy(WHERE) of the program run with pools[s]
+    (the reference's packed words, bit 63 the sign bit)."""
+    if _device_kind(live) == "cpu":
+        return slot_filter_plain(fin, pools, plane_list, live)
+    a = _slot_inputs(fin, pools, plane_list, live)
+    dev = live.device
+    words = torch.empty((a["k"], a["n"] // 64), dtype=torch.int64,
+                        device=dev)
+    rc = _ext.lib("slot_filter").slot_filter_launch(
+        a["n"], a["k"], a["meta"].data_ptr(), int(a["meta"].shape[0]),
+        pools.data_ptr(), a["P"], a["lut"].data_ptr(),
+        a["planes"].data_ptr(), a["n_planes"], a["valid_bits"],
+        live.data_ptr(), words.data_ptr(), _stream(dev))
+    _ext.check(rc, "slot_filter")
+    LAUNCHES["slot_filter"] += 1
+    return words
+
+
+def slot_agg_plain(fin: Finalized, pools: torch.Tensor, plane_list: list,
+                   live: torch.Tensor, reds: list[Red]):
+    ns, accs = [], []
+    for mask in _slot_masks_plain(fin, pools, plane_list, live):
+        n, acc = scalar_agg_plain(mask, reds)
+        ns.append(n)
+        accs.append(acc)
+    return torch.stack(ns), torch.stack(accs)
+
+
+def slot_agg(fin: Finalized, pools: torch.Tensor, plane_list: list,
+             live: torch.Tensor, reds: list[Red]):
+    """K15: (n int64 [k, R], acc int64 [k, R]) — K2's reductions `reds`
+    (acc holds f64 bits for f64 ops, the exact sentinels where no row
+    contributes) under each slot's WHERE mask."""
+    if _device_kind(live) == "cpu":
+        return slot_agg_plain(fin, pools, plane_list, live, reds)
+    if not 1 <= len(reds) <= SLOT_MAX_REDS:
+        raise errors.DeviceError(f"K15 folds 1 to {SLOT_MAX_REDS} "
+                                 f"reductions, got {len(reds)}")
+    a = _slot_inputs(fin, pools, plane_list, live)
+    dev = live.device
+    n, k, R = a["n"], a["k"], len(reds)
+    desc = _red_desc(reds, n, dev)
+    lib = _ext.lib("slot_agg")
+    blocks = lib.slot_agg_blocks(n)
+    partial = torch.empty(k * blocks * R * 2, dtype=torch.int64, device=dev)
+    out = torch.empty((k, R, 2), dtype=torch.int64, device=dev)
+    rc = lib.slot_agg_launch(
+        n, k, a["meta"].data_ptr(), int(a["meta"].shape[0]),
+        pools.data_ptr(), a["P"], a["lut"].data_ptr(),
+        a["planes"].data_ptr(), a["n_planes"], a["valid_bits"],
+        live.data_ptr(), R, desc.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), _stream(dev))
+    _ext.check(rc, "slot_agg")
+    LAUNCHES["slot_agg"] += 1
+    return out[:, :, 0], out[:, :, 1]
+
+
+def unpack_slot_words(words: torch.Tensor) -> torch.Tensor:
+    """K14's int64 [k, n / 64] words → bool [k, n] masks, on their device."""
+    k = words.shape[0]
+    shifts = torch.arange(8, dtype=torch.uint8, device=words.device)
+    b = words.contiguous().view(torch.uint8).reshape(k, -1, 1)
+    return ((b >> shifts) & 1).reshape(k, -1).to(torch.bool)
+
+
+def slot_topn_plain(words: torch.Tensor, keys: list, k: int):
+    idx, n_live = [], []
+    for mask in unpack_slot_words(words):
+        i, nl = topk_select_plain(mask, keys, k)
+        idx.append(i)
+        n_live.append(nl)
+    return torch.stack(idx), torch.cat(n_live)
+
+
+def slot_topn(words: torch.Tensor, keys: list, k: int):
+    """K16: (idx int64 [slots, min(k, n)], n_live int64 [slots]) — per slot
+    K10's order (live first under the slot's mask words from K14; per
+    ORDER BY item (values, valid), desc its null rank and value, -0.0 ==
+    +0.0, reversed for DESC by complement; then row position) and
+    min(live rows, k). The keys' order words are encoded once for every
+    slot."""
+    if len(keys) > TOPN_MAX_KEYS:
+        raise errors.DeviceError(f"K16 takes at most {TOPN_MAX_KEYS} keys")
+    if _device_kind(words) == "cpu":
+        return slot_topn_plain(words, keys, k)
+    dev = words.device
+    if words.dtype != torch.int64 or words.dim() != 2 \
+            or not words.is_contiguous() or words.shape[0] < 1:
+        raise errors.DeviceError("mask words must be a contiguous int64 "
+                                 "[slots, n / 64] block")
+    slots, n = int(words.shape[0]), int(words.shape[1]) * 64
+    kk = min(int(k), n)
+    if kk <= 0:
+        return (torch.empty((slots, 0), dtype=torch.int64, device=dev),
+                torch.zeros(slots, dtype=torch.int64, device=dev))
+    tab = []
+    for j, ((v, ok), desc) in enumerate(keys):
+        _check_plane(v, n, (torch.int64, torch.float64), f"key {j}", dev)
+        _check_plane(ok, n, (torch.bool,), f"key {j} valid", dev)
+        tab.append([v.data_ptr(), ok.data_ptr(),
+                    int(v.dtype == torch.float64), int(bool(desc))])
+    t_tab = torch.tensor(tab or [[0, 0, 0, 0]],
+                         dtype=torch.int64).reshape(-1).to(dev)
+    lib = _ext.lib("slot_topn")
+    tile = lib.slot_topn_tile()
+    cand = (n + tile - 1) // tile * min(kk, tile)
+    enc = torch.empty(max(len(keys), 1) * n, dtype=torch.int64, device=dev)
+    flg = torch.empty(n, dtype=torch.uint8, device=dev)
+    buf_a = torch.empty(slots * cand, dtype=torch.int64, device=dev)
+    buf_b = torch.empty(slots * cand, dtype=torch.int64, device=dev)
+    count = torch.empty(slots, dtype=torch.int64, device=dev)
+    idx = torch.empty((slots, kk), dtype=torch.int64, device=dev)
+    n_live = torch.empty(slots, dtype=torch.int64, device=dev)
+    rc = lib.slot_topn_launch(
+        n, slots, kk, words.data_ptr(), len(keys), t_tab.data_ptr(),
+        enc.data_ptr(), flg.data_ptr(), buf_a.data_ptr(), buf_b.data_ptr(),
+        count.data_ptr(), idx.data_ptr(), n_live.data_ptr(), _stream(dev))
+    _ext.check(rc, "slot_topn")
+    LAUNCHES["slot_topn"] += 1
+    return idx, n_live

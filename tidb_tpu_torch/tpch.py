@@ -1024,3 +1024,161 @@ def join_expected(name: str, tables: dict) -> list:
                  None if first[g] < 0 else int(first[g])] for g in range(G)]
     raise KeyError(name)
 
+
+
+# ---------------------------------------------------------------------------
+# supplier at SF1 and the micro-batch tier's statements (chip_smoke.py
+# Phase G)
+# ---------------------------------------------------------------------------
+
+SUPPLIER_ID = 104
+SF1_SUPPLIERS = 10_000          # TPC-H §4.2.5: SF * 10,000
+S_SUPPKEY, S_NAME, S_ADDRESS, S_NATIONKEY = 1, 2, 3, 4
+S_PHONE, S_ACCTBAL, S_COMMENT = 5, 6, 7
+SUPPLIER_COLUMNS = {
+    S_SUPPKEY: _BIGINT, S_NAME: dict(tp=my.TypeString, flen=25),
+    S_ADDRESS: dict(tp=my.TypeVarchar, flen=40), S_NATIONKEY: _BIGINT,
+    S_PHONE: dict(tp=my.TypeString, flen=15), S_ACCTBAL: _DEC,
+    S_COMMENT: dict(tp=my.TypeVarchar, flen=101),
+}
+_SUPPLIER_TEXT = (S_NAME, S_ADDRESS, S_PHONE, S_COMMENT)
+_ALNUM = np.frombuffer(b"0123456789abcdefghijklmnopqrstuvwxyz"
+                       b"ABCDEFGHIJKLMNOPQRSTUVWXYZ ,", dtype=np.uint8)
+
+
+def supplier(n_rows: int, seed: int) -> tuple:
+    """(arrays, words) of `n_rows` supplier rows after TPC-H §4.2.3:
+    s_suppkey 1..n (also the handle); s_name "Supplier#%09d"; s_address a
+    random string of 10 to 40 characters; s_nationkey uniform 0..24;
+    s_phone "CC-XXX-XXX-XXXX" with CC = nationkey + 10 (§4.2.2.9);
+    s_acctbal uniform over [-999.99, 9,999.99] (int64 cents); s_comment
+    25 to 100 characters of words. Strings are indices into words[cid]
+    (every row its own string), drawn from numpy with `seed`."""
+    rng = np.random.default_rng([seed, 4])
+    keys = np.arange(1, n_rows + 1, dtype=np.int64)
+    nation = rng.integers(0, 25, n_rows).astype(np.int64)
+    local = rng.integers([100, 100, 1000], [1000, 1000, 10_000],
+                         (n_rows, 3))
+    alen = rng.integers(10, 41, n_rows)
+    chars = _ALNUM[rng.integers(0, len(_ALNUM), (n_rows, 40))]
+    clen = rng.integers(25, 101, n_rows)
+    wds = rng.integers(0, len(_WORDS), (n_rows, 20))
+    words = {
+        S_NAME: [b"Supplier#%09d" % k for k in keys.tolist()],
+        S_ADDRESS: [chars[i, :alen[i]].tobytes() for i in range(n_rows)],
+        S_PHONE: [b"%d-%d-%d-%d" % (nation[i] + 10, *local[i])
+                  for i in range(n_rows)],
+        S_COMMENT: [b" ".join(_WORDS[w] for w in wds[i])[:clen[i]]
+                    for i in range(n_rows)],
+    }
+    data = {S_SUPPKEY: keys, S_NATIONKEY: nation,
+            S_ACCTBAL: rng.integers(-99_999, 1_000_000, n_rows)
+            .astype(np.int64)}
+    for cid in _SUPPLIER_TEXT:
+        data[cid] = np.arange(n_rows, dtype=np.int64)
+    return data, words
+
+
+def supplier_pairs(data: dict, words: dict):
+    """(row key, row value) of every supplier row."""
+    cids = sorted(SUPPLIER_COLUMNS)
+    n = data[S_SUPPKEY].shape[0]
+    lists = {S_SUPPKEY: [Datum.i64(v) for v in data[S_SUPPKEY].tolist()],
+             S_NATIONKEY: [Datum.i64(v)
+                           for v in data[S_NATIONKEY].tolist()],
+             S_ACCTBAL: [Datum.dec(Decimal(v).scaleb(-2))
+                         for v in data[S_ACCTBAL].tolist()]}
+    for cid in _SUPPLIER_TEXT:
+        w = words[cid]
+        lists[cid] = [Datum.bytes_(w[i]) for i in data[cid].tolist()]
+    for i in range(n):
+        yield (tc.encode_row_key(SUPPLIER_ID, i + 1),
+               tc.encode_row(cids, [lists[cid][i] for cid in cids]))
+
+
+# the five shapes of Phase G, with the columns each scan reads:
+# g_nation     select s_suppkey, s_name from supplier where s_nationkey = n
+# g_acctbal    select s_suppkey, s_acctbal from supplier
+#              where s_acctbal > x limit 10
+# g_name       select s_suppkey, s_name, s_phone from supplier
+#              where s_name = 'Supplier#...'  (absent names included)
+# g_agg        select count(*), sum(s_acctbal), min(s_acctbal),
+#              max(s_acctbal) from supplier where s_nationkey = n
+# g_topn       select s_suppkey, s_acctbal from supplier where
+#              s_nationkey = n order by s_acctbal desc, s_suppkey limit 100
+#              (TPC-H Q2's ordering)
+G_SHAPES = ("g_nation", "g_acctbal", "g_name", "g_agg", "g_topn")
+_G_COLUMNS = {"g_nation": [S_SUPPKEY, S_NAME, S_NATIONKEY],
+              "g_acctbal": [S_SUPPKEY, S_ACCTBAL],
+              "g_name": [S_SUPPKEY, S_NAME, S_PHONE],
+              "g_agg": [S_NATIONKEY, S_ACCTBAL],
+              "g_topn": [S_SUPPKEY, S_NATIONKEY, S_ACCTBAL]}
+
+
+def g_literal(shape: str, rng: np.random.Generator):
+    """A literal for one statement of `shape`: a nation key, an account
+    balance in cents, or a supplier number (up to 5 % beyond the table)."""
+    if shape == "g_acctbal":
+        return int(rng.integers(500_000, 1_000_000))
+    if shape == "g_name":
+        return int(rng.integers(1, SF1_SUPPLIERS * 21 // 20 + 1))
+    return int(rng.integers(0, 25))
+
+
+def g_statement(shape: str, lit: int) -> kv.Request:
+    c = expr_column
+    ti = table_info(_G_COLUMNS[shape], SUPPLIER_ID, SUPPLIER_COLUMNS)
+    sel = SelectRequest(start_ts=1, table_info=ti)
+    if shape == "g_acctbal":
+        sel.where = expr_op(Op.GT, c(S_ACCTBAL), expr_value(
+            Datum.dec(Decimal(lit).scaleb(-2))))
+        sel.limit = 10
+    elif shape == "g_name":
+        sel.where = expr_op(Op.EQ, c(S_NAME), expr_value(
+            Datum.bytes_(b"Supplier#%09d" % lit)))
+    else:
+        sel.where = expr_op(Op.EQ, c(S_NATIONKEY),
+                            expr_value(Datum.i64(lit)))
+    if shape == "g_agg":
+        sel.aggregates = [expr_agg("count", [expr_value(_one())]),
+                          expr_agg("sum", [c(S_ACCTBAL)]),
+                          expr_agg("min", [c(S_ACCTBAL)]),
+                          expr_agg("max", [c(S_ACCTBAL)])]
+    elif shape == "g_topn":
+        sel.order_by = [ByItem(c(S_ACCTBAL), True),
+                        ByItem(c(S_SUPPKEY), False)]
+        sel.limit = 100
+    return store_request(sel)
+
+
+def g_expected(shape: str, lit: int, data: dict, words: dict) -> list:
+    """The statement's response rows from numpy: [(handle, [values])] with
+    python ints, Decimals and bytes; an aggregate's one partial row (handle
+    0, an empty group key first)."""
+    nation, bal = data[S_NATIONKEY], data[S_ACCTBAL]
+    if shape == "g_agg":
+        v = bal[nation == lit]
+        dec = [Decimal(int(x)).scaleb(-2) for x in (v.sum(), v.min(),
+                                                    v.max())]
+        return [(0, [b"", len(v), *dec])]
+    if shape == "g_acctbal":
+        rows = np.flatnonzero(bal > lit)[:10]
+    elif shape == "g_name":
+        rows = np.flatnonzero(data[S_SUPPKEY] == lit)
+    elif shape == "g_topn":
+        rows = np.flatnonzero(nation == lit)
+        rows = rows[np.lexsort((data[S_SUPPKEY][rows], -bal[rows]))][:100]
+    else:
+        rows = np.flatnonzero(nation == lit)
+    out = []
+    for r in rows.tolist():
+        vals = []
+        for cid in _G_COLUMNS[shape]:
+            if cid in _SUPPLIER_TEXT:
+                vals.append(words[cid][data[cid][r]])
+            elif cid == S_ACCTBAL:
+                vals.append(Decimal(int(bal[r])).scaleb(-2))
+            else:
+                vals.append(int(data[cid][r]))
+        out.append((r + 1, vals))
+    return out
