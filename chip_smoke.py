@@ -69,7 +69,27 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    and I64_MIN keys beside NULLs, +-inf, -0.0 against +0.0, NULLs on both
    sides, empty sides, 8 x 3000 duplicates, one key with 2^20 matches,
    f64 keys; every K13 mode), bit for bit.
-8. A JSON line of per-kernel numbers, the nvidia-smi line, and last
+8. Phase G, the micro-batch tier at SF1's supplier table (see phase_g).
+9. Phase H, sort and windows on Phase B's SF1 lineitem (its planes
+   resident): ORDER BY l_extendedprice DESC, l_orderkey through
+   executors._plane_sort_keys and extsort.sort_order under the "auto"
+   budget (one K17 launch) and under a budget whose pass target is a
+   quarter of the sort's estimate (at least four partitioned passes),
+   both equal to np.lexsort; lineitem ⋈ orders through TopNExec (TopN
+   100) and a filtered join (l_quantity < 2, about 120k rows) through
+   SortExec, rows equal to numpy; K18 at SF1 on the (l_orderkey,
+   l_linenumber) order, seven figures equal to numpy; WindowExec over
+   SF0.01 lineitem (seven calls partitioned by l_orderkey, ordered by
+   l_linenumber) equal to numpy and to the plain versions, and once with
+   its scan split into passes. K17 and K18 launch counts are reset before
+   and read after that path; then each kernel against its plain version
+   on the card at SF1 and on edge cases (NaN, +-inf, subnormals, -0.0
+   beside +0.0, int64 extremes under ~, int8 NULL planes, all keys tied,
+   n = 0, 1 and around the tile and the floor; one partition, one row a
+   partition, empty frames, SUM wrapping), timed with CUDA events
+   (median of 20) beside its bytes bound, K17 beside chained stable
+   torch.sort.
+10. A JSON line of per-kernel numbers, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
 Any failure raises: no phase catches its own failure.
@@ -92,13 +112,13 @@ from decimal import Decimal  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from tidb_tpu_torch import carry, distsql, mysqldef as my, tpch  # noqa
+from tidb_tpu_torch import carry, distsql, mysqldef as my, plan, tpch  # noqa
 from tidb_tpu_torch.cluster.rpc import clip_ranges  # noqa: E402
 from tidb_tpu_torch.cluster.store import DistStore  # noqa: E402
 from tidb_tpu_torch.copr import columnar_region  # noqa: E402
 from tidb_tpu_torch.copr.plane_cache import PlaneCache  # noqa: E402
 from tidb_tpu_torch.copr import dictionary  # noqa: E402
-from tidb_tpu_torch.executor import fused_agg  # noqa: E402
+from tidb_tpu_torch.executor import executors, fused_agg, window  # noqa
 from tidb_tpu_torch.executor.distsql_exec import XSelectTableExec  # noqa
 from tidb_tpu_torch.executor.executors import (  # noqa: E402
     HashAggExec, HashJoinExec)
@@ -106,7 +126,7 @@ from tidb_tpu_torch.copr.proto import (  # noqa: E402
     AGG_NAME, AGG_TYPE_BY_NAME, ByItem, Expr, ExprType, SelectRequest,
     expr_agg, expr_column, expr_op, expr_value, iter_response_rows)
 from tidb_tpu_torch.kv.memstore import MemStore  # noqa: E402
-from tidb_tpu_torch.ops import _ext, kernels  # noqa: E402
+from tidb_tpu_torch.ops import _ext, extsort, kernels, membudget  # noqa
 from tidb_tpu_torch.ops import columnar as col  # noqa: E402
 from tidb_tpu_torch.ops.client import GpuClient  # noqa: E402
 from tidb_tpu_torch.ops.exprc import (  # noqa: E402
@@ -155,6 +175,10 @@ KERNELS = {
                  "tidb_tpu/ops/sched.py:439"),
     "slot_topn": ("tidb_tpu_torch/ops/csrc/slot_topn.cu",
                   "tidb_tpu/ops/sched.py:532"),
+    "sort_perm": ("tidb_tpu_torch/ops/csrc/sort_perm.cu",
+                  "tidb_tpu/ops/kernels.py:2126"),
+    "window_scan": ("tidb_tpu_torch/ops/csrc/window_scan.cu",
+                    "tidb_tpu/ops/kernels.py:2222"),
 }
 # K6 has two routes, each counted: spans within its shared-memory limit
 # (seg_states_ragged) and larger ones (seg_states_ragged_sorted)
@@ -284,7 +308,8 @@ def phase_a(n_rows: int, seed: int, device=None) -> dict:
     if gpu.device.type == "cuda":
         for k, v in launches.items():
             need(v > 0 or k in CLUSTER_KERNELS or k in SLICE3_KERNELS
-                 or k in JOIN_KERNELS or k in SLOT_KERNELS,
+                 or k in JOIN_KERNELS or k in SLOT_KERNELS
+                 or k in SORT_KERNELS,
                  f"kernel {k} never launched on the main path")
     return launches
 
@@ -2106,6 +2131,411 @@ def phase_g(lineitem, device, seed: int) -> tuple:
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase H: sort and windows at SF1 (slice 6)
+# ---------------------------------------------------------------------------
+
+SORT_KERNELS = ("sort_perm", "window_scan")
+# lineitem columns of Phase H's scans, in output order
+H_CIDS = [tpch.C_ORDERKEY, tpch.C_EXTENDEDPRICE, tpch.C_LINENUMBER,
+          tpch.C_SUPPKEY, tpch.C_QUANTITY]
+H_ORDERKEY, H_PRICE, H_LINENUMBER, H_SUPPKEY, H_QUANTITY = range(5)
+# orders columns of the joins (output columns 5 and 6)
+H_OCIDS = [tpch.O_ORDERKEY, tpch.O_CUSTKEY]
+
+
+def h_col(i: int) -> "plan.Column":
+    if i < len(H_CIDS):
+        return tpch.column(tpch.TABLE_ID, H_CIDS[i], i)
+    return tpch.column(tpch.ORDERS_ID, H_OCIDS[i - len(H_CIDS)], i)
+
+
+def h_by() -> list:
+    """ORDER BY l_extendedprice DESC, l_orderkey."""
+    return [plan.SortItem(h_col(H_PRICE), True),
+            plan.SortItem(h_col(H_ORDERKEY), False)]
+
+
+def h_scan(client, batch, where=None, table_id=tpch.TABLE_ID, cids=H_CIDS):
+    sel = tpch.scan_request(table_id, cids, where)
+    req = tpch.store_request(sel)
+    client.admit(sel, req.key_ranges, batch)
+    return XSelectTableExec(client, sel, req.key_ranges)
+
+
+def h_join(client, batch, obatch, where=None):
+    """lineitem ⋈ orders on the order key (every line matches its order)."""
+    join = plan.Join(plan.Join.INNER)
+    join.eq_conditions = [(h_col(H_ORDERKEY), tpch.column(
+        tpch.ORDERS_ID, tpch.O_ORDERKEY, 0))]
+    return HashJoinExec(h_scan(client, batch, where),
+                        h_scan(client, obatch, None, tpch.ORDERS_ID,
+                               H_OCIDS), join)
+
+
+def h_expected(data: dict, rows) -> list:
+    """numpy's rows (orderkey, price cents, linenumber, suppkey, quantity
+    cents) of lineitem rows `rows` of `data`, the join's orders columns
+    (orderkey, custkey) looked up by key."""
+    return [data[tpch.C_ORDERKEY][rows], data[tpch.C_EXTENDEDPRICE][rows],
+            data[tpch.C_LINENUMBER][rows], data[tpch.C_SUPPKEY][rows],
+            data[tpch.C_QUANTITY][rows]]
+
+
+def h_values(rows: list) -> list:
+    """Gathered rows as columns of ints (decimals in cents)."""
+    out = []
+    for j in range(len(rows[0]) if rows else 0):
+        col_j = []
+        for r in rows:
+            v = r[j].val
+            col_j.append(int(v.scaleb(2)) if isinstance(v, Decimal) else v)
+        out.append(np.asarray(col_j, np.int64))
+    return out
+
+
+def sort_budget(est: int) -> int:
+    """A budget whose pass target (extsort._pass_target: the headroom,
+    floored at budget // 8) is about a quarter of the estimate, whatever
+    the resident planes already pin."""
+    used = sum(membudget.usage())
+    return used + est // 4 if used <= 7 * est // 4 else 2 * est
+
+
+def h_edge_planes(n: int, seed: int) -> list:
+    """K17 edge planes: DESC int64 extremes, signed zeros, NaN, +-inf and
+    subnormals, int8 NULL planes, an int32 key, few distinct values."""
+    rng = np.random.default_rng(seed)
+    ext = np.array([col.I64_MIN, col.I64_MAX, 0, -1, 1], np.int64)
+    f = np.array([-0.0, 0.0, 1.5, np.nan, -np.inf, np.inf, -2.0, 5e-324],
+                 np.float64)
+    return [~rng.choice(ext, n), (rng.random(n) < 0.2).astype(np.int8),
+            rng.choice(f, n), rng.integers(-2, 2, n).astype(np.int32),
+            rng.choice(ext, n), np.ones(n, np.int8)]
+
+
+def check_k17(planes: list, device, what: str) -> float:
+    """K17 on the card against np.lexsort and its plain version on the
+    card, bit for bit (max_abs_err 0)."""
+    n = len(planes[0])
+    ts = [torch.from_numpy(np.ascontiguousarray(p)).to(device)
+          for p in planes]
+    got = kernels.sort_perm(ts, n)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    plain = kernels.sort_perm_plain(ts, n)
+    want = np.lexsort(planes) if n else np.zeros(0, np.int64)
+    g = got.cpu().numpy()
+    need(np.array_equal(g, want), f"{what}: K17 differs from np.lexsort")
+    need(np.array_equal(g, plain.cpu().numpy()),
+         f"{what}: K17 differs from its plain version")
+    return 0.0
+
+
+def h_window_inputs(n: int, nparts: int, seed: int, device):
+    rng = np.random.default_rng(seed)
+    seg = np.sort(rng.integers(0, max(nparts, 1), n)).astype(np.int64)
+    chg = np.zeros(n, bool)
+    chg[1:] = (seg[1:] != seg[:-1]) | (rng.random(max(n - 1, 0)) < 0.3)
+    peer = np.cumsum(chg).astype(np.int64)
+    vals = rng.choice(np.array([col.I64_MAX, col.I64_MIN, 5, -7, 1 << 62],
+                               np.int64), n)
+    ok = rng.random(n) < 0.6
+    ok[: n // 7] = False
+    t = (lambda a: torch.from_numpy(a).to(device))
+    specs = [("row_number", None, None), ("rank", None, None),
+             ("dense_rank", None, None), ("sum", t(vals), t(ok)),
+             ("count", None, t(ok)), ("min", t(vals), t(ok)),
+             ("max", t(vals), t(ok))]
+    return t(seg), t(peer), specs
+
+
+def check_k18(seg, peer, specs, what: str) -> float:
+    n = seg.shape[0]
+    got = kernels.window_scan(seg, peer, specs, n)
+    if seg.device.type == "cuda":
+        torch.cuda.synchronize()
+    want = kernels.window_scan_plain(seg, peer, specs, n)
+    err = 0.0
+    for (op, _v, _c), g, w in zip(specs, got, want):
+        need(torch.equal(g, w), f"{what}: K18 {op} differs from its plain "
+             f"version")
+    return err
+
+
+def window_oracle(orderkey, linenumber, suppkey):
+    """numpy's figures of the Phase H window calls, over rows sorted by
+    (orderkey, linenumber): each order a partition, each line a peer
+    group (line numbers are distinct within an order)."""
+    order = np.lexsort((linenumber, orderkey))
+    ok_s, v_s = orderkey[order], suppkey[order]
+    n = len(order)
+    starts = np.flatnonzero(np.r_[True, ok_s[1:] != ok_s[:-1]])
+    s = np.repeat(starts, np.diff(np.r_[starts, n]))
+    rn = np.arange(n) - s + 1
+    cs = np.cumsum(v_s)
+    run_sum = cs - (cs[s] - v_s[s])
+    mn = np.empty(n, np.int64)
+    mx = np.empty(n, np.int64)
+    for a, b in zip(starts, np.r_[starts[1:], n]):
+        mn[a:b] = np.minimum.accumulate(v_s[a:b])
+        mx[a:b] = np.maximum.accumulate(v_s[a:b])
+    figs = {"row_number": rn, "rank": rn, "dense_rank": rn,
+            "sum": run_sum, "count": rn, "min": mn, "max": mx}
+    out = {}
+    for k, v in figs.items():
+        back = np.empty(n, np.int64)
+        back[order] = v
+        out[k] = back
+    return out
+
+
+H_WINDOWS = ("row_number", "rank", "dense_rank", "sum", "count", "min",
+             "max")
+
+
+def h_window_descs() -> list:
+    """PARTITION BY l_orderkey ORDER BY l_linenumber, reductions over
+    l_suppkey (an integer column: decimal arguments raise Unsupported)."""
+    part = [h_col(H_ORDERKEY)]
+    by = [plan.SortItem(h_col(H_LINENUMBER), False)]
+    return [plan.WindowFuncDesc(
+        name, [] if name in window.RANKING_FUNCS else [h_col(H_SUPPKEY)],
+        part, by) for name in H_WINDOWS]
+
+
+def phase_h(data: dict, batch, device, seed: int,
+            small_rows: int = tpch.SF001_ROWS) -> tuple:
+    """Returns (per-kernel results, launches); `data` and `batch` Phase B's
+    SF1 lineitem, generated from `seed`."""
+    ms = timer(device)
+    cuda = device.type == "cuda"
+    auto = "auto" if cuda else 1 << 40     # no card: a budget of our own
+    t0 = time.perf_counter()
+    n = batch.n_rows
+    obatch = tpch.join_batch({tpch.ORDERS_ID: tpch.orders(data, seed)},
+                             tpch.ORDERS_ID)
+    sdata = tpch.generate(small_rows, seed + 1)
+    sbatch = tpch.batch(sdata, H_CIDS)
+    client = GpuClient(MemStore([], []), device)
+    membudget.set_budget(auto)
+    print(f"phase H: orders {obatch.n_rows} rows, SF0.01 lineitem "
+          f"{sbatch.n_rows} rows built in {time.perf_counter() - t0:.1f} s; "
+          f"budget {membudget.budget_bytes()} B, pinned "
+          f"{membudget.usage()[1]} B")
+    zero_launches()
+    stats = {}
+
+    # ORDER BY l_extendedprice DESC, l_orderkey over SF1 lineitem: one K17
+    # pass under the auto budget, then passes under a quarter of it
+    t1 = time.perf_counter()
+    res = h_scan(client, batch).columnar_result()
+    keys = executors._plane_sort_keys(res, h_by(), len(H_CIDS))
+    need(keys is not None and len(keys) == 4, "phase H: key planes")
+    want = np.lexsort(keys)
+    st: dict = {}
+    order = extsort.sort_order(keys, n, stats=st, device=device)
+    need(not st and np.array_equal(order, want),
+         "phase H: one-pass ORDER BY differs from np.lexsort")
+    est = extsort.sort_bytes_estimate(keys, n)
+    membudget.set_budget(sort_budget(est))
+    st = {}
+    order = extsort.sort_order(keys, n, stats=st, device=device)
+    membudget.set_budget(auto)
+    need(np.array_equal(order, want),
+         "phase H: partitioned ORDER BY differs from np.lexsort")
+    need(st["sort_passes"] >= 4, f"phase H: {st['sort_passes']} passes")
+    stats["order_by"] = {k: st[k] for k in ("sort_passes", "sort_partitions",
+                                           "sort_escalations", "sort_salted")}
+    stats["order_by"]["estimate_bytes"] = est
+    print(f"  ORDER BY at SF1: one pass and {st['sort_passes']} passes over "
+          f"{st['sort_partitions']} partitions ({st['sort_escalations']} "
+          f"escalations), both equal to np.lexsort "
+          f"({time.perf_counter() - t1:.1f} s)")
+
+    # join → TopN 100 and a filtered join → ORDER BY
+    t1 = time.perf_counter()
+    join = h_join(client, batch, obatch)
+    top = executors.TopNExec(join, h_by(), 0, 100)
+    rows = top.drain()
+    need(join.join_stats.get("sort_plane"), "phase H: TopN off the planes")
+    need(len(join.device_join_result()) == n,
+         "phase H: every line must match its order")
+    li = want[:100]
+    exp = h_expected(data, li)
+    got = h_values(rows)
+    need(all(np.array_equal(g, e) for g, e in zip(got[:5], exp)),
+         "phase H: join TopN differs from numpy")
+    need(np.array_equal(got[5], data[tpch.C_ORDERKEY][li]),
+         "phase H: join TopN orders key")
+    print(f"  join → TopN 100 over {len(join.device_join_result())} pairs: "
+          f"equal to numpy ({time.perf_counter() - t1:.1f} s)")
+    t1 = time.perf_counter()
+    where = expr_op(Op.LT, expr_column(tpch.C_QUANTITY),
+                    expr_value(Datum.dec(Decimal("2"))))
+    fjoin = h_join(client, batch, obatch, where)
+    srt = executors.SortExec(fjoin, h_by())
+    rows = srt.drain()
+    keep = np.flatnonzero(data[tpch.C_QUANTITY] < 200)
+    fk = [k[keep] for k in keys]
+    li = keep[np.lexsort(fk)]
+    exp = h_expected(data, li)
+    got = h_values(rows)
+    need(len(rows) == len(li) and all(np.array_equal(g, e)
+                                      for g, e in zip(got[:5], exp)),
+         "phase H: join ORDER BY differs from numpy")
+    stats["join_order_by"] = {"rows": len(rows)}
+    print(f"  join → ORDER BY: {len(rows)} rows equal to numpy "
+          f"({time.perf_counter() - t1:.1f} s)")
+
+    # windows: K18 at SF1 on the sorted planes, partition by l_orderkey
+    # order by l_linenumber (sum / min / max of l_quantity in cents)
+    t1 = time.perf_counter()
+    wkeys = executors._plane_sort_keys(
+        res, [plan.SortItem(h_col(H_ORDERKEY)),
+               plan.SortItem(h_col(H_LINENUMBER))], len(H_CIDS))
+    worder = extsort.sort_order(wkeys, n, device=device)
+    okey = data[tpch.C_ORDERKEY][worder]
+    seg = np.cumsum(np.r_[False, okey[1:] != okey[:-1]]).astype(np.int64)
+    peer = np.arange(n, dtype=np.int64)      # line numbers are distinct
+    qty = data[tpch.C_QUANTITY][worder]
+    t = (lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device))
+    dseg, dpeer, dq = t(seg), t(peer), t(qty)
+    dok = torch.ones(n, dtype=torch.bool, device=device)
+    sf1_specs = [("row_number", None, None), ("rank", None, None),
+                 ("dense_rank", None, None), ("sum", dq, dok),
+                 ("count", None, dok), ("min", dq, dok), ("max", dq, dok)]
+    figs = kernels.window_scan(dseg, dpeer, sf1_specs, n)
+    oracle = window_oracle(data[tpch.C_ORDERKEY][worder],
+                           data[tpch.C_LINENUMBER][worder], qty)
+    for (op, _v, _c), f in zip(sf1_specs, figs):
+        need(np.array_equal(f.cpu().numpy(), oracle[op]),
+             f"phase H: K18 {op} at SF1 differs from numpy")
+    print(f"  K18 at SF1: {int(seg[-1]) + 1} partitions, seven figures "
+          f"equal to numpy ({time.perf_counter() - t1:.1f} s)")
+
+    # WindowExec over SF0.01 lineitem (above the floor): card, in passes,
+    # and the plain versions
+    t1 = time.perf_counter()
+    descs = h_window_descs()
+    wex = window.WindowExec(h_scan(client, sbatch), descs)
+    wrows = wex.drain()
+    need(wex.stats["windows"] == len(descs), f"phase H: {wex.stats}")
+    w_or = window_oracle(sdata[tpch.C_ORDERKEY], sdata[tpch.C_LINENUMBER],
+                         sdata[tpch.C_SUPPKEY])
+    for j, name in enumerate(H_WINDOWS):
+        col_j = np.asarray([int(r[len(H_CIDS) + j].val) for r in wrows],
+                           np.int64)
+        need(np.array_equal(col_j, w_or[name]),
+             f"phase H: WindowExec {name} differs from numpy")
+    wstat = dict(wex.stats)
+    row_bytes = window.WINDOW_ROW_BYTES + window.WINDOW_SPEC_BYTES + 16
+    membudget.set_budget(sum(membudget.usage())
+                         + sbatch.n_rows * row_bytes // 3)
+    pex = window.WindowExec(h_scan(client, sbatch), descs[3:4])
+    prow = pex.drain()
+    membudget.set_budget(auto)
+    need(pex.stats["window_passes"] >= 2, f"phase H: {pex.stats}")
+    need([r[-1].val for r in prow] == [r[len(H_CIDS) + 3].val
+                                       for r in wrows],
+         "phase H: WindowExec in passes differs")
+    cpu_client = GpuClient(MemStore([], []), "cpu")
+    cex = window.WindowExec(h_scan(cpu_client, sbatch), descs)
+    crows = cex.drain()
+    need([[d.val for d in r] for r in crows]
+         == [[d.val for d in r] for r in wrows],
+         "phase H: WindowExec differs from the plain versions")
+    stats["window_exec"] = {"rows": len(wrows), "card": wstat,
+                            "passes": pex.stats["window_passes"]}
+    # where a window statement's time goes (host clock, phases bracketed
+    # by synchronisations), and the filtered join → ORDER BY's
+    for what, make in (
+            ("window_exec", lambda: window.WindowExec(h_scan(client, sbatch),
+                                                      descs)),
+            ("join_order_by", lambda: executors.SortExec(
+                h_join(client, batch, obatch, where), h_by()))):
+        kernels.SPLIT = {}
+        t2 = time.perf_counter()
+        make().drain()
+        if cuda:
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t2) * 1e3
+        split, kernels.SPLIT = kernels.SPLIT, None
+        stats.setdefault(what, {})
+        stats[what].update(ms=wall, split_ms=split)
+        print(f"  {what}: {wall:.1f} ms (host clock); split " + ", ".join(
+            f"{k} {v:.1f}" for k, v in split.items()))
+    print(f"  WindowExec over {len(wrows)} rows: seven calls equal to numpy "
+          f"and the plain versions; {pex.stats['window_passes']} passes in "
+          f"the over-headroom run ({time.perf_counter() - t1:.1f} s)")
+    launches = dict(kernels.LAUNCHES)
+    for k in SORT_KERNELS:
+        need(launches[k] > 0 or not cuda, f"phase H: {k} never launched")
+    print(f"phase H launches: { {k: launches[k] for k in SORT_KERNELS} }")
+
+    # K17 and K18 against their plain versions at SF1 and on edge cases
+    out = {}
+    err = check_k17(keys, device, "K17 SF1 ORDER BY")
+    err = max(err, check_k17(wkeys, device, "K17 SF1 window keys"))
+    for en in (0, 1, 2, 33, 2047, 2048, 2049, 4095, 4096, 4097, 100_000):
+        err = max(err, check_k17(h_edge_planes(en, en), device,
+                                 f"K17 edge n={en}"))
+    err = max(err, check_k17([np.zeros(50_000, np.int64),
+                              np.ones(50_000, np.int8)], device,
+                             "K17 all tied"))
+    tk = [t(k) for k in keys]
+    lib = [t(k) for k in keys]
+    out["sort_perm"] = dict(
+        ms=ms(lambda: kernels.sort_perm(tk, n)),
+        plain_ms=ms(lambda: kernels.sort_perm_plain(tk, n)),
+        library_ms=ms(lambda: _chained_torch_sort(lib)),
+        max_abs_err=err,
+        bound=bound(sum(k.nbytes for k in keys) + 8 * n, 0))
+    err = check_k18(dseg, dpeer, sf1_specs, "K18 SF1")
+    # tied peers at SF1: partition by l_orderkey order by l_tax (nine
+    # values, so lines of one order share a peer group)
+    tord = np.lexsort((data[tpch.C_TAX], data[tpch.C_ORDERKEY]))
+    tkey, ttax = data[tpch.C_ORDERKEY][tord], data[tpch.C_TAX][tord]
+    tseg = np.r_[False, tkey[1:] != tkey[:-1]]
+    tpeer = np.cumsum(tseg | np.r_[False, ttax[1:] != ttax[:-1]])
+    need(int(tpeer[-1]) < n - 1, "phase H: the tied K18 check has no ties")
+    tq = t(data[tpch.C_QUANTITY][tord])
+    err = max(err, check_k18(
+        t(np.cumsum(tseg)), t(tpeer),
+        [(op, None if v is None else tq, c) for op, v, c in sf1_specs],
+        "K18 SF1 tied peers"))
+    del tord, tkey, ttax, tseg, tpeer, tq
+    for en, parts in ((1, 1), (2, 2), (2049, 1), (5000, 40), (100_000, 3),
+                      (100_000, 100_000), (4097, 4097)):
+        err = max(err, check_k18(*h_window_inputs(en, parts, en + parts,
+                                                  device),
+                                 f"K18 edge n={en} parts={parts}"))
+    ts_specs = [("sum", dq, dok), ("count", None, dok)]
+    out["window_scan"] = dict(
+        ms=ms(lambda: kernels.window_scan(dseg, dpeer, ts_specs, n)),
+        plain_ms=ms(lambda: kernels.window_scan_plain(dseg, dpeer, ts_specs,
+                                                      n)),
+        library_ms=None, max_abs_err=err,
+        bound=bound(n * (8 + 8 + 8 + 1 + 8 * 2), 0))
+    for name, r in out.items():
+        print(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']}, bound {r['bound'][0]:.4f} ms by "
+              f"{r['bound'][1]}), max_abs_err {r['max_abs_err']}")
+    print("phase H: " + json.dumps(stats))
+    membudget.set_budget(0)
+    return out, launches
+
+
+def _chained_torch_sort(planes: list):
+    """The library yardstick: chained torch.sort(stable=True) over the
+    raw planes, least significant first."""
+    perm = None
+    for p in planes:
+        _, idx = torch.sort(p if perm is None else p[perm], stable=True)
+        perm = idx if perm is None else perm[idx]
+    return perm
+
+
 def same_g(got: list, want: list, what: str) -> None:
     need(got == want, f"{what}: {got[:3]} ... vs numpy {want[:3]} ... "
          f"({len(got)} vs {len(want)} rows)")
@@ -2125,13 +2555,16 @@ def main() -> int:
     e_results, e_launches = phase_e(data, batch, device, seed=5)
     f_results, f_launches = phase_f(data, batch, device, seed=2)
     g_results, g_launches = phase_g(batch, device, seed=9)
+    h_results, h_launches = phase_h(data, batch, device, seed=2)
     del data, batch
     launches.update({k: e_launches[k] for k in SLICE3_KERNELS})
     launches.update({k: f_launches[k] for k in JOIN_KERNELS})
     launches.update({k: g_launches[k] for k in SLOT_KERNELS})
+    launches.update({k: h_launches[k] for k in SORT_KERNELS})
     results.update(e_results)
     results.update(f_results)
     results.update(g_results)
+    results.update(h_results)
     launches.update(phase_c(tpch.SF001_ROWS, seed=1, device=device))
     results.update(phase_d(tpch.SF1_ROWS, seed=2, device=device))
     rows = []

@@ -204,6 +204,35 @@ print("LOADED", bad)
 """
 
 
+_DRIVE_SORT = r"""
+import sys
+sys.path.insert(0, {root!r})
+import numpy as np
+from tidb_tpu_torch import plan
+from tidb_tpu_torch.carry import RowsExec
+from tidb_tpu_torch.executor.window import WindowExec
+from tidb_tpu_torch.ops import extsort, membudget
+from tidb_tpu_torch.types.datum import Datum
+rng = np.random.default_rng(3)
+n = 9000
+planes = [rng.integers(0, 50, n), np.ones(n, np.int8),
+          rng.standard_normal(n), (rng.random(n) < 0.1).astype(np.int8)]
+membudget.set_budget(extsort.sort_bytes_estimate(planes, n) // 3)
+st = {{}}
+order = extsort.sort_order(planes, n, stats=st, device="cpu")
+assert np.array_equal(order, np.lexsort(planes)) and st["sort_passes"] >= 2
+rows = [[Datum.i64(i), Datum.i64(i % 7)] for i in range(n)]
+desc = plan.WindowFuncDesc("rank", [], [plan.Column(1)], [
+    plan.SortItem(plan.Column(0), True)])
+out = WindowExec(RowsExec(rows, 2), [desc], device="cpu").drain()
+assert [r[2].val for r in out[:3]] == [1286, 1286, 1286], out[:3]
+membudget.set_budget(0)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "tidb_tpu"))
+print("LOADED", bad)
+"""
+
+
 def _run_without_jax(script: str) -> None:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", script.format(root=ROOT)],
@@ -268,3 +297,33 @@ def test_join_path_without_cuda_raises():
     side = carry.SideExec(col.RowsSide([]), 4)
     with pytest.raises(DeviceError, match="CUDA is not available"):
         HashJoinExec(side, side, plan)
+
+
+def test_sort_and_window_run_without_jax():
+    _run_without_jax(_DRIVE_SORT)
+
+
+def test_sort_kernels_without_cuda_raise():
+    """Asked for the card without CUDA, the external sort raises at its
+    device route, and K17 / K18 handed a tensor on no supported device
+    raise rather than run their plain versions."""
+    import numpy as np
+
+    from tidb_tpu_torch.errors import DeviceError
+    from tidb_tpu_torch.ops import extsort, kernels, membudget
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the card is there")
+    planes = [np.arange(5000, dtype=np.int64)[::-1].copy(),
+              np.ones(5000, np.int8)]
+    membudget.set_budget(1 << 30)
+    try:
+        with pytest.raises(DeviceError, match="CUDA is not available"):
+            extsort.sort_order(planes, 5000)
+    finally:
+        membudget.set_budget(0)
+    assert membudget.usage() == (0, 0)
+    meta = torch.zeros(16, dtype=torch.int64, device="meta")
+    with pytest.raises(DeviceError, match="no kernel for device"):
+        kernels.sort_perm([meta], 16)
+    with pytest.raises(DeviceError, match="no kernel for device"):
+        kernels.window_scan(meta, meta, [("row_number", None, None)], 16)

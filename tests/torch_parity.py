@@ -12,6 +12,7 @@ import math
 import sys
 from decimal import Decimal
 
+import pytest
 import torch  # noqa: F401  (loaded here, before the freeze below)
 
 from tidb_tpu import tablecodec as rtc
@@ -211,3 +212,17 @@ def check_statement(store, reqs, what: str) -> list:
             continue
         assert_rows_equal(got, cpu, f"{what} vs CPU engine")
     return clients
+
+
+@pytest.fixture
+def port_ledger():
+    """The port's HBM ledger is process state: a test that sets a budget
+    or leaks a reservation would change the route of every later test in
+    its worker. Budget back to the kill switch after each test, and the
+    test fails where a reservation or a pin outlived it. Test files take
+    it as an autouse fixture (see tests/test_torch_extsort.py)."""
+    from tidb_tpu_torch.ops import membudget
+    yield membudget
+    membudget.set_budget(0)
+    membudget.set_stats_provider(None)
+    assert membudget.usage() == (0, 0), membudget.usage()

@@ -13,7 +13,7 @@ import numpy as np
 from tidb_tpu_torch import errors, plan
 from tidb_tpu_torch.copr import proto
 from tidb_tpu_torch.executor.distsql_exec import Executor
-from tidb_tpu_torch.executor.executors import HashAggExec
+from tidb_tpu_torch.executor.executors import HashAggExec, ProjectionExec
 from tidb_tpu_torch.kv import kv
 from tidb_tpu_torch.ops import columnar as col
 from tidb_tpu_torch.sqlast.opcode import Op
@@ -211,4 +211,44 @@ class SideExec(Executor):
     def next(self):
         if self._rows is None:
             self._rows = iter(self.side.rows())
+        return next(self._rows, None)
+
+
+# ---------------------------------------------------------------------------
+# ordering and windows: sort items, window calls and a row source
+# ---------------------------------------------------------------------------
+
+def sort_item_from(item) -> plan.SortItem:
+    """A reference SortItem as the port's."""
+    return plan.SortItem(expression_from(item.expr), bool(item.desc))
+
+
+def window_desc_from(desc) -> plan.WindowFuncDesc:
+    """A reference WindowFuncDesc as the port's."""
+    return plan.WindowFuncDesc(
+        desc.name, [expression_from(a) for a in desc.args],
+        [expression_from(e) for e in desc.partition_by],
+        [sort_item_from(it) for it in desc.order_by])
+
+
+def projection_from(ref_proj, child) -> ProjectionExec:
+    """A reference ProjectionExec's expressions over the port executor
+    `child`."""
+    return ProjectionExec(child, [expression_from(e) for e in ref_proj.exprs])
+
+
+def rows_from(rows) -> list:
+    """Reference executor rows as the port's."""
+    return [[datum_from(d) for d in row] for row in rows]
+
+
+class RowsExec(Executor):
+    """A child that serves carried rows and offers no planes (the
+    reference's row-producing executors, seen from a WindowExec)."""
+
+    def __init__(self, rows: list, width: int):
+        self.schema = [None] * width
+        self._rows = iter(rows)
+
+    def next(self):
         return next(self._rows, None)

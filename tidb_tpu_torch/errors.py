@@ -27,3 +27,10 @@ class OverflowError_(TiDBError):
 class DeviceError(TiDBError):
     """Device-tier fault: a kernel that does not build, launch or finish.
     The port has no lower tier yet, so it reaches the caller."""
+
+
+class DeviceOOM(DeviceError):
+    """The card ran out of memory (torch.cuda.OutOfMemoryError) in a
+    kernel's wrapper or in an out-of-core pass's copies to and from it.
+    The one device fault an out-of-core operator answers by splitting its
+    work into smaller passes."""

@@ -1,6 +1,7 @@
-"""The join and aggregate executors over columnar children (the port of
-tidb_tpu/executor/executors.py:688 HashJoinExec's vector route and
-:529 HashAggExec's fused route).
+"""The join, aggregate and ordering executors over columnar children (the
+port of tidb_tpu/executor/executors.py:688 HashJoinExec's vector route,
+:529 HashAggExec's fused route, and the plane paths of :261 SortExec and
+:331 TopNExec).
 
 HashJoinExec sends every equi-join to the device, as the reference's does
 at or above its dispatch floor: a single int64/f64 key straight to K11
@@ -18,6 +19,13 @@ runs the kernels, and with device="cpu" their plain PyTorch versions
 its row engine raise Unsupported: join types other than INNER and LEFT
 OUTER, conditions beyond the equi-keys, ci collations, keys outside the
 dictionary tier. A kernel that fails raises; nothing falls back.
+
+SortExec and TopNExec order a join's or a scan's columnar result by its
+planes: key planes in np.lexsort's convention (_plane_sort_keys), the
+budget-aware external sort (ops.extsort.sort_order: K17 in one pass or
+in partitioned passes) and one gather of the rows in sorted order. A
+child that offers no planes, or a key without an order-exact plane,
+raises Unsupported: the port has no row comparator loop.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ from tidb_tpu_torch import mysqldef as my
 from tidb_tpu_torch.copr import dictionary
 from tidb_tpu_torch.executor import fused_agg
 from tidb_tpu_torch.executor.distsql_exec import Executor
-from tidb_tpu_torch.ops import columnar as col, kernels
+from tidb_tpu_torch.ops import columnar as col, extsort, kernels
 from tidb_tpu_torch.ops.client import resolve_device
 from tidb_tpu_torch.ops.exprc import Unsupported
 from tidb_tpu_torch.plan import Column, Join
@@ -235,3 +243,207 @@ class HashAggExec(Executor):
         row = self._rows[self._pos]
         self._pos += 1
         return row
+
+
+# ---------------------------------------------------------------------------
+# ordering over planes: SortExec, TopNExec
+# ---------------------------------------------------------------------------
+
+def _gather_rows(res, idx, width: int) -> list:
+    """Rows `idx` of a columnar result, one gather per column."""
+    if not len(idx):
+        return []
+    cols = [res.gather_datums(j, idx) for j in range(width)]
+    return [list(t) for t in zip(*cols)]
+
+
+class ProjectionExec(Executor):
+    """A projection of the child's columns (plain Columns only: the port
+    has no row expression evaluator). Seen through by the plane paths."""
+
+    def __init__(self, child: Executor, exprs: list):
+        for e in exprs:
+            if not isinstance(e, Column):
+                raise Unsupported(f"projecting {e!r} needs the row "
+                                  f"expression evaluator")
+        self.children = [child]
+        self.exprs = exprs
+        self.schema = [None] * len(exprs)
+
+    def next(self):
+        row = self.children[0].next()
+        return None if row is None else [e.eval(row) for e in self.exprs]
+
+
+class _ProjectedView:
+    """A columnar result seen through a ProjectionExec: output column j
+    reads source column idx_map[j]."""
+
+    def __init__(self, res, idx_map: list):
+        self.res = res
+        self.idx_map = idx_map
+
+    def __len__(self) -> int:
+        return len(self.res)
+
+    def column_plane(self, j: int):
+        return self.res.column_plane(self.idx_map[j])
+
+    def dict_code_plane(self, j: int):
+        get = getattr(self.res, "dict_code_plane", None)
+        return get(self.idx_map[j]) if get is not None else None
+
+    def decimal_plane(self, j: int):
+        get = getattr(self.res, "decimal_plane", None)
+        return get(self.idx_map[j]) if get is not None else None
+
+    def gather_datums(self, j: int, idx):
+        return self.res.gather_datums(self.idx_map[j], idx)
+
+
+def _columnar_view(child):
+    """(the columnar result `child` offers — a join's DeviceJoinResult, a
+    scan's ColumnarScanResult, either seen through a ProjectionExec — or
+    None, and the node that computed it)."""
+    if isinstance(child, ProjectionExec):
+        res, node = _columnar_view(child.children[0])
+        if res is None:
+            return None, node
+        return _ProjectedView(res, [e.index for e in child.exprs]), node
+    get = getattr(child, "device_join_result", None)
+    if get is None:
+        get = getattr(child, "columnar_result", None)
+    return (get() if get is not None else None), child
+
+
+def _plane_sort_keys(res, by_items, width: int):
+    """np.lexsort-convention key planes (least significant first; each
+    by-item a directed value plane, then its directed NULL plane) that
+    order the result's rows as the row comparator does: string keys by
+    dictionary rank, DESC by complement (ints) or negation (floats, -0.0
+    made +0.0 first), NULLs first ascending and last descending. A
+    decimal column packed exactly sorts by its scaled int64 plane (one
+    scale a column), where the reference gives decimal keys to its row
+    comparator. None where a key has no order-exact plane (ci collation,
+    an expression, time, unsigned)."""
+    sort_keys = []
+    for item in reversed(by_items):
+        e = item.expr
+        if not isinstance(e, Column) or _is_ci(e) or e.index >= width:
+            return None
+        j = e.index
+        if _is_str(e):
+            get_codes = getattr(res, "dict_code_plane", None)
+            ent = get_codes(j) if get_codes is not None else None
+            if ent is None:
+                return None
+            codes, va, dom = ent
+            ranks = dom.ranks()
+            vo = ranks[np.clip(codes, 0, max(len(ranks) - 1, 0))] \
+                if len(ranks) else np.zeros(len(codes), np.int64)
+            if item.desc:
+                vo = ~vo
+        else:
+            kind, vals, va = res.column_plane(j)
+            get_dec = getattr(res, "decimal_plane", None)
+            dec = get_dec(j) if kind is None and get_dec is not None \
+                else None
+            if dec is not None:
+                kind, (vals, va) = "i64", dec
+            if kind == "f64":
+                vo = np.where(vals == 0.0, 0.0, vals)
+                if item.desc:
+                    vo = -vo
+            elif kind == "i64":
+                vo = ~vals if item.desc else vals
+            else:
+                return None
+        nullk = va.astype(np.int8) if not item.desc \
+            else (~va).astype(np.int8)
+        sort_keys.append(np.where(va, vo, np.zeros_like(vo)))
+        sort_keys.append(nullk)
+    return sort_keys
+
+
+def _child_device(child, device):
+    """The caller's device, else the child's (a join's, a scan's
+    client's, seen through projections), else the card."""
+    while isinstance(child, ProjectionExec):
+        child = child.children[0]
+    if device is None:
+        device = getattr(child, "device", None)
+    if device is None:
+        device = getattr(getattr(child, "client", None), "device", None)
+    return resolve_device(device)
+
+
+class _PlaneOrder(Executor):
+    """The plane path SortExec and TopNExec share: the child's columnar
+    result in sorted order, `stats` the external sort's figures."""
+
+    def __init__(self, child: Executor, by_items: list, device=None):
+        self.children = [child]
+        self.schema = child.schema
+        self.by_items = by_items
+        self.device = _child_device(child, device)
+        self.stats: dict = {}
+        self._rows = None
+        self._pos = 0
+
+    def _sorted(self):
+        """(result, permutation) of the child's rows."""
+        res, node = _columnar_view(self.children[0])
+        if res is None:
+            raise Unsupported("ordering a child that offers no planes "
+                              "needs the row comparator loop")
+        width = len(self.schema)
+        with kernels.phase("sort_keys", self.device):
+            keys = _plane_sort_keys(res, self.by_items, width)
+        if keys is None:
+            raise Unsupported("an ORDER BY key without an order-exact plane "
+                              "needs the row comparator loop")
+        with kernels.phase("sort", self.device):
+            order = extsort.sort_order(keys, len(res), stats=self.stats,
+                                       device=self.device)
+        js = getattr(node, "join_stats", None)
+        if js is not None:
+            js["sort_plane"] = True
+        return res, order
+
+    def _materialize(self) -> list:
+        raise NotImplementedError
+
+    def next(self):
+        if self._rows is None:
+            self._rows = self._materialize()
+        if self._pos >= len(self._rows):
+            return None
+        row = self._rows[self._pos]
+        self._pos += 1
+        return row
+
+
+class SortExec(_PlaneOrder):
+    """ORDER BY over a join's or a scan's planes: every row, sorted."""
+
+    def _materialize(self) -> list:
+        res, order = self._sorted()
+        with kernels.phase("gather", self.device):
+            return _gather_rows(res, order, len(self.schema))
+
+
+class TopNExec(_PlaneOrder):
+    """ORDER BY ... LIMIT offset, count over a join's or a scan's planes:
+    the sorted order, and only rows offset .. offset + count gathered."""
+
+    def __init__(self, child: Executor, by_items: list, offset: int,
+                 count: int, device=None):
+        super().__init__(child, by_items, device)
+        self.offset = offset
+        self.count = count
+
+    def _materialize(self) -> list:
+        res, order = self._sorted()
+        keep = order[self.offset:self.offset + self.count]
+        with kernels.phase("gather", self.device):
+            return _gather_rows(res, keep, len(self.schema))

@@ -29,7 +29,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
 SOURCES = ("expr_vm", "scalar_agg", "seg_agg_onehot", "seg_agg_sorted",
            "rank_groups", "distinct_runs", "topk_select", "seg_states_ragged",
            "combine_partials", "join_build", "join_probe", "dict_remap",
-           "slot_filter", "slot_agg", "slot_topn")
+           "slot_filter", "slot_agg", "slot_topn", "sort_perm", "window_scan")
 # -fmad=false: no multiply-add contraction, so every f64 a * b + c rounds
 # twice exactly as the plain versions (and the reference) round it
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -110,6 +110,16 @@ SIGNATURES = {
         "slot_topn_tile": ([], _I),
         "slot_topn_launch": ([_L, _I, _L, _P, _I, _P, _P, _P, _P, _P, _P,
                               _P, _P, _P], _I),
+    },
+    "sort_perm": {
+        "sort_perm_blocks": ([_L], _L),
+        "sort_perm_load_launch": ([_L, _P, _I, _P, _P, _P, _P, _P, _P], _I),
+        "sort_perm_digit_launch": ([_L, _I, _P, _P, _P, _P, _P, _P, _P], _I),
+    },
+    "window_scan": {
+        "window_scan_blocks": ([_L], _L),
+        "window_scan_launch": ([_L, _I, _P, _P, _P, _P, _P, _P, _P], _I),
+        "window_finish_launch": ([_L, _I, _P, _P, _P, _P, _P, _P, _P], _I),
     },
 }
 

@@ -660,6 +660,15 @@ class ColumnarScanResult:
         self._plane_cache[j] = ent
         return ent
 
+    def decimal_plane(self, j: int):
+        """Output column j, a DECIMAL column packed exactly, as (int64
+        values scaled by the column's one 10^dec_scale, valid): order-exact
+        for sorting. None for any other column."""
+        cd = self.batch.columns[self.pb_cols[j].column_id]
+        if cd.kind != K_DEC:
+            return None
+        return cd.values[self.sel], cd.valid[self.sel]
+
     def device_plane(self, j: int):
         """Output column j as (values, valid) tensors on the client's
         device, gathered there from the batch's resident planes — or None
@@ -878,6 +887,23 @@ class DeviceJoinResult:
         ent = (kind, vals, valid)
         self._plane_cache[j] = ent
         return ent
+
+    def decimal_plane(self, j: int):
+        """Output column j's scaled decimal plane (ColumnarScanResult.
+        decimal_plane) gathered through the pairs, the LEFT OUTER pads
+        NULL; None when the source side has none."""
+        side, jj, idx = (self.lside, j, self.l_idx) if j < self.left_width \
+            else (self.rside, j - self.left_width, self.r_idx)
+        get = getattr(side, "decimal_plane", None)
+        src = get(jj) if get is not None else None
+        if src is None:
+            return None
+        vals, valid = src
+        pad = idx < 0
+        if not len(vals):
+            return np.zeros(len(idx), np.int64), np.zeros(len(idx), bool)
+        gi = np.where(pad, 0, idx)
+        return vals[gi], valid[gi] & ~pad
 
     def dict_code_plane(self, j: int):
         """Output column j's dictionary codes gathered through the pairs

@@ -48,13 +48,14 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
 
 from tidb_tpu_torch import errors
 from tidb_tpu_torch.copr.proto import AGG_NAME, ExprType, SelectRequest
-from tidb_tpu_torch.ops import _ext, columnar as col
+from tidb_tpu_torch.ops import _ext, columnar as col, membudget
 from tidb_tpu_torch.ops.exprc import (CompiledExpr, Finalized, Program,
                                       Unsupported, _dec_guard, compile_expr,
                                       run_program_plain)
@@ -90,7 +91,8 @@ LAUNCHES = {"expr_vm": 0, "scalar_agg": 0, "seg_agg_onehot": 0,
             "topk_select": 0, "expr_vm_ragged": 0, "seg_states_ragged": 0,
             "seg_states_ragged_sorted": 0, "combine_partials": 0,
             "join_build": 0, "join_probe": 0, "dict_remap": 0,
-            "slot_filter": 0, "slot_agg": 0, "slot_topn": 0}
+            "slot_filter": 0, "slot_agg": 0, "slot_topn": 0,
+            "sort_perm": 0, "window_scan": 0}
 
 # K14 / K15 read each row's planes once into a table of this many entries
 # (ops/csrc/vm.cuh VM_ROW_PLANES); K15 folds at most SLOT_MAX_REDS
@@ -154,7 +156,18 @@ def batch_planes(batch: col.ColumnBatch, device: torch.device) -> dict:
             cid: (torch.from_numpy(cd.values).to(device),
                   torch.from_numpy(cd.valid).to(device))
             for cid, cd in batch.columns.items()}
+        if torch.device(device).type == "cuda":
+            _charge_pinned(batch, membudget.planes_nbytes(planes))
     return planes
+
+
+def _charge_pinned(batch, nbytes: int) -> None:
+    """Charge planes made resident on the card to the HBM ledger
+    (ops.membudget `pinned`), uncharged when the batch, and with it the
+    planes, dies. The plane cache (copr.plane_cache) and GpuClient's batch
+    cache both pin through batch_planes."""
+    membudget.pin(nbytes)
+    weakref.finalize(batch, membudget.unpin, nbytes)
 
 
 def device_live(batch: col.ColumnBatch, device: torch.device) -> torch.Tensor:
@@ -2117,3 +2130,227 @@ def slot_topn(words: torch.Tensor, keys: list, k: int):
     _ext.check(rc, "slot_topn")
     LAUNCHES["slot_topn"] += 1
     return idx, n_live
+
+
+# ---------------------------------------------------------------------------
+# out-of-core sort and windows: K17 sort_perm, K18 window_scan and their
+# plain versions (ops.extsort and executor.window drive them)
+# ---------------------------------------------------------------------------
+
+# K17 plane dtypes: the contract with ops/csrc/sort_perm.cu
+_SORT_DTYPES = {torch.int64: 0, torch.float64: 1, torch.int32: 2,
+                torch.int8: 3}
+# the order word of every NaN: one above +inf's, numpy's NaN-last order
+NAN_WORD = 0x7FF0000000000001
+
+
+def sort_words(p: torch.Tensor) -> torch.Tensor:
+    """The int64 order word of a key plane: integers widened as they are;
+    f64 through `orderable` (-0.0 == +0.0), every NaN tied just above
+    +inf. int64 order of the words is np.lexsort's order of the keys."""
+    if p.dtype != torch.float64:
+        return p.to(torch.int64)
+    return torch.where(torch.isnan(p),
+                       torch.full_like(p, NAN_WORD, dtype=torch.int64),
+                       orderable(p))
+
+
+def sort_perm_plain(planes: list, n: int) -> torch.Tensor:
+    """Chained stable torch.sort passes over the planes' order words,
+    least significant plane first."""
+    perm = None
+    for p in planes:
+        w = sort_words(p)
+        _, idx = torch.sort(w if perm is None else w[perm], stable=True)
+        perm = idx if perm is None else perm[idx]
+    if perm is None:
+        perm = torch.arange(n, dtype=torch.int64)
+    return perm
+
+
+def device_oom(what: str, e: Exception) -> errors.DeviceOOM:
+    """The DeviceOOM a torch.cuda.OutOfMemoryError in `what` maps to."""
+    return errors.DeviceOOM(f"{what}: the card is out of memory ({e})")
+
+
+def sort_perm(planes: list, n: int) -> torch.Tensor:
+    """K17: the stable sort permutation (int64 [n]) of the key planes
+    (f64 / int64 / int32 / int8 [n], np.lexsort's convention: least
+    significant first, direction and NULL order already encoded by the
+    caller), equal to np.lexsort(planes) bit for bit: ties keep input
+    order, -0.0 ties +0.0, NaN sorts last. On the card an out-of-memory
+    raises DeviceOOM, any other fault DeviceError."""
+    n = int(n)
+    if not planes:
+        raise errors.DeviceError("sort_perm needs at least one key plane")
+    if _device_kind(planes[0]) == "cpu":
+        return sort_perm_plain(planes, n)
+    dev = planes[0].device
+    for j, p in enumerate(planes):
+        _check_plane(p, n, tuple(_SORT_DTYPES), f"sort key {j}", dev)
+    if n <= 1:
+        return torch.zeros(n, dtype=torch.int64, device=dev)
+    lib = _ext.lib("sort_perm")
+    nb = lib.sort_perm_blocks(n)
+    st = _stream(dev)
+    try:
+        keys = [torch.empty(n, dtype=torch.int64, device=dev)
+                for _ in range(2)]
+        idx = [torch.empty(n, dtype=torch.int64, device=dev)
+               for _ in range(2)]
+        counts = torch.empty(256 * nb, dtype=torch.int64, device=dev)
+        totals = torch.empty(256, dtype=torch.int64, device=dev)
+        part = torch.empty(2 * nb, dtype=torch.int64, device=dev)
+        bits = torch.empty(2, dtype=torch.int64, device=dev)
+        cur = 0
+        for j, p in enumerate(planes):
+            rc = lib.sort_perm_load_launch(
+                n, p.data_ptr(), _SORT_DTYPES[p.dtype],
+                idx[cur].data_ptr() if j else None, keys[cur].data_ptr(),
+                None if j else idx[cur].data_ptr(), part.data_ptr(),
+                bits.data_ptr(), st)
+            _ext.check(rc, "sort_perm load")
+            # the bytes where every word agrees are constant digits: no pass
+            b_and, b_or = (int(x) & 0xFFFFFFFFFFFFFFFF for x in bits.tolist())
+            vary = b_and ^ b_or
+            for d in range(8):
+                if not (vary >> (8 * d)) & 0xFF:
+                    continue
+                rc = lib.sort_perm_digit_launch(
+                    n, 8 * d, keys[cur].data_ptr(), idx[cur].data_ptr(),
+                    keys[1 - cur].data_ptr(), idx[1 - cur].data_ptr(),
+                    counts.data_ptr(), totals.data_ptr(), st)
+                _ext.check(rc, "sort_perm digit pass")
+                cur = 1 - cur
+    except torch.cuda.OutOfMemoryError as e:
+        raise device_oom("sort_perm", e) from e
+    LAUNCHES["sort_perm"] += 1
+    return idx[cur]
+
+
+# K18 scan modes and finishing ops: the contract with
+# ops/csrc/window_scan.cu
+W_START, W_END, W_COUNT, W_SUM, W_MIN, W_MAX = range(6)
+W_ROW_NUMBER, W_RANK, W_DENSE_RANK, W_FRAME = range(4)
+_W_REDUCE = {"count": W_COUNT, "sum": W_SUM, "min": W_MIN, "max": W_MAX}
+_W_RANK = {"row_number": W_ROW_NUMBER, "rank": W_RANK,
+           "dense_rank": W_DENSE_RANK}
+
+
+def _seg_scan_doubling(v: torch.Tensor, s: torch.Tensor, op) -> torch.Tensor:
+    """Inclusive scan of v under op restarting at each row's partition
+    start s, by doubling: after the step of width d each row holds op
+    over [max(s, i - 2d + 1), i]."""
+    n = v.shape[0]
+    pos = torch.arange(n, dtype=torch.int64, device=v.device)
+    run = v
+    d = 1
+    while d < n:
+        prev = torch.cat([run[:d], run[:-d]])
+        run = torch.where(pos - d >= s, op(run, prev), run)
+        d *= 2
+    return run
+
+
+def window_scan_plain(seg: torch.Tensor, peer: torch.Tensor, specs: list,
+                      n: int) -> list:
+    """The reference's formulas: searchsorted starts and frame ends,
+    cumsum differences for SUM / COUNT (int64, modular), a segmented
+    min/max scan gathered at the frame end."""
+    dev = seg.device
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    s = torch.searchsorted(seg, seg)
+    p = torch.searchsorted(peer, peer)
+    e = torch.searchsorted(peer, peer, right=True) - 1
+    outs = []
+    for op, vals, contrib in specs:
+        if op == "row_number":
+            outs.append(pos - s + 1)
+            continue
+        if op == "rank":
+            outs.append(p - s + 1)
+            continue
+        if op == "dense_rank":
+            outs.append(peer - peer[s] + 1)
+            continue
+        ok = contrib.to(torch.bool)
+        if op in ("sum", "count"):
+            c = ok.to(torch.int64) if op == "count" \
+                else torch.where(ok, vals, torch.zeros_like(vals))
+            cs = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                            torch.cumsum(c, 0)])
+            outs.append(cs[e + 1] - cs[s])
+            continue
+        sent = I64_MAX if op == "min" else I64_MIN
+        v = torch.where(ok, vals, torch.full_like(vals, sent))
+        run = _seg_scan_doubling(v, s, torch.minimum if op == "min"
+                                 else torch.maximum)
+        outs.append(run[e])
+    return outs
+
+
+def window_scan(seg: torch.Tensor, peer: torch.Tensor, specs: list,
+                n: int) -> list:
+    """K18: per spec an int64 [n] plane of window figures over presorted
+    rows. seg / peer: int64 partition codes and global peer-group ids,
+    both non-decreasing (a new partition always opens a new peer group).
+    specs: ("row_number" | "rank" | "dense_rank", None, None) or ("sum" |
+    "count" | "min" | "max", vals int64 or None for count, contrib bool),
+    the frame RANGE UNBOUNDED PRECEDING .. the current row's last peer.
+    SUM and COUNT wrap modulo 2^64 as the reference's cumsum difference
+    does; MIN / MAX give I64_MAX / I64_MIN over an empty frame (the
+    caller reads NULL from a COUNT spec)."""
+    n = int(n)
+    if _device_kind(seg) == "cpu":
+        return window_scan_plain(seg, peer, specs, n)
+    dev = seg.device
+    _check_plane(seg, n, (torch.int64,), "window partitions", dev)
+    _check_plane(peer, n, (torch.int64,), "window peers", dev)
+    for op, vals, contrib in specs:
+        if op in _W_RANK:
+            continue
+        if op not in _W_REDUCE:
+            raise errors.DeviceError(f"window_scan has no {op}")
+        _check_plane(contrib, n, (torch.bool,), f"{op} contrib", dev)
+        if op != "count":
+            _check_plane(vals, n, (torch.int64,), f"{op} values", dev)
+    if n == 0:
+        return [torch.empty(0, dtype=torch.int64, device=dev) for _ in specs]
+    lib = _ext.lib("window_scan")
+    nb = lib.window_scan_blocks(n)
+    st = _stream(dev)
+    try:
+        agg = torch.empty(2 * nb, dtype=torch.int64, device=dev)
+        carry = torch.empty(2 * nb, dtype=torch.int64, device=dev)
+
+        def scan(mode, key, vals=None, contrib=None):
+            out = torch.empty(n, dtype=torch.int64, device=dev)
+            rc = lib.window_scan_launch(
+                n, mode, key.data_ptr(),
+                0 if vals is None else vals.data_ptr(),
+                0 if contrib is None else contrib.data_ptr(),
+                agg.data_ptr(), carry.data_ptr(), out.data_ptr(), st)
+            _ext.check(rc, "window_scan")
+            return out
+
+        s = scan(W_START, seg)
+        p = scan(W_START, peer) if any(op == "rank" for op, _v, _c in
+                                       specs) else s
+        e = scan(W_END, peer) if any(op in _W_REDUCE for op, _v, _c in
+                                     specs) else s
+        outs = []
+        for op, vals, contrib in specs:
+            run = s
+            fin = _W_RANK.get(op, W_FRAME)
+            if fin == W_FRAME:
+                run = scan(_W_REDUCE[op], seg, vals, contrib)
+            out = torch.empty(n, dtype=torch.int64, device=dev)
+            rc = lib.window_finish_launch(
+                n, fin, peer.data_ptr(), s.data_ptr(), p.data_ptr(),
+                e.data_ptr(), run.data_ptr(), out.data_ptr(), st)
+            _ext.check(rc, "window_scan finish")
+            outs.append(out)
+    except torch.cuda.OutOfMemoryError as e:
+        raise device_oom("window_scan", e) from e
+    LAUNCHES["window_scan"] += 1
+    return outs

@@ -1,9 +1,11 @@
 """The plan pieces the port's executors read, under the reference's names
-(tidb_tpu/plan/plans.py:152 Join; tidb_tpu/expression/expression.py:52
-Column, :153 Constant; tidb_tpu/expression/aggregation.py:27
-AggFunctionMode and the aggregate function's name, args, mode and
-distinct). The port has no planner: these are built by the caller, or
-carried from the reference's plan (tidb_tpu_torch.carry).
+(tidb_tpu/plan/plans.py:152 Join, :102 SortItem, :113 WindowFuncDesc;
+tidb_tpu/expression/expression.py:52 Column, :153 Constant;
+tidb_tpu/expression/aggregation.py:27 AggFunctionMode and the aggregate
+function's name, args, mode and distinct). The port has no planner: these
+are built by the caller, or carried from the reference's plan
+(tidb_tpu_torch.carry). A row is evaluated only for a Column (its datum)
+or a Constant (its value): the port has no row expression evaluator.
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ class Column:
         self.index = index
         self.ret_type = ret_type
 
+    def eval(self, row) -> Datum:
+        return row[self.index]
+
     def __repr__(self):
         return f"Column({self.index})"
 
@@ -28,6 +33,9 @@ class Column:
 class Constant:
     def __init__(self, value: Datum):
         self.value = value
+
+    def eval(self, row) -> Datum:
+        return self.value
 
     def __repr__(self):
         return f"Constant({self.value!r})"
@@ -40,6 +48,10 @@ class Residual:
 
     def __init__(self, text: str):
         self.text = text
+
+    def eval(self, row):
+        from tidb_tpu_torch.ops.exprc import Unsupported
+        raise Unsupported(f"{self.text} needs the row expression evaluator")
 
     def __repr__(self):
         return f"Residual({self.text})"
@@ -76,3 +88,36 @@ class AggFunc:
         if empty is None:
             empty = Datum.i64(0) if name == "count" else NULL
         self.empty = empty
+
+
+class SortItem:
+    """One ORDER BY item: an expression and its direction."""
+
+    __slots__ = ("expr", "desc")
+
+    def __init__(self, expr, desc: bool = False):
+        self.expr = expr
+        self.desc = desc
+
+    def __repr__(self):
+        return f"{self.expr!r}{' desc' if self.desc else ''}"
+
+
+class WindowFuncDesc:
+    """One window call: its name, argument expressions, PARTITION BY
+    expressions and ORDER BY SortItems, over the child's columns. The
+    frame is MySQL's default: the whole partition, or with ORDER BY RANGE
+    UNBOUNDED PRECEDING .. the current row's last peer."""
+
+    __slots__ = ("name", "args", "partition_by", "order_by")
+
+    def __init__(self, name: str, args: list, partition_by: list,
+                 order_by: list):
+        self.name = name
+        self.args = args
+        self.partition_by = partition_by
+        self.order_by = order_by
+
+    def __repr__(self):
+        return (f"{self.name}({self.args!r}) over(partition:"
+                f"{self.partition_by!r} order:{self.order_by!r})")

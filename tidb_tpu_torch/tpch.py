@@ -894,14 +894,17 @@ def join_batch(tables: dict, table_id: int, cids=None) -> col.ColumnBatch:
                        sorted(spec) if cids is None else cids, words)
 
 
-def _scan(table_id: int, cids, where=None) -> SelectRequest:
+def scan_request(table_id: int, cids, where=None) -> SelectRequest:
+    """A plain scan of `cids` of one of JOIN_TABLES' tables."""
     spec, _w = JOIN_TABLES[table_id]
     return SelectRequest(start_ts=1,
                          table_info=table_info(cids, table_id, spec),
                          where=where)
 
 
-def _key(table_id: int, cid: int, index: int) -> Column:
+def column(table_id: int, cid: int, index: int) -> Column:
+    """Output column `index` of a scan or join, typed as column `cid` of
+    one of JOIN_TABLES' tables."""
     spec, _w = JOIN_TABLES[table_id]
     return Column(index, field_type_from_pb_column(_column_info(spec, cid)))
 
@@ -924,42 +927,44 @@ def join_statement(name: str) -> tuple:
     one = [Constant(Datum.i64(1))]
     c = expr_column
     if name == "f1_q3_join":
-        left = _scan(TABLE_ID, [C_ORDERKEY, C_SUPPKEY, C_FDISCOUNT,
-                                C_SHIPDATE],
-                     expr_op(Op.GT, c(C_SHIPDATE),
-                             expr_value(_date("1995-03-15"))))
-        right = _scan(ORDERS_ID, [O_ORDERKEY, O_ORDERDATE, O_CUSTKEY,
-                                  O_ORDERPRIORITY],
-                      expr_op(Op.LT, c(O_ORDERDATE),
-                              expr_value(_date("1995-03-15"))))
+        left = scan_request(TABLE_ID, [C_ORDERKEY, C_SUPPKEY, C_FDISCOUNT,
+                                       C_SHIPDATE],
+                            expr_op(Op.GT, c(C_SHIPDATE),
+                                    expr_value(_date("1995-03-15"))))
+        right = scan_request(ORDERS_ID, [O_ORDERKEY, O_ORDERDATE, O_CUSTKEY,
+                                         O_ORDERPRIORITY],
+                             expr_op(Op.LT, c(O_ORDERDATE),
+                                     expr_value(_date("1995-03-15"))))
         join = Join(Join.INNER)
-        join.eq_conditions = [(_key(TABLE_ID, C_ORDERKEY, 0),
-                               _key(ORDERS_ID, O_ORDERKEY, 0))]
+        join.eq_conditions = [(column(TABLE_ID, C_ORDERKEY, 0),
+                               column(ORDERS_ID, O_ORDERKEY, 0))]
         aggs = [AggFunc("count", one), AggFunc("sum", [Column(2)]),
                 AggFunc("min", [Column(1)]), AggFunc("max", [Column(6)]),
                 AggFunc("first_row", [Column(7)])]
-        return left, right, join, aggs, [_key(ORDERS_ID, O_ORDERPRIORITY,
-                                              7)]
+        return left, right, join, aggs, [column(ORDERS_ID, O_ORDERPRIORITY,
+                                                7)]
     if name == "f2_partsupp":
-        left = _scan(TABLE_ID, [C_ORDERKEY, C_PARTKEY, C_SUPPKEY])
-        right = _scan(PARTSUPP_ID, [PS_PARTKEY, PS_SUPPKEY, PS_AVAILQTY,
-                                    PS_SUPPLYCOST])
+        left = scan_request(TABLE_ID, [C_ORDERKEY, C_PARTKEY, C_SUPPKEY])
+        right = scan_request(PARTSUPP_ID, [PS_PARTKEY, PS_SUPPKEY,
+                                           PS_AVAILQTY, PS_SUPPLYCOST])
         join = Join(Join.INNER)
         join.eq_conditions = [
-            (_key(TABLE_ID, C_PARTKEY, 1), _key(PARTSUPP_ID, PS_PARTKEY, 0)),
-            (_key(TABLE_ID, C_SUPPKEY, 2), _key(PARTSUPP_ID, PS_SUPPKEY, 1))]
+            (column(TABLE_ID, C_PARTKEY, 1),
+             column(PARTSUPP_ID, PS_PARTKEY, 0)),
+            (column(TABLE_ID, C_SUPPKEY, 2),
+             column(PARTSUPP_ID, PS_SUPPKEY, 1))]
         aggs = [AggFunc("count", one), AggFunc("sum", [Column(5)]),
                 AggFunc("max", [Column(5)]), AggFunc("min", [Column(0)])]
         return left, right, join, aggs, []
     if name == "f3_prio_outer":
-        left = _scan(ORDERS_ID, [O_ORDERKEY, O_ORDERPRIORITY])
-        right = _scan(PRIO_ID, [PD_NAME, PD_RANK])
+        left = scan_request(ORDERS_ID, [O_ORDERKEY, O_ORDERPRIORITY])
+        right = scan_request(PRIO_ID, [PD_NAME, PD_RANK])
         join = Join(Join.LEFT_OUTER)
-        join.eq_conditions = [(_key(ORDERS_ID, O_ORDERPRIORITY, 1),
-                               _key(PRIO_ID, PD_NAME, 0))]
+        join.eq_conditions = [(column(ORDERS_ID, O_ORDERPRIORITY, 1),
+                               column(PRIO_ID, PD_NAME, 0))]
         aggs = [AggFunc("count", one), AggFunc("count", [Column(3)]),
                 AggFunc("max", [Column(0)]), AggFunc("first_row", [Column(3)])]
-        return left, right, join, aggs, [_key(PRIO_ID, PD_RANK, 3)]
+        return left, right, join, aggs, [column(PRIO_ID, PD_RANK, 3)]
     raise KeyError(name)
 
 
