@@ -89,7 +89,27 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    partition, empty frames, SUM wrapping), timed with CUDA events
    (median of 20) beside its bytes bound, K17 beside chained stable
    torch.sort.
-10. A JSON line of per-kernel numbers, the nvidia-smi line, and last
+10. Phase I, the HTAP freshness tier (slice 7), after Phase D. I.1, at
+   SF0.01 through KV: 60,175 lineitem rows committed through
+   DistStore.begin() ... commit() into 8 regions; the six sweep shapes
+   cache every region; one RF1 and one RF2 (TPC-H §2.5, tpch.rf1 /
+   rf2) commit; the shapes again, each equal to numpy on the refreshed
+   arrays and to a store with its delta packs off (which re-packs), every
+   plane-cache miss merged, each K19 call equal to its plain version, and
+   a repeat an exact hit in every region. I.2, at SF1 on Phase D's store
+   (region batches pinned, nothing in KV, so a re-pack would answer
+   wrong): two RF1 + RF2 pairs (about 6,000 lineitems inserted into the
+   last region and 6,000 deleted across all), q1full after each equal to
+   numpy with every region merged, the folds counted, the merge
+   statement's split and wall time beside a hit's. Then K19 against its
+   plain version on edge cases (empty tombstones or appended rows, every
+   row tombstoned, appended handles before, after, between and tied with
+   the base's, padding, a base at the floor, past shared memory, a live
+   mask that is no prefix) and on broken preconditions (each raises),
+   and timed at the last region's shape and at a tombstones-only one
+   (median of 20 CUDA-event runs of the launch alone) beside its bound,
+   its plain version and a stable torch.argsort.
+11. A JSON line of per-kernel numbers, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
 Any failure raises: no phase catches its own failure.
@@ -97,6 +117,7 @@ Any failure raises: no phase catches its own failure.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -112,7 +133,8 @@ from decimal import Decimal  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from tidb_tpu_torch import carry, distsql, mysqldef as my, plan, tpch  # noqa
+from tidb_tpu_torch import carry, distsql, errors, mysqldef as my  # noqa
+from tidb_tpu_torch import plan, tablecodec as tc, tpch  # noqa: E402
 from tidb_tpu_torch.cluster.rpc import clip_ranges  # noqa: E402
 from tidb_tpu_torch.cluster.store import DistStore  # noqa: E402
 from tidb_tpu_torch.copr import columnar_region  # noqa: E402
@@ -179,6 +201,8 @@ KERNELS = {
                   "tidb_tpu/ops/kernels.py:2126"),
     "window_scan": ("tidb_tpu_torch/ops/csrc/window_scan.cu",
                     "tidb_tpu/ops/kernels.py:2222"),
+    "delta_merge_order": ("tidb_tpu_torch/ops/csrc/delta_merge.cu",
+                          "tidb_tpu/ops/kernels.py:293"),
 }
 # K6 has two routes, each counted: spans within its shared-memory limit
 # (seg_states_ragged) and larger ones (seg_states_ragged_sorted)
@@ -309,7 +333,7 @@ def phase_a(n_rows: int, seed: int, device=None) -> dict:
         for k, v in launches.items():
             need(v > 0 or k in CLUSTER_KERNELS or k in SLICE3_KERNELS
                  or k in JOIN_KERNELS or k in SLOT_KERNELS
-                 or k in SORT_KERNELS,
+                 or k in SORT_KERNELS or k in DELTA_KERNELS,
                  f"kernel {k} never launched on the main path")
     return launches
 
@@ -835,7 +859,8 @@ def admit(store: DistStore, sel: SelectRequest, batches: list) -> None:
     req = tpch.store_request(sel)
     regions = store.cluster.regions
     need(len(regions) == len(batches), "one batch per region")
-    version = store.data_version_at(sel.start_ts)
+    version = store.data_version_at(
+        sel.start_ts, tc.table_prefix(sel.table_info.table_id))
     for region, b in zip(regions, batches):
         key = columnar_region.cache_key(
             region.region_id, sel, clip_ranges(region, req.key_ranges))
@@ -1150,7 +1175,7 @@ def phase_d(n_rows: int, seed: int, device, R: int = 8) -> dict:
           f"{len(dg[5])} reductions, "
           f"{int(kernels._k6_layout(dg[1], dg[3])[1][-1])} segments")
     print("phase D statements: " + json.dumps(stmt))
-    return out
+    return out, store, data
 
 
 # ---------------------------------------------------------------------------
@@ -2526,6 +2551,388 @@ def phase_h(data: dict, batch, device, seed: int,
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase I: the HTAP freshness tier (slice 7)
+# ---------------------------------------------------------------------------
+
+DELTA_KERNELS = ("delta_merge_order",)
+
+
+def k19_case(n_rows: int, cap: int, n_tomb: int, app_mode: str, seed: int,
+             tomb_all: bool = False, k: int | None = None):
+    """numpy (handles [cap], live, tomb, app) of one merge: ascending
+    unique live handles (multiples of 3) over [0, n_rows), padding
+    I64_MIN; tombstones drawn from the live handles (or all of them) plus
+    absent ones (3x + 1); appended handles before, after or between the
+    base's ("between": updates, i.e. tombstoned handles, and new 3x + 2
+    handles; "ties": also kept base handles), or none. `k` fixes the
+    appended count (random below 300 otherwise)."""
+    rng = np.random.default_rng(seed)
+    h = np.full(cap, col.I64_MIN, np.int64)
+    base = np.sort(rng.choice(np.arange(1, 40 * max(n_rows, 1)), n_rows,
+                              replace=False)).astype(np.int64) * 3
+    h[:n_rows] = base
+    live = np.arange(cap) < n_rows
+    if tomb_all:
+        tomb = base.copy()
+    else:
+        hit = rng.choice(base, min(n_tomb, n_rows), replace=False)
+        miss = rng.integers(1, 1 << 40, n_tomb // 4) * 3 + 1
+        tomb = np.unique(np.concatenate([hit, miss])).astype(np.int64)
+    if k is None:
+        k = 0 if app_mode == "none" else int(rng.integers(1, 300))
+    if app_mode == "before":
+        app = -np.arange(k, 0, -1, dtype=np.int64)
+    elif app_mode == "after":
+        app = (int(base.max()) if n_rows else 0) + np.arange(1, k + 1)
+    elif app_mode in ("between", "ties"):
+        upd = rng.choice(tomb, min(k // 2, len(tomb)), replace=False) \
+            if len(tomb) else np.zeros(0, np.int64)
+        new = rng.integers(0, 40 * max(n_rows, 1), k - len(upd)) * 3 + 2
+        if app_mode == "ties":
+            new[: len(new) // 2] = rng.choice(base, len(new) // 2)
+        app = np.sort(np.concatenate([upd, new]))
+    else:
+        app = np.zeros(0, np.int64)
+    return h, live, tomb.astype(np.int64), np.asarray(app, np.int64)
+
+
+# (name, n_rows, cap, tombstones, appended mode, all tombstoned, k)
+K19_EDGES = [
+    ("interleaved", 3000, 4096, 200, "between", False, None),
+    ("empty_tomb", 3000, 4096, 0, "between", False, None),
+    ("empty_app", 3000, 4096, 150, "none", False, None),
+    ("all_tombstoned", 500, 1024, 0, "between", True, None),
+    ("app_before", 700, 1024, 30, "before", False, None),
+    ("app_after", 700, 1024, 30, "after", False, None),
+    ("padding", 37, 1024, 5, "between", False, None),
+    ("at_floor", 4096, 4096, 300, "between", False, None),
+    ("empty_base", 0, 1024, 0, "after", False, None),
+    ("ties_with_kept_rows", 5000, 8192, 400, "ties", False, 2000),
+    ("tomb_past_shared_memory", 100_000, 131_072, 40_000, "between", False,
+     300),
+    ("app_past_shared_memory", 100_000, 131_072, 500, "between", False,
+     30_000),
+]
+
+
+def check_k19(h, live, tomb, app, what: str) -> float:
+    """K19 against its plain version on the card, bit for bit."""
+    got = kernels.delta_merge_order(h, live, tomb, app)
+    want = kernels.delta_merge_order_plain(h, live, tomb, app)
+    need(torch.equal(got, want), f"{what}: K19 differs from its plain "
+         f"version ({got.shape[0]} vs {want.shape[0]} rows)")
+    return max_err(got, want)
+
+
+def k19_edges(device, seed: int) -> float:
+    """K19 on K19_EDGES, on a live mask that is no prefix, and on broken
+    preconditions (each must raise DeviceError naming it)."""
+    err = 0.0
+    for name, n_rows, cap, n_tomb, mode, tomb_all, k in K19_EDGES:
+        arrs = k19_case(n_rows, cap, n_tomb, mode, seed + n_rows + cap,
+                        tomb_all, k)
+        err = max(err, check_k19(*[torch.from_numpy(a).to(device)
+                                   for a in arrs], f"K19 edge {name}"))
+    rng = np.random.default_rng(seed)
+    h = np.sort(rng.choice(1 << 40, 50_000, replace=False)).astype(np.int64)
+    live = rng.random(50_000) < 0.5
+    tomb = np.sort(rng.choice(h, 5000, replace=False))
+    app = np.unique(rng.integers(0, 1 << 40, 3000)).astype(np.int64)
+    err = max(err, check_k19(*[torch.from_numpy(a).to(device)
+                               for a in (h, live, tomb, app)],
+                             "K19 edge live mask no prefix"))
+    broken = {"strictly ascend": (h[::-1].copy(), live, tomb, app),
+              "strictly ascend (ties)": (np.repeat(h[:25_000], 2), live,
+                                         tomb, app),
+              "I64_MAX": (np.where(np.arange(50_000) == 49_999,
+                                   kernels.I64_MAX, h), live | True, tomb,
+                          app),
+              "appended handles": (h, live, tomb, app[::-1].copy()),
+              "tombstone handles": (h, live, tomb[::-1].copy(), app)}
+    for what, arrs in broken.items():
+        if device.type != "cuda":
+            break           # the plain version holds for any input
+        try:
+            kernels.delta_merge_order(*[torch.from_numpy(a).to(device)
+                                        for a in arrs])
+        except errors.DeviceError as e:
+            need(what.split(" (")[0] in str(e),
+                 f"K19 broken precondition {what}: raised {e}")
+            continue
+        raise SmokeFailure(f"K19 broken precondition {what}: no raise")
+    return err
+
+
+class K19Recorder:
+    """Keeps every K19 call the merge path makes (its inputs and output)
+    while active."""
+
+    def __init__(self):
+        self.calls = []
+        self._orig = kernels.delta_merge_order
+
+    def __call__(self, h, live, tomb, app):
+        out = self._orig(h, live, tomb, app)
+        self.calls.append((h, live, tomb, app, out))
+        return out
+
+    def __enter__(self):
+        kernels.delta_merge_order = self
+        return self
+
+    def __exit__(self, *exc):
+        kernels.delta_merge_order = self._orig
+
+
+def i_commit(store: DistStore, muts) -> None:
+    """One transaction through begin / set / delete / commit."""
+    txn = store.begin()
+    for k, v in muts:
+        if v is None:
+            txn.delete(k)
+        else:
+            txn.set(k, v)
+    txn.commit()
+
+
+def i_sweep(store: DistStore, ts: int) -> dict:
+    return {name: final_rows(store, dataclasses.replace(
+        tpch.sweep_request(name), start_ts=ts)) for name, _m in tpch.SWEEP}
+
+
+def i_stats(store: DistStore) -> dict:
+    return {**store.plane_cache.stats, **store.rpc.delta_store.stats}
+
+
+def i_diff(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def phase_i1(n_rows: int, seed: int, device, R: int = 8) -> tuple:
+    """Slice 7 through KV at SF0.01: load through the write path, cache
+    every region, commit RF1 and RF2, re-run. Returns (K19 launches, the
+    recorded K19 calls)."""
+    t0 = time.perf_counter()
+    data = tpch.generate(n_rows, seed)
+    pairs = list(tpch.kv_pairs(data))
+    splits = tpch.split_keys(n_rows, R)
+    gpu = DistStore([], splits, device)
+    off = DistStore([], splits, device="cpu")
+    off.rpc.delta_store.set_enabled(False)
+    t1 = time.perf_counter()
+    i_commit(gpu, pairs)
+    load_s = time.perf_counter() - t1
+    i_commit(off, pairs)
+    print(f"phase I.1: {n_rows} lineitem rows encoded and committed "
+          f"through DistTxn over {R} regions in {load_s:.1f} s (encoding "
+          f"{t1 - t0:.1f} s)")
+    t1 = time.perf_counter()
+    for name, rows in i_sweep(gpu, gpu.current_version()).items():
+        check_sweep(name, rows, data, "phase I.1 before the refresh")
+    print(f"  six sweep shapes cached in every region and equal to numpy "
+          f"({time.perf_counter() - t1:.1f} s, packing included)")
+    m1, d1 = tpch.rf1(data, seed + 1)
+    m2, d2 = tpch.rf2(d1, seed + 2)
+    for store in (gpu, off):
+        i_commit(store, m1)
+        i_commit(store, m2)
+    print(f"  RF1 {len(m1)} lineitems inserted, RF2 {len(m2)} deleted "
+          f"(two transactions); delta packs {len(gpu.rpc.delta_store)}")
+    ts = gpu.current_version()
+    s0 = i_stats(gpu)
+    zero_launches()
+    t1 = time.perf_counter()
+    with K19Recorder() as rec:
+        got = i_sweep(gpu, ts)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = kernels.LAUNCHES["delta_merge_order"]
+    merge_s = time.perf_counter() - t1
+    d = i_diff(i_stats(gpu), s0)
+    t1 = time.perf_counter()
+    want = i_sweep(off, off.current_version())
+    repack_s = time.perf_counter() - t1
+    for name, rows in got.items():
+        check_sweep(name, rows, d2, "phase I.1 after the refresh")
+        same_final(rows, want[name], f"phase I.1 {name} (delta off)")
+    need(d["misses"] == len(tpch.SWEEP) * R and d["merges"] == d["misses"],
+         f"phase I.1: a region re-packed instead of merging: {d}")
+    need(device.type != "cuda" or launches == len(rec.calls) > 0,
+         f"phase I.1: K19 launches {launches}, merges through it "
+         f"{len(rec.calls)}")
+    err = 0.0
+    for i, (h, live, tomb, app, out) in enumerate(rec.calls):
+        want_o = kernels.delta_merge_order_plain(h, live, tomb, app)
+        need(torch.equal(out, want_o), f"phase I.1: K19 call {i} differs "
+             "from its plain version")
+        err = max(err, max_err(out, want_o))
+    s1 = i_stats(gpu)
+    again = i_sweep(gpu, ts)
+    d_rep = i_diff(i_stats(gpu), s1)
+    need(d_rep["hits"] == len(tpch.SWEEP) * R and d_rep["misses"] == 0,
+         f"phase I.1: the repeat did not hit the plane cache: {d_rep}")
+    for name, rows in again.items():
+        same_final(rows, got[name], f"phase I.1 {name} repeat")
+    print(f"  after the refresh: six shapes equal to numpy and to the "
+          f"delta-off store; merges {d['merges']} == misses {d['misses']} "
+          f"({d['rekeys']} version-only), K19 launches {launches}, each "
+          f"equal to its plain version; {merge_s:.2f} s merging vs "
+          f"{repack_s:.2f} s re-packing (host clock); the repeat hit "
+          f"{d_rep['hits']} times")
+    return launches, err
+
+
+def merged_planes(store: DistStore, sel: SelectRequest, ts: int) -> list:
+    """Each region's cached batch of `sel` at `ts`: the handle and
+    liveness planes its merge left on the device, checked equal to the
+    batch's host planes."""
+    req = tpch.store_request(sel)
+    version = store.data_version_at(
+        ts, tc.table_prefix(sel.table_info.table_id))
+    planes = []
+    for region in store.cluster.regions:
+        key = columnar_region.cache_key(
+            region.region_id, sel, clip_ranges(region, req.key_ranges))
+        b = store.plane_cache.lookup(key, region.epoch(), version)
+        need(b is not None, f"region {region.region_id}: no merged batch")
+        h = next(iter(getattr(b, "_device_handles", {}).values()), None)
+        live = next(iter(getattr(b, "_device_live", {}).values()), None)
+        need(h is not None and live is not None
+             and torch.equal(h.cpu(), torch.from_numpy(b.handles))
+             and torch.equal(live.cpu(), torch.from_numpy(b.row_mask())),
+             f"region {region.region_id}: the merged batch's device handle "
+             "or liveness plane is missing or differs from its host plane")
+        planes.append((h, live))
+    return planes
+
+
+def phase_i2(store: DistStore, data: dict, device, seed: int,
+             pairs: int = 2) -> tuple:
+    """Slice 7 at SF1 on Phase D's store (its region batches pinned in the
+    plane cache, nothing in KV): RF1 + RF2 pairs, q1full after each
+    against numpy, every region merged, each K19 call equal to its plain
+    version; from the second pair on, K19 runs on the handle and
+    liveness planes the last merge left on the device. Returns (K19 launches, K19 calls of
+    the last pair, max_abs_err, statement figures)."""
+    R = len(store.cluster.regions)
+    sel = tpch.sweep_request("q1full")
+    launches, out, err, resident = 0, [], 0.0, []
+    for p in range(pairs):
+        t0 = time.perf_counter()
+        m1, data = tpch.rf1(data, seed + 2 * p)
+        m2, data = tpch.rf2(data, seed + 2 * p + 1)
+        i_commit(store, m1)
+        i_commit(store, m2)
+        commit_s = time.perf_counter() - t0
+        ts = store.current_version()
+        s0 = i_stats(store)
+        zero_launches()
+        kernels.SPLIT = {}
+        t1 = time.perf_counter()
+        with K19Recorder() as rec:
+            rows = final_rows(store, dataclasses.replace(sel, start_ts=ts))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+        split, kernels.SPLIT = kernels.SPLIT, None
+        launched = kernels.LAUNCHES["delta_merge_order"]
+        need(device.type != "cuda" or launched == len(rec.calls) > 0,
+             f"phase I.2 pair {p + 1}: K19 launches {launched}, merges "
+             f"through it {len(rec.calls)}")
+        launches += launched
+        d = i_diff(i_stats(store), s0)
+        check_sweep("q1full", rows, data, f"phase I.2 pair {p + 1}")
+        need(d["misses"] == R and d["merges"] == R,
+             f"phase I.2 pair {p + 1}: a region re-packed: {d}")
+        for i, c in enumerate(rec.calls):
+            want = kernels.delta_merge_order_plain(*c[:4])
+            need(torch.equal(c[4], want), f"phase I.2 pair {p + 1}: K19 "
+                 f"call {i} differs from its plain version")
+            err = max(err, max_err(c[4], want))
+        on_card = sum(any(c[0] is h and c[1] is live for h, live in resident)
+                      for c in rec.calls)
+        need(p == 0 or on_card == len(rec.calls) == R,
+             f"phase I.2 pair {p + 1}: {on_card} of {len(rec.calls)} K19 "
+             "calls ran on the planes the last merge left on the card")
+        resident = merged_planes(store, sel, ts)
+        hit_ms = host_ms(lambda: final_rows(
+            store, dataclasses.replace(sel, start_ts=ts)), 5)
+        out.append({"rows": int(data[tpch.C_ORDERKEY].shape[0]),
+                    "inserted": len(m1), "deleted": len(m2),
+                    "commit_s": commit_s, "merge_statement_ms": wall,
+                    "hit_statement_ms": hit_ms, "split": split,
+                    "repacks": d["repacks"],
+                    "k19_calls": len(rec.calls),
+                    "k19_on_resident_planes": on_card})
+        print(f"phase I.2 pair {p + 1}: {len(m1)} inserted, {len(m2)} "
+              f"deleted (commits {commit_s:.1f} s); q1full equal to numpy, "
+              f"merges {d['merges']} == misses {d['misses']}, folds "
+              f"{d['repacks']}, K19 on resident planes {on_card} of "
+              f"{len(rec.calls)}; merge statement {wall:.1f} ms vs "
+              f"{hit_ms:.1f} ms on a hit (host clock); split "
+              + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    return launches, rec.calls, err, out
+
+
+def k19_timed(call, device) -> dict:
+    """K19's launch alone, its plain version and a stable argsort of the
+    masked concatenation (the yardstick: it omits the mask), medians of
+    20 CUDA-event runs, and its bound."""
+    h, live, tomb, app, out = call
+    n, m, k = h.shape[0], tomb.shape[0], app.shape[0]
+    launch = (kernels.delta_merge_prepare(h, live, tomb, app)[0]
+              if device.type == "cuda" else
+              (lambda: kernels.delta_merge_order(h, live, tomb, app)))
+    pos = torch.searchsorted(tomb, h)
+    dead = (pos < m) & (tomb[pos.clamp(max=max(m - 1, 0))] == h) \
+        if m else torch.zeros_like(live)
+    masked = torch.cat([torch.where(live & ~dead, h,
+                                    torch.full_like(h, kernels.I64_MAX)),
+                        app])
+    # the live mask over the capacity, the handles of live base rows only
+    # (the kernel reads no other), the tombstones, the appended handles,
+    # and the order written
+    nbytes = n + 8 * int(live.sum()) + 8 * (m + k) + 8 * out.shape[0]
+    ms = timer(device)
+    return dict(
+        ms=ms(launch),
+        plain_ms=ms(lambda: kernels.delta_merge_order_plain(
+            h, live, tomb, app)),
+        library_ms=ms(lambda: torch.argsort(masked, stable=True)),
+        bound=bound(nbytes, n * max(int(m).bit_length(), 1)
+                    + k * max(int(n).bit_length(), 1)),
+        shape=(n, m, k, int(out.shape[0])))
+
+
+def phase_i(d_store: DistStore, d_data: dict, device, seed: int,
+            small_rows: int = tpch.SF001_ROWS) -> tuple:
+    """Returns (per-kernel results, launches); `d_store` and `d_data`
+    Phase D's."""
+    t0 = time.perf_counter()
+    l1, err = phase_i1(small_rows, seed, device)
+    l2, calls, err2, stmts = phase_i2(d_store, d_data, device, seed + 10)
+    launches = {"delta_merge_order": l1 + l2}
+    err = max(err, err2, k19_edges(device, seed))
+    print("phase I: K19 equal to its plain version on every merge and on "
+          "the edge cases; broken preconditions raise")
+    # region 8's shape (tombstones and appended rows) and a region with
+    # tombstones only, from the last pair's merges
+    by_app = sorted(calls, key=lambda c: c[3].shape[0])
+    timed = {"tombstones_only": k19_timed(by_app[0], device),
+             "region_8": k19_timed(by_app[-1], device)}
+    need(by_app[0][3].shape[0] == 0, "phase I.2: no tombstones-only merge")
+    for what, r in timed.items():
+        print(f"  K19 at {what} (n, m, k, n_live) {r['shape']}: "
+              f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, stable "
+              f"argsort {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} "
+              f"ms by {r['bound'][1]})")
+    print("phase I statements: " + json.dumps(stmts))
+    print(f"phase I: launches {launches}; {time.perf_counter() - t0:.1f} s")
+    r = dict(timed["region_8"], max_abs_err=err)
+    return {"delta_merge_order": r}, launches
+
+
 def _chained_torch_sort(planes: list):
     """The library yardstick: chained torch.sort(stable=True) over the
     raw planes, least significant first."""
@@ -2566,7 +2973,12 @@ def main() -> int:
     results.update(g_results)
     results.update(h_results)
     launches.update(phase_c(tpch.SF001_ROWS, seed=1, device=device))
-    results.update(phase_d(tpch.SF1_ROWS, seed=2, device=device))
+    d_results, d_store, d_data = phase_d(tpch.SF1_ROWS, seed=2,
+                                         device=device)
+    results.update(d_results)
+    i_results, i_launches = phase_i(d_store, d_data, device, seed=12)
+    results.update(i_results)
+    launches.update(i_launches)
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = results[name]

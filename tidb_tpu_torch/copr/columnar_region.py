@@ -3,7 +3,8 @@ aggregate branch of tidb_tpu/copr/columnar_region.py).
 
 Each region of the cluster store answers its share of a `columnar_hint`
 aggregate request itself: its clipped ranges pack into a ColumnBatch (or
-hit the region's plane cache, planes pinned on the device), the WHERE and
+hit the region's plane cache, planes pinned on the device, or merge an
+older cached batch with the region's delta pack, copr.delta), the WHERE and
 every aggregate-argument expression compile into one register program,
 and the response ships a ColumnarAggStates payload with the filter and
 the states still PENDING. The statement finisher (`finish_states_batch`,
@@ -32,7 +33,7 @@ from decimal import Decimal
 import numpy as np
 import torch
 
-from tidb_tpu_torch import errors, mysqldef as my
+from tidb_tpu_torch import errors, mysqldef as my, tablecodec as tc
 from tidb_tpu_torch.codec import codec
 from tidb_tpu_torch.copr.proto import (AGG_NAME, ExprType, SelectRequest,
                                        SelectResponse, arg_plane_shape_ok)
@@ -51,15 +52,25 @@ def cache_key(region_id: int, sel: SelectRequest, ranges) -> tuple:
 
 
 def handle_columnar_scan(snapshot, sel: SelectRequest, ranges, region=None,
-                         cache=None, version: int = 0,
+                         cache=None, delta=None, oldest_ts: int | None = None,
                          device=None) -> SelectResponse:
     """One region's share of a columnar_hint aggregate request as a
-    pending ColumnarAggStates payload. `region` is (region_id, epoch);
-    with a `cache` the packed batch is served from / admitted to the
-    region's plane cache at data version `version`. `device` None means
-    the card (DeviceError without CUDA); only "cpu" selects the plain
-    versions. Raises Unsupported for every shape the port does not
-    answer."""
+    pending ColumnarAggStates payload. `region` is (region_id, epoch).
+
+    With a `cache` and a snapshot over the MVCC store (`snapshot.mvcc`,
+    `snapshot.read_ts`), the packed batch is served from / admitted to the
+    region's plane cache at the table's data version as of read_ts
+    (tidb_tpu/copr/columnar_region.py:136-190):
+    - the Percolator lock gate: a blocking lock in range forces the pack
+      path, whose scan raises KeyIsLockedError;
+    - with a `delta` store, a miss whose older base the delta pack covers
+      merges base + delta (_delta_merge) instead of re-packing;
+    - generations at or above the version of the oldest active reader
+      (`oldest_ts`) stay cached for it.
+
+    `device` None means the card (DeviceError without CUDA); only "cpu"
+    selects the plain versions. Raises Unsupported for every shape the
+    port does not answer."""
     device = resolve_device(device)
     if sel.table_info is None:
         raise Unsupported("index requests over regions come in a later "
@@ -72,21 +83,64 @@ def handle_columnar_scan(snapshot, sel: SelectRequest, ranges, region=None,
     columns = sel.table_info.columns
     defaults = {c.column_id: c.default_val for c in columns
                 if c.default_val is not None}
-    batch = key = None
-    if cache is not None and region is not None:
+    table_id = sel.table_info.table_id
+    batch = key = version = prefix = None
+    mvcc = getattr(snapshot, "mvcc", None)
+    if cache is not None and region is not None and mvcc is not None \
+            and not any(mvcc.has_blocking_lock(snapshot.read_ts, rg.start,
+                                               rg.end) for rg in ranges):
+        prefix = tc.table_prefix(table_id)
+        version = mvcc.data_version_at(snapshot.read_ts, prefix)
         key = cache_key(region[0], sel, ranges)
-        batch = cache.lookup(key, region[1], version)
+        base_ok = None
+        if delta is not None and delta.enabled:
+            def base_ok(v0):
+                return delta.usable(region[0], table_id, v0, version, mvcc,
+                                    prefix)
+        keep_version = (mvcc.data_version_at(oldest_ts, prefix)
+                        if oldest_ts is not None else None)
+        batch, dbase = cache.lookup_with_base(key, region[1], version,
+                                              base_ok, keep_version)
+        if batch is None and dbase is not None:
+            batch = _delta_merge(delta, dbase, key, region, version, mvcc,
+                                 prefix, snapshot.read_ts, columns, ranges,
+                                 defaults, cache, device)
     try:
         if batch is None:
-            batch = col.pack_ranges(snapshot, sel.table_info.table_id,
-                                    columns, ranges, defaults)
-            if key is not None:
+            batch = col.pack_ranges(snapshot, table_id, columns, ranges,
+                                    defaults)
+            # sound only if the visible version held still across the pack
+            if key is not None and \
+                    mvcc.data_version_at(snapshot.read_ts, prefix) == version:
                 cache.insert(key, region[1], version, batch)
         return _deferred_filter_response(sel, batch, agg_specs, region,
                                          columns, device)
     except errors.TypeError_ as e:
         # no exact plane mapping: the reference's row handler answers
         raise Unsupported(f"no exact plane mapping: {e}") from e
+
+
+def _delta_merge(delta, dbase, key, region, version: int, mvcc,
+                 prefix: bytes, read_ts: int, columns, ranges, defaults,
+                 cache, device):
+    """The scan-time base + delta merge (tidb_tpu/copr/columnar_region.py
+    :309-369): the merged batch, admitted as the current generation (a
+    version-only merge moves the base entry instead), with the pack folded
+    and reset when its delta outgrew the budget; or None → the pack path."""
+    base_batch, base_version = dbase
+    merged = delta.merge(base_batch, base_version, key, version, mvcc,
+                         prefix, columns, ranges, defaults, device)
+    if merged is None:
+        return None
+    if mvcc.data_version_at(read_ts, prefix) == version:
+        if not (merged is base_batch
+                and cache.rekey(key, region[1], base_version, version)):
+            with kernels.phase("merge_pin", device):
+                cache.insert(key, region[1], version, merged)
+        if delta.repack_due(region[0], key[1]):
+            delta.reset(region[0], key[1])
+            delta.stats["repacks"] += 1
+    return merged
 
 
 def _columns_sig(columns) -> tuple:

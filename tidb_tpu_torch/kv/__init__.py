@@ -1,1 +1,2 @@
-"""KV boundary (copy of tidb_tpu/kv/kv.py) and a read-only memory store."""
+"""KV boundary (copy of tidb_tpu/kv/kv.py), the write buffer and union
+store of a transaction, and a read-only memory store."""

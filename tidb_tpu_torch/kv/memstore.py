@@ -1,9 +1,10 @@
 """A read-only, sorted, in-memory KV snapshot.
 
-Slice 1 serves reads only: the store is built once from raw (key, value)
-pairs (for example the rows a reference store committed, or rows encoded
-by `tablecodec`) and every snapshot sees all of them. MVCC, writes and
-transactions come with a later slice.
+The in-process path (GpuClient) reads it: the store is built once from
+raw (key, value) pairs (for example the rows a reference store committed,
+or rows encoded by `tablecodec`) and every snapshot sees all of them. The
+cluster store (cluster.store.DistStore) takes writes through its own MVCC
+store.
 """
 
 from __future__ import annotations

@@ -7,7 +7,8 @@ build_grouped_agg_fn :903, build_ranked_group_fn :989, build_filter_fn
 :1970, build_topn_fn :1980, build_topn_fn_multi :2080, and for the cluster
 region path combine_region_partials :1082, region_agg_states :1204,
 bucket_segments :1343, region_agg_states_batched :1356,
-region_filter_batched :1552), and for the micro-batch tier the slot kernels
+region_filter_batched :1552, and for the HTAP tier delta_merge_order
+:293), and for the micro-batch tier the slot kernels
 of tidb_tpu/ops/sched.py (the filter wrapper :1021-1037 of
 MicroBatcher._kernel, _build_agg_wrapper :439, _build_topn_wrapper :532).
 
@@ -36,6 +37,11 @@ one program over one batch with a constant pool per statement (slot):
 K14 (`slot_filter`: every slot's survivor mask, bit-packed), K15
 (`slot_agg`: every slot's where-pass count and masked reductions) and K16
 (`slot_topn`: every slot's first k rows over K14's masks).
+
+A cluster scan that merges a cached base batch with its region's delta
+(copr.delta) runs K19 (`delta_merge_order`: the tombstone mask and the
+handle-ordered merge of the kept base rows and the appended rows, a merge
+of two sorted runs, no sort).
 
 Outputs keep the reference's layout: a scalar aggregate gives (n,) for
 count and (n, value) for the others; a grouped one gives row_count[S]
@@ -92,7 +98,7 @@ LAUNCHES = {"expr_vm": 0, "scalar_agg": 0, "seg_agg_onehot": 0,
             "seg_states_ragged_sorted": 0, "combine_partials": 0,
             "join_build": 0, "join_probe": 0, "dict_remap": 0,
             "slot_filter": 0, "slot_agg": 0, "slot_topn": 0,
-            "sort_perm": 0, "window_scan": 0}
+            "sort_perm": 0, "window_scan": 0, "delta_merge_order": 0}
 
 # K14 / K15 read each row's planes once into a table of this many entries
 # (ops/csrc/vm.cuh VM_ROW_PLANES); K15 folds at most SLOT_MAX_REDS
@@ -170,16 +176,39 @@ def _charge_pinned(batch, nbytes: int) -> None:
     weakref.finalize(batch, membudget.unpin, nbytes)
 
 
-def device_live(batch: col.ColumnBatch, device: torch.device) -> torch.Tensor:
-    """Device-resident row-liveness plane, memoized on the batch."""
+def device_live(batch: col.ColumnBatch, device: torch.device,
+                resident: torch.Tensor | None = None) -> torch.Tensor:
+    """Device-resident row-liveness plane, memoized on the batch; a merge
+    hands the merged batch the plane it made on the device (`resident`)."""
     cache = getattr(batch, "_device_live", None)
     if cache is None:
         cache = batch._device_live = {}
     key = str(device)
     live = cache.get(key)
     if live is None:
-        live = cache[key] = torch.from_numpy(batch.row_mask()).to(device)
+        live = cache[key] = resident if resident is not None \
+            else torch.from_numpy(batch.row_mask()).to(device)
     return live
+
+
+def device_handles(batch: col.ColumnBatch, device: torch.device,
+                   resident: torch.Tensor | None = None) -> torch.Tensor:
+    """Device-resident handle plane, memoized on the batch beside
+    device_live and charged to the HBM ledger like batch_planes. A merge
+    hands the merged batch the plane it gathered on the device
+    (`resident`), so a later merge over that batch (K19) moves only the
+    delta."""
+    cache = getattr(batch, "_device_handles", None)
+    if cache is None:
+        cache = batch._device_handles = {}
+    key = str(device)
+    h = cache.get(key)
+    if h is None:
+        h = cache[key] = resident if resident is not None \
+            else torch.from_numpy(batch.handles).to(device)
+        if torch.device(device).type == "cuda":
+            _charge_pinned(batch, int(batch.handles.nbytes))
+    return h
 
 
 # ---------------------------------------------------------------------------
@@ -2354,3 +2383,99 @@ def window_scan(seg: torch.Tensor, peer: torch.Tensor, specs: list,
         raise device_oom("window_scan", e) from e
     LAUNCHES["window_scan"] += 1
     return outs
+
+
+# ---------------------------------------------------------------------------
+# the HTAP freshness tier: K19 delta_merge_order and its plain version
+# (copr.delta drives it)
+# ---------------------------------------------------------------------------
+
+# K19 precondition flags: the contract with ops/csrc/delta_merge.cu
+K19_BROKEN = {1: "the live base handles do not strictly ascend",
+              2: "the tombstone handles do not ascend",
+              4: "the appended handles do not ascend",
+              8: "a live base or appended handle is the I64_MAX sentinel"}
+
+
+def delta_merge_order_plain(handles: torch.Tensor, live: torch.Tensor,
+                            tomb: torch.Tensor,
+                            app: torch.Tensor) -> torch.Tensor:
+    """The reference's program literally: a searchsorted of the handles
+    into the sorted tombstones for the keep mask, dead and tombstoned rows
+    given I64_MAX, the appended handles concatenated, one stable argsort,
+    the first count(keep) + k indices. Holds for any input."""
+    m = tomb.shape[0]
+    if m:
+        pos = torch.searchsorted(tomb, handles)
+        dead = (pos < m) & (tomb[pos.clamp(max=m - 1)] == handles)
+        keep = live & ~dead
+    else:
+        keep = live.clone()
+    all_h = torch.cat([torch.where(keep, handles,
+                                   torch.full_like(handles, I64_MAX)), app])
+    order = torch.argsort(all_h, stable=True)
+    return order[:int(keep.sum()) + app.shape[0]]
+
+
+def delta_merge_prepare(handles: torch.Tensor, live: torch.Tensor,
+                        tomb: torch.Tensor, app: torch.Tensor):
+    """Everything of a K19 launch but the launch: checks, scratch and
+    outputs. Returns (launch, order, meta); launch() enqueues the kernel's
+    four passes into order (n + k int64, the first meta[0] + k written)
+    and meta ([kept rows, precondition flags])."""
+    dev = handles.device
+    n, m, k = handles.shape[0], tomb.shape[0], app.shape[0]
+    _check_plane(handles, n, (torch.int64,), "base handles", dev)
+    _check_plane(live, n, (torch.bool,), "base live", dev)
+    _check_plane(tomb, m, (torch.int64,), "tombstones", dev)
+    _check_plane(app, k, (torch.int64,), "appended handles", dev)
+    lib = _ext.lib("delta_merge")
+    nb = max(lib.delta_merge_blocks(n), 1)
+
+    def i64(size):
+        return torch.empty(max(size, 1), dtype=torch.int64, device=dev)
+
+    keep = torch.empty(max(n, 1), dtype=torch.uint8, device=dev)
+    tile_kept, tile_min, tile_max, tile_off = (i64(nb) for _ in range(4))
+    tile_any, tile_bad = (torch.empty(nb, dtype=torch.int32, device=dev)
+                          for _ in range(2))
+    kept_h, order, meta = i64(n), i64(n + k), i64(2)
+    st = _stream(dev)
+
+    def launch():
+        rc = lib.delta_merge_launch(
+            n, handles.data_ptr(), live.data_ptr(), tomb.data_ptr(), m,
+            app.data_ptr(), k, keep.data_ptr(), tile_kept.data_ptr(),
+            tile_any.data_ptr(), tile_min.data_ptr(), tile_max.data_ptr(),
+            tile_bad.data_ptr(), tile_off.data_ptr(), kept_h.data_ptr(),
+            order.data_ptr(), meta.data_ptr(), st)
+        _ext.check(rc, "delta_merge_order")
+        LAUNCHES["delta_merge_order"] += 1
+
+    return launch, order, meta
+
+
+def delta_merge_order(handles: torch.Tensor, live: torch.Tensor,
+                      tomb: torch.Tensor, app: torch.Tensor) -> torch.Tensor:
+    """K19: the merge order (int64 [count(keep) + k]) of a base batch's
+    rows (handles int64 [n], live bool [n]) and a delta's appended rows
+    (app int64 [k], sorted), base rows whose handle is in the sorted
+    tombstones (tomb int64 [m]) and dead rows dropped: i < n is base row
+    i, n + j appended row j, ascending by handle, a base row before an
+    appended row of the same handle. The kernel merges two sorted runs:
+    the live base handles must strictly ascend and no live or appended
+    handle may be I64_MAX (the sentinel), or it raises DeviceError naming
+    the broken precondition; the order stays on the device."""
+    if _device_kind(handles) == "cpu":
+        return delta_merge_order_plain(handles, live, tomb, app)
+    try:
+        launch, order, meta = delta_merge_prepare(handles, live, tomb, app)
+        launch()
+        n_kept, flags = meta.tolist()
+    except torch.cuda.OutOfMemoryError as e:
+        raise device_oom("delta_merge_order", e) from e
+    if flags:
+        raise errors.DeviceError(
+            "delta_merge_order: " + "; ".join(
+                what for bit, what in K19_BROKEN.items() if flags & bit))
+    return order[:n_kept + app.shape[0]]

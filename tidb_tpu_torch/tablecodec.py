@@ -18,6 +18,10 @@ from tidb_tpu_torch.types.datum import Datum
 
 TABLE_PREFIX = b"t"
 ROW_PREFIX_SEP = b"_r"
+# 't' + enc_int(table_id): the prefix a table's record and index keys share
+TABLE_PREFIX_LEN = 10
+# the bucket of every key outside a table (meta keys)
+META_BUCKET = b"m"
 
 _INT_KEY_STRUCT = struct.Struct(">BQ")
 
@@ -41,6 +45,23 @@ def table_record_prefix(table_id: int) -> bytes:
 
 def table_prefix(table_id: int) -> bytes:
     return TABLE_PREFIX + _enc_int(table_id)
+
+
+def table_prefix_of(key: bytes) -> bytes:
+    """The table-prefix bucket of one encoded key: the 10-byte
+    't' + enc_int(table_id) prefix shared by a table's record and index
+    keys, or META_BUCKET for meta and other non-table keys. The bucketing
+    rule of per-table commit filtering (cluster.mvcc, copr.delta)."""
+    if key[:1] == TABLE_PREFIX and len(key) >= TABLE_PREFIX_LEN:
+        return bytes(key[:TABLE_PREFIX_LEN])
+    return META_BUCKET
+
+
+def decode_table_id(key: bytes) -> int:
+    if not key.startswith(TABLE_PREFIX):
+        raise ValueError(f"not a table key: {key!r}")
+    tid, _ = _dec_int(key, 1)
+    return tid
 
 
 def encode_row_key(table_id: int, handle: int) -> bytes:

@@ -82,6 +82,12 @@ _WORDS = (b"furiously regular deposits sleep slyly final accounts haggle "
 
 _EPOCH = np.datetime64("1992-01-01")
 _CURRENT = np.datetime64("1995-06-17")
+# order dates: [STARTDATE, ENDDATE - 151 days], in days since _EPOCH
+_ORDERDATE_SPAN = int((np.datetime64("1998-12-31") - 151 - _EPOCH)
+                      .astype(int))
+# the key of a refreshed table's handles in a `generate` dict (absent:
+# row i has the handle i + 1)
+HANDLE = "handle"
 
 
 def _column_info(spec: dict, cid: int) -> PBColumnInfo:
@@ -104,15 +110,23 @@ def generate(n_rows: int, seed: int) -> dict:
     """Columns of `n_rows` lineitem rows as numpy arrays: integers,
     decimals as int64 cents, dates as numpy datetime64[D], strings as
     int64 indices into SHIPINSTRUCT / SHIPMODE / RETURNFLAG / LINESTATUS
-    (comments as an index into a small phrase table)."""
+    (comments as an index into a small phrase table). Row i has the
+    handle i + 1."""
     rng = np.random.default_rng(seed)
     lines, order_idx, odate = _draw_orders(rng, n_rows)
     first = np.concatenate([[0], np.cumsum(lines)[:-1]])
     linenumber = np.arange(n_rows) - first[order_idx] + 1
-    orderkey = _order_keys(order_idx)
-    orderdate = odate[order_idx]
+    return _lines(rng, _order_keys(order_idx), linenumber, odate[order_idx],
+                  n_rows)
 
-    n_parts, n_supp = _parts_suppliers(n_rows)
+
+def _lines(rng, orderkey: np.ndarray, linenumber: np.ndarray,
+           orderdate: np.ndarray, table_rows: int) -> dict:
+    """The lineitem columns of rows whose order key, line number and order
+    date (days since 1992-01-01) are given, at the part and supplier
+    ranges of a table of `table_rows` rows."""
+    n_rows = orderkey.shape[0]
+    n_parts, n_supp = _parts_suppliers(table_rows)
     partkey = rng.integers(1, n_parts + 1, n_rows)
     j = rng.integers(0, 4, n_rows)
     suppkey = _supplier(partkey, j, n_supp)
@@ -156,9 +170,8 @@ def _draw_orders(rng, n_rows: int) -> tuple:
     while lines.sum() < n_rows:
         lines = np.concatenate([lines, rng.integers(1, 8, n_orders)])
     order_idx = np.repeat(np.arange(lines.shape[0]), lines)[:n_rows]
-    span = int((np.datetime64("1998-12-31") - 151 - _EPOCH)
-               .astype(int))
-    return lines, order_idx, rng.integers(0, span + 1, lines.shape[0])
+    return lines, order_idx, rng.integers(0, _ORDERDATE_SPAN + 1,
+                                          lines.shape[0])
 
 
 def _order_keys(order_idx: np.ndarray) -> np.ndarray:
@@ -203,10 +216,17 @@ def _text(cid: int, code: int) -> bytes:
     return _comment(code)
 
 
+def handles_of(data: dict) -> np.ndarray:
+    n = data[C_ORDERKEY].shape[0]
+    h = data.get(HANDLE)
+    return np.arange(1, n + 1, dtype=np.int64) if h is None else h
+
+
 def kv_pairs(data: dict):
     """(row key, row value) of every row, encoded by the port's
     tablecodec — the rows a store of the table holds."""
     n = data[C_ORDERKEY].shape[0]
+    handles = handles_of(data).tolist()
     cids = sorted(COLUMNS)
     lists = {cid: data[cid].tolist() for cid in cids}
     for cid in (C_SHIPDATE, C_COMMITDATE, C_RECEIPTDATE):
@@ -222,7 +242,7 @@ def kv_pairs(data: dict):
         lists[cid] = [Datum.i64(v) for v in lists[cid]]
     lists[C_FDISCOUNT] = [Datum.f64(v) for v in lists[C_FDISCOUNT]]
     for i in range(n):
-        yield (tc.encode_row_key(TABLE_ID, i + 1),
+        yield (tc.encode_row_key(TABLE_ID, handles[i]),
                tc.encode_row(cids, [lists[cid][i] for cid in cids]))
 
 
@@ -611,6 +631,59 @@ def sweep_expected(name: str, data: dict) -> dict:
     else:
         raise KeyError(name)
     return out
+
+
+# ---------------------------------------------------------------------------
+# TPC-H's refresh functions for lineitem (TPC-H v3 §2.5): the writes of
+# the HTAP freshness tier
+# ---------------------------------------------------------------------------
+
+def refresh_orders(data: dict) -> int:
+    """SF x 1500 (§2.5.2, §2.5.3): the orders one refresh function
+    inserts or deletes, SF read from the table's rows."""
+    return max(round(1500 * data[C_ORDERKEY].shape[0] / SF1_ROWS), 1)
+
+
+def rf1(data: dict, seed: int) -> tuple[list, dict]:
+    """RF1: SF x 1500 new orders' lineitems (1-7 each, the distributions
+    of `generate`), their order keys following the table's largest in
+    dbgen's sparse pattern, their handles above the table's (the auto row
+    id TiDB gives a table without an integer primary key). Returns (the
+    encoded (key, value) puts, the arrays after the insert)."""
+    rng = np.random.default_rng(seed)
+    n_orders = refresh_orders(data)
+    lines = rng.integers(1, 8, n_orders)
+    odate = rng.integers(0, _ORDERDATE_SPAN + 1, n_orders)
+    order = np.repeat(np.arange(n_orders), lines)
+    first = np.concatenate([[0], np.cumsum(lines)[:-1]])
+    linenumber = np.arange(order.shape[0]) - first[order] + 1
+    top = int(data[C_ORDERKEY].max()) - 1
+    next_idx = (top // 32) * 8 + top % 32 + 1
+    new = _lines(rng, _order_keys(next_idx + order), linenumber,
+                 odate[order], data[C_ORDERKEY].shape[0])
+    h0 = int(handles_of(data).max()) + 1
+    new[HANDLE] = np.arange(h0, h0 + order.shape[0], dtype=np.int64)
+    after = {k: np.concatenate([data[k], v]) for k, v in new.items()
+             if k != HANDLE}
+    after[HANDLE] = np.concatenate([handles_of(data), new[HANDLE]])
+    return list(kv_pairs(new)), after
+
+
+def rf2(data: dict, seed: int) -> tuple[list, dict]:
+    """RF2: the lineitems of SF x 1500 existing orders, drawn with `seed`
+    across the whole key range. Returns (the (key, None) deletes, the
+    arrays after the delete)."""
+    rng = np.random.default_rng(seed)
+    keys = np.unique(data[C_ORDERKEY])
+    gone = rng.choice(keys, min(refresh_orders(data), keys.shape[0]),
+                      replace=False)
+    drop = np.isin(data[C_ORDERKEY], gone)
+    handles = handles_of(data)
+    muts = [(tc.encode_row_key(TABLE_ID, h), None)
+            for h in handles[drop].tolist()]
+    after = {k: v[~drop] for k, v in data.items()}
+    after[HANDLE] = handles[~drop]
+    return muts, after
 
 
 # ---------------------------------------------------------------------------
