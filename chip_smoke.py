@@ -109,7 +109,27 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    and timed at the last region's shape and at a tombstones-only one
    (median of 20 CUDA-event runs of the launch alone) beside its bound,
    its plain version and a stable torch.argsort.
-11. A JSON line of per-kernel numbers, the nvidia-smi line, and last
+11. Phase J, the mesh tier (slice 8), after Phase D and before I:
+   CoprMesh([cuda:0] * 8) over Phase B's batch (1,048,576 rows a shard):
+   Q1, Q6, the supplier group-by and Q6's WHERE as a columnar scan
+   through GpuClient(mesh=...), each equal to the client without a mesh
+   (Q1 and the scan to numpy too); Phase E's TopN statements (K20) against
+   numpy and the reference's three mesh TopN faults as the CPU engine's
+   rows; Phase D's store with the process mesh set: the sweep and a
+   plain-column Q1 equal to numpy and to the mesh-off run (two statements
+   on the near-data rung: K6 over the shard layout; every combine on the
+   shards); f1_q3_join through the sharded probe, its pairs equal to the
+   single-device pairs. Launch counts are reset before and read after
+   that path; then the statements' splits, K6 over the shard layout on
+   both routes, the K7 fold (client partials and states combine), Q1's
+   shard partials, K20 at SF1 and on edge cases and the sharded K12, each
+   against its plain version and timed (median of 20 CUDA-event runs)
+   beside its bound. Last, the default configuration that Phases C, D
+   and I also drive: the process mesh of this one-card rig is one shard,
+   whose near-data rung and combine are the batched K6 and the region
+   combine; plain_q1 and dec_group checked on it and timed with the tier
+   on and off.
+12. A JSON line of per-kernel numbers, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
 Any failure raises: no phase catches its own failure.
@@ -150,6 +170,8 @@ from tidb_tpu_torch.copr.proto import (  # noqa: E402
 from tidb_tpu_torch.kv.memstore import MemStore  # noqa: E402
 from tidb_tpu_torch.ops import _ext, extsort, kernels, membudget  # noqa
 from tidb_tpu_torch.ops import columnar as col  # noqa: E402
+from tidb_tpu_torch.ops import mesh as mesh_mod  # noqa: E402
+from tidb_tpu_torch.parallel import CoprMesh  # noqa: E402
 from tidb_tpu_torch.ops.client import GpuClient  # noqa: E402
 from tidb_tpu_torch.ops.exprc import (  # noqa: E402
     Program, compile_expr, run_program_plain)
@@ -203,6 +225,8 @@ KERNELS = {
                     "tidb_tpu/ops/kernels.py:2222"),
     "delta_merge_order": ("tidb_tpu_torch/ops/csrc/delta_merge.cu",
                           "tidb_tpu/ops/kernels.py:293"),
+    "shard_topk": ("tidb_tpu_torch/ops/csrc/shard_topk.cu",
+                   "tidb_tpu/ops/kernels.py:2005"),
 }
 # K6 has two routes, each counted: spans within its shared-memory limit
 # (seg_states_ragged) and larger ones (seg_states_ragged_sorted)
@@ -333,7 +357,8 @@ def phase_a(n_rows: int, seed: int, device=None) -> dict:
         for k, v in launches.items():
             need(v > 0 or k in CLUSTER_KERNELS or k in SLICE3_KERNELS
                  or k in JOIN_KERNELS or k in SLOT_KERNELS
-                 or k in SORT_KERNELS or k in DELTA_KERNELS,
+                 or k in SORT_KERNELS or k in DELTA_KERNELS
+                 or k in MESH_KERNELS,
                  f"kernel {k} never launched on the main path")
     return launches
 
@@ -822,7 +847,7 @@ def phase_c(n_rows: int, seed: int, device, regions=(1, 2, 8)) -> dict:
             k7 = int(R > 1 and fused_agg.stats["last_groups"] > 0)
             once = {"region_filter_batched": 1,
                     "region_agg_states_batched": 1,
-                    "combine_region_partials": k7}
+                    "combine_region_partials": k7, "mesh_allreduce": 0}
             need({k: kernels.CALLS[k] - calls[k] for k in calls} == once,
                  f"phase C {R} regions {name}: calls {kernels.CALLS}")
             if gpu.device.type == "cuda":
@@ -1591,7 +1616,7 @@ def check_join_kernels(rk, rv, lk, lv, what: str) -> float:
     wp, op = kernels.join_build_plain(rk, rv)
     need(torch.equal(w, wp) and torch.equal(o, op),
          f"{what}: K11 differs from its plain version")
-    p = kernels.join_probe(w, o, lk, lv)
+    p, _totals = kernels.join_probe(w, o, lk, lv)
     pp = kernels.join_probe_plain(wp, op, lk, lv)
     need(torch.equal(p.to(torch.int64), pp),
          f"{what}: K12 differs from its plain version")
@@ -1738,7 +1763,7 @@ def phase_f(data: dict, batch, device, seed: int) -> tuple:
         err = max(err, check_join_kernels(erk, erv, elk, elv,
                                           f"K11/K12 edge {what}"))
     words, order = kernels.join_build(rk, rv)
-    pairs = kernels.join_probe(words, order, lk, lv)
+    pairs, _totals = kernels.join_probe(words, order, lk, lv)
     nv, n_pairs = words.shape[0], pairs.shape[1]
     out["join_build"] = dict(
         ms=ms(lambda: kernels.join_build(rk, rv)),
@@ -1777,7 +1802,7 @@ def phase_f(data: dict, batch, device, seed: int) -> tuple:
         print(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']}, bound {r['bound'][0]:.4f} ms by "
               f"{r['bound'][1]}), max_abs_err {r['max_abs_err']}")
-    return out, total
+    return out, total, (tables, batches)
 
 
 # ---------------------------------------------------------------------------
@@ -2933,6 +2958,502 @@ def phase_i(d_store: DistStore, d_data: dict, device, seed: int,
     return {"delta_merge_order": r}, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase J: the mesh tier on the card (slice 8)
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 8
+MESH_KERNELS = ("shard_topk",)
+J_AGGS = (("q1", tpch.q1), ("q6", tpch.q6), ("by_supplier", tpch.by_supplier))
+J_TOPN = ("topn_price", "topn_multi", "topn_multi_5000")
+
+
+def j_plain_q1() -> SelectRequest:
+    """Q1's WHERE, group-by and columns with plain-column aggregates only
+    (count(*), sum(l_quantity), min(l_extendedprice), max(l_discount)),
+    so the cluster path takes the near-data mesh rung; its K6 spans fit
+    shared memory."""
+    sel = tpch.q1()
+    c = expr_column
+    sel.aggregates = [
+        expr_agg("count", [expr_value(Datum.i64(1))]),
+        expr_agg("sum", [c(tpch.C_QUANTITY)]),
+        expr_agg("min", [c(tpch.C_EXTENDEDPRICE)]),
+        expr_agg("max", [c(tpch.C_DISCOUNT)]),
+        expr_agg("first_row", [c(tpch.C_RETURNFLAG)]),
+        expr_agg("first_row", [c(tpch.C_LINESTATUS)])]
+    return tpch.hinted(sel)
+
+
+def j_filter() -> SelectRequest:
+    """Q6's WHERE as a scan (no aggregate) answered columnar: the
+    survivors' selection index."""
+    sel = tpch.q6()
+    sel.aggregates = []
+    return tpch.hinted(sel)
+
+
+def j_filter_expected(data: dict) -> np.ndarray:
+    ship = data[tpch.C_SHIPDATE]
+    disc = data[tpch.C_DISCOUNT]
+    return np.flatnonzero((ship >= np.datetime64("1994-01-01"))
+                          & (ship < np.datetime64("1995-01-01"))
+                          & (disc >= 5) & (disc <= 7)
+                          & (data[tpch.C_QUANTITY] < 2400))
+
+
+def check_j_plain(rows: list, data: dict) -> None:
+    """j_plain_q1's final rows against numpy."""
+    m = data[tpch.C_SHIPDATE] <= np.datetime64("1998-09-02")
+    q = tpch.q1_expected(data)
+    for row in rows:
+        key = (row[-2].val, row[-1].val)
+        g = m & (data[tpch.C_RETURNFLAG] == tpch.RETURNFLAG.index(
+            key[0].encode())) & (data[tpch.C_LINESTATUS] == tpch.LINESTATUS
+                                 .index(key[1].encode()))
+        want = [q[(key[0].encode(), key[1].encode())][0],
+                q[(key[0].encode(), key[1].encode())][1],
+                int(data[tpch.C_EXTENDEDPRICE][g].min()),
+                int(data[tpch.C_DISCOUNT][g].max())]
+        got = [row[0].val, int(row[1].val.scaleb(2)),
+               int(row[2].val.scaleb(2)), int(row[3].val.scaleb(2))]
+        need(got == want, f"phase J plain q1 {key}: {got} vs numpy {want}")
+    need(len(rows) == len(tpch.q1_expected(data)), "phase J plain q1 groups")
+
+
+def j_faults(device) -> list:
+    """The reference's three mesh TopN faults over two shards of 1024 rows:
+    (mask, keys, limit, the CPU engine's rows)."""
+    L, n = 1024, 2048
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    valid = np.ones(n, bool)
+    zeros = np.zeros(n, np.int64)
+    a = zeros.copy()
+    a[5], a[L + 3] = 1 << 53, (1 << 53) + 1     # one f64 score
+    m1 = np.zeros(n, bool)
+    m1[[5, L + 3]] = True
+    b = np.arange(n, dtype=np.int64)
+    b[L + 9] = kernels.I64_MIN                 # wraps when negated
+    c = np.zeros(n, np.float64)
+    c[2] = 3.0
+    cv = valid.copy()
+    cv[1] = False                              # NULL beside dead row 0
+    m3 = np.zeros(n, bool)
+    m3[[1, 2]] = True
+    return [(t(m1), [((t(a), t(valid)), True)], 1, [L + 3]),
+            (t(valid), [((t(b), t(valid)), True),
+                        ((t(zeros), t(valid)), False)], 2, [n - 1, n - 2]),
+            (t(m3), [((t(c), t(cv)), True)], 2, [2, 1])]
+
+
+def j_merged(mask, keys, limit: int, shards: int) -> list:
+    L = mask.shape[0] // shards
+    outs = kernels.shard_topk(mask, keys, min(limit, L), shards)
+    return kernels.merge_topn_partials(
+        *[o.cpu().numpy() for o in outs], shards, L, limit).tolist()
+
+
+def k20_edges(device, seed: int) -> list:
+    """(mask, keys, k, shards, what) for K20: K10's edge cases cut into
+    shards (NULL keys beside filtered rows, int64 extremes under DESC,
+    BIGINT keys above 2^53, -0.0 beside +0.0, no live row, k above the
+    live rows, lengths no multiple of the tile), plus k equal to the shard
+    length past a tile, shards with no live row or fewer than k, ties
+    across shard boundaries and no key at all."""
+    cases = []
+    for mask, keys, k, what in edge_topn(device, seed):
+        n = mask.shape[0]
+        shards = next(s for s in (8, 4, 2, 37, 97, 1) if n % s == 0)
+        cases.append((mask, keys, min(k, n // shards), shards,
+                      f"{what} over {shards} shards"))
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    n = 4 * 5000
+    live = rng.random(n) > 0.3
+    live[5000:10000] = False                   # a shard with no live row
+    live[10000:15000] = np.arange(5000) % 1000 == 7   # five live rows
+    a = rng.integers(-5, 5, n).astype(np.int64)
+    a[rng.random(n) < 0.01] = kernels.I64_MIN
+    ok = t(rng.random(n) > 0.1)
+    f = rng.integers(-3, 3, n) * 0.5
+    f[rng.random(n) < 0.2] = -0.0
+    keys = [((t(a), ok), True), ((t(f), t(rng.random(n) > 0.2)), False)]
+    for k in (1, 100, 1500, 5000):
+        cases.append((t(live), keys, k, 4, f"two keys k={k} over 4 shards"))
+    tied = t(np.full(n, 7, np.int64))
+    cases.append((t(np.ones(n, bool)), [((tied, t(np.ones(n, bool))), True)],
+                  9, 8, "every key tied"))
+    cases.append((t(live), [], 33, 4, "no key"))
+    return cases
+
+
+def check_k20(mask, keys, k: int, shards: int, what: str) -> float:
+    got = kernels.shard_topk(mask, keys, k, shards)
+    want = kernels.shard_topk_plain(mask, keys, k, shards)
+    for g, w, part in zip(got, want, ("idx", "n_live", "words", "nulls")):
+        need(g.shape == w.shape and torch.equal(g, w),
+             f"{what}: K20 {part} differs from its plain version")
+    return max(max_err(g, w) for g, w in zip(got, want))
+
+
+def k20_bytes(mask, keys, k: int, shards: int) -> int:
+    n = mask.shape[0]
+    return n + 9 * n * len(keys) + shards * 8 \
+        + shards * k * (8 + 9 * len(keys))
+
+
+def phase_j(data: dict, batch, d_store: DistStore, d_data: dict,
+            joins: tuple, device, seed: int) -> tuple:
+    """The mesh tier on the card: CoprMesh([cuda:0] * 8). Phase B's batch
+    (capacity 2^23, 1,048,576 rows a shard): Q1, Q6 and the supplier
+    group-by through GpuClient(mesh=...), each equal to the client without
+    a mesh (and Q1 to numpy); the filter scan's mask; Phase E's TopN
+    statements (K20) against numpy, and the reference's mesh TopN faults
+    as the CPU engine's rows. Phase D's store with the process mesh set:
+    the sweep and a plain-column Q1 (the near-data rung: K6 over the shard
+    layout) equal to numpy and to the mesh-off run. f1_q3_join's pairs
+    through the sharded probe equal to the single-device pairs. Then K20
+    against its plain version at SF1 and on edge cases, and K20, the K7
+    fold and the K6 shard-layout launch timed beside their bounds; last,
+    the default one-shard process mesh on plain_q1 and dec_group.
+    Returns (per-kernel results, launches, timings)."""
+    t0 = time.perf_counter()
+    ms = timer(device)
+    f_tables, f_batches = joins
+    pmesh = CoprMesh([device] * MESH_SHARDS)
+    need(pmesh.n == MESH_SHARDS and batch.capacity % pmesh.n == 0,
+         "phase J: the batch does not cut into 8 shards")
+    print(f"phase J: {MESH_SHARDS} shards of {batch.capacity // pmesh.n} "
+          f"rows on {pmesh.device}")
+    cuda = device.type == "cuda"
+    single = GpuClient(MemStore([], []), device)
+    client = GpuClient(MemStore([], []), mesh=pmesh)
+    sweep = [(name, tpch.sweep_request(name)) for name, _m in tpch.SWEEP]
+    # plain_q1 reads q1full's columns: Phase D's admitted batches serve it
+    sweep.append(("plain_q1", j_plain_q1()))
+    # the answers without the mesh, before the main path's counts start
+    mesh_mod.set_enabled(False)
+    want_aggs = {name: rows_of(single.serve(make(), batch))
+                 for name, make in J_AGGS}
+    want_sel = single.serve(j_filter(), batch).columnar.sel
+    want_sweep = {name: final_rows(d_store, sel) for name, sel in sweep}
+    f_join, f_agg = f_statement(single, "f1_q3_join", f_batches)
+    f_rows = f_agg.drain()
+    want_pairs = f_join.device_join_result()
+    mesh_mod.set_enabled(True)
+    mesh_mod.set_mesh(pmesh)
+
+    if cuda:
+        torch.cuda.synchronize()
+    zero_launches()
+    calls0 = dict(kernels.CALLS)
+    t_main = time.perf_counter()
+    per = {}
+    for name, make in J_AGGS:
+        before = dict(kernels.LAUNCHES)
+        resp = client.serve(make(), batch)
+        same_rows(rows_of(resp), want_aggs[name], f"phase J {name}")
+        if name == "q1":
+            check_q1(resp, data, "phase J")
+        per[name] = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                     if v != before[k]}
+    before = dict(kernels.LAUNCHES)
+    sel_idx = client.serve(j_filter(), batch).columnar.sel
+    per["filter"] = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                     if v != before[k]}
+    need(np.array_equal(sel_idx, want_sel)
+         and np.array_equal(sel_idx, j_filter_expected(data)),
+         "phase J: the filter's mask differs over the shards")
+    slice3 = dict(tpch.SLICE3)
+    for name in J_TOPN:
+        before = dict(kernels.LAUNCHES)
+        check_slice3(name, client.serve(slice3[name](), batch), data,
+                     "phase J")
+        per[name] = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                     if v != before[k]}
+        need(per[name] == {"expr_vm": 1, "shard_topk": 1} or not cuda,
+             f"phase J {name}: launches {per[name]}")
+    for mask, keys, limit, cpu_rows in j_faults(device):
+        need(j_merged(mask, keys, limit, 2) == cpu_rows,
+             f"phase J: a mesh TopN fault case gives {cpu_rows} wrongly")
+    nd0 = mesh_mod.stats["near_data_dispatches"]
+    mc0 = fused_agg.stats["mesh_combines"]
+    for name, sel in sweep:
+        rows = final_rows(d_store, sel)
+        same_final(rows, want_sweep[name], f"phase J {name}")
+        if name == "plain_q1":
+            check_j_plain(rows, d_data)
+        else:
+            check_sweep(name, rows, d_data, "phase J")
+    near = mesh_mod.stats["near_data_dispatches"] - nd0
+    need(near == 2, f"phase J: {near} near-data dispatches over the sweep "
+         "(dec_group and plain_q1 alone have no argument plane)")
+    need(fused_agg.stats["mesh_combines"] - mc0 == len(sweep),
+         "phase J: a sweep statement's combine missed the mesh")
+    j_join, j_agg = f_statement(client, "f1_q3_join", f_batches)
+    j_rows = j_agg.drain()
+    res = j_join.device_join_result()
+    need(j_join.join_stats.get("mesh_shards") == MESH_SHARDS,
+         "phase J: f1_q3_join did not take the sharded probe")
+    need(np.array_equal(res.l_idx, want_pairs.l_idx)
+         and np.array_equal(res.r_idx, want_pairs.r_idx),
+         "phase J: sharded pairs differ from the single-device pairs")
+    check_join_rows("f1_q3_join", j_rows, f_tables, "phase J")
+    if cuda:
+        torch.cuda.synchronize()
+    main_s = time.perf_counter() - t_main
+    launches = dict(kernels.LAUNCHES)
+    calls = {k: kernels.CALLS[k] - calls0[k] for k in calls0}
+    for k in ("shard_topk", "combine_partials", "join_probe", "expr_vm"):
+        need(launches[k] >= 1 or not cuda, f"phase J: {k} never launched")
+    need(launches["seg_states_ragged"] + launches["seg_states_ragged_sorted"]
+         >= 1 or not cuda, "phase J: K6 never launched")
+    need(calls["mesh_allreduce"] == len(J_AGGS) + len(sweep),
+         f"phase J: mesh_allreduce calls {calls}")
+    print(f"phase J: main path over {MESH_SHARDS} shards in {main_s:.1f} s; "
+          f"launches per statement {json.dumps(per)}; all launches "
+          f"{ {k: v for k, v in launches.items() if v} }; calls {calls}; "
+          f"shard balance {mesh_mod.stats}")
+
+    # where a mesh statement's time goes: one run of each with the phase
+    # split on (host clock, device synchronised at each phase's edges)
+    stmts = {}
+    for name, run in (
+            ("plain_q1", lambda: final_rows(d_store, dict(sweep)["plain_q1"])),
+            ("dec_group", lambda: final_rows(d_store,
+                                             dict(sweep)["dec_group"])),
+            ("q1full", lambda: final_rows(d_store, dict(sweep)["q1full"])),
+            ("q1", lambda: client.serve(tpch.q1(), batch)),
+            ("topn_multi", lambda: client.serve(slice3["topn_multi"](),
+                                                batch)),
+            ("topn_multi_5000", lambda: client.serve(
+                slice3["topn_multi_5000"](), batch))):
+        kernels.SPLIT = {}
+        t1 = time.perf_counter()
+        run()
+        if cuda:
+            torch.cuda.synchronize()
+        took = (time.perf_counter() - t1) * 1e3
+        split, kernels.SPLIT = kernels.SPLIT, None
+        stmts[name] = {"ms": took, "split": split}
+    print("phase J statements: " + json.dumps(stmts))
+
+    # the near-data rung's K6 over the shard layout: plain_q1 (spans in
+    # shared memory) and dec_group (the sorted route), captured and timed
+    timed = {}
+    orig = kernels.seg_states_ragged
+    for name in ("plain_q1", "dec_group"):
+        captured = []
+
+        def spy(*a):
+            captured.append(a)
+            return orig(*a)
+
+        kernels.seg_states_ragged = spy
+        mesh_mod.set_mesh(pmesh)
+        try:
+            rows = final_rows(d_store, dict(sweep)[name])
+        finally:
+            kernels.seg_states_ragged = orig
+        same_final(rows, want_sweep[name], f"phase J {name} again")
+        need(len(captured) == 1, f"phase J: {name}'s K6 was not captured")
+        k6 = captured[0]
+        before = dict(kernels.LAUNCHES)
+        check_k6(k6, f"K6 shard layout {name}")
+        route = ([k for k in K6_ROUTES
+                  if kernels.LAUNCHES[k] != before[k]] or ["plain"])[0]
+        gid, contrib0 = k6[0], k6[5][0]
+        n_seg = len(k6[1]) * kernels.bucket_segments(k6[3][0] + 1)
+        timed[f"k6_shard_layout {name}"] = dict(
+            ms=ms(kernels.k6_prepare(*k6)[0]), plain_ms=ms(
+                lambda: kernels.seg_states_ragged_plain(
+                    k6[0], k6[1], k6[3], k6[4], k6[5])),
+            library_ms=ms(lambda: torch.zeros(
+                n_seg, dtype=torch.int64, device=device).index_add_(
+                0, gid, contrib0.to(torch.int64))),
+            bound=k6_bound(k6), route=route,
+            shape=f"{len(k6[1])} shards x {k6[1][0]} rows, {n_seg} "
+                  f"segments, {len(k6[5])} reductions, {route}")
+    out = {}
+
+    # the K7 fold at Q1's partials ([8, 13] per output, GpuClient) and at
+    # q1full's states ([8 * Rmax, 4] per state, combine_states_sharded)
+    orig_fold = kernels.mesh_allreduce
+    for what, run in (
+            ("k7_fold", lambda: client.serve(tpch.q1(), batch)),
+            ("k7_states_combine",
+             lambda: final_rows(d_store, dict(sweep)["q1full"]))):
+        folds = []
+
+        def fold_spy(parts, codes):
+            folds.append(([p.clone() for p in parts], list(codes)))
+            return orig_fold(parts, codes)
+
+        kernels.mesh_allreduce = fold_spy
+        mesh_mod.set_mesh(pmesh)
+        try:
+            run()
+        finally:
+            kernels.mesh_allreduce = orig_fold
+        parts, codes = folds[0]
+        R = int(parts[0].shape[0])
+        t_in = torch.cat([p.reshape(-1) for p in parts])
+        widths = [int(p.shape[1]) for p in parts]
+        k7_launch, k7_out, k7_desc = kernels._k7_prepare_device(
+            t_in, widths, codes, R, device)
+        k7_launch()
+        plain = kernels.mesh_allreduce([p.cpu() for p in parts], codes)
+        host = k7_out.cpu().numpy()
+        for (_op, _i, G, o), w in zip(k7_desc, plain):
+            need(np.array_equal(host[o:o + G], w),
+                 f"phase J: {what} differs from its plain version")
+        timed[what] = dict(
+            ms=ms(k7_launch),
+            plain_ms=ms(lambda: kernels.combine_partials_plain(
+                [p.view(torch.float64) if c in kernels.F_OPS else p
+                 for p, c in zip(parts, codes)], codes)),
+            library_ms=ms(lambda: [p.sum(0) for p in parts]),
+            bound=bound(t_in.numel() * 8 + sum(widths) * 8, t_in.numel()),
+            shape=f"{len(parts)} outputs of [{R}, {widths[0]}]")
+
+    # Q1's per-shard partials: K1 once, then K4 over 8 x 13 segments
+    # (shard * 13 + gid), and the statement through both clients
+    q1r = Request(tpch.q1(), batch, device)
+    mask1, gid1, outs1 = q1r.k1()
+    reds1 = q1r.reds(outs1)
+    n_seg = q1r.segments * MESH_SHARDS
+    gid_s = gid1 + kernels.shard_ids(gid1.shape[0], MESH_SHARDS, device) \
+        * q1r.segments
+    n1 = gid1.shape[0]
+    got1 = kernels._seg_agg(gid_s, mask1, n_seg, reds1)
+    want1 = kernels.seg_agg_plain(gid_s, mask1, n_seg, reds1)
+    need(all(torch.equal(g, w) for g, w in zip(got1, want1)),
+         "phase J: Q1's shard partials differ from the plain version")
+    timed["shard_partials"] = dict(
+        ms=ms(lambda: kernels._seg_agg(gid_s, mask1, n_seg, reds1)),
+        plain_ms=ms(lambda: kernels.seg_agg_plain(gid_s, mask1, n_seg,
+                                                  reds1)),
+        library_ms=ms(lambda: torch.zeros(
+            n_seg, dtype=torch.int64, device=device).index_add_(
+            0, gid_s, mask1.to(torch.int64))),
+        bound=bound(n1 * 9 + sum(n1 * 9 for r in reds1
+                                 if r.values is not None)
+                    + 16 * n_seg * len(reds1), n1 * len(reds1)),
+        shape=f"Q1, {n1} rows, {n_seg} segments, {len(reds1)} reductions")
+    q1 = tpch.q1()
+    timed["q1_serve"] = dict(
+        ms=host_ms(lambda: client.serve(q1, batch), 5),
+        plain_ms=host_ms(lambda: single.serve(q1, batch), 5),
+        library_ms=None, bound=(0.0, "host clock"),
+        shape="Q1 at SF1: ms through the mesh client, plain_ms without "
+              "a mesh (host clock incl. readback and emit, median of 5)")
+
+    # K20 against its plain version at SF1 (topn_multi's keys, k 100 and
+    # 5000) and on edge cases, then timed
+    err = 0.0
+    for name in ("topn_price", "topn_multi", "topn_multi_5000"):
+        sel = slice3[name]()
+        prog = Program(batch)
+        where = compile_expr(sel.where, batch, prog) \
+            if sel.where is not None else None
+        keys = [(compile_expr(i.expr, batch, prog), i.desc)
+                for i in sel.order_by]
+        base = kernels.build_topn_fn(prog, where, keys, sel.limit)
+        mask, kp = base.inputs(kernels.batch_planes(batch, device),
+                               kernels.device_live(batch, device))
+        k = min(sel.limit, batch.capacity // MESH_SHARDS)
+        err = max(err, check_k20(mask, kp, k, MESH_SHARDS, f"K20 {name}"))
+        if name == "topn_multi":
+            score = kp[0][0][0].to(torch.float64)
+            timed["shard_topk"] = dict(
+                ms=ms(lambda: kernels.shard_topk(mask, kp, k, MESH_SHARDS)),
+                plain_ms=ms(lambda: kernels.shard_topk_plain(
+                    mask, kp, k, MESH_SHARDS)),
+                library_ms=ms(lambda: torch.topk(
+                    score.view(MESH_SHARDS, -1), k, dim=1)),
+                bound=bound(k20_bytes(mask, kp, k, MESH_SHARDS), 0),
+                shape=f"{MESH_SHARDS} shards x {batch.capacity // MESH_SHARDS}"
+                      f" rows, {len(kp)} keys, k {k}")
+    for mask, keys, k, shards, what in k20_edges(device, seed):
+        err = max(err, check_k20(mask, keys, k, shards, f"K20 edge {what}"))
+    need(err == 0.0, "phase J: K20 differs from its plain version")
+
+    # K12 over the shard-major probe rows (Phase F's full shape: every
+    # lineitem row probes orders by order key) beside the one-shard probe
+    lk, lv = kernels.batch_planes(batch, device)[tpch.C_ORDERKEY]
+    ob = f_batches[tpch.ORDERS_ID]
+    rk, rv = (p[:ob.n_rows] for p in kernels.batch_planes(
+        ob, device)[tpch.O_ORDERKEY])
+    words, order = kernels.join_build(rk, rv)
+    sp, totals = kernels.join_probe(words, order, lk, lv, shards=MESH_SHARDS)
+    one, _one_total = kernels.join_probe(words, order, lk, lv)
+    need(torch.equal(sp, one) and int(totals.sum()) == one.shape[1],
+         "phase J: the sharded probe differs from the one-shard probe")
+    timed["join_probe_sharded"] = dict(
+        ms=ms(lambda: kernels.join_probe(words, order, lk, lv,
+                                         shards=MESH_SHARDS)),
+        plain_ms=ms(lambda: kernels.join_probe_plain(words, order, lk, lv)),
+        library_ms=None,
+        one_shard_ms=ms(lambda: kernels.join_probe(words, order, lk, lv)),
+        bound=bound(lk.numel() * 9 + words.numel() * 16
+                    + one.numel() * one.element_size(),
+                    lk.numel() * 2 * max(int(words.numel()).bit_length(), 1)),
+        shape=f"{MESH_SHARDS} shards x {lk.numel() // MESH_SHARDS} probe "
+              f"rows, {words.numel()} build rows, totals "
+              f"{totals.tolist()}")
+    # the default configuration: the process mesh of this one-card rig is
+    # one shard, whose rungs are the batched K6 and the region combine
+    # (the same launches as with the tier off); each statement timed both
+    # ways, in turns (host clock, median of 5 each)
+    mesh_mod.set_mesh(None)
+    dflt = mesh_mod.get_mesh()
+    need(mesh_mod.on_device(dflt, device) and dflt.n == 1,
+         "phase J: the default process mesh is not one shard on the card")
+    one_shard = {}
+    for name in ("plain_q1", "dec_group"):
+        sel = dict(sweep)[name]
+        nd0 = mesh_mod.stats["near_data_dispatches"]
+        mc0 = fused_agg.stats["mesh_combines"]
+        calls0 = dict(kernels.CALLS)
+        before = dict(kernels.LAUNCHES)
+        same_final(final_rows(d_store, sel), want_sweep[name],
+                   f"phase J {name} on the default mesh")
+        calls = {k: kernels.CALLS[k] - calls0[k] for k in calls0}
+        need(calls["region_agg_states_batched"] == 1
+             and calls["combine_region_partials"] == 1
+             and calls["mesh_allreduce"] == 0
+             and mesh_mod.stats["near_data_dispatches"] == nd0 + 1
+             and fused_agg.stats["mesh_combines"] == mc0 + 1,
+             f"phase J {name}: the one-shard mesh took {calls}")
+        launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                    if v != before[k]}
+        mesh_mod.set_enabled(False)
+        before = dict(kernels.LAUNCHES)
+        final_rows(d_store, sel)
+        need({k: v - before[k] for k, v in kernels.LAUNCHES.items()
+              if v != before[k]} == launched,
+             f"phase J {name}: the one-shard mesh launched {launched}, "
+             "not the tier-off launches")
+        turns = {True: [], False: []}
+        for _ in range(5):
+            for enabled, took in turns.items():
+                mesh_mod.set_enabled(enabled)
+                took.append(host_ms(lambda: final_rows(d_store, sel), 1))
+        mesh_mod.set_enabled(True)
+        one_shard[name] = {"launches": launched,
+                           "mesh_ms": float(np.median(turns[True])),
+                           "off_ms": float(np.median(turns[False]))}
+    print("phase J default mesh (1 shard) vs tier off: "
+          + json.dumps(one_shard))
+    for name, r in timed.items():
+        print(f"  {name} ({r['shape']}): {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.4f} ms, library {r.get('library_ms')}, bound "
+              f"{r['bound'][0]:.6f} ms by {r['bound'][1]})")
+    print(f"phase J: {time.perf_counter() - t0:.1f} s")
+    out["shard_topk"] = dict(timed["shard_topk"], max_abs_err=err)
+    return out, {"shard_topk": launches["shard_topk"]}, timed
+
+
 def _chained_torch_sort(planes: list):
     """The library yardstick: chained torch.sort(stable=True) over the
     raw planes, least significant first."""
@@ -2960,10 +3481,9 @@ def main() -> int:
     results, data, batch = phase_b(tpch.SF1_ROWS, seed=2, device=device,
                                    edge_cap=1 << 20)
     e_results, e_launches = phase_e(data, batch, device, seed=5)
-    f_results, f_launches = phase_f(data, batch, device, seed=2)
+    f_results, f_launches, joins = phase_f(data, batch, device, seed=2)
     g_results, g_launches = phase_g(batch, device, seed=9)
     h_results, h_launches = phase_h(data, batch, device, seed=2)
-    del data, batch
     launches.update({k: e_launches[k] for k in SLICE3_KERNELS})
     launches.update({k: f_launches[k] for k in JOIN_KERNELS})
     launches.update({k: g_launches[k] for k in SLOT_KERNELS})
@@ -2976,6 +3496,11 @@ def main() -> int:
     d_results, d_store, d_data = phase_d(tpch.SF1_ROWS, seed=2,
                                          device=device)
     results.update(d_results)
+    j_results, j_launches, _timed = phase_j(data, batch, d_store, d_data,
+                                            joins, device, seed=14)
+    del data, batch, joins
+    results.update(j_results)
+    launches.update(j_launches)
     i_results, i_launches = phase_i(d_store, d_data, device, seed=12)
     results.update(i_results)
     launches.update(i_launches)

@@ -181,7 +181,8 @@ def test_final_rows_equal_reference(n_regions, stmt):
     combines = int(n_regions > 1 and fused_agg.stats["last_groups"] > 0)
     assert calls == {"region_filter_batched": 1,
                      "region_agg_states_batched": 1,
-                     "combine_region_partials": combines}, calls
+                     "combine_region_partials": combines,
+                     "mesh_allreduce": 0}, calls
 
 
 def _outside(sel):

@@ -64,7 +64,7 @@ def test_no_reference_import(path):
 def test_scan_finds_the_port():
     files = _port_files()
     assert any(p.endswith(os.path.join("ops", "client.py")) for p in files)
-    for sub in ("cluster", "distsql", "executor"):
+    for sub in ("cluster", "distsql", "executor", "parallel"):
         assert any(os.path.join("tidb_tpu_torch", sub, "") in p
                    for p in files), sub
     for mod in (("copr", "dictionary.py"), ("executor", "executors.py"),
@@ -126,7 +126,8 @@ rows = fused_agg.final_states(sel, res)
 assert len(rows) >= 3, rows
 assert kernels.CALLS == {{"region_filter_batched": 1,
                          "region_agg_states_batched": 1,
-                         "combine_region_partials": 1}}, kernels.CALLS
+                         "combine_region_partials": 1,
+                         "mesh_allreduce": 0}}, kernels.CALLS
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "tidb_tpu"))
 print("LOADED", bad)

@@ -252,3 +252,11 @@ class RowsExec(Executor):
 
     def next(self):
         return next(self._rows, None)
+
+
+def mesh_from(ref_mesh, device="cpu"):
+    """The port's mesh matching a reference CoprMesh: as many shards, all
+    on `device`; RegionPlacement hashes region ids alike on both sides, so
+    the same regions share a shard."""
+    from tidb_tpu_torch.parallel import CoprMesh
+    return CoprMesh([device] * ref_mesh.n)

@@ -28,6 +28,7 @@ from tidb_tpu_torch.copr.proto import SelectRequest
 from tidb_tpu_torch.kv import kv
 from tidb_tpu_torch.kv.membuffer import TOMBSTONE
 from tidb_tpu_torch.kv.union_store import UnionStore
+from tidb_tpu_torch.ops import mesh as mesh_mod
 from tidb_tpu_torch.ops.client import resolve_device
 from tidb_tpu_torch.ops.exprc import Unsupported
 
@@ -94,6 +95,14 @@ class DistCoprClient(kv.Client):
 
     def __init__(self, store: "DistStore"):
         self.store = store
+
+    @property
+    def mesh(self):
+        """The process mesh (ops.mesh.get_mesh) where it lies on the
+        store's device, for the executor layer's sharded kernels (the join
+        probe); None keeps them on one shard."""
+        m = mesh_mod.get_mesh()
+        return m if mesh_mod.on_device(m, self.store.device) else None
 
     def send(self, req: kv.Request) -> kv.Response:
         if req.tp != kv.REQ_TYPE_SELECT:

@@ -15,7 +15,9 @@ called by distsql once every region answered) then runs
   host  group discovery in first-appearance order per region (np.unique
       over the survivors' tuple codes), codec-encoded group keys, the
       contributing-row masks of every reduction;
-  K6  every region's segment states in one launch;
+  K6  every region's segment states in one launch (with the process
+      mesh up, more than one shard and no argument planes: on each
+      region's home shard, one launch over the shard layout, ops.mesh);
   host  the per-group state columns, float SUM/AVG summed in row order.
 
 The reference routes statements below STATES_DEVICE_FLOOR to host numpy
@@ -38,6 +40,7 @@ from tidb_tpu_torch.codec import codec
 from tidb_tpu_torch.copr.proto import (AGG_NAME, ExprType, SelectRequest,
                                        SelectResponse, arg_plane_shape_ok)
 from tidb_tpu_torch.ops import columnar as col, exprc, kernels
+from tidb_tpu_torch.ops import mesh as mesh_mod
 from tidb_tpu_torch.ops.client import resolve_device
 from tidb_tpu_torch.ops.exprc import Unsupported
 from tidb_tpu_torch.types.datum import NULL, Datum
@@ -627,7 +630,15 @@ def _finish_filter_batch(group, device) -> None:
 def finish_states_batch(payloads) -> None:
     """The statement finisher: every pending payload of one statement gets
     its survivor mask from one K5 launch and its states from one K6
-    launch."""
+    launch. With the process mesh on the statement's device
+    (ops.mesh.get_mesh) and no argument planes among the reductions, the
+    states are computed on each region's home shard
+    (mesh.region_states_sharded, the reference's near-data rung,
+    tidb_tpu/copr/columnar_region.py:1403-1425); statements with argument
+    planes take the single-device launch, as the reference's do. At one
+    shard (the process mesh of a one-card rig) the rung is the batched
+    launch itself. A fault on the mesh raises DeviceError, where the
+    reference degrades to the single-device launch."""
     pend = [p for p in payloads if p.states_pending()]
     if not pend:
         return
@@ -638,12 +649,18 @@ def finish_states_batch(payloads) -> None:
     pends = [p._pending for p in pend]
     if len({pe.signature() for pe in pends}) > 1:
         raise Unsupported("regions disagree on the aggregate shape")
-    if pends[0].reductions:
-        outs = kernels.region_agg_states_batched(
-            [(pe.gid, pe.reductions, pe.G, pe.batch.n_rows)
-             for pe in pends], device)
-    else:
+    mesh = mesh_mod.get_mesh()
+    segs = [(pe.gid, pe.reductions, pe.G, pe.batch.n_rows) for pe in pends]
+    if not pends[0].reductions:
         outs = [[] for _ in pends]
+    elif mesh_mod.on_device(mesh, device) and not any(
+            getattr(v, "is_arg_plane", False)
+            for op, v, _ok in pends[0].reductions):
+        outs = mesh_mod.region_states_sharded(
+            mesh, segs, region_ids=[p.region_id for p in pend],
+            epochs=[p.region_epoch for p in pend])
+    else:
+        outs = kernels.region_agg_states_batched(segs, device)
     with kernels.phase("host_states", device):
         for p, pe, o in zip(pend, pends, outs):
             p.fulfill_states(pe.finish(o))

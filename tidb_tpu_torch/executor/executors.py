@@ -9,9 +9,12 @@ at or above its dispatch floor: a single int64/f64 key straight to K11
 string and multi-column keys through the dictionary tier
 (copr.dictionary) and K13 (dict_remap), then K11 + K12. The pairs come
 back in left-scan order, ties in right-scan order — the row engine's
-emission order — and stay columnar (ops.columnar.DeviceJoinResult): an
-aggregate above reads the gathered planes (executor.fused_agg), anything
-else pulls materialized rows.
+emission order — and stay columnar (ops.columnar.DeviceJoinResult): with
+the left scan's client on a mesh of more than one shard the probe is
+sharded (kernels.join_match_pairs with the mesh's shard count, the same
+pairs; the per-shard pair totals go to ops.mesh.stats as the shard
+balance); an aggregate above reads the gathered planes
+(executor.fused_agg), anything else pulls materialized rows.
 
 There is no row engine in the port and no floor: every join on the card
 runs the kernels, and with device="cpu" their plain PyTorch versions
@@ -37,6 +40,7 @@ from tidb_tpu_torch.copr import dictionary
 from tidb_tpu_torch.executor import fused_agg
 from tidb_tpu_torch.executor.distsql_exec import Executor
 from tidb_tpu_torch.ops import columnar as col, extsort, kernels
+from tidb_tpu_torch.ops import mesh as mesh_mod
 from tidb_tpu_torch.ops.client import resolve_device
 from tidb_tpu_torch.ops.exprc import Unsupported
 from tidb_tpu_torch.plan import Column, Join
@@ -60,15 +64,23 @@ class HashJoinExec(Executor):
         self.children = [child_left, child_right]
         self.plan = plan
         self.schema = list(child_left.schema) + list(child_right.schema)
+        client = getattr(child_left, "client", None)
         if device is None:
-            client = getattr(child_left, "client", None)
             device = getattr(client, "device", None)
         self.device = resolve_device(device)
+        self.shards = self._join_shards(client)
         self.join_stats: dict = {}   # path and per-phase timings
         self._right_width = len(child_right.schema)
         self._vector_tried = False
         self._device = None          # the DeviceJoinResult
         self._vector_iter = None
+
+    def _join_shards(self, client) -> int:
+        """The shard count of the join probe: that of the left scan's
+        client's mesh (GpuClient's own mesh, DistCoprClient's process
+        mesh) where it lies on the join's device, else 1."""
+        mesh = getattr(client, "mesh", None)
+        return mesh.n if mesh_mod.on_device(mesh, self.device) else 1
 
     # ---- the sides ----
 
@@ -184,7 +196,11 @@ class HashJoinExec(Executor):
         li, ri = kernels.join_match_pairs(lkey, lvalid, rkey, rvalid,
                                           stats=stats,
                                           device_keys=device_keys,
-                                          device=self.device)
+                                          device=self.device,
+                                          shards=self.shards)
+        if stats["mesh_shards"] > 1:
+            mesh_mod.publish_shard_balance(stats["shard_pairs"])
+            mesh_mod.stats["sharded_probes"] += 1
         with kernels.phase("finish", self.device):
             self._finish_pairs(lside, rside, li, ri)
         stats["path"] = "device"

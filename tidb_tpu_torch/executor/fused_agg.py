@@ -22,7 +22,9 @@ statement into the final aggregate rows: the regions' group keys unify in
 TASK order (the row protocol's partial arrival order, so the global
 first-appearance order is the row loop's emission order), every numeric
 state scatters into an [R, G] stack, and all stacks merge over the region
-axis in one K7 launch (R = 1 on the host, as in the reference). Float
+axis in one K7 launch (R = 1 on the host, as in the reference), on the
+process mesh when one lies on the statement's device (the regions on
+their home shards, ops.mesh.combine_states_sharded). Float
 SUM/AVG merge on the host in task order and datum-mode states (string
 min/max, first_row) merge on the host; decimal sums requantize to the
 exponent the row protocol's sum would carry.
@@ -41,6 +43,7 @@ import numpy as np
 from tidb_tpu_torch import mysqldef as my
 from tidb_tpu_torch.copr.proto import AGG_NAME, SelectRequest
 from tidb_tpu_torch.ops import columnar as col, kernels
+from tidb_tpu_torch.ops import mesh as mesh_mod
 from tidb_tpu_torch.ops.exprc import Unsupported
 from tidb_tpu_torch.types.convert import (compare_datum, unflatten_datum,
                                           unflatten_identity_kinds)
@@ -49,21 +52,32 @@ from tidb_tpu_torch.types.datum import NULL, Datum
 I64_SENTINEL_MIN = (1 << 63) - 1   # "min" monoid identity (int planes)
 I64_SENTINEL_MAX = -(1 << 63)      # "max" monoid identity
 
-# "fused" counts COMPLETE-mode aggregates answered from planes
+# "fused" counts COMPLETE-mode aggregates answered from planes;
+# "mesh_combines" the combines that rode the mesh, "last_mesh_shards" its
+# shard count
 stats = {"final_states": 0, "partial_combines": 0,
-         "last_combine_regions": 0, "last_groups": 0, "fused": 0}
+         "last_combine_regions": 0, "last_groups": 0, "fused": 0,
+         "mesh_combines": 0, "last_mesh_shards": 0}
 
 
 class _StatesCombine:
-    """[R, G] state stacks merged over the region axis: one K7 launch and
-    one readback for all of them; R <= 1 on the host."""
+    """[R, G] state stacks merged over the region axis in one K7 launch
+    and one readback for all of them: on the process mesh when it lies on
+    the statement's device (ops.mesh.combine_states_sharded, the regions
+    placed on their home shards by their ids and epochs; at one shard
+    that is the single-device combine), else by the single-device
+    combine; R <= 1 on the host. A fault on the mesh raises, where the
+    reference degrades to the single-device combine."""
 
-    def __init__(self, R: int, G: int, device):
+    def __init__(self, R: int, G: int, device, region_ids=None,
+                 epochs=None):
         self.R, self.G = R, G
         self.device = device
+        self.region_ids, self.epochs = region_ids, epochs
         self._states: list = []
         self._ops: list = []
         self._results: list | None = None
+        self.rode_mesh = False
 
     def add(self, op: str, state: np.ndarray) -> int:
         self._states.append(state)
@@ -81,8 +95,22 @@ class _StatesCombine:
         if self.R <= 1:
             self._results = self._host()
             return
-        self._results = kernels.combine_region_partials(
-            self._states, self._ops, self.device)
+        mesh = mesh_mod.get_mesh()
+        if mesh_mod.on_device(mesh, self.device):
+            shard_of = None
+            if self.region_ids is not None \
+                    and len(self.region_ids) == self.R:
+                shard_of = mesh_mod.placement_for(mesh).shard_of(
+                    mesh_mod.placement_keys(self.region_ids, self.R),
+                    self.epochs)
+            self._results = mesh_mod.combine_states_sharded(
+                self._states, self._ops, mesh, shard_of=shard_of)
+            self.rode_mesh = True
+            stats["mesh_combines"] += 1
+            stats["last_mesh_shards"] = mesh.n
+        else:
+            self._results = kernels.combine_region_partials(
+                self._states, self._ops, self.device)
         stats["partial_combines"] += 1
         stats["last_combine_regions"] = self.R
 
@@ -147,7 +175,9 @@ def final_states(sel: SelectRequest, result) -> list:
         return [[_empty_result(name) for name in names]]
     device = parts[0].device
     with kernels.phase("final_merge", device):
-        combine = _StatesCombine(R, G, device)
+        combine = _StatesCombine(
+            R, G, device, [getattr(p, "region_id", None) for p in parts],
+            [getattr(p, "region_epoch", None) for p in parts])
         col_specs = _stack_states(parts, names, maps, R, G, combine)
     combine.run()
     with kernels.phase("final_merge", device):

@@ -30,7 +30,7 @@ SOURCES = ("expr_vm", "scalar_agg", "seg_agg_onehot", "seg_agg_sorted",
            "rank_groups", "distinct_runs", "topk_select", "seg_states_ragged",
            "combine_partials", "join_build", "join_probe", "dict_remap",
            "slot_filter", "slot_agg", "slot_topn", "sort_perm", "window_scan",
-           "delta_merge")
+           "delta_merge", "shard_topk")
 # -fmad=false: no multiply-add contraction, so every f64 a * b + c rounds
 # twice exactly as the plain versions (and the reference) round it
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -126,6 +126,11 @@ SIGNATURES = {
         "delta_merge_blocks": ([_L], _L),
         "delta_merge_launch": ([_L, _P, _P, _P, _L, _P, _L, _P, _P, _P, _P,
                                 _P, _P, _P, _P, _P, _P, _P], _I),
+    },
+    "shard_topk": {
+        "shard_topk_tile": ([], _I),
+        "shard_topk_launch": ([_L, _L, _L, _P, _I, _P, _P, _P, _P, _P, _P,
+                               _P, _P, _P, _P, _P], _I),
     },
 }
 

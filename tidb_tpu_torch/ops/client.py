@@ -37,6 +37,7 @@ at once, so every decode table a statement needs travels with it
 
 from __future__ import annotations
 
+import functools
 import threading
 from decimal import Decimal
 
@@ -46,8 +47,8 @@ import torch
 from tidb_tpu_torch import errors, mysqldef as my
 from tidb_tpu_torch import tablecodec as tc
 from tidb_tpu_torch.codec import codec
-from tidb_tpu_torch.copr.proto import (ChunkWriter, ExprType, SelectRequest,
-                                       SelectResponse)
+from tidb_tpu_torch.copr.proto import (AGG_NAME, ChunkWriter, ExprType,
+                                       SelectRequest, SelectResponse)
 from tidb_tpu_torch.kv import kv
 from tidb_tpu_torch.ops import columnar as col
 from tidb_tpu_torch.ops import kernels
@@ -109,10 +110,24 @@ class _SingleResponse(kv.Response):
 
 
 class GpuClient(kv.Client):
-    def __init__(self, store, device=None, dispatch_floor_rows=None,
-                 micro_batch=True, batch_window_ms=BATCH_WINDOW_MS):
+    """`mesh` (parallel.CoprMesh, S virtual shards on the client's device;
+    its device is the client's when `device` is None) row-shards every
+    batch: aggregates fold per-shard partials (K7), TopN merges per-shard
+    candidates (K20). A filter's mask is row-wise, the same over the
+    batch as over its shard-major blocks: one K1 launch. At one shard
+    every statement takes the single-device route."""
+
+    def __init__(self, store, device=None, mesh=None,
+                 dispatch_floor_rows=None, micro_batch=True,
+                 batch_window_ms=BATCH_WINDOW_MS):
         self.store = store
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device != kernels._device(self.device):
+            raise errors.DeviceError(f"a mesh on {mesh.device} for a client "
+                                     f"on {self.device}")
+        self.mesh = mesh
         # below this many rows a request takes _route_small (0: never)
         self.dispatch_floor_rows = (DISPATCH_FLOOR_ROWS
                                     if dispatch_floor_rows is None
@@ -131,9 +146,11 @@ class GpuClient(kv.Client):
         # shared launch / by the solo route; batched_launches and
         # batched_slots: the tier's launches and the statements they
         # carried (exactly one slot each); batch_sizes: launches by slot
-        # count; stall_degrades: statements whose gather window stalled
+        # count; stall_degrades: statements whose gather window stalled;
+        # mesh_single: aggregates a mesh client ran on one shard (not
+        # mesh-combinable)
         self.stats = {"gpu_requests": 0, "batch_packs": 0, "batch_hits": 0,
-                      "ranked": 0, "tuple_grouped": 0,
+                      "ranked": 0, "tuple_grouped": 0, "mesh_single": 0,
                       "small_batched": 0, "small_solo": 0,
                       "batched_launches": 0, "batched_slots": 0,
                       "batch_sizes": {}, "stall_degrades": 0,
@@ -159,6 +176,12 @@ class GpuClient(kv.Client):
         if req.tp != kv.REQ_TYPE_SELECT or sel.table_info is None:
             raise Unsupported("only table scans are served (index "
                               "requests come with a later slice)")
+        if self.mesh is not None and any(
+                e.distinct and AGG_NAME.get(e.tp) in ("count", "sum", "avg")
+                for e in sel.aggregates):
+            # per-shard distinct partials cannot merge: the reference's
+            # support_request_type keeps these above a mesh client
+            raise Unsupported("DISTINCT count/sum/avg across a mesh")
         floor = self.dispatch_floor_rows
         if floor and sel.est_rows is not None and sel.est_rows < floor:
             # the planner's estimate is under the floor: no pack first
@@ -268,6 +291,15 @@ class GpuClient(kv.Client):
         live = kernels.device_live(batch, self.device)
         if sel.group_by:
             gspec = kernels.lower_group_by(sel, batch)
+            if gspec.kind == "rank" and self.mesh is not None:
+                # ranks are batch-local, not shard-combinable: global
+                # composite tuple codes instead
+                tspec = kernels.lower_tuple_group(gspec, batch)
+                if tspec is None:
+                    raise Unsupported("group tuple cardinality exceeds "
+                                      "the segment ceiling")
+                gspec = tspec
+                self.count("tuple_grouped")
             if gspec.kind == "rank":
                 # device sort and rank up the ladder; composite tuple
                 # codes only when the ladder overflows
@@ -285,13 +317,25 @@ class GpuClient(kv.Client):
             fn = kernels.build_grouped_agg_fn(prog, where, specs,
                                               gspec.plane_keys,
                                               gspec.kernel_sizes)
-            outs = self._dispatch(fn, planes, live)
+            outs = self._dispatch(self._on_mesh(fn), planes, live)
             with kernels.phase("emit", self.device):
                 return self._emit_grouped(sel, dec, specs, gspec,
                                           fn.radices, outs)
         fn = kernels.build_scalar_agg_fn(prog, where, specs)
-        outs = self._dispatch(fn, planes, live)
+        outs = self._dispatch(self._on_mesh(fn), planes, live)
         return self._emit_scalar(sel, dec, specs, outs)
+
+    def _on_mesh(self, fn):
+        """An aggregate fn as this client runs it: over the mesh's shards
+        (partials folded by K7), or in one launch over the whole batch
+        where there is no mesh or the fn is not mesh-combinable (DISTINCT
+        states: the reference's own single-device route on a mesh)."""
+        if self.mesh is None:
+            return fn
+        if any(c is None for c in fn.combiners):
+            self.count("mesh_single")
+            return fn
+        return functools.partial(self.mesh.run, fn)
 
     def _emit_scalar(self, sel, dec: _Decode, specs, outs) -> SelectResponse:
         row: list[Datum] = [Datum.bytes_(b"")]
@@ -525,6 +569,8 @@ class GpuClient(kv.Client):
     def _run_topn(self, sel, batch, prog, where) -> SelectResponse:
         if sel.limit is None:
             raise Unsupported("topn lowering needs keys + limit")
+        if self.mesh is not None and self.mesh.n > 1:
+            return self._run_topn_mesh(sel, batch, prog, where)
         k = min(sel.limit, batch.capacity)
         keys = [(compile_expr(item.expr, batch, prog), item.desc)
                 for item in sel.order_by]
@@ -538,6 +584,33 @@ class GpuClient(kv.Client):
                 return idx.cpu().numpy()[:int(n_live[0])]
 
         idx = self._dispatch(run, planes, live)
+        with kernels.phase("emit", self.device):
+            return self._emit_rows(sel, batch, idx)
+
+    def _run_topn_mesh(self, sel, batch, prog, where) -> SelectResponse:
+        """Every shard's first k = min(limit, shard length) rows (K1, then
+        K20 in one launch) and the host merge of the S * k candidates on
+        their order words (kernels.merge_topn_partials)."""
+        n = self.mesh.n
+        shard_len = batch.capacity // n
+        k = min(sel.limit, shard_len)
+        if k <= 0:
+            return self._emit_rows(sel, batch, np.zeros(0, np.int64))
+        keys = [(compile_expr(item.expr, batch, prog), item.desc)
+                for item in sel.order_by]
+        fn = kernels.build_topn_partial_fn(prog, where, keys, k)
+        planes = kernels.batch_planes(batch, self.device)
+        live = kernels.device_live(batch, self.device)
+
+        def run(p, lv):
+            outs = self.mesh.run_sharded(fn, p, lv)
+            with kernels.phase("readback", self.device):
+                return [o.cpu().numpy() for o in outs]
+
+        idx_l, n_live, words, nulls = self._dispatch(run, planes, live)
+        with kernels.phase("merge", self.device):
+            idx = kernels.merge_topn_partials(idx_l, n_live, words, nulls,
+                                              n, shard_len, sel.limit)
         with kernels.phase("emit", self.device):
             return self._emit_rows(sel, batch, idx)
 

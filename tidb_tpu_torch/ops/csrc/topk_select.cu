@@ -10,10 +10,11 @@
 // rows is ordered, so no two compare equal and the selection is
 // deterministic.
 //
-// Inputs: the live mask (K1's WHERE mask) and per key K10_KEY int64
+// Inputs: the live mask (K1's WHERE mask) and per key TOPK_KEY int64
 // (values pointer, valid pointer, is-f64, desc). Each row is encoded once
 // into an order word per key (enc, [nk][n]) and a flags byte (flg: bit 7
-// dead, bit j key j's null rank), which the comparator reads.
+// dead, bit j key j's null rank), which the comparator reads (topk.cuh:
+// topk_encode, TopkOrd; K20 shard_topk.cu shares them).
 //
 // Pass 1: a block per tile of K10_TILE rows encodes them, bitonic-sorts
 // their row indices in shared memory and keeps the first min(k, tile)
@@ -32,53 +33,6 @@
 #define K10_TILE 1024
 #define K10_THREADS 512
 #define K10_MAXK 4
-#define K10_KEY 4           // (values pointer, valid pointer, is_f64, desc)
-#define K10_DEAD 0x80u
-
-struct K10Ord {
-  i64 n;
-  int nk;
-  const u64* enc;
-  const unsigned char* flg;
-  // does row a come before row b?
-  __device__ __forceinline__ bool less(i64 a, i64 b) const {
-    const unsigned fa = flg[a], fb = flg[b];
-    if ((fa & K10_DEAD) != (fb & K10_DEAD)) return (fa & K10_DEAD) < (fb & K10_DEAD);
-    for (int k = 0; k < nk; ++k) {
-      const unsigned na = (fa >> k) & 1u, nb = (fb >> k) & 1u;
-      if (na != nb) return na < nb;
-      const u64 wa = enc[(i64)k * n + a], wb = enc[(i64)k * n + b];
-      if (wa != wb) return wa < wb;
-    }
-    return a < b;
-  }
-};
-
-// The order word of every key of `row` and its flags byte.
-__device__ __forceinline__ void k10_encode(i64 row, i64 n, const unsigned char* mask, int nk,
-                                           const i64* keys, u64* enc, unsigned char* flg) {
-  unsigned f = mask[row] ? 0u : K10_DEAD;
-  for (int k = 0; k < nk; ++k) {
-    const i64* kd = keys + K10_KEY * k;
-    const unsigned char* ok = (const unsigned char*)kd[1];
-    const bool valid = ok == nullptr || ok[row] != 0;
-    const bool desc = kd[3] != 0;
-    u64 w = 0;
-    if (valid) {
-      i64 x = ((const i64*)kd[0])[row];
-      if (kd[2]) {
-        // f64: -0.0 is +0.0; sign-magnitude bits to two's complement
-        if (as_f64(x) == 0.0) x = 0;
-        if (x < 0) x ^= I64_MAX_V;
-      }
-      w = (u64)x ^ 0x8000000000000000ull;   // int64 order as unsigned order
-      if (desc) w = ~w;
-    }
-    f |= (unsigned)(desc ? !valid : valid) << k;
-    enc[(i64)k * n + row] = w;
-  }
-  flg[row] = (unsigned char)f;
-}
 
 __global__ void __launch_bounds__(K10_THREADS)
 k10_tiles(i64 n, i64 k, const unsigned char* __restrict__ mask, int nk,
@@ -91,7 +45,7 @@ k10_tiles(i64 n, i64 k, const unsigned char* __restrict__ mask, int nk,
   int live = 0;
   for (int j = threadIdx.x; j < K10_TILE; j += K10_THREADS) {
     if (j < m) {
-      k10_encode(t0 + j, n, mask, nk, keys, enc, flg);
+      topk_encode(t0 + j, n, mask, nk, keys, enc, flg);
       live += mask[t0 + j] != 0;
       slot[j] = t0 + j;
     } else {
@@ -106,7 +60,7 @@ k10_tiles(i64 n, i64 k, const unsigned char* __restrict__ mask, int nk,
     for (int w = 0; w < K10_THREADS / 32; ++w) tot += warp_live[w];
     atomicAdd(live_count, (unsigned long long)tot);
   }
-  const K10Ord ord = {n, nk, enc, flg};
+  const TopkOrd ord = {n, nk, enc, flg};
   topk_tile_sort<K10_TILE, K10_THREADS>(slot, ord);
   const i64 stride_out = k < K10_TILE ? k : K10_TILE;
   const i64 len = k < m ? k : m;
@@ -117,7 +71,7 @@ k10_tiles(i64 n, i64 k, const unsigned char* __restrict__ mask, int nk,
 __global__ void k10_merge(i64 n, i64 k, i64 span, const i64* __restrict__ in,
                           i64* __restrict__ out, int nk, const u64* __restrict__ enc,
                           const unsigned char* __restrict__ flg) {
-  const K10Ord ord = {n, nk, enc, flg};
+  const TopkOrd ord = {n, nk, enc, flg};
   topk_merge_one(n, k, span, in, out, (i64)blockIdx.x * blockDim.x + threadIdx.x, ord);
 }
 

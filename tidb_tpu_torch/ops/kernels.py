@@ -4,7 +4,10 @@ lower_aggregates :399-430, GroupSpec / lower_group_by / lower_tuple_group
 :475-575, _orderable_i64 :577, build_scalar_agg_fn :713,
 _sorted_boundary_sums :695, _distinct_reduce :807, _grouped_distinct :864,
 build_grouped_agg_fn :903, build_ranked_group_fn :989, build_filter_fn
-:1970, build_topn_fn :1980, build_topn_fn_multi :2080, and for the cluster
+:1970, build_topn_fn :1980, build_topn_fn_multi :2080, for the mesh tier
+_combiners :732, build_topn_partial_fn :2005, merge_topn_partials :2029,
+build_topn_partial_fn_multi :2048 and the sharded probe of
+join_match_pairs :1807, and for the cluster
 region path combine_region_partials :1082, region_agg_states :1204,
 bucket_segments :1343, region_agg_states_batched :1356,
 region_filter_batched :1552, and for the HTAP tier delta_merge_order
@@ -37,6 +40,13 @@ one program over one batch with a constant pool per statement (slot):
 K14 (`slot_filter`: every slot's survivor mask, bit-packed), K15
 (`slot_agg`: every slot's where-pass count and masked reductions) and K16
 (`slot_topn`: every slot's first k rows over K14's masks).
+
+On a mesh of S virtual shards (ops.mesh, parallel.CoprMesh) an aggregate
+runs K1, then K3/K4 over segment ids offset by shard (each shard's
+partials in its own block) and K7 over the shard axis
+(`mesh_allreduce`); a TopN runs K1, then K20 (`shard_topk`: every shard's
+first k rows with their order words, one launch), and the host merges the
+S * k candidates (`merge_topn_partials`).
 
 A cluster scan that merges a cached base batch with its region's delta
 (copr.delta) runs K19 (`delta_merge_order`: the tombstone mask and the
@@ -98,7 +108,8 @@ LAUNCHES = {"expr_vm": 0, "scalar_agg": 0, "seg_agg_onehot": 0,
             "seg_states_ragged_sorted": 0, "combine_partials": 0,
             "join_build": 0, "join_probe": 0, "dict_remap": 0,
             "slot_filter": 0, "slot_agg": 0, "slot_topn": 0,
-            "sort_perm": 0, "window_scan": 0, "delta_merge_order": 0}
+            "sort_perm": 0, "window_scan": 0, "delta_merge_order": 0,
+            "shard_topk": 0}
 
 # K14 / K15 read each row's planes once into a table of this many entries
 # (ops/csrc/vm.cuh VM_ROW_PLANES); K15 folds at most SLOT_MAX_REDS
@@ -106,9 +117,11 @@ LAUNCHES = {"expr_vm": 0, "scalar_agg": 0, "seg_agg_onehot": 0,
 SLOT_MAX_PLANES = 16
 SLOT_MAX_REDS = 9
 
-# calls of the cluster path's statement-level wrappers, kernel or plain
+# calls of the cluster path's statement-level wrappers, kernel or plain;
+# mesh_allreduce: the mesh tier's shard fold (K7 over partials already on
+# the device), counted apart from the cluster finisher's region combine
 CALLS = {"region_filter_batched": 0, "region_agg_states_batched": 0,
-         "combine_region_partials": 0}
+         "combine_region_partials": 0, "mesh_allreduce": 0}
 
 # Where a statement's time goes: None (the default) costs nothing; a dict
 # (chip_smoke.py sets one) collects milliseconds per phase, each phase
@@ -477,11 +490,82 @@ def program_outputs(specs):
     return outs
 
 
+def _combiners(specs: list[AggSpec], leading: list | None = None) -> list:
+    """The shard-combine monoid of every output of an aggregate fn ("sum",
+    "min", "max", or None where per-shard partials cannot be combined: a
+    DISTINCT count or sum needs a global dedup). first_row combines by
+    the smallest global row position."""
+    out = list(leading or [])
+    for spec in specs:
+        if spec.name == "count":
+            out.append(None if spec.distinct else "sum")
+        elif spec.name in ("sum", "avg"):
+            out.extend([None, None] if spec.distinct else ["sum", "sum"])
+        elif spec.name in ("min", "first_row"):
+            out.extend(["sum", "min"])
+        elif spec.name == "max":
+            out.extend(["sum", "max"])
+        else:
+            out.append(None)
+    return out
+
+
+def shard_ids(n: int, shards: int, device) -> torch.Tensor:
+    """The shard of every row of an [n] batch cut into `shards` contiguous
+    blocks (n divisible by shards)."""
+    return torch.arange(n, dtype=torch.int64, device=device) \
+        // (n // shards)
+
+
+def _seg_agg(gid, mask, num_segments: int, reds: list[Red]):
+    """K3 up to ONEHOT_SEGMENTS_MAX segments, K4 above."""
+    if num_segments <= ONEHOT_SEGMENTS_MAX:
+        return seg_agg_onehot(gid, mask, num_segments, reds)
+    return seg_agg_sorted(gid, mask, num_segments, reds)
+
+
+def _shard_outputs(specs: list[AggSpec], reds: list[Red], n, acc,
+                   shards: int, first: int) -> list:
+    """(partials [shards, M] int64, is-f64) per aggregate output, from
+    reductions laid out over shards * M segments; reds[first:] are the
+    specs' own."""
+    n = n.view(len(reds), shards, -1)
+    acc = acc.view(len(reds), shards, -1)
+    out = [(n[i], False) for i in range(first)]
+    for j, spec in enumerate(specs):
+        i = first + j
+        out.append((n[i], False))
+        if spec.name != "count":
+            out.append((acc[i], reds[i].op in F_OPS))
+    return out
+
+
+def _host_outputs(folded: list, parts: list, scalar: bool) -> list:
+    """Folded int64 host arrays back to the fn's output layout: f64 views
+    where the partial was f64, numpy scalars for a scalar aggregate."""
+    out = []
+    for a, (_t, is_f) in zip(folded, parts):
+        a = a.view(np.float64) if is_f else a
+        out.append(a[0] if scalar else a)
+    return out
+
+
 def build_scalar_agg_fn(prog: Program, where: CompiledExpr | None,
                         specs: list[AggSpec]):
-    """Returns fn(planes, live) → flat list of reduction results."""
+    """Returns fn(planes, live) → flat list of reduction results.
+    fn.partials(planes, live, shards): the same outputs per shard (K3 or
+    K4 over the shard ids), for the mesh to fold (fn.combiners)."""
     outputs = program_outputs(specs)
     fin = prog.finalize(where, outputs)
+
+    def partials(planes, live, shards: int) -> list:
+        with phase("k1", live.device):
+            mask, _gid, outs = run_k1(fin, planes, live, outputs, False)
+        reds = [spec_reduction(s, planes, outs) for s in specs]
+        with phase("reduce", live.device):
+            n, acc = _seg_agg(shard_ids(live.shape[0], shards, live.device),
+                              mask, shards, reds)
+        return _shard_outputs(specs, reds, n, acc, shards, 0)
 
     def fn(planes, live):
         with phase("k1", live.device):
@@ -500,6 +584,9 @@ def build_scalar_agg_fn(prog: Program, where: CompiledExpr | None,
         return _agg_outputs(specs, per)
 
     fn.program = fin
+    fn.combiners = _combiners(specs)
+    fn.partials = partials
+    fn.finish = lambda folded, parts: _host_outputs(folded, parts, True)
     return fn
 
 
@@ -509,7 +596,9 @@ def build_grouped_agg_fn(prog: Program, where: CompiledExpr | None,
     """fn(planes, live) → (row_count, per-spec arrays…), each sized
     num_segments = prod(dict sizes + 1) + 1; the LAST segment is the
     dead-row sink (padding + filtered rows), dropped by the caller. NULL
-    group values take the reserved code slot `size` of their column."""
+    group values take the reserved code slot `size` of their column.
+    fn.partials(planes, live, shards): the same outputs per shard, K3 or
+    K4 over ids shard * num_segments + gid, for the mesh to fold."""
     radices = [s + 1 for s in dict_sizes]
     num_segments = 1
     for r in radices:
@@ -520,6 +609,17 @@ def build_grouped_agg_fn(prog: Program, where: CompiledExpr | None,
                         group=list(zip(group_keys, dict_sizes)),
                         sink=num_segments - 1)
 
+    def partials(planes, live, shards: int) -> list:
+        with phase("k1", live.device):
+            mask, gid, outs = run_k1(fin, planes, live, outputs, True)
+        reds = [Red(R_COUNT)] + [spec_reduction(s, planes, outs)
+                                 for s in specs]
+        with phase("reduce", live.device):
+            gid = gid + shard_ids(live.shape[0], shards, live.device) \
+                * num_segments
+            n, acc = _seg_agg(gid, mask, shards * num_segments, reds)
+        return _shard_outputs(specs, reds, n, acc, shards, 1)
+
     def fn(planes, live):
         with phase("k1", live.device):
             mask, gid, outs = run_k1(fin, planes, live, outputs, True)
@@ -527,10 +627,7 @@ def build_grouped_agg_fn(prog: Program, where: CompiledExpr | None,
         reds = [Red(R_COUNT)] + [spec_reduction(specs[i], planes, outs)
                                  for i in plain]
         with phase("reduce", live.device):
-            if num_segments <= ONEHOT_SEGMENTS_MAX:
-                n, acc = seg_agg_onehot(gid, mask, num_segments, reds)
-            else:
-                n, acc = seg_agg_sorted(gid, mask, num_segments, reds)
+            n, acc = _seg_agg(gid, mask, num_segments, reds)
             per_red = _unpack(reds, n, acc)
         per = [None] * len(specs)
         for i, r in zip(plain, per_red[1:]):
@@ -544,10 +641,15 @@ def build_grouped_agg_fn(prog: Program, where: CompiledExpr | None,
     fn.num_segments = num_segments
     fn.radices = radices
     fn.program = fin
+    fn.combiners = _combiners(specs, leading=["sum"])   # row_count first
+    fn.partials = partials
+    fn.finish = lambda folded, parts: _host_outputs(folded, parts, False)
     return fn
 
 
 def build_filter_fn(prog: Program, where: CompiledExpr | None):
+    """fn(planes, live) → (mask,). Row-wise, so on a mesh the mask of the
+    batch is the mask of its shard-major blocks."""
     fin = prog.finalize(where, [])
 
     def fn(planes, live):
@@ -979,6 +1081,139 @@ def topk_select(mask: torch.Tensor, keys: list, k: int):
 
 
 # ---------------------------------------------------------------------------
+# the mesh TopN: K20 shard_topk, its plain version and the host merge
+# ---------------------------------------------------------------------------
+
+def build_topn_partial_fn(prog: Program, where: CompiledExpr | None,
+                          keys: list, k: int):
+    """Per-shard top-k for the mesh (the port of build_topn_partial_fn and
+    build_topn_partial_fn_multi, one builder for one key or several):
+    fn(planes, live, shards) → K20's (idx int64[S, k] shard-local, n_live
+    int64[S], words int64[S, nk, k], nulls uint8[S, nk, k]) over the S
+    contiguous row blocks, k <= the block length. The reference ships f64
+    scores (one key) or negated int64 keys (several) for the host merge;
+    here each candidate carries K10's order words and null ranks, so the
+    merge orders rows exactly as K10 and the CPU engine do."""
+    base = build_topn_fn(prog, where, keys, k)
+
+    def fn(planes, live, shards: int = 1):
+        mask, planes_k = base.inputs(planes, live)
+        with phase("k20", live.device):
+            return shard_topk(mask, planes_k, k, shards)
+
+    fn.program = base.program
+    return fn
+
+
+def topk_words_plain(keys: list, rows: torch.Tensor) -> tuple:
+    """K10's order words (int64 holding the unsigned word) and null ranks
+    of the rows `rows`, one [len(rows)] plane per key: the value's int64
+    order bits with the sign flipped (unsigned order), complemented for
+    DESC, 0 for NULL; the null rank is 1 for a valid ASC key and for a
+    NULL DESC key."""
+    words, nulls = [], []
+    for (v, ok), desc in keys:
+        o = orderable(v[rows]) ^ I64_MIN
+        if desc:
+            o = ~o
+        okr = ok[rows]
+        words.append(torch.where(okr, o, torch.zeros_like(o)))
+        nulls.append(_flag(~okr if desc else okr))
+    return words, nulls
+
+
+def shard_topk_plain(mask, keys: list, k: int, shards: int):
+    L = mask.shape[0] // shards
+    dev = mask.device
+    idx, n_live, words, nulls = [], [], [], []
+    for s in range(shards):
+        sl = slice(s * L, (s + 1) * L)
+        ks = [((v[sl], ok[sl]), d) for (v, ok), d in keys]
+        i, nl = topk_select_plain(mask[sl], ks, k)
+        w, f = topk_words_plain(ks, i)
+        idx.append(i)
+        n_live.append(nl)
+        words.append(torch.stack(w) if w else
+                     torch.empty((0, k), dtype=torch.int64, device=dev))
+        nulls.append(torch.stack(f) if f else
+                     torch.empty((0, k), dtype=torch.uint8, device=dev))
+    return (torch.stack(idx), torch.cat(n_live), torch.stack(words),
+            torch.stack(nulls))
+
+
+def shard_topk(mask: torch.Tensor, keys: list, k: int, shards: int):
+    """K20: the first k rows of each of `shards` contiguous row blocks in
+    K10's order (live first; per ORDER BY item (values, valid), desc: null
+    rank, then the order word; then row position), in one launch.
+    Returns (idx int64[S, k], block-local; n_live int64[S], min(live rows
+    of the block, k); words int64[S, nk, k] and nulls uint8[S, nk, k], the
+    candidates' order words and null ranks, as topk_words_plain gives
+    them). k must lie in [1, block length]."""
+    if len(keys) > TOPN_MAX_KEYS:
+        raise errors.DeviceError(f"K20 takes at most {TOPN_MAX_KEYS} keys")
+    n = mask.shape[0]
+    if shards < 1 or n % shards:
+        raise errors.DeviceError(f"{n} rows do not split into {shards} "
+                                 f"shards")
+    L = n // shards
+    if not 1 <= k <= L:
+        raise errors.DeviceError(f"K20 k = {k} outside [1, {L}]")
+    if _device_kind(mask) == "cpu":
+        return shard_topk_plain(mask, keys, k, shards)
+    dev = mask.device
+    _check_plane(mask, n, (torch.bool,), "mask", dev)
+    tab = []
+    for j, ((v, ok), desc) in enumerate(keys):
+        _check_plane(v, n, (torch.int64, torch.float64), f"key {j}", dev)
+        _check_plane(ok, n, (torch.bool,), f"key {j} valid", dev)
+        tab.append([v.data_ptr(), ok.data_ptr(),
+                    int(v.dtype == torch.float64), int(bool(desc))])
+    t_tab = torch.tensor(tab or [[0, 0, 0, 0]],
+                         dtype=torch.int64).reshape(-1).to(dev)
+    lib = _ext.lib("shard_topk")
+    tile = lib.shard_topk_tile()
+    nk = len(keys)
+    cand = shards * ((L + tile - 1) // tile) * min(k, tile)
+    enc = torch.empty(max(nk, 1) * n, dtype=torch.int64, device=dev)
+    flg = torch.empty(n, dtype=torch.uint8, device=dev)
+    buf_a = torch.empty(cand, dtype=torch.int64, device=dev)
+    buf_b = torch.empty(cand, dtype=torch.int64, device=dev)
+    count = torch.empty(shards, dtype=torch.int64, device=dev)
+    idx = torch.empty((shards, k), dtype=torch.int64, device=dev)
+    n_live = torch.empty(shards, dtype=torch.int64, device=dev)
+    words = torch.empty((shards, nk, k), dtype=torch.int64, device=dev)
+    nulls = torch.empty((shards, nk, k), dtype=torch.uint8, device=dev)
+    rc = lib.shard_topk_launch(
+        shards, L, k, mask.data_ptr(), nk, t_tab.data_ptr(), enc.data_ptr(),
+        flg.data_ptr(), buf_a.data_ptr(), buf_b.data_ptr(), count.data_ptr(),
+        idx.data_ptr(), n_live.data_ptr(), words.data_ptr(),
+        nulls.data_ptr(), _stream(dev))
+    _ext.check(rc, "shard_topk")
+    LAUNCHES["shard_topk"] += 1
+    return idx, n_live, words, nulls
+
+
+def merge_topn_partials(idx, n_live, words, nulls, n_shards: int,
+                        shard_len: int, limit: int) -> np.ndarray:
+    """Host merge of K20's per-shard candidates (numpy) → global row
+    indices, best first, at most `limit`: the candidates j < n_live[s] of
+    every shard, lexsorted by each key's null rank then its order word
+    (unsigned), the first key most significant, then the global row index
+    idx + s * shard_len. The reference merges on -score (one key) or on
+    negated keys (several); merging on the order words keeps NULL ranks,
+    int64 extremes and BIGINT keys above 2^53 exact."""
+    S, k = idx.shape
+    take = np.arange(k)[None, :] < n_live.astype(np.int64)[:, None]
+    gidx = (idx.astype(np.int64)
+            + (np.arange(S, dtype=np.int64) * shard_len)[:, None])[take]
+    sort_keys = [gidx]
+    for j in reversed(range(words.shape[1])):
+        sort_keys.append(words[:, j, :][take].view(np.uint64))
+        sort_keys.append(nulls[:, j, :][take])
+    return gidx[np.lexsort(sort_keys)][:limit]
+
+
+# ---------------------------------------------------------------------------
 # joins: K11 join_build, K12 join_probe, K13 dict_remap and their plain
 # versions; join_match_pairs drives K11 + K12
 # ---------------------------------------------------------------------------
@@ -1042,15 +1277,23 @@ def join_probe_plain(words, order, lkey, lvalid) -> torch.Tensor:
 
 
 def join_probe(words: torch.Tensor, order: torch.Tensor, lkey: torch.Tensor,
-               lvalid: torch.Tensor) -> torch.Tensor:
-    """K12: pairs [2, total] — the (left row, right row) of every match of
-    a valid left key among K11's sorted words, in left-scan order with ties
-    in right-scan order; int32 on the card when both sides are shorter than
-    2^31, else int64."""
+               lvalid: torch.Tensor, shards: int = 1) -> tuple:
+    """K12: (pairs, totals). pairs [2, total] — the (left row, right row)
+    of every match of a valid left key among K11's sorted words, in
+    left-scan order with ties in right-scan order; int32 on the card when
+    both sides are shorter than 2^31, else int64. totals: host
+    int64[shards], the pairs of each of `shards` contiguous blocks of the
+    left rows, read off K12's count pass."""
+    nl = lvalid.shape[0]
+    if shards < 1 or nl % shards:
+        raise errors.DeviceError(f"{nl} probe rows do not split into "
+                                 f"{shards} shards")
     if _device_kind(lvalid) == "cpu":
-        return join_probe_plain(words, order, lkey, lvalid)
+        pairs = join_probe_plain(words, order, lkey, lvalid)
+        return pairs, np.bincount(pairs[0].numpy() // max(nl // shards, 1),
+                                  minlength=shards).astype(np.int64)
     dev = lvalid.device
-    nl, nv = lvalid.shape[0], words.shape[0]
+    nv = words.shape[0]
     _check_plane(lkey, nl, (torch.int64, torch.float64), "probe key", dev)
     _check_plane(lvalid, nl, (torch.bool,), "probe valid", dev)
     _check_plane(words, nv, (torch.int64,), "build words", dev)
@@ -1058,7 +1301,8 @@ def join_probe(words: torch.Tensor, order: torch.Tensor, lkey: torch.Tensor,
     narrow = nl < (1 << 31) and nv < (1 << 31)
     dt = torch.int32 if narrow else torch.int64
     if nl == 0:
-        return torch.empty((2, 0), dtype=dt, device=dev)
+        return (torch.empty((2, 0), dtype=dt, device=dev),
+                np.zeros(shards, np.int64))
     lib = _ext.lib("join_probe")
     nb = lib.join_probe_blocks(nl)
     lo = torch.empty(nl, dtype=torch.int64, device=dev)
@@ -1073,26 +1317,34 @@ def join_probe(words: torch.Tensor, order: torch.Tensor, lkey: torch.Tensor,
         block_off.data_ptr(), total_d.data_ptr(), _stream(dev))
     _ext.check(rc, "join_probe")
     LAUNCHES["join_probe"] += 1
-    # the exact total sizes the output: no capacity bucket, no retry
-    total = int(total_d.item())
+    # the exact total sizes the output: no capacity bucket, no retry;
+    # each block's first offset comes back beside it
+    starts = torch.cat([offs[::nl // shards], total_d]).cpu().numpy()
+    total = int(starts[-1])
     out = torch.empty(2 * total, dtype=dt, device=dev)
     if total:
         rc = lib.join_probe_expand_launch(
             total, nl, lo.data_ptr(), offs.data_ptr(), order.data_ptr(),
             int(narrow), out.data_ptr(), _stream(dev))
         _ext.check(rc, "join_probe expand")
-    return out.view(2, total)
+    return out.view(2, total), np.diff(starts)
 
 
 def join_match_pairs(lkey, lvalid, rkey, rvalid, stats: dict | None = None,
-                     device_keys=None, device=None) -> tuple:
+                     device_keys=None, device=None, shards: int = 1
+                     ) -> tuple:
     """(l_idx, r_idx) int64 numpy match pairs of an equi-join on one int64
     or f64 key, in left-scan order with ties in right-scan order: K11 over
     the right keys, K12 over the left, one readback of the pairs. The key
     planes come as host numpy (copied to `device`) or, with
     `device_keys` = (lkey, lvalid, rkey, rvalid), as tensors already on the
-    device (the host planes are then not read and may be None). `stats`
-    receives build_s, probe_s and n_pairs."""
+    device (the host planes are then not read and may be None). With
+    `shards` > 1 dividing the left capacity (bucket_capacity of the left
+    rows) the probe is sharded, the reference's mesh probe: the left
+    planes padded to the capacity with invalid rows and cut into that
+    many contiguous blocks, the same pairs. `stats` receives build_s,
+    probe_s, n_pairs, mesh_shards (1 where the probe was not sharded) and
+    shard_pairs (the pairs of each block)."""
     if device_keys is None:
         dev = _device(device)
         device_keys = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -1105,13 +1357,23 @@ def join_match_pairs(lkey, lvalid, rkey, rvalid, stats: dict | None = None,
     with phase("k11", dev):
         words, order = join_build(rk, rv)
     t1 = time.perf_counter()
+    n = lv.shape[0]
+    lcap = col.bucket_capacity(n)
+    if shards > 1 and lcap % shards == 0:
+        if n < lcap:
+            lk = torch.cat([lk, lk.new_zeros(lcap - n)])
+            lv = torch.cat([lv, lv.new_zeros(lcap - n)])
+    else:
+        shards = 1
     with phase("k12", dev):
-        pairs = join_probe(words, order, lk, lv)
+        pairs, totals = join_probe(words, order, lk, lv, shards)
     with phase("pairs_readback", dev):
         host = pairs.cpu().numpy()
     l_idx = host[0].astype(np.int64)
     r_idx = host[1].astype(np.int64)
     if stats is not None:
+        stats["mesh_shards"] = shards
+        stats["shard_pairs"] = totals
         stats["build_s"] = t1 - t0
         stats["probe_s"] = time.perf_counter() - t1
         stats["n_pairs"] = len(l_idx)
@@ -1860,29 +2122,71 @@ def k7_prepare(states: list, codes: list, dev):
     (launch, out, desc); launch() runs the kernel into out."""
     dev = _device(dev)
     R = int(states[0].shape[0])
-    desc, flat, in_off, out_off = [], [], 0, 0
+    flat = []
     for s, op in zip(states, codes):
         if s.ndim != 2 or s.shape[0] != R:
             raise errors.DeviceError("combine states must be [R, G]")
         want = np.float64 if op in F_OPS else np.int64
-        a = np.ascontiguousarray(s, dtype=want).view(np.int64)
-        desc.append([op, in_off, a.shape[1], out_off])
-        flat.append(a.reshape(-1))
-        in_off += a.size
-        out_off += a.shape[1]
-    t_in = torch.from_numpy(np.concatenate(flat)).to(dev)
+        flat.append(np.ascontiguousarray(s, dtype=want).view(np.int64))
+    t_in = torch.from_numpy(np.concatenate([a.reshape(-1) for a in flat])
+                            ).to(dev)
+    return _k7_prepare_device(t_in, [a.shape[1] for a in flat], codes, R,
+                              dev)
+
+
+def _k7_prepare_device(t_in: torch.Tensor, widths: list, codes: list,
+                       R: int, dev):
+    """K7 over states already packed on the device: t_in holds every
+    [R, G_i] block (int64, f64 bits) in turn."""
+    desc, in_off, out_off = [], 0, 0
+    for G, op in zip(widths, codes):
+        desc.append([op, in_off, G, out_off])
+        in_off += R * G
+        out_off += G
     t_desc = torch.tensor(desc, dtype=torch.int64).reshape(-1).to(dev)
     out = torch.empty(max(out_off, 1), dtype=torch.int64, device=dev)
     lib = _ext.lib("combine_partials")
 
     def launch():
         rc = lib.combine_partials_launch(
-            len(states), R, t_desc.data_ptr(), t_in.data_ptr(),
+            len(widths), R, t_desc.data_ptr(), t_in.data_ptr(),
             out.data_ptr(), out_off, _stream(dev))
         _ext.check(rc, "combine_partials")
         LAUNCHES["combine_partials"] += 1
 
     return launch, out, desc
+
+
+def mesh_allreduce(parts: list, codes: list) -> list:
+    """The mesh tier's collective: per-shard partials already on one
+    device, each [S, M_i] int64 (f64 bits for f64 ops), folded over the
+    shard axis in shard order with K7's op codes (a wrapping int64 sum, an
+    f64 sum, an exact min or max) in one launch and one readback. Integer
+    sums and extrema equal psum / pmin / pmax bit for bit; an f64 sum adds
+    the shards' partials in shard order. Returns [M_i] int64 host arrays
+    (f64 bits)."""
+    CALLS["mesh_allreduce"] += 1
+    dev = parts[0].device
+    if dev.type == "cpu":
+        typed = [p.view(torch.float64) if op in F_OPS else p
+                 for p, op in zip(parts, codes)]
+        return [(o.view(torch.int64) if o.dtype == torch.float64 else o)
+                .numpy() for o in combine_partials_plain(typed, codes)]
+    if dev.type != "cuda":
+        raise errors.DeviceError(f"no kernel for device {dev}")
+    S = int(parts[0].shape[0])
+    for p in parts:
+        if p.dim() != 2 or p.shape[0] != S or p.dtype != torch.int64 \
+                or p.device != dev:
+            raise errors.DeviceError("mesh partials must be int64 [S, M] "
+                                     "on one device")
+    t_in = torch.cat([p.reshape(-1) for p in parts])
+    launch, out, desc = _k7_prepare_device(
+        t_in, [int(p.shape[1]) for p in parts], codes, S, dev)
+    with phase("k7", dev):
+        launch()
+    host = out.cpu().numpy()
+    return [host[o:o + G] for _op, _i, G, o in desc]
 
 
 _COMBINE_CODE = {("sum", False): R_SUM_I, ("sum", True): R_SUM_F,

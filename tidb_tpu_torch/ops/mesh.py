@@ -1,0 +1,369 @@
+"""The mesh execution tier on one card (the port of tidb_tpu/ops/mesh.py:
+set_enabled / set_mesh / get_mesh :68-108, _mix64 :115, RegionPlacement
+:124-173, publish_shard_balance :176, placement_for :200, _identity :213,
+_shard_layout :226, combine_states_sharded :435-512 with
+_monoid_collective_fn :241, region_states_sharded :572-700 with
+_states_local_fn :527; the sharded join probe of :913-962 with
+_sharded_probe_fn :708 and _shard_block_totals :736 is
+kernels.join_match_pairs(..., shards=S)).
+
+- `RegionPlacement`: a stable region → shard map, a pure splitmix64 hash
+  of the region id, so a region never moves when its neighbours split or
+  merge; an epoch bump re-places it (counted) onto the same shard. The
+  port keeps the reference's placements exactly: they decide which
+  regions share a shard.
+- `combine_states_sharded`: [R, G] partial states placed onto shards
+  ([S, Rmax, G] blocks padded with the monoid identity), each shard's
+  block reduced, the shards folded: on one card one K7 launch over the
+  S * Rmax rows in shard-major order (kernels.mesh_allreduce).
+- `region_states_sharded`: every region's grouped states on its home
+  shard: rows placed shard-major, group ids offset into the statement's
+  global segment space, one K6 launch over the shard layout (S spans of
+  lmax rows, sp_total segments each); region r's states are read from
+  its home shard's block. No collective.
+- the sharded join probe (kernels.join_match_pairs with shards = S,
+  driven by executor.HashJoinExec): the build side replicated (one K11),
+  the probe rows cut into S contiguous blocks (one K12 over them);
+  per-shard pair totals from K12's count pass (published here as the
+  shard balance), the pairs in global left-scan order.
+
+At one shard there is no layout to build and no collective to run: the
+two state routes are then the single-device kernels
+(kernels.combine_region_partials, kernels.region_agg_states_batched),
+the same bits at the same cost, as CoprMesh.run calls an aggregate fn as
+it is at one shard. The reference builds its layout at one shard too.
+
+The mesh is S virtual shards on one device (parallel.CoprMesh). The
+process mesh (`get_mesh`) is built lazily over the visible CUDA card;
+where there is none it is None, and a CPU mesh exists only through
+`set_mesh`. The reference degrades a faulted mesh rung to the next rung;
+the port raises DeviceError (it has no lower rung to hide a fault in).
+
+`combine_rows_sharded` (:290-432) and `join_probe_partitioned`
+(:756-911) wait for their callers (plain region scans and the
+partitioned out-of-core joins).
+"""
+
+from __future__ import annotations
+
+import threading
+
+import numpy as np
+import torch
+
+from tidb_tpu_torch import errors
+from tidb_tpu_torch.ops import kernels
+
+# process-wide switch (the reference's SET GLOBAL tidb_tpu_mesh)
+_enabled = True
+_lock = threading.Lock()
+_mesh = None              # the process CoprMesh
+_placements: dict = {}    # id(mesh) -> RegionPlacement
+
+# dispatches / shard_rows_*: the last shard layout's balance (skew =
+# max / mean); near_data_*: region_states_sharded's launches, regions and
+# rows; sharded_probes: the join probes sharded over more than one shard
+stats = {"dispatches": 0, "shard_rows_max": 0, "shard_rows_mean": 0.0,
+         "shard_skew": 0.0, "near_data_dispatches": 0,
+         "near_data_regions": 0, "near_data_rows": 0, "sharded_probes": 0}
+
+
+def set_enabled(enabled: bool) -> None:
+    global _enabled
+    _enabled = bool(enabled)
+
+
+def set_mesh(mesh) -> None:
+    """Install an explicit CoprMesh as the process mesh (tests: a CPU
+    mesh; the smoke: 8 shards on the card). None resets to the lazy
+    default."""
+    global _mesh
+    with _lock:
+        _mesh = mesh
+
+
+def get_mesh():
+    """The process CoprMesh: one shard per visible card (one on this
+    rig), or None when the tier is off or there is no CUDA. A mesh over
+    more than one card waits for NCCL (parallel.CoprMesh raises), so on
+    such a rig the default mesh is the current card alone."""
+    global _mesh
+    if not _enabled:
+        return None
+    if _mesh is None and torch.cuda.is_available():
+        from tidb_tpu_torch.parallel import CoprMesh
+        with _lock:
+            if _mesh is None:
+                _mesh = CoprMesh([kernels._device("cuda")])
+    return _mesh
+
+
+def on_device(mesh, device) -> bool:
+    """Whether a statement on `device` may ride `mesh`: the mesh's
+    shards lie on that device."""
+    return mesh is not None and mesh.device == kernels._device(device)
+
+
+# ---------------------------------------------------------------------------
+# region → shard placement
+# ---------------------------------------------------------------------------
+
+def _mix64(x: int) -> int:
+    """splitmix64 finalizer: sequential region ids spread uniformly over
+    the shards."""
+    x = (x + 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    return x ^ (x >> 31)
+
+
+class RegionPlacement:
+    """Region → shard over an n-shard mesh: the shard is _mix64(region id)
+    % n, so a surviving region never moves when its neighbours split or
+    merge; a new epoch (the region's version tuple) re-places it, counted
+    in stats["replacements"], onto the same shard."""
+
+    def __init__(self, n_shards: int):
+        self.n_shards = max(1, int(n_shards))
+        self._assigned: dict[int, tuple[int, object]] = {}
+        self._lock = threading.Lock()
+        self.stats = {"placements": 0, "replacements": 0}
+
+    def place(self, region_id: int, epoch=None) -> int:
+        rid = int(region_id)
+        with self._lock:
+            ent = self._assigned.get(rid)
+            if ent is not None and (epoch is None or ent[1] == epoch):
+                return ent[0]
+            shard = _mix64(rid) % self.n_shards
+            self.stats["replacements" if ent is not None
+                       else "placements"] += 1
+            self._assigned[rid] = (shard, epoch)
+            if len(self._assigned) > 4096:
+                self._assigned.pop(next(iter(self._assigned)))
+            return shard
+
+    def shard_of(self, region_ids, epochs=None) -> list[int]:
+        epochs = epochs or [None] * len(region_ids)
+        return [self.place(rid, ep) for rid, ep in zip(region_ids, epochs)]
+
+
+def publish_shard_balance(rows_per_shard) -> None:
+    """The per-shard row balance of a shard layout into `stats`: max,
+    mean and skew = max / mean (1.0 balanced)."""
+    counts = [int(c) for c in rows_per_shard]
+    if not counts:
+        return
+    mx = max(counts)
+    mean = sum(counts) / len(counts)
+    stats["dispatches"] += 1
+    stats["shard_rows_max"] = mx
+    stats["shard_rows_mean"] = round(mean, 3)
+    stats["shard_skew"] = round(mx / mean, 3) if mean > 0 else 0.0
+
+
+def placement_for(mesh) -> RegionPlacement:
+    """The process placement for a mesh (one per mesh instance)."""
+    with _lock:
+        pl = _placements.get(id(mesh))
+        if pl is None or pl.n_shards != mesh.n:
+            pl = _placements[id(mesh)] = RegionPlacement(mesh.n)
+        return pl
+
+
+def placement_keys(region_ids, n: int) -> list:
+    """Placement keys: the region ids, positional (-(i + 1)) where a
+    partial carries none."""
+    if region_ids is None:
+        return list(range(n))
+    return [rid if rid is not None else -(i + 1)
+            for i, rid in enumerate(region_ids)]
+
+
+# ---------------------------------------------------------------------------
+# the shard layout
+# ---------------------------------------------------------------------------
+
+def _identity(op: str, dtype):
+    """The monoid identity that pads a shard's block: 0 for sums, the
+    f64 extremes, and the exact int64 extremes (a max over a region whose
+    value is -2^63 must not round to the identity; empty groups are NULL
+    by their counts, never by comparison with it)."""
+    if op == "sum":
+        return 0
+    if np.dtype(dtype) == np.float64:
+        return kernels.F64_MAX if op == "min" else -kernels.F64_MAX
+    return kernels.I64_MAX if op == "min" else kernels.I64_MIN
+
+
+def _shard_layout(slices, shard_of, n_shards: int):
+    """Row permutation placing each region's row segment [s, e) on its
+    home shard: (idx int64[S * lmax] gather index, live bool[S * lmax],
+    rows_per_shard). Each shard's regions follow one another in region
+    order; lmax is a power of two of at least 1024; padding rows gather
+    row 0 under live False."""
+    segs: list[list[tuple[int, int]]] = [[] for _ in range(n_shards)]
+    for (s, e), sh in zip(slices, shard_of):
+        segs[sh].append((s, e))
+    per_shard = [sum(e - s for s, e in blocks) for blocks in segs]
+    lmax = kernels.bucket_segments(max(max(per_shard), 1), minimum=1024)
+    idx = np.zeros(n_shards * lmax, dtype=np.int64)
+    live = np.zeros(n_shards * lmax, dtype=bool)
+    for sh, blocks in enumerate(segs):
+        off = sh * lmax
+        for s, e in blocks:
+            n = e - s
+            idx[off:off + n] = np.arange(s, e, dtype=np.int64)
+            live[off:off + n] = True
+            off += n
+    return idx, live, per_shard
+
+
+# ---------------------------------------------------------------------------
+# sharded combine of [R, G] states
+# ---------------------------------------------------------------------------
+
+def combine_states_sharded(states, ops, mesh, shard_of=None) -> list:
+    """Merge per-region [R, G] partial states over the mesh: regions place
+    onto shards ([S, Rmax, G] blocks padded with the monoid identity),
+    each shard reduces its block and the shards fold, in one K7 launch
+    over the S * Rmax rows in shard-major order on the mesh's device.
+    Equal to the single-device combine for integer sums (wrapping) and
+    extrema. Returns one [G] numpy array per state."""
+    if mesh.n == 1:
+        return kernels.combine_region_partials(states, ops, mesh.device)
+    R = int(np.asarray(states[0]).shape[0])
+    if shard_of is None:
+        shard_of = placement_for(mesh).shard_of(list(range(R)))
+    S = mesh.n
+    counts = [0] * S
+    for sh in shard_of:
+        counts[sh] += 1
+    rmax = max(max(counts), 1)
+    # the rows of every state in shard-major order, padding rows last in
+    # their shard's block
+    row_of = np.full(S * rmax, -1, dtype=np.int64)
+    fill = [0] * S
+    for r, sh in enumerate(shard_of):
+        row_of[sh * rmax + fill[sh]] = r
+        fill[sh] += 1
+    pad = row_of < 0
+    blocks, codes, is_f = [], [], []
+    for st, op in zip(states, ops):
+        st = np.asarray(st)
+        G = st.shape[1] if st.ndim > 1 else 1
+        st = st.reshape(R, G)
+        out = st[np.where(pad, 0, row_of)]
+        out[pad] = _identity(op, st.dtype)
+        f = st.dtype == np.float64
+        blocks.append(np.ascontiguousarray(out).view(np.int64))
+        codes.append(kernels._COMBINE_CODE[(op, bool(f))])
+        is_f.append(f)
+    try:
+        dev = mesh.device
+        with kernels.phase("h2d", dev):
+            parts = [torch.from_numpy(b).to(dev) for b in blocks]
+        folded = kernels.mesh_allreduce(parts, codes)
+    except RuntimeError as e:
+        raise errors.DeviceError(f"sharded state combine failed: {e}") \
+            from e
+    return [np.atleast_1d(a.view(np.float64) if f else a)
+            for a, f in zip(folded, is_f)]
+
+
+# ---------------------------------------------------------------------------
+# near-data region states: each region's states on its home shard, one K6
+# launch over the shard layout, no collective
+# ---------------------------------------------------------------------------
+
+def _states_local(n_rows: list, sp_total: int, reds: list):
+    """The per-shard states function (the counterpart of the reference's
+    _states_local_fn): K6 with each shard as one span of lmax rows and
+    sp_total segments. planes = (gid int64[S * lmax], contribs [per
+    reduction bool[S * lmax]], values [per reduction: values plane
+    [S * lmax] or None])."""
+
+    def local(planes, live, shards: int):
+        gid, contribs, values = planes
+        lmax = live.shape[0] // shards
+        per_shard = [[kernels.StatesInput(
+            op, None, None if v is None else v[s * lmax:(s + 1) * lmax])
+            for op, v in zip(reds, values)] for s in range(shards)]
+        return kernels.seg_states_ragged(
+            gid, [lmax] * shards, n_rows, [sp_total - 1] * shards,
+            per_shard, contribs)
+
+    return local
+
+
+def region_states_sharded(mesh, segs: list, region_ids=None,
+                          epochs=None) -> list:
+    """Every region's grouped partial states of one statement, each
+    computed on the region's home shard in one K6 launch.
+
+    segs[r] = (gid_r, specs_r, G_r, n_rows_r), as
+    kernels.region_agg_states_batched takes them: the region's group ids
+    (int64[cap_r], sink G_r) and reductions (op in sum / min / max, values
+    None (a count) or a values plane on the mesh's device, contrib host
+    bool[cap_r]); every region has the same reductions. Rows place
+    shard-major by RegionPlacement; group ids offset into the statement's
+    segment space (sum(G_r + 1) + 1, bucketed to a power of two of at
+    least 64, its last segment the padding sink). At one shard it is the
+    batched K6 itself. Returns outs[r]: one [G_r] numpy array per
+    reduction, bit-identical to the single-device batched K6."""
+    R = len(segs)
+    dev = mesh.device
+    stats["near_data_dispatches"] += 1
+    stats["near_data_regions"] += R
+    stats["near_data_rows"] += sum(len(s[0]) for s in segs)
+    if mesh.n == 1:
+        return kernels.region_agg_states_batched(segs, dev)
+    Gs = [int(s[2]) for s in segs]
+    offs, off = [], 0
+    for g in Gs:
+        offs.append(off)
+        off += g + 1
+    sp_total = kernels.bucket_segments(off + 1, minimum=64)
+    shard_of = placement_for(mesh).shard_of(placement_keys(region_ids, R),
+                                            epochs)
+    slices, s0 = [], 0
+    for gid_r, *_rest in segs:
+        slices.append((s0, s0 + len(gid_r)))
+        s0 += len(gid_r)
+    idx, live, per_shard = _shard_layout(slices, shard_of, mesh.n)
+    publish_shard_balance(per_shard)
+    with kernels.phase("host_shard_layout", dev):
+        gid_glob = np.concatenate([np.asarray(gid_r, np.int64) + offs[r]
+                                   for r, (gid_r, *_rest)
+                                   in enumerate(segs)])
+        gid_sh = np.where(live, gid_glob[idx], sp_total - 1)
+        contrib_sh = [np.concatenate([np.asarray(sp[j][2], bool)
+                                      for _g, sp, *_r in segs])[idx] & live
+                      for j in range(len(segs[0][1]))]
+    try:
+        with kernels.phase("h2d", dev):
+            idx_d = torch.from_numpy(idx).to(dev)
+            planes = (torch.from_numpy(gid_sh).to(dev),
+                      [torch.from_numpy(c).to(dev) for c in contrib_sh], [])
+            reds = []
+            for j, (op, v0, _ok) in enumerate(segs[0][1]):
+                si = kernels._states_input(op, v0, None)
+                reds.append(si.op)
+                planes[2].append(None if si.values is None else torch.cat(
+                    [sp[j][1] for _g, sp, *_r in segs]).index_select(0, idx_d))
+            live_d = torch.from_numpy(live).to(dev)
+        local = _states_local(per_shard, sp_total, reds)
+        with kernels.phase("k6", dev):
+            out = mesh.run_sharded(local, planes, live_d)
+        with kernels.phase("states_readback", dev):
+            host = out.cpu().numpy()
+    except RuntimeError as e:
+        raise errors.DeviceError(f"mesh near-data states failed: {e}") \
+            from e
+    res = []
+    for r in range(R):
+        base = shard_of[r] * sp_total + offs[r]
+        res.append([(host[j, base:base + Gs[r]].view(np.float64)
+                     if op in kernels.F_OPS else host[j, base:base + Gs[r]])
+                    .copy() for j, op in enumerate(reds)])
+    return res
