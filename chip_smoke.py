@@ -129,7 +129,26 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    whose near-data rung and combine are the batched K6 and the region
    combine; plain_q1 and dec_group checked on it and timed with the tier
    on and off.
-12. A JSON line of per-kernel numbers, the nvidia-smi line, and last
+12. Phase K, the out-of-core tier (slice 9), after J and before I, on
+   Phase F's tables and Phase D's store: K.1 f1_q3_join and f2_partsupp
+   through HashJoinExec at a budget under the resident planes' pins (the
+   headroom 0, the pass target budget // 8: P >= 4), the grace-hash passes
+   (K11 + K12 a partition; f2's K13 planes read back for them), rows
+   equal to budget 0 and to numpy; K.2 membudget.join_match_pairs over
+   Q3's key planes at SF1 (6,001,215 x 1,500,216) on CoprMesh([cuda:0] *
+   8), the key-partitioned probe (K21 per side, K11 within partitions,
+   the segmented K12, K17 for the merge), pairs equal to budget 0's; K.4
+   date_group and q1full over Phase D's store with the headroom a quarter
+   of the states estimate, the spilled states (argument planes cut by row
+   on the card) equal to budget 0 and numpy; launch counts reset before
+   K.1 and read after K.4; K.5 a DeviceOOM in f1's first pass (a hook of
+   the phase) escalates, same rows; then K21 and the segmented K12
+   against their plain versions at K.2's shapes and on edge cases (-0.0
+   beside +0.0, NULL keys, one hot key, empty partitions, P = 1 and 1024,
+   lengths no multiple of a tile, a build side with no valid row), timed
+   (median of 20 CUDA-event runs) beside their bounds, K21 beside a stable
+   torch.sort of the partition ids.
+13. A JSON line of per-kernel numbers, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
 Any failure raises: no phase catches its own failure.
@@ -227,6 +246,10 @@ KERNELS = {
                           "tidb_tpu/ops/kernels.py:293"),
     "shard_topk": ("tidb_tpu_torch/ops/csrc/shard_topk.cu",
                    "tidb_tpu/ops/kernels.py:2005"),
+    "key_partition": ("tidb_tpu_torch/ops/csrc/key_partition.cu",
+                      "tidb_tpu/ops/mesh.py:756"),
+    "join_probe_seg": ("tidb_tpu_torch/ops/csrc/join_probe.cu",
+                       "tidb_tpu/ops/mesh.py:756"),
 }
 # K6 has two routes, each counted: spans within its shared-memory limit
 # (seg_states_ragged) and larger ones (seg_states_ragged_sorted)
@@ -358,7 +381,7 @@ def phase_a(n_rows: int, seed: int, device=None) -> dict:
             need(v > 0 or k in CLUSTER_KERNELS or k in SLICE3_KERNELS
                  or k in JOIN_KERNELS or k in SLOT_KERNELS
                  or k in SORT_KERNELS or k in DELTA_KERNELS
-                 or k in MESH_KERNELS,
+                 or k in MESH_KERNELS or k in OOC_KERNELS,
                  f"kernel {k} never launched on the main path")
     return launches
 
@@ -3454,6 +3477,377 @@ def phase_j(data: dict, batch, d_store: DistStore, d_data: dict,
     return out, {"shard_topk": launches["shard_topk"]}, timed
 
 
+# ---------------------------------------------------------------------------
+# Phase K: the out-of-core joins and the spilling states
+# ---------------------------------------------------------------------------
+
+OOC_KERNELS = ("key_partition", "join_probe_seg")
+K_JOINS = ("f1_q3_join", "f2_partsupp")
+K_SPILLS = ("date_group", "q1full")
+
+
+def k_values(rows: list) -> list:
+    return [[cell(d) for d in row] for row in rows]
+
+
+def k_split(fn) -> dict:
+    """Milliseconds by phase (kernels.SPLIT) of one more run of fn."""
+    kernels.SPLIT = {}
+    try:
+        fn()
+    finally:
+        split, kernels.SPLIT = kernels.SPLIT, None
+    return {k: round(v, 3) for k, v in split.items()}
+
+
+class KOomOnce:
+    """A test hook of this phase: kernels.join_match_pairs whose first
+    call raises DeviceOOM, as a pass that runs out of memory on the card
+    does; restored on exit."""
+
+    def __init__(self):
+        self.calls = 0
+        self._orig = kernels.join_match_pairs
+
+    def __call__(self, *a, **kw):
+        self.calls += 1
+        if self.calls == 1:
+            raise errors.DeviceOOM("injected device OOM (phase K hook)")
+        return self._orig(*a, **kw)
+
+    def __enter__(self):
+        kernels.join_match_pairs = self
+        return self
+
+    def __exit__(self, *exc):
+        kernels.join_match_pairs = self._orig
+
+
+class KHostPartition:
+    """A check of this phase: stands in for membudget.partition_codes
+    while K.1 runs, and fails the phase if the router partitions on the
+    host."""
+
+    def __call__(self, *a, **kw):
+        need(False, "phase K.1: the passes partitioned on the host")
+
+
+def k21_edges(device, seed: int) -> list:
+    """(key, valid, parts, what) edge cases of K21."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa
+    n = 100_003
+    f = rng.integers(-6, 6, n) * 0.25
+    f[::3] = -0.0
+    out = [(t(f), t(rng.random(n) > 0.1), 8, "-0.0 beside +0.0"),
+           (t(rng.integers(0, 99, n)), t(rng.random(n) > 0.5), 8,
+            "NULL keys"),
+           (t(np.full(n, 7, np.int64)), t(np.ones(n, bool)), 8,
+            "one hot key"),
+           (t(np.arange(5, dtype=np.int64)), t(np.ones(5, bool)), 64,
+            "empty partitions"),
+           (t(rng.integers(-(1 << 62), 1 << 62, n)), t(np.ones(n, bool)), 1,
+            "P = 1"),
+           (t(rng.integers(-(1 << 62), 1 << 62, n)), t(np.ones(n, bool)),
+            1024, "P = 1024"),
+           (t(rng.integers(0, 9, 2047)), t(np.ones(2047, bool)), 3,
+            "2047 rows"),
+           (t(rng.integers(0, 9, 2049)), t(np.ones(2049, bool)), 3,
+            "2049 rows"),
+           (t(np.zeros(0, np.int64)), t(np.zeros(0, bool)), 8, "no row")]
+    return out
+
+
+def check_k21(key, valid, parts: int, what: str) -> tuple:
+    """K21 against its plain version and membudget.partition_codes on the
+    same card tensors, bit for bit. Returns (max_abs_err, sel, offsets)."""
+    sel, offs = kernels.key_partition(key, valid, parts)
+    sp, op = kernels.key_partition_plain(key, valid, parts)
+    codes = membudget.partition_codes(key.cpu().numpy(), valid.cpu().numpy(),
+                                      parts)
+    need(torch.equal(sel, sp) and torch.equal(offs, op)
+         and np.array_equal(sel.cpu().numpy(),
+                            np.argsort(codes, kind="stable")),
+         f"{what}: K21 differs from its plain version")
+    return max(max_err(sel, sp), max_err(offs, op)), sel, offs
+
+
+def k_segmented(lk, lv, rk, rv, parts: int) -> dict:
+    """The inputs of the segmented K12 over K21's layouts (K11 within the
+    partitions)."""
+    l_sel, l_off = kernels.key_partition(lk, lv, parts)
+    r_sel, r_off = kernels.key_partition(rk, rv, parts)
+    words, rows, bounds = kernels.join_build_partitioned(
+        rk.index_select(0, r_sel), rv.index_select(0, r_sel), r_off)
+    return dict(words=words, order=r_sel.index_select(0, rows),
+                bounds=bounds, lkey=lk.index_select(0, l_sel),
+                lvalid=lv.index_select(0, l_sel), loff=l_off, lsel=l_sel)
+
+
+def check_seg_k12(lk, lv, rk, rv, parts: int, what: str) -> float:
+    """K11 within partitions and the segmented K12 against their plain
+    versions on the card, bit for bit; the pairs, sorted stably by left
+    row, equal to the single pass's."""
+    a = k_segmented(lk, lv, rk, rv, parts)
+    r_sel, r_off = kernels.key_partition_plain(rk, rv, parts)
+    wp, rows_p, bp = kernels.join_build_partitioned_plain(
+        rk.index_select(0, r_sel), rv.index_select(0, r_sel), r_off)
+    need(torch.equal(a["words"], wp) and torch.equal(a["bounds"], bp)
+         and torch.equal(a["order"], r_sel.index_select(0, rows_p)),
+         f"{what}: K11 within partitions differs from its plain version")
+    pairs, totals = kernels.join_probe_partitioned(**a)
+    pp, tp = kernels.join_probe_partitioned_plain(**a)
+    need(torch.equal(pairs.to(torch.int64), pp)
+         and np.array_equal(totals, tp),
+         f"{what}: the segmented K12 differs from its plain version")
+    err = max(max_err(a["words"], wp), max_err(pairs.to(torch.int64), pp))
+    words, order = kernels.join_build(rk, rv)
+    single, _t = kernels.join_probe(words, order, lk, lv)
+    n = pairs.shape[1]
+    if n > 1:
+        pairs = pairs.index_select(1, kernels.sort_perm([pairs[0]], n))
+    need(torch.equal(pairs.to(torch.int64), single.to(torch.int64)),
+         f"{what}: the partitioned pairs differ from the single pass's")
+    return err
+
+
+def k_join_edges(device, seed: int) -> list:
+    """(lkey, lvalid, rkey, rvalid, parts, what) edge cases of K11 within
+    partitions and the segmented K12."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa
+    n = 50_001
+    zk = rng.integers(-4, 4, n) * 0.5
+    zk[::5] = -0.0
+    zr = np.concatenate([[0.0, -0.0], rng.integers(-4, 4, 3000) * 0.5])
+    return [
+        (t(zk), t(rng.random(n) > 0.1), t(zr), t(np.ones(len(zr), bool)), 8,
+         "-0.0 against +0.0"),
+        (t(rng.integers(0, 900, n)), t(rng.random(n) > 0.5),
+         t(rng.integers(0, 900, 4000)), t(rng.random(4000) > 0.5), 8,
+         "NULL keys on both sides"),
+        (t(np.full(4000, 5, np.int64)), t(np.ones(4000, bool)),
+         t(np.full(900, 5, np.int64)), t(np.ones(900, bool)), 8,
+         "one hot key (3.6M pairs)"),
+        (t(np.arange(7, dtype=np.int64)), t(np.ones(7, bool)),
+         t(np.arange(7, dtype=np.int64)), t(np.ones(7, bool)), 64,
+         "empty partitions"),
+        (t(rng.integers(0, 5000, n)), t(np.ones(n, bool)),
+         t(rng.integers(0, 5000, 9000)), t(np.ones(9000, bool)), 1, "P = 1"),
+        (t(rng.integers(0, 5000, n)), t(np.ones(n, bool)),
+         t(rng.integers(0, 5000, 9000)), t(np.ones(9000, bool)), 1024,
+         "P = 1024"),
+        (t(rng.integers(0, 50, 3001)), t(np.ones(3001, bool)),
+         t(rng.integers(0, 50, 2049)), t(np.ones(2049, bool)), 3,
+         "lengths no multiple of a tile"),
+        (t(np.arange(3000, dtype=np.int64)), t(np.ones(3000, bool)),
+         t(np.arange(3000, dtype=np.int64)), t(np.zeros(3000, bool)), 8,
+         "a build side with no valid row"),
+    ]
+
+
+def phase_k(joins: tuple, batch, d_store: DistStore, d_data: dict, device,
+            seed: int) -> tuple:
+    """The out-of-core tier on the card (slice 9). K.1: f1_q3_join and
+    f2_partsupp through HashJoinExec at a budget under the resident
+    planes' pins (headroom 0, pass target budget // 8), the router's
+    grace-hash passes (K21 lays each side out on the card, then K11 + K12
+    a partition; the host partition codes never run), rows equal to
+    budget 0 and to numpy. K.2: membudget.join_match_pairs over Q3's SF1 key planes
+    (lineitem x orders, every row) on CoprMesh([cuda:0] * 8) at that
+    budget: the key-partitioned probe (K21 per side, K11 within the
+    partitions, the segmented K12, K17), pairs equal to budget 0's. K.4:
+    date_group and q1full over Phase D's store with the headroom a quarter
+    of the states estimate: the spilled states (argument planes cut by
+    row on the card), rows equal to budget 0 and numpy. K.5: a DeviceOOM
+    in the first pass of f1_q3_join escalates, same rows. Launch counts
+    are reset before K.1 and read after K.4. K.3: K21 and the segmented
+    K12 against their plain versions at K.2's shapes and on edge cases,
+    timed (median of 20 CUDA-event runs) beside their bounds. Returns
+    (per-kernel results, launches)."""
+    t0 = time.perf_counter()
+    ms = timer(device)
+    cuda = device.type == "cuda"
+    f_tables, f_batches = joins
+    mesh_mod.set_mesh(None)
+    client = GpuClient(MemStore([], []), mesh=mesh_mod.get_mesh()) if cuda \
+        else GpuClient(MemStore([], []), device)
+
+    # the answers at budget 0, before the main path's counts start
+    membudget.set_budget(0)
+    want_rows, sizes = {}, {}
+    for name in K_JOINS:
+        join, agg = f_statement(client, name, f_batches)
+        want_rows[name] = k_values(agg.drain())
+        res = join.device_join_result()
+        sizes[name] = (len(res.lside), len(res.rside))
+    n_l, n_o = batch.n_rows, f_batches[tpch.ORDERS_ID].n_rows
+    lk, lv = (p[:n_l] for p in kernels.batch_planes(batch, device)
+              [tpch.C_ORDERKEY])
+    rk, rv = (p[:n_o] for p in kernels.batch_planes(
+        f_batches[tpch.ORDERS_ID], device)[tpch.O_ORDERKEY])
+    keys = (lk, lv, rk, rv)
+    kmesh = CoprMesh([device] * MESH_SHARDS)
+    want_pairs = membudget.join_match_pairs(
+        None, None, None, None, mesh=kmesh, device_keys=keys)
+    spill_sels = {name: tpch.sweep_request(name) for name in K_SPILLS}
+    want_spill, est = {}, {}
+    orig_states = kernels.region_agg_states_batched
+    for name, sel in spill_sels.items():
+        def rec(segs, dev, name=name):
+            est[name] = extsort.states_bytes_estimate(segs)
+            return orig_states(segs, dev)
+        kernels.region_agg_states_batched = rec
+        try:
+            want_spill[name] = k_values(final_rows(d_store, sel))
+        finally:
+            kernels.region_agg_states_batched = orig_states
+    # a budget under the planes the earlier phases pinned (on the card
+    # they pin gigabytes): the headroom is 0 and the pass target budget //
+    # 8, a sixteenth of the larger build estimate
+    budget = max(membudget.build_bytes_estimate(s[1])
+                 for s in sizes.values()) // 2
+    pinned = membudget.usage()[1]
+    print(f"phase K: {pinned} bytes pinned; join budget {budget} (pass "
+          f"target {budget // 8}); states estimates {est}")
+
+    if cuda:
+        torch.cuda.synchronize()
+    zero_launches()
+    out_stmt = {}
+    # K.1: the grace-hash passes through HashJoinExec
+    membudget.set_budget(budget)
+    host_codes = membudget.partition_codes
+    for name in K_JOINS:
+        k21_0 = kernels.LAUNCHES["key_partition"]
+        # the passes lay their keys out on the card: the host partition
+        # codes must not run
+        membudget.partition_codes = KHostPartition()
+        try:
+            t1 = time.perf_counter()
+            join, agg = f_statement(client, name, f_batches)
+            rows = agg.drain()
+            if cuda:
+                torch.cuda.synchronize()
+            took = (time.perf_counter() - t1) * 1e3
+        finally:
+            membudget.partition_codes = host_codes
+        k21 = kernels.LAUNCHES["key_partition"] - k21_0
+        st = join.join_stats
+        need(st.get("partitioned") and not st.get("mesh_partitioned"),
+             f"phase K {name}: not on the passes ({st})")
+        need(st["partitions"] >= 4 and st["passes"] >= 2,
+             f"phase K {name}: P {st['partitions']}, {st['passes']} passes")
+        need(k21 == 2 or not cuda,
+             f"phase K {name}: {k21} K21 launches, not one per side")
+        need(k_values(rows) == want_rows[name],
+             f"phase K {name}: rows differ from budget 0's")
+        check_join_rows(name, rows, f_tables, "phase K")
+        split = k_split(lambda: f_statement(client, name, f_batches)[1]
+                        .drain())
+        out_stmt[name] = {"ms": took, "partitions": st["partitions"],
+                          "passes": st["passes"],
+                          "k21_launches": k21,
+                          "sizes": sizes[name], "split": split}
+        print(f"  K.1 {name}: {sizes[name][0]} x {sizes[name][1]} rows, P "
+              f"{st['partitions']}, {st['passes']} passes laid out by {k21} "
+              f"K21 launches on the card, rows equal to "
+              f"budget 0 and numpy; statement {took:.1f} ms (host clock); "
+              f"split {split}")
+    # K.2: the key-partitioned mesh probe
+    t1 = time.perf_counter()
+    st = {}
+    got = membudget.join_match_pairs(None, None, None, None, stats=st,
+                                     mesh=kmesh, device_keys=keys)
+    took = (time.perf_counter() - t1) * 1e3
+    need(st.get("mesh_partitioned") and st["mesh_shards"] == MESH_SHARDS,
+         f"phase K.2: not the key-partitioned probe ({st})")
+    need(np.array_equal(got[0], want_pairs[0])
+         and np.array_equal(got[1], want_pairs[1]),
+         "phase K.2: the partitioned pairs differ from budget 0's")
+    split = k_split(lambda: membudget.join_match_pairs(
+        None, None, None, None, mesh=kmesh, device_keys=keys))
+    out_stmt["k2_mesh_probe"] = {"ms": took, "pairs": len(got[0]),
+                                 "shard_pairs": st["shard_pairs"].tolist(),
+                                 "split": split}
+    print(f"  K.2: {n_l} x {n_o} rows over {MESH_SHARDS} partitions, "
+          f"{len(got[0])} pairs equal to budget 0's; {took:.1f} ms (host "
+          f"clock); per partition {st['shard_pairs'].tolist()}; split "
+          f"{split}")
+    # K.4: the spilling states
+    for name, sel in spill_sels.items():
+        membudget.set_budget(membudget.usage()[1] + est[name] // 4)
+        g0 = dict(extsort.spill_stats)
+        t1 = time.perf_counter()
+        rows = final_rows(d_store, sel)
+        took = (time.perf_counter() - t1) * 1e3
+        passes = extsort.spill_stats["groupby_passes"] - g0["groupby_passes"]
+        need(extsort.spill_stats["groupbys"] == g0["groupbys"] + 1
+             and passes >= 2, f"phase K.4 {name}: did not spill")
+        need(k_values(rows) == want_spill[name],
+             f"phase K.4 {name}: rows differ from budget 0's")
+        check_sweep(name, rows, d_data, "phase K.4")
+        split = k_split(lambda: final_rows(d_store, sel))
+        out_stmt[f"spill_{name}"] = {"ms": took, "passes": passes,
+                                     "split": split}
+        print(f"  K.4 {name} (argument planes cut by row): {passes} passes, "
+              f"rows equal to budget 0 and numpy; {took:.1f} ms (host "
+              f"clock); split {split}")
+    launches = dict(kernels.LAUNCHES)
+    for k in OOC_KERNELS:
+        need(launches[k] > 0 or not cuda, f"phase K: {k} never launched")
+    print(f"phase K launches: { {k: v for k, v in launches.items() if v} }")
+
+    # K.5: a memory fault in the first pass escalates
+    membudget.set_budget(budget)
+    with KOomOnce() as hook:
+        join, agg = f_statement(client, "f1_q3_join", f_batches)
+        rows = agg.drain()
+    st = join.join_stats
+    need(st["partition_escalations"] == 1 and hook.calls == st["passes"] + 1
+         and k_values(rows) == want_rows["f1_q3_join"],
+         f"phase K.5: the escalation went wrong ({st})")
+    print(f"  K.5: DeviceOOM in the first pass, P {st['partitions']} after "
+          f"one escalation, {st['passes']} passes, rows unchanged")
+    membudget.set_budget(0)
+
+    # K.3: the kernels against their plain versions, timed
+    err21, sel, offs = check_k21(lk, lv, MESH_SHARDS, "K21 lineitem")
+    err21 = max(err21, check_k21(rk, rv, MESH_SHARDS, "K21 orders")[0])
+    for key, valid, parts, what in k21_edges(device, seed + 21):
+        err21 = max(err21, check_k21(key, valid, parts,
+                                     f"K21 edge {what}")[0])
+    err12 = check_seg_k12(lk, lv, rk, rv, MESH_SHARDS, "K.2 shapes")
+    for a, b, c, d, parts, what in k_join_edges(device, seed + 23):
+        err12 = max(err12, check_seg_k12(a, b, c, d, parts,
+                                         f"segmented K12 edge {what}"))
+    codes = kernels.partition_codes_t(lk, lv, MESH_SHARDS)
+    out = {"key_partition": dict(
+        ms=ms(lambda: kernels.key_partition(lk, lv, MESH_SHARDS)),
+        plain_ms=ms(lambda: kernels.key_partition_plain(lk, lv,
+                                                        MESH_SHARDS)),
+        library_ms=ms(lambda: torch.sort(codes, stable=True)),
+        max_abs_err=err21,
+        bound=bound(n_l * 17 + (MESH_SHARDS + 1) * 8, n_l * 12))}
+    a = k_segmented(lk, lv, rk, rv, MESH_SHARDS)
+    pairs, _t = kernels.join_probe_partitioned(**a)
+    nv = a["words"].shape[0]
+    steps = max(int(max(nv // MESH_SHARDS, 1)).bit_length(), 1)
+    out["join_probe_seg"] = dict(
+        ms=ms(lambda: kernels.join_probe_partitioned(**a)),
+        plain_ms=ms(lambda: kernels.join_probe_partitioned_plain(**a)),
+        library_ms=None, max_abs_err=err12,
+        bound=bound(n_l * 17 + nv * 16 + pairs.numel() * pairs.element_size()
+                    + 2 * (MESH_SHARDS + 1) * 8, n_l * 2 * steps))
+    for name, r in out.items():
+        print(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']}, bound {r['bound'][0]:.4f} ms by "
+              f"{r['bound'][1]}), max_abs_err {r['max_abs_err']}")
+    print("phase K statements: " + json.dumps(out_stmt))
+    print(f"phase K: {time.perf_counter() - t0:.1f} s")
+    return out, launches
+
+
 def _chained_torch_sort(planes: list):
     """The library yardstick: chained torch.sort(stable=True) over the
     raw planes, least significant first."""
@@ -3498,9 +3892,13 @@ def main() -> int:
     results.update(d_results)
     j_results, j_launches, _timed = phase_j(data, batch, d_store, d_data,
                                             joins, device, seed=14)
-    del data, batch, joins
     results.update(j_results)
     launches.update(j_launches)
+    k_results, k_launches = phase_k(joins, batch, d_store, d_data, device,
+                                    seed=16)
+    del data, batch, joins
+    results.update(k_results)
+    launches.update({k: k_launches[k] for k in OOC_KERNELS})
     i_results, i_launches = phase_i(d_store, d_data, device, seed=12)
     results.update(i_results)
     launches.update(i_launches)

@@ -5,9 +5,13 @@ executor/ and the join path's modules included) and chip_smoke.py; the
 subprocess tests run TPC-H Q1 through GpuClient(device="cpu"), the
 slice-3 shapes (a ranked group-by, DISTINCT, TopN) through it too, Q1
 through the cluster path over two regions, and a join statement through
-XSelectTableExec → HashJoinExec → HashAggExec, in a fresh interpreter
-(tests/conftest.py imports jax into this one) and look at what got
-loaded. Without CUDA, the join path asked for the card raises.
+XSelectTableExec → HashJoinExec → HashAggExec, the out-of-core tier (a
+join in grace-hash passes and through the key-partitioned mesh probe,
+spilled group-by states), in a fresh interpreter (tests/conftest.py
+imports jax into this one) and look at what got loaded. Without CUDA, the
+join path asked for the card raises. The parity test files
+(tests/test_torch_*.py) import both packages by design and are not
+scanned.
 """
 
 import ast
@@ -68,7 +72,9 @@ def test_scan_finds_the_port():
         assert any(os.path.join("tidb_tpu_torch", sub, "") in p
                    for p in files), sub
     for mod in (("copr", "dictionary.py"), ("executor", "executors.py"),
-                ("executor", "distsql_exec.py"), ("plan.py",)):
+                ("executor", "distsql_exec.py"), ("plan.py",),
+                ("ops", "membudget.py"), ("ops", "extsort.py"),
+                ("ops", "mesh.py")):
         assert any(p.endswith(os.path.join("tidb_tpu_torch", *mod))
                    for p in files), mod
     assert len(files) >= 25
@@ -234,6 +240,42 @@ print("LOADED", bad)
 """
 
 
+_DRIVE_OUT_OF_CORE = r"""
+import sys
+sys.path.insert(0, {root!r})
+import numpy as np
+import torch
+from tidb_tpu_torch.ops import extsort, kernels, membudget
+from tidb_tpu_torch.parallel import CoprMesh
+rng = np.random.default_rng(3)
+lk, lv = rng.integers(0, 900, 9000), rng.random(9000) > 0.1
+rk, rv = rng.integers(0, 900, 4000), rng.random(4000) > 0.1
+membudget.set_budget(0)
+want = membudget.join_match_pairs(lk, lv, rk, rv, device="cpu")
+membudget.set_budget(32 * 1024)
+for mesh in (None, CoprMesh(["cpu"] * 8)):
+    st = {{}}
+    got = membudget.join_match_pairs(lk, lv, rk, rv, stats=st, mesh=mesh,
+                                     device="cpu")
+    assert st["partitioned"] and st["passes"] >= 2, st
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+gid = rng.integers(0, 2000, 6000)
+vals = torch.from_numpy(rng.integers(-9, 9, 6000))
+ok = rng.random(6000) > 0.1
+segs = [(gid, [("sum", vals, ok), ("min", vals, ok)], 2000, 6000)]
+one = kernels.region_agg_states_batched(segs, "cpu")
+membudget.set_budget(extsort.states_bytes_estimate(segs) // 4)
+st = {{}}
+got = extsort.region_states_spill(segs, "cpu", st)
+assert st["states_passes"] >= 2, st
+assert all(np.array_equal(a, b) for a, b in zip(got[0], one[0]))
+membudget.set_budget(0)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "tidb_tpu"))
+print("LOADED", bad)
+"""
+
+
 def _run_without_jax(script: str) -> None:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", script.format(root=ROOT)],
@@ -328,3 +370,24 @@ def test_sort_kernels_without_cuda_raise():
         kernels.sort_perm([meta], 16)
     with pytest.raises(DeviceError, match="no kernel for device"):
         kernels.window_scan(meta, meta, [("row_number", None, None)], 16)
+
+
+def test_out_of_core_tier_runs_without_jax():
+    _run_without_jax(_DRIVE_OUT_OF_CORE)
+
+
+def test_partition_kernels_without_cuda_raise():
+    """K21 and the segmented K12 handed tensors on no supported device
+    raise rather than run their plain versions."""
+    from tidb_tpu_torch.errors import DeviceError
+    from tidb_tpu_torch.ops import kernels
+    meta = torch.zeros(16, dtype=torch.int64, device="meta")
+    mvalid = torch.zeros(16, dtype=torch.bool, device="meta")
+    with pytest.raises(DeviceError, match="no kernel for device"):
+        kernels.key_partition(meta, mvalid, 8)
+    offs = torch.zeros(9, dtype=torch.int64, device="meta")
+    with pytest.raises(DeviceError, match="no kernel for device"):
+        kernels.join_probe_partitioned(meta, meta, offs, meta, mvalid, offs,
+                                       meta)
+    with pytest.raises(DeviceError, match="partitions"):
+        kernels.key_partition(meta, mvalid, 2048)

@@ -39,7 +39,7 @@ from tidb_tpu_torch import errors, mysqldef as my, tablecodec as tc
 from tidb_tpu_torch.codec import codec
 from tidb_tpu_torch.copr.proto import (AGG_NAME, ExprType, SelectRequest,
                                        SelectResponse, arg_plane_shape_ok)
-from tidb_tpu_torch.ops import columnar as col, exprc, kernels
+from tidb_tpu_torch.ops import columnar as col, exprc, extsort, kernels
 from tidb_tpu_torch.ops import mesh as mesh_mod
 from tidb_tpu_torch.ops.client import resolve_device
 from tidb_tpu_torch.ops.exprc import Unsupported
@@ -630,7 +630,12 @@ def _finish_filter_batch(group, device) -> None:
 def finish_states_batch(payloads) -> None:
     """The statement finisher: every pending payload of one statement gets
     its survivor mask from one K5 launch and its states from one K6
-    launch. With the process mesh on the statement's device
+    launch. A states working set over the HBM ledger's headroom runs in
+    group-radix passes instead (ops.extsort.region_states_spill, the
+    reference's spill rung, tidb_tpu/copr/columnar_region.py:1400-1450;
+    where the reference lowers argument planes to its host evaluator
+    first, the port cuts them by row on the card). Else, with the process
+    mesh on the statement's device
     (ops.mesh.get_mesh) and no argument planes among the reductions, the
     states are computed on each region's home shard
     (mesh.region_states_sharded, the reference's near-data rung,
@@ -653,6 +658,10 @@ def finish_states_batch(payloads) -> None:
     segs = [(pe.gid, pe.reductions, pe.G, pe.batch.n_rows) for pe in pends]
     if not pends[0].reductions:
         outs = [[] for _ in pends]
+    elif extsort.states_over_headroom(segs):
+        # spilling trumps shard placement: over the HBM headroom the
+        # states run in group-radix passes, argument planes included
+        outs = extsort.region_states_spill(segs, device)
     elif mesh_mod.on_device(mesh, device) and not any(
             getattr(v, "is_arg_plane", False)
             for op, v, _ok in pends[0].reductions):

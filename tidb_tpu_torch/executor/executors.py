@@ -9,12 +9,15 @@ at or above its dispatch floor: a single int64/f64 key straight to K11
 string and multi-column keys through the dictionary tier
 (copr.dictionary) and K13 (dict_remap), then K11 + K12. The pairs come
 back in left-scan order, ties in right-scan order — the row engine's
-emission order — and stay columnar (ops.columnar.DeviceJoinResult): with
-the left scan's client on a mesh of more than one shard the probe is
-sharded (kernels.join_match_pairs with the mesh's shard count, the same
-pairs; the per-shard pair totals go to ops.mesh.stats as the shard
-balance); an aggregate above reads the gathered planes
-(executor.fused_agg), anything else pulls materialized rows.
+emission order — and stay columnar (ops.columnar.DeviceJoinResult). The
+join goes through the budget-aware router (ops.membudget.join_match_pairs,
+the reference's executors.py:1150-1175): within the HBM ledger's headroom
+one K11 + K12, with the left scan's client on a mesh of more than one
+shard the probe sharded (the same pairs; the per-shard pair totals go to
+ops.mesh.stats as the shard balance); over the headroom the key-partitioned
+mesh probe (K21 + K11 + the segmented K12) or grace-hash passes on one
+device. An aggregate above reads the gathered planes (executor.fused_agg),
+anything else pulls materialized rows.
 
 There is no row engine in the port and no floor: every join on the card
 runs the kernels, and with device="cpu" their plain PyTorch versions
@@ -39,7 +42,7 @@ from tidb_tpu_torch import mysqldef as my
 from tidb_tpu_torch.copr import dictionary
 from tidb_tpu_torch.executor import fused_agg
 from tidb_tpu_torch.executor.distsql_exec import Executor
-from tidb_tpu_torch.ops import columnar as col, extsort, kernels
+from tidb_tpu_torch.ops import columnar as col, extsort, kernels, membudget
 from tidb_tpu_torch.ops import mesh as mesh_mod
 from tidb_tpu_torch.ops.client import resolve_device
 from tidb_tpu_torch.ops.exprc import Unsupported
@@ -68,19 +71,19 @@ class HashJoinExec(Executor):
         if device is None:
             device = getattr(client, "device", None)
         self.device = resolve_device(device)
-        self.shards = self._join_shards(client)
+        self.mesh = self._join_mesh(client)
         self.join_stats: dict = {}   # path and per-phase timings
         self._right_width = len(child_right.schema)
         self._vector_tried = False
         self._device = None          # the DeviceJoinResult
         self._vector_iter = None
 
-    def _join_shards(self, client) -> int:
-        """The shard count of the join probe: that of the left scan's
-        client's mesh (GpuClient's own mesh, DistCoprClient's process
-        mesh) where it lies on the join's device, else 1."""
+    def _join_mesh(self, client):
+        """The mesh of the join: the left scan's client's (GpuClient's own
+        mesh, DistCoprClient's process mesh) where it lies on the join's
+        device, else None."""
         mesh = getattr(client, "mesh", None)
-        return mesh.n if mesh_mod.on_device(mesh, self.device) else 1
+        return mesh if mesh_mod.on_device(mesh, self.device) else None
 
     # ---- the sides ----
 
@@ -193,12 +196,11 @@ class HashJoinExec(Executor):
     def _start_device(self, lside, rside, lkey, lvalid, rkey, rvalid,
                       device_keys) -> None:
         stats = self.join_stats
-        li, ri = kernels.join_match_pairs(lkey, lvalid, rkey, rvalid,
-                                          stats=stats,
-                                          device_keys=device_keys,
-                                          device=self.device,
-                                          shards=self.shards)
-        if stats["mesh_shards"] > 1:
+        li, ri = membudget.join_match_pairs(
+            lkey, lvalid, rkey, rvalid, stats=stats,
+            device_keys=device_keys, mesh=self.mesh, device=self.device)
+        if stats.get("mesh_shards", 1) > 1 \
+                and not stats.get("mesh_partitioned"):
             mesh_mod.publish_shard_balance(stats["shard_pairs"])
             mesh_mod.stats["sharded_probes"] += 1
         with kernels.phase("finish", self.device):

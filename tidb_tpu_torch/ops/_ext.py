@@ -30,7 +30,7 @@ SOURCES = ("expr_vm", "scalar_agg", "seg_agg_onehot", "seg_agg_sorted",
            "rank_groups", "distinct_runs", "topk_select", "seg_states_ragged",
            "combine_partials", "join_build", "join_probe", "dict_remap",
            "slot_filter", "slot_agg", "slot_topn", "sort_perm", "window_scan",
-           "delta_merge", "shard_topk")
+           "delta_merge", "shard_topk", "key_partition")
 # -fmad=false: no multiply-add contraction, so every f64 a * b + c rounds
 # twice exactly as the plain versions (and the reference) round it
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -93,7 +93,10 @@ SIGNATURES = {
         "join_probe_blocks": ([_L], _L),
         "join_probe_count_launch": ([_L, _P, _P, _I, _P, _L, _P, _P, _P, _P,
                                      _P, _P], _I),
-        "join_probe_expand_launch": ([_L, _L, _P, _P, _P, _I, _P, _P], _I),
+        "join_probe_count_seg_launch": ([_L, _P, _P, _I, _P, _L, _P, _P, _I,
+                                         _P, _P, _P, _P, _P, _P], _I),
+        "join_probe_expand_launch": ([_L, _L, _P, _P, _P, _P, _I, _P, _P],
+                                     _I),
     },
     "dict_remap": {
         "dict_remap_launch": ([_L, _I, _P, _P, _P, _P], _I),
@@ -126,6 +129,11 @@ SIGNATURES = {
         "delta_merge_blocks": ([_L], _L),
         "delta_merge_launch": ([_L, _P, _P, _P, _L, _P, _L, _P, _P, _P, _P,
                                 _P, _P, _P, _P, _P, _P, _P], _I),
+    },
+    "key_partition": {
+        "key_partition_blocks": ([_L], _L),
+        "key_partition_launch": ([_L, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+                                 _I),
     },
     "shard_topk": {
         "shard_topk_tile": ([], _I),

@@ -1,5 +1,5 @@
-"""The budget-aware external sort (the port of tidb_tpu/ops/extsort.py:
-61-275, the sort part).
+"""The budget-aware external sort and the spilling group-by states (the
+port of tidb_tpu/ops/extsort.py: the sort :61-275, the states :278-524).
 
 `sort_order` is the one sort entry of ORDER BY / TopN over planes and of
 window ordering. Its key planes follow np.lexsort's convention: least
@@ -26,9 +26,24 @@ membudget.MAX_ESCALATIONS faults in a row (no pass finished between them)
 it raises. The reference's last rung, the host
 lexsort after a fault, is not ported (stats["sort_host_rung"] stays
 False).
+
+`region_states_spill` is the states finisher's route when a statement's
+states working set is over the headroom (`states_over_headroom`,
+copr.columnar_region.finish_states_batch): group-radix passes over the
+batched K6 (kernels.region_agg_states_batched), each group in exactly one
+pass, its states scattered straight into the outputs (integer SUM / COUNT
+/ MIN / MAX and f64 MIN / MAX are order-free; float SUM never takes the
+device states). Checkpoints and DeviceOOM escalation as the partitioned
+join's (ops.membudget); a hot single group splits its rows by a salted
+positional hash and merges the chunk states by monoid. Where the
+reference lowers argument-plane programs to its host evaluator before it
+spills (row-aligned planes cannot split by group), the port cuts K5's
+argument planes on the card: one index_select by each pass's rows.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -43,6 +58,17 @@ SORT_DEVICE_FLOOR = 4096
 # working-set model of one pass, per row: each key plane to the card and
 # its scratch (~2x), plus the order words and the int64 permutation
 SORT_SCRATCH_BYTES = 24
+
+# states working-set model per row: each device reduction ships an 8-byte
+# value plane and a 1-byte contrib plane through one segment reduction
+# (~2x), plus the shared 8-byte group-id plane; each segment holds a
+# 16-byte state per reduction
+STATES_ROW_BYTES_PER_SPEC = 17
+STATES_SEG_BYTES_PER_SPEC = 16
+
+# the reference's copr.spill.* counters of the states spill
+spill_stats = {"groupbys": 0, "groupby_passes": 0, "escalations": 0,
+               "checkpoint_hits": 0, "salted_splits": 0}
 
 
 def sort_bytes_estimate(planes, n: int) -> int:
@@ -200,3 +226,230 @@ def _partitioned_sort(planes, n: int, stats: dict | None, device,
         stats["sort_salted"] = salted
         stats["sort_host_rung"] = False
     return order
+
+
+# ---------------------------------------------------------------------------
+# spilling group-by states
+# ---------------------------------------------------------------------------
+
+_ROW_SPACE = ("plane", "pvalid")
+
+
+def states_bytes_estimate(segs) -> int:
+    """Working-set estimate of the batched states launch over `segs`
+    (kernels.region_agg_states_batched's (gid, specs, G, ...) entries):
+    lengths only."""
+    total = 0
+    for gid, specs, g, *_rest in segs:
+        nspecs = max(len(specs), 1)
+        total += len(gid) * (nspecs * STATES_ROW_BYTES_PER_SPEC + 8) \
+            + (int(g) + 1) * nspecs * STATES_SEG_BYTES_PER_SPEC
+    return int(total)
+
+
+def states_over_headroom(segs) -> bool:
+    """A budget and a states working set over the ledger's headroom: the
+    spill trigger, argument planes or not."""
+    if membudget.budget_bytes() <= 0:
+        return False
+    return states_bytes_estimate(segs) > membudget.headroom()
+
+
+def _take(v, rows_d: torch.Tensor):
+    """A spec's value slot restricted to a pass's rows on the card: a
+    values plane, or an argument plane's values and valid."""
+    if v is None:
+        return None
+    if getattr(v, "is_arg_plane", False):
+        cut = copy.copy(v)
+        cut.values = v.values.index_select(0, rows_d)
+        cut.valid = v.valid.index_select(0, rows_d)
+        return cut
+    return v.index_select(0, rows_d)
+
+
+def _sub_segs(segs, gids, luts, rows, n_groups, dev) -> list:
+    """The batched-states input of one pass: each region's rows `rows[r]`,
+    their pass-local group ids and their device reductions."""
+    out = []
+    for r, (_gid, specs, _G, *_rest) in enumerate(segs):
+        rs = rows[r]
+        rows_d = torch.from_numpy(rs).to(dev)
+        sub = [(op, _take(v, rows_d), np.asarray(ok, bool)[rs])
+               for op, v, ok in specs if op not in _ROW_SPACE]
+        out.append((luts[r][gids[r][rs]], sub, n_groups[r], len(rs)))
+    return out
+
+
+def _states_pass(segs, device, nbytes: int) -> list:
+    """One batched K6 launch under a reservation; the card running out of
+    memory anywhere in it raises DeviceOOM."""
+    with membudget.reserve(nbytes, "states_pass"):
+        try:
+            return kernels.region_agg_states_batched(segs, device)
+        except torch.cuda.OutOfMemoryError as e:
+            raise kernels.device_oom("states pass", e) from e
+
+
+def region_states_spill(segs, device, stats: dict | None = None) -> list:
+    """kernels.region_agg_states_batched(segs, device), in group-radix
+    passes: the same outputs (outs[r], one array per spec: [G_r] states,
+    or [cap_r] for the row-space plane / pvalid readbacks, which are read
+    once, outside the passes), with a bounded working set a pass.
+
+    Groups split by splitmix64 over the dense group index
+    (membudget.partition_codes), so each group's rows run in one pass;
+    completed partitions checkpoint across DeviceOOM escalations (P x 2,
+    only unfinished groups replayed); a partition of one hot group over
+    the pass target splits its rows by a salted positional hash. More than
+    MAX_ESCALATIONS rounds with a fault, or P past MAX_PARTITIONS, raise;
+    any other DeviceError raises at once."""
+    dev = torch.device(device)
+    nregions = len(segs)
+    gids = [np.asarray(g, np.int64) for g, *_rest in segs]
+    caps = [int(g) for _g, _s, g, *_rest in segs]
+    dspecs = [j for j, (op, _v, _ok) in enumerate(segs[0][1])
+              if op not in _ROW_SPACE]
+    nspecs = max(len(dspecs), 1)
+    budget = membudget.budget_bytes()
+    target = _pass_target(budget)
+    parts = membudget.MIN_PARTITIONS
+    est = states_bytes_estimate(segs)
+    while parts < membudget.MAX_PARTITIONS and est // parts > target:
+        parts *= 2
+    spill_stats["groupbys"] += 1
+    outs = []
+    for r, (_g, specs, _G, *_rest) in enumerate(segs):
+        row = []
+        for op, v, ok in specs:
+            if op == "plane":
+                row.append(v.values.cpu().numpy().astype(np.float64))
+            elif op == "pvalid":
+                row.append(np.asarray(ok, bool) & v.valid.cpu().numpy())
+            else:
+                row.append(None)
+        outs.append(row)
+    done = [np.zeros(g, bool) for g in caps]
+    passes = escalations = salted = 0
+    if stats is not None:
+        stats["spilled"] = True
+    while True:
+        with kernels.phase("host_spill_partition", dev):
+            codes = [membudget.partition_codes(
+                np.arange(g, dtype=np.int64), np.ones(g, bool), parts)
+                for g in caps]
+        fault = None
+        completed = 0
+        for p in range(parts):
+            gsel = [np.flatnonzero((codes[r] == p) & ~done[r])
+                    for r in range(nregions)]
+            n_groups = [len(g) for g in gsel]
+            if not sum(n_groups):
+                continue
+            luts, rows = [], []
+            with kernels.phase("host_spill_partition", dev):
+                for r in range(nregions):
+                    lut = np.full(caps[r] + 1, n_groups[r], np.int64)
+                    lut[gsel[r]] = np.arange(n_groups[r], dtype=np.int64)
+                    luts.append(lut)
+                    rows.append(np.flatnonzero(lut[gids[r]] < n_groups[r]))
+            pass_rows = sum(len(rs) for rs in rows)
+            pass_est = pass_rows * (nspecs * STATES_ROW_BYTES_PER_SPEC + 8) \
+                + sum(n_groups) * nspecs * STATES_SEG_BYTES_PER_SPEC
+            try:
+                if pass_est > target and max(n_groups) <= 1 \
+                        and pass_rows >= 2:
+                    # one group per region: radix cannot split it
+                    chunk_outs = _salted_states_chunks(
+                        segs, gids, luts, rows, n_groups, pass_est, target,
+                        escalations, dev)
+                    salted += 1
+                    spill_stats["salted_splits"] += 1
+                    passes += len(chunk_outs)
+                    merged = _merge_states_chunks(segs, dspecs, n_groups,
+                                                  chunk_outs)
+                else:
+                    merged = _states_pass(
+                        _sub_segs(segs, gids, luts, rows, n_groups, dev),
+                        dev, pass_est)
+                    passes += 1
+            except errors.DeviceOOM as e:
+                fault = e
+                continue
+            for r in range(nregions):
+                for k, j in enumerate(dspecs):
+                    if outs[r][j] is None:
+                        outs[r][j] = np.zeros(
+                            caps[r], np.asarray(merged[r][k]).dtype)
+                    outs[r][j][gsel[r]] = merged[r][k]
+                done[r][gsel[r]] = True
+            completed += 1
+        if fault is None:
+            break
+        escalations += 1
+        spill_stats["escalations"] += 1
+        spill_stats["checkpoint_hits"] += completed
+        if escalations > membudget.MAX_ESCALATIONS \
+                or parts * 2 > membudget.MAX_PARTITIONS:
+            raise fault
+        parts *= 2
+    spill_stats["groupby_passes"] += passes
+    for r in range(nregions):
+        for j in dspecs:
+            if outs[r][j] is None:      # a region without a group
+                outs[r][j] = np.zeros(0, np.int64)
+    if stats is not None:
+        stats["states_passes"] = passes
+        stats["states_partitions"] = parts
+        stats["states_escalations"] = escalations
+        stats["states_salted"] = salted
+    return outs
+
+
+def _salted_states_chunks(segs, gids, luts, rows, n_groups, pass_est: int,
+                          target: int, escalations: int, dev) -> list:
+    """One hot-group pass as salted row chunks: rows split by splitmix64
+    over their salted positions, order-free because every device states
+    op is a commutative monoid. Returns each chunk's batched-states
+    output."""
+    chunks = min(max(2, -(-pass_est // target)) << escalations,
+                 membudget.MAX_SALTED_CHUNKS)
+    salt = np.int64(0x5D4)    # decorrelated from the group radix
+    hashed = [membudget.partition_codes(np.bitwise_xor(rs, salt),
+                                        np.ones(len(rs), bool), chunks)
+              for rs in rows]
+    chunk_outs = []
+    for c in range(chunks):
+        crows = [rs[h == c] for rs, h in zip(rows, hashed)]
+        if not any(len(x) for x in crows):
+            continue
+        chunk_outs.append(_states_pass(
+            _sub_segs(segs, gids, luts, crows, n_groups, dev), dev,
+            max(pass_est // chunks, 1)))
+    return chunk_outs
+
+
+def _merge_states_chunks(segs, dspecs, n_groups, chunk_outs) -> list:
+    """The chunks' partial states combined by monoid: sums and counts add
+    (wrapping), minima np.minimum, maxima np.maximum; an empty chunk holds
+    the identities."""
+    merged = []
+    for r in range(len(segs)):
+        row = []
+        for k, j in enumerate(dspecs):
+            op = segs[r][1][j][0]
+            acc = None
+            for co in chunk_outs:
+                part = np.asarray(co[r][k])
+                if acc is None:
+                    acc = part.copy()
+                elif op == "min":
+                    acc = np.minimum(acc, part)
+                elif op == "max":
+                    acc = np.maximum(acc, part)
+                else:
+                    acc = acc + part
+            row.append(np.zeros(n_groups[r], np.int64) if acc is None
+                       else acc)
+        merged.append(row)
+    return merged

@@ -48,6 +48,14 @@ partials in its own block) and K7 over the shard axis
 first k rows with their order words, one launch), and the host merges the
 S * k candidates (`merge_topn_partials`).
 
+The key-partitioned join probe of a mesh (ops.mesh.join_probe_partitioned)
+runs K21 (`key_partition`: each side's stable partition-major gather index
+by splitmix64 key radix, and the partition offsets) once per side, K11
+over the partition-major build rows sorted within each partition
+(`join_build_partitioned`), and K12 in its partition-segmented mode
+(`join_probe_partitioned`: each probe row searches its own partition's
+build range).
+
 A cluster scan that merges a cached base batch with its region's delta
 (copr.delta) runs K19 (`delta_merge_order`: the tombstone mask and the
 handle-ordered merge of the kept base rows and the appended rows, a merge
@@ -109,7 +117,7 @@ LAUNCHES = {"expr_vm": 0, "scalar_agg": 0, "seg_agg_onehot": 0,
             "join_build": 0, "join_probe": 0, "dict_remap": 0,
             "slot_filter": 0, "slot_agg": 0, "slot_topn": 0,
             "sort_perm": 0, "window_scan": 0, "delta_merge_order": 0,
-            "shard_topk": 0}
+            "shard_topk": 0, "key_partition": 0, "join_probe_seg": 0}
 
 # K14 / K15 read each row's planes once into a table of this many entries
 # (ops/csrc/vm.cuh VM_ROW_PLANES); K15 folds at most SLOT_MAX_REDS
@@ -1244,6 +1252,16 @@ def join_build(rkey: torch.Tensor, rvalid: torch.Tensor) -> tuple:
     if n == 0:
         empty = torch.empty(0, dtype=torch.int64, device=dev)
         return empty, empty
+    words, rows = _k11_compact(rkey, rvalid)
+    sorted_words, perm = torch.sort(words, stable=True)
+    return sorted_words, rows[perm]
+
+
+def _k11_compact(rkey: torch.Tensor, rvalid: torch.Tensor) -> tuple:
+    """K11's launch over n >= 1 checked card planes: the valid rows' order
+    words and rows, in row order."""
+    dev = rvalid.device
+    n = rvalid.shape[0]
     lib = _ext.lib("join_build")
     nb = lib.join_build_blocks(n)
     totals = torch.empty(nb, dtype=torch.int64, device=dev)
@@ -1252,14 +1270,14 @@ def join_build(rkey: torch.Tensor, rvalid: torch.Tensor) -> tuple:
     words = torch.empty(n, dtype=torch.int64, device=dev)
     rows = torch.empty(n, dtype=torch.int64, device=dev)
     rc = lib.join_build_launch(
-        n, rkey.data_ptr(), rvalid.data_ptr(), int(rkey.dtype == torch.float64),
+        n, rkey.data_ptr(), rvalid.data_ptr(),
+        int(rkey.dtype == torch.float64),
         totals.data_ptr(), offs.data_ptr(), n_valid.data_ptr(),
         words.data_ptr(), rows.data_ptr(), _stream(dev))
     _ext.check(rc, "join_build")
     LAUNCHES["join_build"] += 1
     nv = int(n_valid.item())
-    sorted_words, perm = torch.sort(words[:nv], stable=True)
-    return sorted_words, rows[:nv][perm]
+    return words[:nv], rows[:nv]
 
 
 def join_probe_plain(words, order, lkey, lvalid) -> torch.Tensor:
@@ -1325,7 +1343,7 @@ def join_probe(words: torch.Tensor, order: torch.Tensor, lkey: torch.Tensor,
     if total:
         rc = lib.join_probe_expand_launch(
             total, nl, lo.data_ptr(), offs.data_ptr(), order.data_ptr(),
-            int(narrow), out.data_ptr(), _stream(dev))
+            None, int(narrow), out.data_ptr(), _stream(dev))
         _ext.check(rc, "join_probe expand")
     return out.view(2, total), np.diff(starts)
 
@@ -1347,8 +1365,10 @@ def join_match_pairs(lkey, lvalid, rkey, rvalid, stats: dict | None = None,
     shard_pairs (the pairs of each block)."""
     if device_keys is None:
         dev = _device(device)
-        device_keys = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                            for a in (lkey, lvalid, rkey, rvalid))
+        with phase("h2d", dev):
+            device_keys = tuple(
+                torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in (lkey, lvalid, rkey, rvalid))
     lk, lv, rk, rv = device_keys
     dev = lv.device
     if lk.dtype != rk.dtype:
@@ -1378,6 +1398,208 @@ def join_match_pairs(lkey, lvalid, rkey, rvalid, stats: dict | None = None,
         stats["probe_s"] = time.perf_counter() - t1
         stats["n_pairs"] = len(l_idx)
     return l_idx, r_idx
+
+
+# ---------------------------------------------------------------------------
+# the key-partitioned probe: K21 key_partition, K11 within partitions, K12
+# in its partition-segmented mode, and their plain versions
+# ---------------------------------------------------------------------------
+
+# the most partitions K21 takes (ops/csrc/key_partition.cu K21_MAX_PARTS)
+KEY_PARTITIONS_MAX = 1024
+
+_M1, _M2, _M3 = (np.uint64(c).astype(np.int64).item() for c in (
+    0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB))
+
+
+def _shr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bits."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def partition_codes_t(key: torch.Tensor, valid: torch.Tensor,
+                      parts: int) -> torch.Tensor:
+    """The radix partition of each row (int64 [n], the reference's
+    membudget.partition_codes): ops.mesh._mix64 (splitmix64) over the key's
+    int64 image (f64: its bits, -0.0 made +0.0) modulo parts, in wrapping
+    int64 arithmetic; NULL rows in partition 0."""
+    if key.dtype == torch.float64:
+        x = torch.where(key == 0.0, torch.zeros_like(key), key) \
+            .view(torch.int64)
+    else:
+        x = key.to(torch.int64)
+    x = x + _M1
+    x = (x ^ _shr(x, 30)) * _M2
+    x = (x ^ _shr(x, 27)) * _M3
+    x = x ^ _shr(x, 31)
+    # the unsigned remainder: u = 2 * (u >> 1) + (u & 1)
+    part = (2 * (_shr(x, 1) % parts) + (x & 1)) % parts
+    return torch.where(valid, part, torch.zeros_like(part))
+
+
+def key_partition_plain(key: torch.Tensor, valid: torch.Tensor,
+                        parts: int) -> tuple:
+    codes = partition_codes_t(key, valid, parts)
+    sel = torch.sort(codes, stable=True).indices
+    counts = torch.bincount(codes, minlength=parts)
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    return sel, offsets
+
+
+def key_partition(key: torch.Tensor, valid: torch.Tensor,
+                  parts: int) -> tuple:
+    """K21: (sel int64[n], offsets int64[parts + 1]) — the rows in
+    partition-major order, stable (rows of a partition in row order), and
+    where each partition starts; a row's partition is
+    membudget.partition_codes of its key."""
+    if not 1 <= parts <= KEY_PARTITIONS_MAX:
+        raise errors.DeviceError(f"{parts} partitions (1 to "
+                                 f"{KEY_PARTITIONS_MAX})")
+    if _device_kind(valid) == "cpu":
+        return key_partition_plain(key, valid, parts)
+    dev = valid.device
+    n = valid.shape[0]
+    _check_plane(key, n, (torch.int64, torch.float64), "partition key", dev)
+    _check_plane(valid, n, (torch.bool,), "partition valid", dev)
+    sel = torch.empty(n, dtype=torch.int64, device=dev)
+    offsets = torch.zeros(parts + 1, dtype=torch.int64, device=dev)
+    if n == 0:
+        return sel, offsets
+    lib = _ext.lib("key_partition")
+    nb = lib.key_partition_blocks(n)
+    hist = torch.empty(parts * nb, dtype=torch.int64, device=dev)
+    offs = torch.empty(parts * nb, dtype=torch.int64, device=dev)
+    rc = lib.key_partition_launch(
+        n, key.data_ptr(), valid.data_ptr(), int(key.dtype == torch.float64),
+        parts, hist.data_ptr(), offs.data_ptr(), sel.data_ptr(),
+        offsets.data_ptr(), _stream(dev))
+    _ext.check(rc, "key_partition")
+    LAUNCHES["key_partition"] += 1
+    return sel, offsets
+
+
+def _segment_sort(words: torch.Tensor, rows: torch.Tensor,
+                  offsets: torch.Tensor) -> tuple:
+    """Compacted valid build rows (their words, their partition-major
+    positions ascending) sorted by word within each partition, stably:
+    (words, rows, bounds int64[P + 1], partition p's range)."""
+    part = torch.searchsorted(offsets, rows, right=True) - 1
+    perm, _last = lexsort([words, part])
+    bounds = torch.searchsorted(rows, offsets)
+    return words[perm], rows[perm], bounds
+
+
+def join_build_partitioned_plain(rkey: torch.Tensor, rvalid: torch.Tensor,
+                                 offsets: torch.Tensor) -> tuple:
+    rows = torch.nonzero(rvalid).squeeze(1)
+    return _segment_sort(orderable(rkey)[rows], rows, offsets)
+
+
+def join_build_partitioned(rkey: torch.Tensor, rvalid: torch.Tensor,
+                           offsets: torch.Tensor) -> tuple:
+    """K11 over partition-major build planes (K21's layout, `offsets` its
+    partition starts): (words, order, bounds) — the valid rows' order words
+    sorted within each partition, stably; each word's row (a position in
+    the partition-major planes); partition p's words at [bounds[p],
+    bounds[p + 1]). The compaction is K11's launch; the order within the
+    partitions two stable torch.sorts (by word, then by partition), the
+    building block K11 itself uses."""
+    if _device_kind(rvalid) == "cpu":
+        return join_build_partitioned_plain(rkey, rvalid, offsets)
+    dev = rvalid.device
+    n = rvalid.shape[0]
+    _check_plane(rkey, n, (torch.int64, torch.float64), "build key", dev)
+    _check_plane(rvalid, n, (torch.bool,), "build valid", dev)
+    if n == 0:
+        empty = torch.empty(0, dtype=torch.int64, device=dev)
+        return empty, empty, torch.zeros_like(offsets)
+    words, rows = _k11_compact(rkey, rvalid)
+    return _segment_sort(words, rows, offsets)
+
+
+def join_probe_partitioned_plain(words, order, bounds, lkey, lvalid, loff,
+                                 lsel) -> tuple:
+    n = lkey.shape[0]
+    P = loff.shape[0] - 1
+    lw = orderable(lkey)
+    lo = torch.zeros(n, dtype=torch.int64, device=lkey.device)
+    cnt = torch.zeros(n, dtype=torch.int64, device=lkey.device)
+    lb, bb = loff.tolist(), bounds.tolist()
+    for p in range(P):
+        a, b = lb[p], lb[p + 1]
+        if a == b:
+            continue
+        seg = words[bb[p]:bb[p + 1]]
+        lo[a:b] = torch.searchsorted(seg, lw[a:b]) + bb[p]
+        hi = torch.searchsorted(seg, lw[a:b], right=True) + bb[p]
+        cnt[a:b] = torch.where(lvalid[a:b], hi - lo[a:b],
+                               torch.zeros_like(hi))
+    li = torch.repeat_interleave(
+        torch.arange(n, dtype=torch.int64, device=lkey.device), cnt)
+    starts = torch.cumsum(cnt, 0) - cnt
+    within = torch.arange(li.shape[0], dtype=torch.int64,
+                          device=lkey.device) - starts[li]
+    ends = torch.cat([cnt.new_zeros(1), torch.cumsum(cnt, 0)])[loff]
+    return (torch.stack([lsel[li], order[lo[li] + within]]),
+            torch.diff(ends).cpu().numpy())
+
+
+def join_probe_partitioned(words: torch.Tensor, order: torch.Tensor,
+                           bounds: torch.Tensor, lkey: torch.Tensor,
+                           lvalid: torch.Tensor, loff: torch.Tensor,
+                           lsel: torch.Tensor) -> tuple:
+    """K12 in its partition-segmented mode: (pairs, totals). The probe
+    planes are partition-major (K21's layout, `loff` the partition starts,
+    `lsel` the global row of each position); probe position i of
+    partition p searches only p's build words [bounds[p], bounds[p + 1]).
+    pairs [2, total]: (global left row lsel[i], right row order[k]) of
+    every match, in partition-major probe order with ties in the order
+    `order` gives; int32 on the card when both sides are shorter than
+    2^31, else int64. totals: host int64[P], the pairs of each partition,
+    read off the count pass."""
+    P = loff.shape[0] - 1
+    if _device_kind(lvalid) == "cpu":
+        return join_probe_partitioned_plain(words, order, bounds, lkey,
+                                            lvalid, loff, lsel)
+    dev = lvalid.device
+    nl, nv = lvalid.shape[0], words.shape[0]
+    _check_plane(lkey, nl, (torch.int64, torch.float64), "probe key", dev)
+    _check_plane(lvalid, nl, (torch.bool,), "probe valid", dev)
+    _check_plane(lsel, nl, (torch.int64,), "probe rows", dev)
+    _check_plane(words, nv, (torch.int64,), "build words", dev)
+    _check_plane(order, nv, (torch.int64,), "build order", dev)
+    _check_plane(loff, P + 1, (torch.int64,), "probe offsets", dev)
+    _check_plane(bounds, P + 1, (torch.int64,), "build bounds", dev)
+    narrow = nl < (1 << 31) and nv < (1 << 31)
+    dt = torch.int32 if narrow else torch.int64
+    if nl == 0:
+        return (torch.empty((2, 0), dtype=dt, device=dev),
+                np.zeros(P, np.int64))
+    lib = _ext.lib("join_probe")
+    nb = lib.join_probe_blocks(nl)
+    lo = torch.empty(nl, dtype=torch.int64, device=dev)
+    offs = torch.empty(nl, dtype=torch.int64, device=dev)
+    totals = torch.empty(nb, dtype=torch.int64, device=dev)
+    block_off = torch.empty(nb, dtype=torch.int64, device=dev)
+    total_d = torch.empty(1, dtype=torch.int64, device=dev)
+    rc = lib.join_probe_count_seg_launch(
+        nl, lkey.data_ptr(), lvalid.data_ptr(),
+        int(lkey.dtype == torch.float64), words.data_ptr(), nv,
+        loff.data_ptr(), bounds.data_ptr(), P, lo.data_ptr(),
+        offs.data_ptr(), totals.data_ptr(), block_off.data_ptr(),
+        total_d.data_ptr(), _stream(dev))
+    _ext.check(rc, "join_probe segmented")
+    LAUNCHES["join_probe_seg"] += 1
+    # each partition's first offset, and the exact total beside them
+    starts = torch.cat([offs, total_d])[loff].cpu().numpy()
+    total = int(starts[-1])
+    out = torch.empty(2 * total, dtype=dt, device=dev)
+    if total:
+        rc = lib.join_probe_expand_launch(
+            total, nl, lo.data_ptr(), offs.data_ptr(), order.data_ptr(),
+            lsel.data_ptr(), int(narrow), out.data_ptr(), _stream(dev))
+        _ext.check(rc, "join_probe segmented expand")
+    return out.view(2, total), np.diff(starts)
 
 
 # K13 per-column modes: the contract with ops/csrc/dict_remap.cu

@@ -39,9 +39,18 @@ where there is none it is None, and a CPU mesh exists only through
 `set_mesh`. The reference degrades a faulted mesh rung to the next rung;
 the port raises DeviceError (it has no lower rung to hide a fault in).
 
-`combine_rows_sharded` (:290-432) and `join_probe_partitioned`
-(:756-911) wait for their callers (plain region scans and the
-partitioned out-of-core joins).
+- `join_probe_partitioned` (:792-911 with _partitioned_probe_fn :756):
+  the key-partitioned probe of the out-of-core joins (membudget.
+  join_match_pairs over the headroom on a mesh of S > 1 shards). Shard s
+  owns key partition s of both sides: K21 lays each side out
+  partition-major on the card (no padded blocks), K11 builds every
+  partition's sorted words (no replicated build side), the segmented K12
+  probes each row against its own partition only, with per-partition pair
+  totals from the count pass (no out_cap, no retry), and K17 merges the
+  pairs stably by global left row.
+
+`combine_rows_sharded` (:290-432) waits for its caller (the region combine
+of the cluster joins).
 """
 
 from __future__ import annotations
@@ -62,10 +71,12 @@ _placements: dict = {}    # id(mesh) -> RegionPlacement
 
 # dispatches / shard_rows_*: the last shard layout's balance (skew =
 # max / mean); near_data_*: region_states_sharded's launches, regions and
-# rows; sharded_probes: the join probes sharded over more than one shard
+# rows; sharded_probes: the join probes sharded over more than one shard;
+# partitioned_probes: the key-partitioned probes
 stats = {"dispatches": 0, "shard_rows_max": 0, "shard_rows_mean": 0.0,
          "shard_skew": 0.0, "near_data_dispatches": 0,
-         "near_data_regions": 0, "near_data_rows": 0, "sharded_probes": 0}
+         "near_data_regions": 0, "near_data_rows": 0, "sharded_probes": 0,
+         "partitioned_probes": 0}
 
 
 def set_enabled(enabled: bool) -> None:
@@ -367,3 +378,56 @@ def region_states_sharded(mesh, segs: list, region_ids=None,
                      if op in kernels.F_OPS else host[j, base:base + Gs[r]])
                     .copy() for j, op in enumerate(reds)])
     return res
+
+
+# ---------------------------------------------------------------------------
+# the key-partitioned join probe: shard s owns key partition s of both sides
+# ---------------------------------------------------------------------------
+
+def join_probe_partitioned(mesh, device_keys: tuple,
+                           join_stats: dict | None = None) -> tuple:
+    """(l_idx, r_idx) int64 numpy pairs in left-scan order, ties in
+    right-scan order: the pairs of kernels.join_match_pairs, each shard
+    building and probing only its own key partition (splitmix64 key radix
+    modulo S, membudget.partition_codes). The keys come as `device_keys`
+    = (lkey, lvalid, rkey, rvalid) on the mesh's device (the router
+    uploads host planes); `join_stats` gets mesh_partitioned,
+    mesh_shards, passes and partitions (S each), shard_pairs and n_pairs.
+    Any fault raises: a memory fault as DeviceOOM, as the reference's
+    typed DeviceError, which its router degrades to the replicated probe
+    and the port's does not."""
+    S = mesh.n
+    dev = mesh.device
+    try:
+        lk, lv, rk, rv = device_keys
+        if lk.dtype != rk.dtype:
+            raise errors.DeviceError(f"join keys of {lk.dtype} and "
+                                     f"{rk.dtype}")
+        with kernels.phase("k21", dev):
+            l_sel, l_off = kernels.key_partition(lk, lv, S)
+            r_sel, r_off = kernels.key_partition(rk, rv, S)
+        with kernels.phase("k11", dev):
+            words, rows, bounds = kernels.join_build_partitioned(
+                rk.index_select(0, r_sel), rv.index_select(0, r_sel), r_off)
+            order = r_sel.index_select(0, rows)
+        with kernels.phase("k12", dev):
+            pairs, totals = kernels.join_probe_partitioned(
+                words, order, bounds, lk.index_select(0, l_sel),
+                lv.index_select(0, l_sel), l_off, l_sel)
+        n = pairs.shape[1]
+        with kernels.phase("k17", dev):
+            # each left row's pairs lie in its partition, in right-scan
+            # order: a stable sort by left row is the single-pass order
+            if n > 1:
+                pairs = pairs.index_select(
+                    1, kernels.sort_perm([pairs[0]], n))
+        with kernels.phase("pairs_readback", dev):
+            host = pairs.cpu().numpy()
+    except torch.cuda.OutOfMemoryError as e:
+        raise kernels.device_oom("key-partitioned probe", e) from e
+    publish_shard_balance(totals)
+    stats["partitioned_probes"] += 1
+    if join_stats is not None:
+        join_stats.update(mesh_partitioned=True, mesh_shards=S, passes=S,
+                          partitions=S, shard_pairs=totals, n_pairs=n)
+    return host[0].astype(np.int64), host[1].astype(np.int64)
