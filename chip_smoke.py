@@ -148,7 +148,22 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    lengths no multiple of a tile, a build side with no valid row), timed
    (median of 20 CUDA-event runs) beside their bounds, K21 beside a stable
    torch.sort of the partition ids.
-13. A JSON line of per-kernel numbers, the nvidia-smi line, and last
+13. Phase L, the cluster joins (slice 10), after K and before I: Phase
+   F's lineitem, orders and partsupp in 8 regions each (prio in one),
+   admitted pinned into one DistStore; tpch.JOINS through XSelectTableExec
+   over its DistCoprClient (one K1 per region, the answers stacked into a
+   ColumnarPartialSet), HashJoinExec and HashAggExec, whose fused
+   aggregate combines the regions' partial states three ways: on the
+   default one-shard mesh (row 15f: one K6 span), on CoprMesh([cuda:0] *
+   8) (row 15f: K6 over the shard layout, K7's shard fold) and with the
+   mesh off (one K6 span, no fold); each run equal to numpy and to Phase
+   F's in-process answer, its launches counted, its time (host clock,
+   median of 3) and split; row 15f at f1_q3_join's 8-shard shape against
+   its plain version bit for bit, timed (median of 20 CUDA-event runs)
+   beside its bytes bound and a scatter_reduce_ yardstick; and the f64
+   +-inf identity of K2, K3, K4, K6 (both routes), K7, row 15c, row 15f
+   and K15 against numpy.
+14. A JSON line of per-kernel numbers, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
 Any failure raises: no phase catches its own failure.
@@ -250,6 +265,9 @@ KERNELS = {
                       "tidb_tpu/ops/mesh.py:756"),
     "join_probe_seg": ("tidb_tpu_torch/ops/csrc/join_probe.cu",
                        "tidb_tpu/ops/mesh.py:756"),
+    # row 15f: K6 over the shard layout, then K7's shard fold
+    "combine_rows_sharded": ("tidb_tpu_torch/ops/csrc/seg_states_ragged.cu",
+                             "tidb_tpu/ops/mesh.py:290"),
 }
 # K6 has two routes, each counted: spans within its shared-memory limit
 # (seg_states_ragged) and larger ones (seg_states_ragged_sorted)
@@ -3848,6 +3866,429 @@ def phase_k(joins: tuple, batch, d_store: DistStore, d_data: dict, device,
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase L: the cluster joins at SF1 (slice 10)
+# ---------------------------------------------------------------------------
+
+L_REGIONS = 8
+# the lineitem columns the join statements read; the other tables whole
+L_LINEITEM_CIDS = [tpch.C_ORDERKEY, tpch.C_PARTKEY, tpch.C_SUPPKEY,
+                   tpch.C_FDISCOUNT, tpch.C_SHIPDATE]
+L_RUNGS = ("one_shard", "mesh8", "mesh_off")
+
+
+def l_store(tables: dict, device) -> tuple:
+    """A DistStore holding lineitem, orders and partsupp in 8 regions each
+    (TiKV's 96 MiB regions at SF1) and prio in one, with the region
+    batches built straight from the arrays: (store, {table id: batches})."""
+    splits, batches = [], {}
+    for tid in (tpch.TABLE_ID, tpch.ORDERS_ID, tpch.PARTSUPP_ID,
+                tpch.PRIO_ID):
+        spec, words = tpch.JOIN_TABLES[tid]
+        arrays = tables[tid]
+        n = next(iter(arrays.values())).shape[0]
+        cids = L_LINEITEM_CIDS if tid == tpch.TABLE_ID else sorted(spec)
+        bounds = tpch.region_bounds(n, 1 if tid == tpch.PRIO_ID
+                                    else L_REGIONS)
+        splits.append(tc.encode_record_range(tid)[0])
+        splits += [tc.encode_row_key(tid, lo + 1) for lo, _hi in bounds[1:]]
+        batches[tid] = [tpch.table_batch(spec, arrays, cids, words, lo, hi)
+                        for lo, hi in bounds]
+    store = DistStore([], sorted(splits), device,
+                      plane_cache=PlaneCache(device=device))
+    return store, batches
+
+
+def l_admit(store: DistStore, sel: SelectRequest, batches: list) -> None:
+    """Admit the table's region batches, pinned, under the plane-cache
+    keys the region handler computes for `sel` (the regions the table's
+    range crosses, in order)."""
+    req = tpch.store_request(sel)
+    version = store.data_version_at(
+        sel.start_ts, tc.table_prefix(sel.table_info.table_id))
+    left = list(batches)
+    for region in store.cluster.regions:
+        ranges = clip_ranges(region, req.key_ranges)
+        if ranges:
+            need(bool(left), "phase L: more regions than batches")
+            key = columnar_region.cache_key(region.region_id, sel, ranges)
+            store.plane_cache.insert(key, region.epoch(), version,
+                                     left.pop(0))
+    need(not left, "phase L: a batch with no region")
+
+
+def l_statement(store: DistStore, name: str) -> tuple:
+    """(HashJoinExec, HashAggExec) of a join statement over the store:
+    two XSelectTableExec scans through its DistCoprClient."""
+    left, right, plan, aggs, group_by = tpch.join_statement(name)
+    kids = [XSelectTableExec(store.get_client(), sel,
+                             tpch.store_request(sel).key_ranges)
+            for sel in (left, right)]
+    join = HashJoinExec(kids[0], kids[1], plan)
+    return join, HashAggExec(join, aggs, group_by)
+
+
+def l_rung(rung: str, mesh8) -> None:
+    """Set the process mesh for one way of running the statements."""
+    mesh_mod.set_mesh(mesh8 if rung == "mesh8" else None)
+    mesh_mod.set_enabled(rung != "mesh_off")
+
+
+# the kernels row 15f launches: K6 (either route) and K7's shard fold
+L_15F_KERNELS = ("seg_states_ragged", "seg_states_ragged_sorted",
+                 "combine_partials")
+
+
+class LCapture:
+    """Keeps the arguments of the 8-shard combine_rows_sharded calls, by
+    the statement (`current`) that made them, and counts the launches
+    made inside every combine_rows_sharded call (`launches`: the K6 and
+    K7 counts of kernels.LAUNCHES, which their wrappers add where they
+    launch)."""
+
+    def __init__(self):
+        self.calls = {}
+        self.current = None
+        self.launches = 0
+        self._orig = mesh_mod.combine_rows_sharded
+
+    def __enter__(self):
+        def rec(mesh, specs, gid, G, slices, region_ids=None, epochs=None,
+                plain=False):
+            if mesh.n > 1 and not plain:
+                self.calls.setdefault(self.current, (
+                    mesh, specs, gid, G, slices, region_ids, epochs))
+            before = sum(kernels.LAUNCHES[k] for k in L_15F_KERNELS)
+            out = self._orig(mesh, specs, gid, G, slices, region_ids,
+                             epochs, plain)
+            self.launches += sum(kernels.LAUNCHES[k]
+                                 for k in L_15F_KERNELS) - before
+            return out
+        mesh_mod.combine_rows_sharded = rec
+        return self
+
+    def __exit__(self, *exc):
+        mesh_mod.combine_rows_sharded = self._orig
+
+
+def l_inf_specs(seed: int) -> tuple:
+    """(specs, gid, G, slices, region ids) over 6 regions with empty
+    groups, a group of only -2^63, one of only +inf and one of only -inf
+    (the row 15f edge case)."""
+    rng = np.random.default_rng(seed)
+    lens = [3701, 0, 21011, 517, 9623, 14001]
+    n, G = sum(lens), 2003
+    gid = rng.integers(0, G - 3, n).astype(np.int64)
+    iv = rng.integers(-(1 << 40), 1 << 40, n).astype(np.int64)
+    fv = rng.integers(-800, 800, n) * 0.25
+    ok = rng.random(n) > 0.15
+    for g in (3, 5, 6):
+        gid[gid == g] = 7
+    gid[:3], iv[:3] = 3, -(1 << 63)
+    gid[3:9] = [5, 5, 5, 6, 6, 6]
+    fv[3:9] = [np.inf] * 3 + [-np.inf] * 3
+    ok[:9] = True
+    specs = [("sum", None, ok), ("sum", iv, ok), ("min", iv, ok),
+             ("max", iv, ok), ("min", fv, ok), ("max", fv, ok)]
+    cuts = np.concatenate([[0], np.cumsum(lens)])
+    return (specs, gid, G, [(int(a), int(b)) for a, b in
+                            zip(cuts[:-1], cuts[1:])],
+            [11, 3, 250, 7, 64, 1000])
+
+
+def l_numpy_states(specs, gid, G) -> list:
+    out = []
+    for op, vals, ok in specs:
+        if vals is None:
+            out.append(np.bincount(gid[ok], minlength=G).astype(np.int64))
+            continue
+        f = vals.dtype == np.float64
+        if op == "sum":
+            acc = np.zeros(G, vals.dtype)
+            np.add.at(acc, gid[ok], vals[ok])
+        elif op == "min":
+            acc = np.full(G, np.inf if f else (1 << 63) - 1, vals.dtype)
+            np.minimum.at(acc, gid[ok], vals[ok])
+        else:
+            acc = np.full(G, -np.inf if f else -(1 << 63), vals.dtype)
+            np.maximum.at(acc, gid[ok], vals[ok])
+        out.append(acc)
+    return out
+
+
+def l_same_states(got: list, want: list, what: str) -> None:
+    for j, (g, w) in enumerate(zip(got, want)):
+        g, w = np.asarray(g), np.asarray(w)
+        need(g.dtype == w.dtype and g.shape == w.shape
+             and np.array_equal(g.view(np.int64), w.view(np.int64)),
+             f"{what}: state {j} differs from numpy")
+
+
+def l_inf_edges(device, mesh8) -> int:
+    """The f64 extremum identity on the card: K2, K3, K4, K6 (both
+    routes), K7, the sharded states combine (row 15c), row 15f and K15
+    over groups made only of +inf (MIN) or -inf (MAX), against numpy.
+    Returns the number of checks."""
+    rng = np.random.default_rng(77)
+    n = 200_003
+    gid = rng.integers(3, 90, n).astype(np.int64)
+    f = rng.integers(-80, 80, n) * 0.5
+    gid[:6] = [0, 0, 0, 1, 1, 1]
+    f[:6] = [np.inf] * 3 + [-np.inf] * 3
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa
+    fv = t(f)
+    reds = [kernels.Red(kernels.R_MIN_F, fv), kernels.Red(kernels.R_MAX_F,
+                                                          fv)]
+    checks = 0
+    # K2 over a mask of only +inf rows, then only -inf rows
+    for g, j, want in ((0, 0, np.inf), (1, 1, -np.inf)):
+        _n, acc = kernels.scalar_agg(t(gid == g), reds)
+        got = acc.view(torch.float64).cpu().numpy()[j]
+        need(got == want, f"phase L edge: K2 answers {got} over only "
+             f"{want}")
+        checks += 1
+    # K3 (4 segments) and K4 (90): groups 0 / 1 only +-inf, 2 empty
+    for S, route in ((4, kernels.seg_agg_onehot),
+                     (90, kernels.seg_agg_sorted)):
+        keep = gid < S
+        cnt, acc = route(t(gid[keep]), t(np.ones(int(keep.sum()), bool)),
+                         S, [kernels.Red(kernels.R_MIN_F, t(f[keep])),
+                             kernels.Red(kernels.R_MAX_F, t(f[keep]))])
+        mn = acc[0].view(torch.float64).cpu().numpy()
+        mx = acc[1].view(torch.float64).cpu().numpy()
+        need((mn[0], mx[1], mn[2], mx[2]) == (np.inf, -np.inf, np.inf,
+                                               -np.inf)
+             and int(cnt[0][2]) == 0,
+             f"phase L edge: {route.__name__} over only +-inf")
+        checks += 1
+    # K6 in both routes (90 segments; 40,000 past its shared memory), then
+    # K7 over the regions' states
+    for G in (90, 40_000):
+        g2 = gid.copy()
+        if G > 90:
+            g2[6:] = rng.integers(3, G, n - 6)
+        half = n // 2
+        segs = [(g2[a:b].copy(), [("min", t(f[a:b]), np.ones(b - a, bool)),
+                                  ("max", t(f[a:b]), np.ones(b - a, bool))],
+                 G, b - a) for a, b in ((0, half), (half, n))]
+        outs = kernels.region_agg_states_batched(segs, device)
+        need((outs[0][0][0], outs[0][1][1]) == (np.inf, -np.inf),
+             f"phase L edge: K6 ({G} segments) over only +-inf")
+        folded = kernels.combine_region_partials(
+            [np.stack([o[0] for o in outs]), np.stack([o[1] for o in outs])],
+            ["min", "max"], device)
+        need((folded[0][0], folded[1][1], folded[0][2], folded[1][2])
+             == (np.inf, -np.inf, np.inf, -np.inf),
+             f"phase L edge: K7 over only +-inf ({G} segments)")
+        checks += 2
+        if G == 90:
+            sharded = mesh_mod.combine_states_sharded(
+                [np.stack([o[0] for o in outs]),
+                 np.stack([o[1] for o in outs])], ["min", "max"], mesh8)
+            need((sharded[0][0], sharded[1][1]) == (np.inf, -np.inf),
+                 "phase L edge: the sharded states combine over only +-inf")
+            checks += 1
+    # row 15f over the card's 8 shards and its plain version
+    specs, rgid, G, slices, rids = l_inf_specs(79)
+    want = l_numpy_states(specs, rgid, G)
+    for plain in (False, True):
+        l_same_states(mesh_mod.combine_rows_sharded(
+            mesh8, specs, rgid, G, slices, rids, plain=plain), want,
+            f"phase L edge: row 15f (plain {plain})")
+        checks += 1
+    # K15: slots whose WHERE keeps only +inf rows, only -inf rows, none
+    from tidb_tpu_torch.ops import sched
+    m, cap = 40, 1024
+    a = np.zeros(cap, np.int64)
+    a[:m] = np.arange(m) % 4
+    fs = np.zeros(cap)
+    fs[:m] = np.where(a[:m] == 0, np.inf,
+                      np.where(a[:m] == 1, -np.inf, np.arange(m) * 0.5))
+    valid = np.zeros(cap, bool)
+    valid[:m] = True
+    sb = carry.batch_from_planes(m, cap, np.arange(1, cap + 1), {
+        1: {"values": a, "valid": valid, "kind": col.K_I64},
+        2: {"values": fs, "valid": valid, "kind": col.K_F64}})
+    fin, pools = None, []
+    for x in (0, 1, 9):
+        lw = sched._Lowerer(sb)
+        emit, _sig = lw.lower(expr_op(Op.EQ, expr_column(1),
+                                      expr_value(Datum.i64(x))))
+        fin = lw.program(sb, emit)
+        pools.append(fin.pool)
+    planes = kernels.batch_planes(sb, device)
+    sreds = [kernels.Red(kernels.R_MIN_F, planes[2][0]),
+             kernels.Red(kernels.R_MAX_F, planes[2][0])]
+    cnt, acc = kernels.slot_agg(fin, t(np.stack(pools)),
+                                [planes[k][w] for k, w in fin.plane_keys],
+                                kernels.device_live(sb, device), sreds)
+    got = acc.view(torch.float64).cpu().numpy()
+    need(cnt[:, 0].tolist() == [10, 10, 0]
+         and (got[0, 0], got[1, 1], got[2, 0], got[2, 1])
+         == (np.inf, -np.inf, np.inf, -np.inf),
+         "phase L edge: K15 over only +-inf")
+    return checks + 1
+
+
+def l_15f_bytes(specs: list, gid: np.ndarray, G: int) -> int:
+    """Bytes row 15f must move at least: the live rows' group ids, each
+    spec's contrib mask and values once (K6 reads only each span's live
+    rows, never the layout's padding), the [G] states once."""
+    total = gid.nbytes + len(specs) * G * 8
+    for _op, v, ok in specs:
+        total += ok.nbytes + (0 if v is None else v.nbytes)
+    return total
+
+
+def phase_l(joins: tuple, device, seed: int) -> tuple:
+    """The cluster joins at SF1 (slice 10): lineitem, orders and partsupp
+    in 8 regions each, admitted pinned into one DistStore; tpch.JOINS
+    through XSelectTableExec over its DistCoprClient (a plain scan per
+    region: one K1 each, stacked into a ColumnarPartialSet), HashJoinExec
+    and HashAggExec, whose fused aggregate combines the regions' partial
+    states: on the default one-shard mesh (row 15f, one K6 span), on
+    CoprMesh([cuda:0] * 8) (row 15f: K6 over the shard layout, K7's shard
+    fold) and with the mesh off (one K6 span, no fold). Each run equals
+    numpy and Phase F's in-process answer; its time (host clock, median
+    of 3) and split. Then row 15f at f1's 8-shard shape against its plain
+    version, timed beside its bound and a scatter_reduce_ yardstick, and
+    the +-inf edge check of every extremum route. Launch counts are reset
+    before the statements and read after them. Returns (per-kernel
+    results, launches)."""
+    t0 = time.perf_counter()
+    ms = timer(device)
+    cuda = device.type == "cuda"
+    f_tables, f_batches = joins
+    store, batches = l_store(f_tables, device)
+    for name in tpch.JOINS:
+        left, right, *_rest = tpch.join_statement(name)
+        for sel in (left, right):
+            l_admit(store, sel, batches[sel.table_info.table_id])
+    mesh8 = CoprMesh([device] * MESH_SHARDS)
+    # Phase F's in-process answers, before the counts start
+    client = GpuClient(MemStore([], []), device)
+    want = {name: k_values(f_statement(client, name, f_batches)[1].drain())
+            for name in tpch.JOINS}
+    print(f"phase L: {L_REGIONS} regions a table, store built and Phase F's "
+          f"answers in {time.perf_counter() - t0:.1f} s")
+
+    if cuda:
+        torch.cuda.synchronize()
+    zero_launches()
+    stmt = {}
+    with LCapture() as cap:
+        for rung in L_RUNGS:
+            l_rung(rung, mesh8)
+            for name in tpch.JOINS:
+                cap.current = name
+                before = dict(kernels.LAUNCHES)
+                st0 = dict(fused_agg.stats)
+                t1 = time.perf_counter()
+                join, agg = l_statement(store, name)
+                rows = agg.drain()
+                if cuda:
+                    torch.cuda.synchronize()
+                took = (time.perf_counter() - t1) * 1e3
+                delta = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                         if v != before[k]}
+                check_join_rows(name, rows, f_tables, f"phase L {rung}")
+                need(k_values(rows) == want[name],
+                     f"phase L {rung} {name}: rows differ from Phase F's")
+                res = join.device_join_result()
+                need(isinstance(res.lside, col.ColumnarPartialSet)
+                     and len(res.region_slices() or ()) == L_REGIONS,
+                     f"phase L {rung} {name}: not over {L_REGIONS} regions")
+                on_mesh = fused_agg.stats["mesh_combines"] \
+                    - st0["mesh_combines"]
+                # the mesh rung on the card's default one-shard mesh too
+                # (a CPU rehearsal has no default mesh)
+                want_mesh = rung != "mesh_off" if cuda else rung == "mesh8"
+                need(fused_agg.stats["partial_combines"]
+                     == st0["partial_combines"] + 1
+                     and on_mesh == want_mesh,
+                     f"phase L {rung} {name}: the region combine went wrong")
+                k1 = delta.get("expr_vm", 0)
+                need(not cuda or (k1 == L_REGIONS + len(
+                    res.rside.parts if isinstance(res.rside,
+                                                  col.ColumnarPartialSet)
+                    else [res.rside])
+                    and delta.get("seg_states_ragged", 0) + delta.get(
+                        "seg_states_ragged_sorted", 0) == 1
+                    and delta.get("combine_partials", 0)
+                    == (rung == "mesh8")),
+                     f"phase L {rung} {name}: launches {delta}")
+                wall = host_ms(lambda: l_statement(store, name)[1].drain(), 3)
+                split = k_split(lambda: l_statement(store, name)[1].drain())
+                stmt[f"{rung}/{name}"] = {"first_ms": took, "ms": wall,
+                                          "launches": delta, "split": split}
+                print(f"  L {rung} {name}: {len(rows)} rows equal to numpy "
+                      f"and Phase F; {took:.1f} ms first, {wall:.1f} ms "
+                      f"median of 3 (host clock); launches {delta}; split "
+                      f"{split}")
+    launches = {"combine_rows_sharded": cap.launches}
+    need(launches["combine_rows_sharded"] > 0 or not cuda,
+         "phase L: row 15f never launched")
+    mesh_mod.set_mesh(None)
+    mesh_mod.set_enabled(True)
+    print(f"phase L launches: "
+          f"{ {k: v for k, v in kernels.LAUNCHES.items() if v} }, row 15f "
+          f"{launches['combine_rows_sharded']}")
+
+    # row 15f at f1_q3_join's 8-shard shape, against its plain version
+    need("f1_q3_join" in cap.calls,
+         "phase L: no 8-shard combine captured for f1_q3_join")
+    m8, specs, gid, G, slices, rids, eps = cap.calls["f1_q3_join"]
+    got = mesh_mod.combine_rows_sharded(m8, specs, gid, G, slices, rids, eps)
+    plain = mesh_mod.combine_rows_sharded(m8, specs, gid, G, slices, rids,
+                                          eps, plain=True)
+    err = 0.0
+    for a, b in zip(got, plain):
+        need(np.array_equal(np.asarray(a).view(np.int64),
+                            np.asarray(b).view(np.int64)),
+             "phase L: row 15f differs from its plain version")
+    gsh, ssh, caps, nrows = mesh_mod._rows_layout(m8, specs, gid, G, slices,
+                                                  rids, eps)
+    k6 = kernels.row_spans_inputs(gsh, ssh, caps, device)
+
+    def launch(plain_=False):
+        return kernels.span_states_fold(k6[0], caps, nrows, G, k6[1], k6[2],
+                                        k6[3], kernels.mesh_allreduce,
+                                        plain=plain_)
+
+    # the yardstick: one scatter_reduce_ per spec over the layout's rows
+    # into [G + 1] (padding in the sink), contributions masked beforehand
+    lib_in = []
+    for (op, v, _ok), code, c in zip(ssh, k6[3], k6[2]):
+        v = torch.ones_like(k6[0]) if v is None \
+            else torch.from_numpy(np.ascontiguousarray(v)).to(device)
+        how = {"sum": "sum", "min": "amin", "max": "amax"}[op]
+        ident = 0 if how == "sum" else kernels._sentinel(code)
+        lib_in.append((torch.where(c, v, torch.full_like(v, ident)), how,
+                       ident))
+
+    def library():
+        for v, how, ident in lib_in:
+            torch.full((G + 1,), ident, dtype=v.dtype,
+                       device=device).scatter_reduce_(0, k6[0], v, how)
+
+    out = {"combine_rows_sharded": dict(
+        ms=ms(launch), plain_ms=ms(lambda: launch(True)),
+        library_ms=ms(library), max_abs_err=err,
+        bound=bound(l_15f_bytes(specs, gid, G), 0))}
+    r = out["combine_rows_sharded"]
+    print(f"  row 15f (f1_q3_join, {MESH_SHARDS} shards x {caps[0]} rows, "
+          f"{len(specs)} states, G {G}): {r['ms']:.4f} ms (plain "
+          f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+          f"{r['bound'][0]:.4f} ms by {r['bound'][1]}), max_abs_err {err}")
+    checks = l_inf_edges(device, mesh8)
+    print(f"phase L edge: {checks} +-inf checks equal to numpy (K2, K3, K4, "
+          f"K6 both routes, K7, row 15c, row 15f and its plain version, "
+          f"K15)")
+    print("phase L statements: " + json.dumps(stmt))
+    print(f"phase L: {time.perf_counter() - t0:.1f} s")
+    return out, launches
+
+
 def _chained_torch_sort(planes: list):
     """The library yardstick: chained torch.sort(stable=True) over the
     raw planes, least significant first."""
@@ -3896,9 +4337,12 @@ def main() -> int:
     launches.update(j_launches)
     k_results, k_launches = phase_k(joins, batch, d_store, d_data, device,
                                     seed=16)
-    del data, batch, joins
     results.update(k_results)
     launches.update({k: k_launches[k] for k in OOC_KERNELS})
+    l_results, l_launches = phase_l(joins, device, seed=18)
+    del data, batch, joins
+    results.update(l_results)
+    launches.update(l_launches)
     i_results, i_launches = phase_i(d_store, d_data, device, seed=12)
     results.update(i_results)
     launches.update(i_launches)

@@ -28,7 +28,7 @@ from tidb_tpu.ops import kernels as ref_kernels
 from tidb_tpu.ops import mesh as ref_mesh
 from tidb_tpu.parallel import CoprMesh as RefMesh
 
-import torch_parity  # noqa: F401  (torch threads, GC freeze)
+from torch_parity import port_identity  # (also: torch threads, GC freeze)
 from tidb_tpu_torch import carry
 from tidb_tpu_torch.ops import kernels, mesh
 from tidb_tpu_torch.parallel import CoprMesh
@@ -149,7 +149,7 @@ def test_region_states_sharded_equals_reference(n):
     single = kernels.region_agg_states_batched(port_segs, "cpu")
     for r, (g, s, w) in enumerate(zip(got, single, want)):
         for j, (a, b, c) in enumerate(zip(g, s, w)):
-            c = np.asarray(c).astype(a.dtype)
+            c = np.asarray(port_identity(np.asarray(c).astype(a.dtype)))
             assert a.shape == (segs[r][2],)
             assert np.array_equal(a.view(np.int64), b.view(np.int64)), \
                 (r, j)

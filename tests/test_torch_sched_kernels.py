@@ -45,7 +45,7 @@ from tidb_tpu_torch import carry
 from tidb_tpu_torch.ops import kernels as pk
 from tidb_tpu_torch.ops import sched as psched
 
-import torch_parity  # noqa: F401  (one torch thread, the GC frozen)
+from torch_parity import port_identity  # one torch thread, the GC frozen
 
 I64_MAX, I64_MIN = (1 << 63) - 1, -(1 << 63)
 CAP, N = 2048, 2048 - 101
@@ -273,6 +273,7 @@ def test_slot_agg_matches_jax_agg_wrapper(shape, aggs):
             got = int(acc[j, i])
             if a.kind == psched.col.K_F64:
                 got = float(np.int64(got).view(np.float64))
+                v = float(port_identity(np.float64(v)))
             assert got == v, (a.name, a.cid, j, got, v)
     if shape == "a = NULL":
         assert not n[:, 0].any()        # every slot empty

@@ -40,7 +40,7 @@ from tidb_tpu_torch.copr.proto import expr_column as pc
 from tidb_tpu_torch.ops import kernels as pk
 from tidb_tpu_torch.ops.exprc import Program, compile_expr
 
-from torch_parity import F64_RTOL
+from torch_parity import F64_RTOL, port_identity
 
 I64_MAX, I64_MIN = (1 << 63) - 1, -(1 << 63)
 CAP, N = 1024, 900
@@ -186,8 +186,8 @@ def test_ranked_group_fn_matches_jax(case):
               for cid, cd in rb.columns.items()}
     planes[rk.POS_CID] = (jnp.arange(CAP, dtype=jnp.int64), None)
     wrapper = rk.pack_outputs(fn)
-    ref = rk.unpack_outputs(wrapper, np.asarray(jax.jit(wrapper)(
-        planes, jnp.asarray(rb.row_mask()))))
+    ref = port_identity(rk.unpack_outputs(wrapper, np.asarray(jax.jit(
+        wrapper)(planes, jnp.asarray(rb.row_mask())))))
     # port
     pb = carry.batch_from(rb)
     preq = carry.request_from(req)

@@ -41,7 +41,7 @@ from tidb_tpu_torch.copr.columnar_region import ArgPlaneSpec
 from tidb_tpu_torch.ops import extsort, kernels
 
 from test_torch_cluster import _cell, _final, _port_store
-from torch_parity import port_ledger, release  # noqa: F401
+from torch_parity import port_identity, port_ledger, release  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
@@ -201,18 +201,17 @@ class TestSpillStates:
         oracle = rkernels.region_agg_states_batched(ref)
         _budget(monkeypatch, extsort.states_bytes_estimate(port), 8)
         # groups no row contributes to included (NULL by their counts);
-        # no +-inf values: over a group of only +-inf the port is at fault
-        # (test_f64_extrema_over_only_infinities, ROADMAP Queue 3)
+        # groups of only +-inf: test_f64_extrema_over_only_infinities
         assert (oracle[0][2] == 0).any()
-        _equal(extsort.region_states_spill(port, "cpu"), oracle)
+        _equal(extsort.region_states_spill(port, "cpu"),
+               port_identity(oracle))
 
     def test_f64_extrema_over_only_infinities(self, monkeypatch):
-        """Pins a known fault of the port (ROADMAP Queue 3): its f64 MIN /
-        MAX identity is +-F64_MAX, so MIN over a group of only +inf
-        values answers F64_MAX and MAX over only -inf answers -F64_MAX,
-        in one launch and spilled; numpy and the JAX batched states
-        answer +inf / -inf. Flip the port's side when the identity is
-        repaired."""
+        """MIN over a group of only +inf values answers +inf and MAX over
+        only -inf answers -inf, in one launch and spilled, as numpy and
+        the JAX batched states do (at this shape its sorted route): the
+        port's f64 extremum identity is +-inf, which no value beats. Up to
+        the repair the port answered +-F64_MAX here (ROADMAP Queue 3)."""
         rng = np.random.default_rng(37)
         n, G = 1_200, 300
         gid = rng.integers(2, G, n).astype(np.int64)
@@ -226,17 +225,16 @@ class TestSpillStates:
         assert (f[gid == 0].min(), f[gid == 1].max()) == (np.inf, -np.inf)
         oracle = rkernels.region_agg_states_batched(ref)[0]
         assert (oracle[0][0], oracle[1][1]) == (np.inf, -np.inf)
-        f64_max = np.finfo(np.float64).max
         single = kernels.region_agg_states_batched(port, "cpu")[0]
         _budget(monkeypatch, extsort.states_bytes_estimate(port), 4)
         st: dict = {}
         spilled = extsort.region_states_spill(port, "cpu", st)[0]
         assert st["states_passes"] >= 2
         for got in (single, spilled):
-            assert (got[0][0], got[1][1]) == (f64_max, -f64_max)
+            assert (got[0][0], got[1][1]) == (np.inf, -np.inf)
             # every other group is right
-            assert np.array_equal(got[0][2:], oracle[0][2:])
-            assert np.array_equal(got[1][2:], oracle[1][2:])
+            assert np.array_equal(got[0][2:], port_identity(oracle[0][2:]))
+            assert np.array_equal(got[1][2:], port_identity(oracle[1][2:]))
 
     def test_argument_planes_spill_on_the_card(self, monkeypatch):
         """The reference refuses to spill argument planes as given
@@ -272,7 +270,7 @@ class TestSpillStates:
         got = extsort.region_states_spill(port, "cpu", st)
         assert st["states_passes"] >= 2
         _equal(got, single)
-        _equal([g[:3] for g in got], oracle)
+        _equal([g[:3] for g in got], port_identity(oracle))
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,7 @@ import math
 import sys
 from decimal import Decimal
 
+import numpy as np
 import pytest
 import torch  # noqa: F401  (loaded here, before the freeze below)
 
@@ -29,6 +30,8 @@ from tidb_tpu_torch.ops.client import GpuClient
 # f64 sums may differ in summation order; the reference's own parity test
 # rounds to 9 places (tests/test_tpu_copr.py:114)
 F64_RTOL = 1e-12
+
+F64_MAX = float(np.finfo(np.float64).max)
 
 # Importing torch adds well over a hundred thousand long-lived objects to
 # every test worker (each worker collects every test file), which makes
@@ -119,6 +122,23 @@ def by_group_key(rs: list) -> list:
     """Aggregate partial rows in group-key order (engines emit groups in
     different orders)."""
     return sorted(rs, key=lambda r: repr(r[1][0]))
+
+
+def port_identity(x):
+    """Reference states with the JAX package's f64 extremum identity
+    written as the port's: where no row contributed to an f64 MIN / MAX
+    state, the reference's one-hot, sorted and mesh routes leave
+    +-F64_MAX and the port +-inf, which no value beats (ROADMAP Queue 3,
+    reference fault 6). Float arrays map +-F64_MAX to +-inf, lists and
+    tuples map element by element, anything else stays. The tests' data
+    holds no +-F64_MAX value, so only identities move."""
+    if isinstance(x, (list, tuple)):
+        return type(x)(port_identity(v) for v in x)
+    a = np.asarray(x)
+    if a.dtype != np.float64:
+        return x
+    return np.where(a == F64_MAX, np.inf, np.where(a == -F64_MAX, -np.inf,
+                                                     a))
 
 
 def table_pairs(store, start_ts: int, table_id: int) -> list:

@@ -97,6 +97,12 @@ class DistCoprClient(kv.Client):
         self.store = store
 
     @property
+    def device(self):
+        """The store's device: where its scans' planes and the executors
+        above them run."""
+        return self.store.device
+
+    @property
     def mesh(self):
         """The process mesh (ops.mesh.get_mesh) where it lies on the
         store's device, for the executor layer's sharded kernels (the join

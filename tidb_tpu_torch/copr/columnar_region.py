@@ -1,5 +1,11 @@
-"""A region's columnar answer to a pushed-down aggregate (the port of the
-aggregate branch of tidb_tpu/copr/columnar_region.py).
+"""A region's columnar answer to a pushed-down aggregate or a plain scan
+(the port of tidb_tpu/copr/columnar_region.py).
+
+A plain scan (no aggregate, no ORDER BY) packs or hits the same plane
+cache, runs its WHERE in one K1 launch over the region's planes and
+answers a ColumnarScanResult (the survivors' positions, also kept on the
+card) carrying the region's id and epoch; distsql stacks the regions'
+answers into a ColumnarPartialSet. TopN over regions raises Unsupported.
 
 Each region of the cluster store answers its share of a `columnar_hint`
 aggregate request itself: its clipped ranges pack into a ColumnBatch (or
@@ -57,8 +63,9 @@ def cache_key(region_id: int, sel: SelectRequest, ranges) -> tuple:
 def handle_columnar_scan(snapshot, sel: SelectRequest, ranges, region=None,
                          cache=None, delta=None, oldest_ts: int | None = None,
                          device=None) -> SelectResponse:
-    """One region's share of a columnar_hint aggregate request as a
-    pending ColumnarAggStates payload. `region` is (region_id, epoch).
+    """One region's share of a columnar_hint request: an aggregate as a
+    pending ColumnarAggStates payload, a plain scan as a
+    ColumnarScanResult. `region` is (region_id, epoch).
 
     With a `cache` and a snapshot over the MVCC store (`snapshot.mvcc`,
     `snapshot.read_ts`), the packed batch is served from / admitted to the
@@ -78,11 +85,13 @@ def handle_columnar_scan(snapshot, sel: SelectRequest, ranges, region=None,
     if sel.table_info is None:
         raise Unsupported("index requests over regions come in a later "
                           "slice")
-    if not sel.is_agg():
-        raise Unsupported("plain region scans come in a later slice")
-    agg_specs = _states_specs(sel)
-    if agg_specs is None:
-        raise Unsupported("aggregate shape outside the states channel")
+    agg_specs = None
+    if sel.is_agg():
+        agg_specs = _states_specs(sel)
+        if agg_specs is None:
+            raise Unsupported("aggregate shape outside the states channel")
+    elif sel.order_by:
+        raise Unsupported("TopN over regions comes in a later slice")
     columns = sel.table_info.columns
     defaults = {c.column_id: c.default_val for c in columns
                 if c.default_val is not None}
@@ -116,6 +125,8 @@ def handle_columnar_scan(snapshot, sel: SelectRequest, ranges, region=None,
             if key is not None and \
                     mvcc.data_version_at(snapshot.read_ts, prefix) == version:
                 cache.insert(key, region[1], version, batch)
+        if agg_specs is None:
+            return _scan_response(sel, batch, region, columns, device)
         return _deferred_filter_response(sel, batch, agg_specs, region,
                                          columns, device)
     except errors.TypeError_ as e:
@@ -225,6 +236,37 @@ def _probe_arg_plane(name: str, arg, batch: col.ColumnBatch, colpb: dict,
         if mx and n_sup and mx * n_sup >= (1 << 63):
             return False
     return True
+
+
+def _scan_response(sel: SelectRequest, batch: col.ColumnBatch, region,
+                   columns, device) -> SelectResponse:
+    """A plain scan's answer (the eager tail of the reference's
+    handle_columnar_scan, :439 _filter_mask, :282 ColumnarScanResult): the
+    WHERE in one K1 launch over the region's resident planes, the
+    survivors' positions kept on the card for device_plane and read back
+    once, then DESC and LIMIT, the region's (id, epoch) on the answer."""
+    prog = exprc.Program(batch)
+    where = None
+    if sel.where is not None:
+        where = exprc.compile_expr(sel.where, batch, prog)
+        if where.reg is None:
+            raise Unsupported("WHERE is a bare string constant")
+    fn = kernels.build_filter_fn(prog, where)
+    planes = kernels.batch_planes(batch, device)
+    live = kernels.device_live(batch, device)
+    with kernels.phase("k1", device):
+        idx_d = torch.nonzero(fn(planes, live)[0]).squeeze(1)
+    with kernels.phase("sel_readback", device):
+        idx = idx_d.cpu().numpy()
+    if sel.desc:
+        idx, idx_d = idx[::-1], None
+    if sel.limit is not None and sel.limit < len(idx):
+        idx, idx_d = idx[:sel.limit], None
+    res = col.ColumnarScanResult(batch, idx, list(columns), device=device,
+                                 sel_device=idx_d)
+    if region is not None:
+        res.region_id, res.region_epoch = region
+    return SelectResponse(columnar=res)
 
 
 def _deferred_filter_response(sel: SelectRequest, batch: col.ColumnBatch,

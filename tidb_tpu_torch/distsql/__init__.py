@@ -1,7 +1,7 @@
 """distsql: send one coprocessor request and collect its partial results
 (the port of tidb_tpu/distsql/__init__.py:67 SelectResult, :98-213
 columnar, :266 select, cut to the columnar payloads: the cluster path's
-partial states and an in-process scan's planes).
+partial states, a scan's planes, and the regions' scan planes stacked).
 
 Reference: distsql/distsql.go:277 Select.
 """
@@ -23,11 +23,13 @@ class SelectResult:
 
     def columnar(self):
         """Drain every partial and finish the statement: a single scan's
-        ColumnarScanResult, or the one region's ColumnarAggStates payload,
-        or a ColumnarStatesSet of them in task order, with filter and
-        states fulfilled; None when no region answered. A partial
-        answering rows, a mix of payload kinds, or scan planes over several
-        regions raise Unsupported (the port has no row path yet)."""
+        ColumnarScanResult, or a ColumnarPartialSet of the regions' scan
+        answers in task order; or the one region's ColumnarAggStates
+        payload, or a ColumnarStatesSet of them in task order, with filter
+        and states fulfilled; None when no region answered. A partial
+        answering rows, or states beside scan planes, raise Unsupported
+        (the reference serves those through its row iterator, which the
+        port does not have)."""
         parts = []
         while True:
             part = self._resp.next()
@@ -39,9 +41,10 @@ class SelectResult:
         if not parts:
             return None
         payloads = [p.columnar for p in parts]
-        if len(payloads) == 1 and \
-                isinstance(payloads[0], col.ColumnarScanResult):
-            return payloads[0]
+        if all(isinstance(p, col.ColumnarScanResult) for p in payloads):
+            if len(payloads) == 1:
+                return payloads[0]
+            return col.ColumnarPartialSet(payloads)
         if not all(getattr(p, "is_agg_states", False) for p in payloads):
             raise Unsupported("a response mixing rows and columnar "
                               "payloads comes in a later slice")

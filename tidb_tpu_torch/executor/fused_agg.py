@@ -1,8 +1,9 @@
 """Aggregates fused over columnar inputs (the port of
 tidb_tpu/executor/fused_agg.py:226 try_fused_agg, :241 _try_fused, :327
 _group_codes, :361 _arg_plane, :379 _fused_func, _has_neg_zero, :859
-_sum_avg_datums, :875 _minmax_datums; and, for the cluster path, :499-580
-_StatesCombine, :630-830 _try_final_states and :833 _merge_datum_states).
+_sum_avg_datums, :875 _minmax_datums; and, for the cluster path, :63
+_RegionCombine, :175 _region_combine_for, :499-580 _StatesCombine,
+:630-830 _try_final_states and :833 _merge_datum_states).
 
 COMPLETE mode: `try_fused_agg(agg)` answers a HashAgg over a join's
 DeviceJoinResult or a scan's ColumnarScanResult straight from the
@@ -13,8 +14,14 @@ np.add.at, an unbuffered scatter-add in row order, so the rounding
 sequence is the row loop's. Where the reference gives the fusion back to
 its row loop (None: DISTINCT, decimal, time or unsigned arguments, string
 MIN/MAX, -0.0 in a float plane, a sum that could wrap) the port raises
-Unsupported: it has no row loop. The reductions stay on the host, in the
-reference's order: a device reduction would change the last ulp.
+Unsupported: it has no row loop. Over one region the reductions stay on
+the host, in the reference's order. Over several (a ColumnarPartialSet,
+or a join whose left side is one) the order-free aggregates (counts,
+int SUM/AVG, int and f64 MIN/MAX) register per-region partial states that
+one region combine merges (_RegionCombine: row 15f on the process mesh,
+one K6 span on one device); first_row keeps the group's first position,
+which the group codes already give, and float SUM/AVG keep the host
+accumulator, whose row order per-region partial sums would change.
 
 FINAL mode:
 `final_states(sel, result)` turns the per-region ColumnarAggStates of one
@@ -116,6 +123,74 @@ class _StatesCombine:
 
     def get(self, idx: int):
         return self._results[idx]
+
+
+class _RegionCombine:
+    """The per-region partial states of one COMPLETE-mode fusion over a
+    multi-region join or scan (the port of the reference's :63
+    _RegionCombine), gathered as (op, values, contrib) row specs and
+    merged in one go: on the process mesh when it lies on the
+    statement's device (ops.mesh.combine_rows_sharded, row 15f: each
+    region's rows on its home shard, K6 over the shard layout, K7's shard
+    fold), else on one device (kernels.rows_states: one K6 span over every
+    region's rows, where the reference builds [R, G] stacks on the host
+    and folds them with K7). Group ids are global (unified over the
+    stacked rows first), so one span over all the rows gives the
+    regions' folded states. A fault on either rung raises DeviceError,
+    where the reference degrades to the next rung."""
+
+    def __init__(self, slices: list, gid, G: int, device, region_ids=None,
+                 epochs=None):
+        self.slices = slices
+        self.gid = gid
+        self.G = G
+        self.device = device
+        self.region_ids = region_ids
+        self.epochs = epochs
+        self._specs: list = []
+        self._results: list | None = None
+        self.rode_mesh = False
+
+    def add(self, op: str, vals, ok) -> int:
+        """Register one partial state: op "sum" / "min" / "max", `vals` a
+        host int64 / f64 row plane (None: a count), `ok` the contribution
+        mask. Returns the index of its result."""
+        self._specs.append((op, vals, ok))
+        return len(self._specs) - 1
+
+    def run(self) -> None:
+        if not self._specs:
+            return
+        mesh = mesh_mod.get_mesh()
+        if mesh_mod.on_device(mesh, self.device):
+            self._results = mesh_mod.combine_rows_sharded(
+                mesh, self._specs, self.gid, self.G, self.slices,
+                self.region_ids, self.epochs)
+            self.rode_mesh = True
+            stats["mesh_combines"] += 1
+            stats["last_mesh_shards"] = mesh.n
+        else:
+            self._results = kernels.rows_states(
+                self._specs, self.gid, self.G, self.device)
+        stats["partial_combines"] += 1
+        stats["last_combine_regions"] = len(self.slices)
+
+    def get(self, idx: int):
+        return self._results[idx]
+
+
+def _region_combine_for(res, gid, G: int, device):
+    """A combine for a result over more than one region (a
+    ColumnarPartialSet, or a join whose left side is one), else None: the
+    flat path answers, with the same values (the combined aggregates are
+    exact and order-free). The regions' ids and epochs go along for the
+    mesh's placement."""
+    get = getattr(res, "region_slices", None)
+    slices = get() if get is not None else None
+    if not slices or len(slices) <= 1:
+        return None
+    return _RegionCombine(slices, gid, G, device, res.region_ids(),
+                          res.region_epochs())
 
 
 def _parts_of(result) -> list:
@@ -434,9 +509,14 @@ def _try_fused(agg) -> list:
             gid = np.zeros(n, dtype=np.int64)
             first_idx = np.zeros(1, dtype=np.int64)
             G = 1
+    combine = _region_combine_for(res, gid, G, device)
     with kernels.phase("reductions", device):
-        cols = [_fused_func(res, f, gid, G, first_idx, n)
+        cols = [_fused_func(res, f, gid, G, first_idx, n, combine)
                 for f in agg.agg_funcs]
+    if combine is not None:
+        with kernels.phase("region_combine", device):
+            combine.run()
+            cols = [c() if callable(c) else c for c in cols]
     with kernels.phase("emit", device):
         emit = np.argsort(first_idx, kind="stable")
         return [[c[g] for c in cols] for g in emit.tolist()]
@@ -494,8 +574,13 @@ def _arg_plane(res, f, n: int):
     return res.column_plane(arg.index)
 
 
-def _fused_func(res, f, gid, G: int, first_idx, n: int) -> list:
-    """Per-group result datums (unique-order indexing) of one aggregate."""
+def _fused_func(res, f, gid, G: int, first_idx, n: int,
+                combine: _RegionCombine | None = None):
+    """Per-group result datums (unique-order indexing) of one aggregate.
+    With a region `combine` the order-free aggregates register per-region
+    partial states and return a thunk that reads the combined states
+    after combine.run(); float SUM/AVG stay on the flat host accumulator,
+    whose row order a per-region partial sum would change."""
     from tidb_tpu_torch.plan import Column, Constant
 
     name = f.name
@@ -505,6 +590,8 @@ def _fused_func(res, f, gid, G: int, first_idx, n: int) -> list:
             return [arg.value] * G
         if not isinstance(arg, Column):
             raise Unsupported("first_row over an expression")
+        # the group codes' first positions over the stacked rows, with or
+        # without a region combine
         return res.gather_datums(arg.index, first_idx)
 
     plane = _arg_plane(res, f, n)
@@ -513,6 +600,9 @@ def _fused_func(res, f, gid, G: int, first_idx, n: int) -> list:
                           f"(decimal, time, unsigned) needs the row loop")
     kind, vals, valid = plane
     if name == "count":
+        if combine is not None:
+            ci = combine.add("sum", None, valid)
+            return lambda: [Datum.i64(int(c)) for c in combine.get(ci)]
         return [Datum.i64(int(c)) for c in np.bincount(gid[valid],
                                                        minlength=G)]
     if kind == "str":
@@ -527,6 +617,12 @@ def _fused_func(res, f, gid, G: int, first_idx, n: int) -> list:
                 if mx and mx * len(vk) >= (1 << 63):
                     raise Unsupported("an int sum that could wrap needs "
                                       "the row loop's Decimal sum")
+            if combine is not None:
+                # the bound covers every region's partial sum too
+                ci = combine.add("sum", None, ok)
+                si = combine.add("sum", vals, ok)
+                return lambda: _sum_avg_datums(
+                    name, "i64", combine.get(ci), combine.get(si), G)
             cnt = np.bincount(gid[ok], minlength=G)
             sums = np.zeros(G, np.int64)
             np.add.at(sums, gid[ok], vk)
@@ -550,6 +646,11 @@ def _fused_func(res, f, gid, G: int, first_idx, n: int) -> list:
                                   "loop")
             init = np.inf if is_min else -np.inf
             dtype = np.float64
+        if combine is not None:
+            ci = combine.add("sum", None, ok)
+            vi = combine.add(name, vals, ok)
+            return lambda: _minmax_datums(kind, combine.get(ci),
+                                          combine.get(vi), G)
         reduce_at = np.minimum.at if is_min else np.maximum.at
         cnt = np.bincount(gid[ok], minlength=G)
         red = np.full(G, init, dtype)

@@ -558,12 +558,13 @@ class ColumnarStatesSet:
 # ---------------------------------------------------------------------------
 # a scan's columnar answer and the sides of a device join (copy of
 # tidb_tpu/ops/columnar.py:560 plane_datums_batch, :593 ColumnarScanResult,
-# :1341 RowsSide, :1400 rows_plane, :1442 DeviceJoinResult, :1598
-# _side_gather, :1607 materialize_join_rows; the pure-Python branches, no
-# region segments). Rows materialize only for a consumer that pulls rows;
-# an aggregate above a join reads the gathered planes (join→agg fusion,
-# executor.fused_agg). Every side speaks gather_datums, the batched twin
-# of the reference's per-cell datum_at, so the port carries no datum_at.
+# :822 ColumnarPartialSet, :1341 RowsSide, :1400 rows_plane, :1442
+# DeviceJoinResult with its region segments :1545-1575, :1598
+# _side_gather, :1607 materialize_join_rows; the pure-Python branches).
+# Rows materialize only for a consumer that pulls rows; an aggregate above
+# a join reads the gathered planes (join→agg fusion, executor.fused_agg).
+# Every side speaks gather_datums, the batched twin of the reference's
+# per-cell datum_at (which only ColumnarPartialSet keeps, as one gather).
 # ---------------------------------------------------------------------------
 
 def plane_datums_batch(cd: ColumnData, c: PBColumnInfo,
@@ -610,6 +611,10 @@ class ColumnarScanResult:
         self.pb_cols = pb_cols
         self.device = device
         self._sel_device = sel_device
+        # the origin (region id, epoch) of a region's answer: the mesh
+        # tier's placement key
+        self.region_id = None
+        self.region_epoch = None
         self._fts: list | None = None
         self._plane_cache: dict = {}
         self._device_plane_cache: dict = {}
@@ -782,6 +787,170 @@ class ColumnarScanResult:
                         else [[] for _ in self.sel]))
 
 
+class ColumnarPartialSet:
+    """A multi-region scan answer (the port of tidb_tpu/ops/columnar.py
+    :822): one ColumnarScanResult per region task, in task order, so the
+    stacked row order is the row protocol's scan order. It speaks the
+    side protocol of one ColumnarScanResult (column_plane, device_plane,
+    dict_code_plane, decimal_plane, gather_datums, datum_at, rows), so
+    joins, sorts and fused aggregates read it unchanged; region_slices /
+    region_ids / region_epochs give each region's stacked rows and
+    placement key, over which a fused aggregate combines per-region
+    partial states (executor.fused_agg)."""
+
+    def __init__(self, parts: list):
+        if not parts:
+            raise ValueError("empty partial set")
+        self.parts = parts
+        self.pb_cols = parts[0].pb_cols
+        self.device = parts[0].device
+        lens = [len(p) for p in parts]
+        self.offsets = np.concatenate(
+            [np.zeros(1, np.int64), np.cumsum(lens, dtype=np.int64)])
+        self._plane_cache: dict = {}
+        self._device_plane_cache: dict = {}
+        self._rows_cache: list | None = None
+
+    def __len__(self) -> int:
+        return int(self.offsets[-1])
+
+    def region_slices(self) -> list[tuple[int, int]]:
+        """[start, end) stacked rows of each region partial."""
+        return [(int(self.offsets[i]), int(self.offsets[i + 1]))
+                for i in range(len(self.parts))]
+
+    def region_ids(self) -> list:
+        return [p.region_id for p in self.parts]
+
+    def region_epochs(self) -> list:
+        return [p.region_epoch for p in self.parts]
+
+    def handles(self) -> np.ndarray:
+        return np.concatenate([p.handles() for p in self.parts])
+
+    def column_plane(self, j: int):
+        """Output column j stacked over the regions, as (kind, values,
+        valid). A region whose plane is vacuous (all NULL, reported as a
+        numeric plane) takes the kind the others agree on; a column some
+        region cannot plane, or regions that really disagree on the kind,
+        give (None, None, None), the gate rows_plane applies to rows."""
+        ent = self._plane_cache.get(j)
+        if ent is not None:
+            return ent
+        planes = [p.column_plane(j) for p in self.parts]
+        kinds = {k for k, _v, va in planes if k is not None and va.any()}
+        if any(k is None for k, _v, _va in planes) or len(kinds) > 1:
+            ent = (None, None, None)
+        else:
+            kind = kinds.pop() if kinds else "i64"
+            vals = []
+            for (k, v, va), p in zip(planes, self.parts):
+                if k != kind:
+                    # a vacuous region: coerce to the agreed kind
+                    v = np.empty(len(p), dtype=object) if kind == "str" \
+                        else np.zeros(len(p), np.float64 if kind == "f64"
+                                      else np.int64)
+                vals.append(v)
+            ent = (kind, np.concatenate(vals),
+                   np.concatenate([va for _k, _v, va in planes]))
+        self._plane_cache[j] = ent
+        return ent
+
+    def device_plane(self, j: int):
+        """Output column j stacked over the regions on the device: one
+        torch.cat of the regions' device planes (in place of the
+        reference's kernels.stack_planes, a concat). None unless every
+        region has a device plane of the set's kind. The stacked plane is
+        a transient copy, charged like the reference's: to no pin (the
+        join router's estimate covers the keys of a join)."""
+        ent = self._device_plane_cache.get(j, False)
+        if ent is not False:
+            return ent
+        out = None
+        kind, _v, _va = self.column_plane(j)
+        if kind in ("i64", "f64"):
+            import torch
+            devs = [p.device_plane(j) for p in self.parts]
+            want = torch.float64 if kind == "f64" else torch.int64
+            if all(d is not None and d[0].dtype == want for d in devs):
+                out = (torch.cat([d[0] for d in devs]),
+                       torch.cat([d[1] for d in devs]))
+        self._device_plane_cache[j] = out
+        return out
+
+    def dict_code_plane(self, j: int):
+        """Column j's dictionary codes stacked over the regions in one
+        domain: each region's sorted dictionary remapped onto their sorted
+        union (copr.dictionary.unify_domains), -1 on NULLs; None when a
+        region has no code plane."""
+        ent = self._plane_cache.get(("dict", j))
+        if ent is not None:
+            return ent if ent != () else None
+        from tidb_tpu_torch.copr import dictionary
+        out = None
+        planes = [p.dict_code_plane(j) for p in self.parts]
+        if all(pl is not None for pl in planes):
+            doms = [pl[2] for pl in planes]
+            valid = np.concatenate([pl[1] for pl in planes])
+            if all(d.entries is doms[0].entries for d in doms):
+                out = (np.concatenate([pl[0] for pl in planes]), valid,
+                       doms[0])
+            else:
+                union, remaps = dictionary.unify_domains(doms)
+                codes = []
+                for (c, va, _d), remap in zip(planes, remaps):
+                    if len(remap):
+                        codes.append(np.where(
+                            va, remap[np.clip(c, 0, len(remap) - 1)], -1))
+                    else:
+                        codes.append(np.full(len(c), -1, np.int64))
+                out = (np.concatenate(codes).astype(np.int64), valid,
+                       dictionary.LocalDomain(union))
+        self._plane_cache[("dict", j)] = out if out is not None else ()
+        return out
+
+    def decimal_plane(self, j: int):
+        """Column j's scaled decimal plane stacked over the regions, or
+        None when a region has none or the regions' scales differ."""
+        cd0 = self.parts[0].batch.columns[self.pb_cols[j].column_id]
+        if any(p.batch.columns[self.pb_cols[j].column_id].dec_scale
+               != cd0.dec_scale for p in self.parts):
+            return None
+        planes = [p.decimal_plane(j) for p in self.parts]
+        if any(pl is None for pl in planes):
+            return None
+        return (np.concatenate([v for v, _va in planes]),
+                np.concatenate([va for _v, va in planes]))
+
+    def gather_datums(self, j: int, idx) -> list:
+        """Datums of stacked rows `idx`, column j: the positions split by
+        region, each region's own plane gather, reassembled in order."""
+        gidx = np.asarray(idx, dtype=np.int64)
+        pids = np.searchsorted(self.offsets, gidx, side="right") - 1
+        out: list = [None] * len(gidx)
+        for p in np.unique(pids).tolist():
+            m = pids == p
+            sub = self.parts[p].gather_datums(j, gidx[m]
+                                              - int(self.offsets[p]))
+            for pos, d in zip(np.flatnonzero(m).tolist(), sub):
+                out[pos] = d
+        return out
+
+    def datum_at(self, j: int, i: int):
+        return self.gather_datums(j, [i])[0]
+
+    def rows(self) -> list:
+        if self._rows_cache is None:
+            out = []
+            for p in self.parts:
+                out.extend(p.rows())
+            self._rows_cache = out
+        return self._rows_cache
+
+    def iter_rows_with_handles(self):
+        return iter(zip(self.handles().tolist(), self.rows()))
+
+
 class RowsSide:
     """Row-list side of a device join: drained executor rows behind the
     plane/rows/datum protocol ColumnarScanResult speaks."""
@@ -934,6 +1103,34 @@ class DeviceJoinResult:
                            np.zeros(len(self.r_idx), bool), dom)
         self._plane_cache[("dict", j)] = out if out is not None else ()
         return out
+
+    def region_slices(self):
+        """Each region's [start, end) rows of the join output, inherited
+        from a multi-region left side: the pairs come in left-scan order,
+        so each left region's rows map to one contiguous output range
+        (searchsorted over l_idx). None when the left side has no regions
+        or l_idx ever decreases."""
+        src = getattr(self.lside, "region_slices", None)
+        if src is None:
+            return None
+        if len(self.l_idx) and np.any(np.diff(self.l_idx) < 0):
+            return None
+        bounds = [s for s, _e in src()]
+        if not bounds:
+            return None
+        cuts = np.searchsorted(self.l_idx, np.asarray(bounds, np.int64),
+                               side="left").tolist() + [len(self.l_idx)]
+        return [(int(cuts[i]), int(cuts[i + 1]))
+                for i in range(len(cuts) - 1)]
+
+    def region_ids(self):
+        """The left side's region ids, aligned with region_slices."""
+        src = getattr(self.lside, "region_ids", None)
+        return src() if src is not None else None
+
+    def region_epochs(self):
+        src = getattr(self.lside, "region_epochs", None)
+        return src() if src is not None else None
 
     def gather_datums(self, j: int, idx) -> list:
         """The source datums of output rows `idx`, column j, through the

@@ -48,7 +48,7 @@ enum RedOp {
   R_SUM_I = 1,   // n, wrapping int64 sum
   R_SUM_F = 2,   // n, f64 sum
   R_MIN_I = 3, R_MAX_I = 4,  // n, extremum with I64_MAX / I64_MIN sentinel
-  R_MIN_F = 5, R_MAX_F = 6,  // n, extremum with +-DBL_MAX sentinel
+  R_MIN_F = 5, R_MAX_F = 6,  // n, extremum with +inf / -inf identity
   R_FIRST = 7,   // n = #mask rows, smallest row index among them
 };
 
@@ -58,21 +58,25 @@ enum RedOp {
 
 #define I64_MAX_V 0x7fffffffffffffffLL
 #define I64_MIN_V (-I64_MAX_V - 1LL)
-#define F64_MAX_V 1.7976931348623157e308
+// the bits of +inf and -inf: the f64 extremum identities, which no
+// value beats, so a group of only +inf (MIN) or -inf (MAX) keeps it
+#define F64_POS_INF_BITS 0x7ff0000000000000LL
+#define F64_NEG_INF_BITS ((i64)0xfff0000000000000ULL)
 
 __device__ __forceinline__ double as_f64(i64 b) { return __longlong_as_double(b); }
 __device__ __forceinline__ i64 as_i64(double d) { return __double_as_longlong(d); }
 
 // The value half of a reduction's monoid, shared by every kernel that
 // reduces (K2..K4 through Acc, K6 and K7 on bare values): its identity
-// (the exact sentinel of an extremum) and its merge, `a` first in the
-// fixed order. Counts and int64 sums add with two's complement wrap.
+// (the exact int64 sentinel or the f64 infinity of an extremum) and its
+// merge, `a` first in the fixed order. Counts and int64 sums add with
+// two's complement wrap.
 __device__ __forceinline__ i64 val_ident(int op) {
   switch (op) {
     case R_MIN_I: case R_FIRST: return I64_MAX_V;
     case R_MAX_I: return I64_MIN_V;
-    case R_MIN_F: return as_i64(F64_MAX_V);
-    case R_MAX_F: return as_i64(-F64_MAX_V);
+    case R_MIN_F: return F64_POS_INF_BITS;
+    case R_MAX_F: return F64_NEG_INF_BITS;
     default: return 0;   // counts, int sums, and +0.0 for f64 sums
   }
 }

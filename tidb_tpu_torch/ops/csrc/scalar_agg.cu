@@ -3,7 +3,7 @@
 // Replaces tidb_tpu/ops/kernels.py:713 build_scalar_agg_fn / :754
 // _scalar_agg: per aggregate the count of contributing rows (mask & arg
 // valid) and its sum (wrapping int64 or f64), min or max with the exact
-// I64_MAX / I64_MIN / +-F64_MAX sentinels, or for first_row the count of
+// I64_MAX / I64_MIN / +-inf identities, or for first_row the count of
 // mask rows and the smallest mask row index.
 //
 // Bound by bytes: each reduction reads the 1-byte mask and, where it has

@@ -15,7 +15,7 @@
 // per region (null values: the reduction counts; null valid: all valid).
 // Output: one int64 per (reduction, global segment): a count, a wrapping
 // int64 sum, an f64 sum (bits), or an extremum with the exact
-// I64 / +-DBL_MAX sentinel where no row contributes.
+// I64 sentinel or f64 +-inf identity where no row contributes.
 //
 // Small spans (warps * reductions * max span * 8 B <= K6_SMEM_BYTES):
 // tiles of K6_TILE rows never cross a region; each warp walks a contiguous

@@ -86,7 +86,6 @@ from tidb_tpu_torch.ops.exprc import (CompiledExpr, Finalized, Program,
 
 I64_MAX = (1 << 63) - 1
 I64_MIN = -(1 << 63)
-F64_MAX = float(np.finfo(np.float64).max)
 
 # One device runs one request's kernels at a time; the reference meters
 # this lock into device.busy_us and the profiler, which the port has not
@@ -1839,8 +1838,12 @@ def _red_inputs(red: Red, n: int, mask: torch.Tensor):
 
 
 def _sentinel(op: int):
+    """The identity of an extremum (common.cuh val_ident): the exact
+    int64 bounds, and +-inf for f64, which no value beats: a group of only
+    +inf (MIN) or -inf (MAX) answers it, as numpy does. Empty groups are
+    NULL by their counts, never by comparison with it."""
     return {R_MIN_I: I64_MAX, R_FIRST: I64_MAX, R_MAX_I: I64_MIN,
-            R_MIN_F: F64_MAX, R_MAX_F: -F64_MAX}[op]
+            R_MIN_F: float("inf"), R_MAX_F: float("-inf")}[op]
 
 
 def scalar_agg_plain(mask: torch.Tensor, reds: list[Red]):
@@ -2426,6 +2429,95 @@ def combine_region_partials(states: list, ops: list, device) -> list:
     with phase("k7", device):
         outs = combine_partials(states, codes, device)
     return [np.atleast_1d(o.numpy()) for o in outs]
+
+
+# ---------------------------------------------------------------------------
+# the region combine of the cluster joins: row specs reduced into [G]
+# states per span of rows (K6), the spans folded (K7)
+# ---------------------------------------------------------------------------
+
+def row_spans_inputs(gid: np.ndarray, specs: list, caps: list,
+                     device) -> tuple:
+    """K6's arguments for row specs laid out in spans: `gid` host
+    int64[sum caps] (global group ids; the sink G for rows that never
+    contribute), `specs` [(op "sum" / "min" / "max", values host
+    int64 / f64 [sum caps] or None for a count, contrib host bool[sum
+    caps])]. Each plane goes up once; span s holds rows sum(caps[:s]) up
+    to sum(caps[:s + 1]). Returns (gid, reds, contribs, codes): K6's
+    group ids, per-span StatesInputs and contrib masks on `device`, and
+    the K7 code that folds each spec over the spans."""
+    dev = _device(device)
+    bases = np.concatenate([[0], np.cumsum(caps)]).astype(np.int64)
+    g = torch.from_numpy(np.ascontiguousarray(gid, np.int64)).to(dev)
+    cols, contribs, codes = [], [], []
+    for op, vals, ok in specs:
+        contribs.append(torch.from_numpy(np.ascontiguousarray(
+            ok, dtype=bool)).to(dev))
+        if vals is None:
+            cols.append((R_COUNT, None))
+            codes.append(R_SUM_I)
+            continue
+        vals = np.ascontiguousarray(vals)
+        code = _COMBINE_CODE[(op, vals.dtype == np.float64)]
+        cols.append((code, torch.from_numpy(vals).to(dev)))
+        codes.append(code)
+    reds = [[StatesInput(code, None, None if v is None
+                         else v[int(bases[r]):int(bases[r + 1])])
+             for code, v in cols] for r in range(len(caps))]
+    return g, reds, contribs, codes
+
+
+def span_states_fold(gid: torch.Tensor, caps: list, n_rows: list, G: int,
+                     reds: list, contribs: list, codes: list, fold,
+                     plain: bool = False) -> list:
+    """Row specs into [G] states per span, the spans folded: K6 over
+    len(caps) spans of G + 1 segments each (the sink G takes padding and
+    dead rows), then `fold` (mesh_allreduce) over the [S, G] blocks; one
+    span needs no fold. `plain` runs both plain versions on the tensors'
+    device (the chip check's yardstick). Returns one [G] numpy array per spec, f64 where its code
+    is an f64 op."""
+    dev = gid.device
+    S = len(caps)
+    with phase("k6", dev):
+        if plain:
+            out = seg_states_ragged_plain(gid, caps, [G] * S, reds, contribs)
+        else:
+            out = seg_states_ragged(gid, caps, n_rows, [G] * S, reds,
+                                    contribs)
+    span = bucket_segments(G + 1)
+    parts = [out[j].view(S, span)[:, :G] for j in range(len(codes))]
+    if S == 1:
+        with phase("states_readback", dev):
+            host = [p[0].cpu().numpy() for p in parts]
+    elif plain:
+        typed = [p.view(torch.float64) if c in F_OPS else p
+                 for p, c in zip(parts, codes)]
+        host = [(o.view(torch.int64) if o.dtype == torch.float64 else o)
+                .cpu().numpy() for o in combine_partials_plain(typed, codes)]
+    else:
+        host = fold(parts, codes)
+    return [np.atleast_1d(a.view(np.float64) if c in F_OPS else a).copy()
+            for a, c in zip(host, codes)]
+
+
+def rows_states(specs: list, gid: np.ndarray, G: int, device,
+                plain: bool = False) -> list:
+    """The region combine on one device: one fusion's row specs
+    (row_spans_inputs' form over the stacked rows of every region)
+    reduced into [G] states by K6 over one span of all the rows, no fold.
+    The group ids are global, so the regions need no [R, G] stacks: where
+    the reference builds them with np.add.at on the host and folds them
+    with combine_region_partials, one span gives the same states. `plain`
+    runs K6's plain version. Returns one [G] numpy array per spec."""
+    dev = _device(device)
+    n = len(gid)
+    try:
+        with phase("h2d", dev):
+            g, reds, contribs, codes = row_spans_inputs(gid, specs, [n], dev)
+        return span_states_fold(g, [n], [n], G, reds, contribs, codes, None,
+                                plain=plain)
+    except RuntimeError as e:
+        raise errors.DeviceError(f"region row combine failed: {e}") from e
 
 
 def _states_input(op: str, v, ok) -> StatesInput:

@@ -1,11 +1,11 @@
 """The mesh execution tier on one card (the port of tidb_tpu/ops/mesh.py:
 set_enabled / set_mesh / get_mesh :68-108, _mix64 :115, RegionPlacement
-:124-173, publish_shard_balance :176, placement_for :200, _identity :213,
-_shard_layout :226, combine_states_sharded :435-512 with
-_monoid_collective_fn :241, region_states_sharded :572-700 with
-_states_local_fn :527; the sharded join probe of :913-962 with
-_sharded_probe_fn :708 and _shard_block_totals :736 is
-kernels.join_match_pairs(..., shards=S)).
+:124-173, publish_shard_balance :176, placement_for :200, _identity :196,
+_shard_layout :209, combine_rows_sharded :327-432 with _sharded_combine_fn
+:290, combine_states_sharded :435-512 with _monoid_collective_fn :241,
+region_states_sharded :572-700 with _states_local_fn :527; the sharded
+join probe of :913-962 with _sharded_probe_fn :708 and
+_shard_block_totals :736 is kernels.join_match_pairs(..., shards=S)).
 
 - `RegionPlacement`: a stable region → shard map, a pure splitmix64 hash
   of the region id, so a region never moves when its neighbours split or
@@ -49,8 +49,14 @@ the port raises DeviceError (it has no lower rung to hide a fault in).
   totals from the count pass (no out_cap, no retry), and K17 merges the
   pairs stably by global left row.
 
-`combine_rows_sharded` (:290-432) waits for its caller (the region combine
-of the cluster joins).
+- `combine_rows_sharded` (:327-432 with _sharded_combine_fn :290): the
+  region combine of a fusion over a multi-region join or scan
+  (executor.fused_agg): each region's result rows on their home shard,
+  the rows' group ids, values and contrib masks taken by the layout on
+  the host and uploaded, K6 over the S spans of lmax rows with G + 1
+  segments each (the sink G takes the padding), and K7's shard fold
+  (psum / pmin / pmax); at one shard the single-device rung
+  (kernels.rows_states: one K6 span, no fold).
 """
 
 from __future__ import annotations
@@ -196,38 +202,53 @@ def placement_keys(region_ids, n: int) -> list:
 # ---------------------------------------------------------------------------
 
 def _identity(op: str, dtype):
-    """The monoid identity that pads a shard's block: 0 for sums, the
-    f64 extremes, and the exact int64 extremes (a max over a region whose
+    """The monoid identity that pads a shard's block: 0 for sums, +-inf
+    for f64 extrema (where the reference pads with +-F64_MAX, which beats
+    a real +-inf), and the exact int64 extremes (a max over a region whose
     value is -2^63 must not round to the identity; empty groups are NULL
     by their counts, never by comparison with it)."""
     if op == "sum":
         return 0
     if np.dtype(dtype) == np.float64:
-        return kernels.F64_MAX if op == "min" else -kernels.F64_MAX
+        return np.inf if op == "min" else -np.inf
     return kernels.I64_MAX if op == "min" else kernels.I64_MIN
+
+
+def _shard_blocks(slices, shard_of, n_shards: int):
+    """Where each region's row segment [s, e) lands on its home shard:
+    ([(s, e, dst)], rows_per_shard, lmax). Each shard's regions follow
+    one another in region order from dst = shard * lmax; lmax is a power
+    of two of at least 1024."""
+    fill = [0] * n_shards
+    placed = []
+    for (s, e), sh in zip(slices, shard_of):
+        placed.append((s, e, sh, fill[sh]))
+        fill[sh] += e - s
+    lmax = kernels.bucket_segments(max(max(fill), 1), minimum=1024)
+    return ([(s, e, sh * lmax + at) for s, e, sh, at in placed], fill,
+            lmax)
 
 
 def _shard_layout(slices, shard_of, n_shards: int):
     """Row permutation placing each region's row segment [s, e) on its
     home shard: (idx int64[S * lmax] gather index, live bool[S * lmax],
-    rows_per_shard). Each shard's regions follow one another in region
-    order; lmax is a power of two of at least 1024; padding rows gather
-    row 0 under live False."""
-    segs: list[list[tuple[int, int]]] = [[] for _ in range(n_shards)]
-    for (s, e), sh in zip(slices, shard_of):
-        segs[sh].append((s, e))
-    per_shard = [sum(e - s for s, e in blocks) for blocks in segs]
-    lmax = kernels.bucket_segments(max(max(per_shard), 1), minimum=1024)
+    rows_per_shard). Padding rows gather row 0 under live False."""
+    blocks, per_shard, lmax = _shard_blocks(slices, shard_of, n_shards)
     idx = np.zeros(n_shards * lmax, dtype=np.int64)
     live = np.zeros(n_shards * lmax, dtype=bool)
-    for sh, blocks in enumerate(segs):
-        off = sh * lmax
-        for s, e in blocks:
-            n = e - s
-            idx[off:off + n] = np.arange(s, e, dtype=np.int64)
-            live[off:off + n] = True
-            off += n
+    for s, e, dst in blocks:
+        idx[dst:dst + e - s] = np.arange(s, e, dtype=np.int64)
+        live[dst:dst + e - s] = True
     return idx, live, per_shard
+
+
+def _place(a: np.ndarray, blocks: list, size: int, fill) -> np.ndarray:
+    """`a`'s row segments copied to their places in a [size] plane of
+    `fill`: the shard layout by block copies, not a row gather."""
+    out = np.full(size, fill, dtype=a.dtype)
+    for s, e, dst in blocks:
+        out[dst:dst + e - s] = a[s:e]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -280,6 +301,71 @@ def combine_states_sharded(states, ops, mesh, shard_of=None) -> list:
             from e
     return [np.atleast_1d(a.view(np.float64) if f else a)
             for a, f in zip(folded, is_f)]
+
+
+# ---------------------------------------------------------------------------
+# the region combine of a fusion: result rows on their home shards, [G]
+# states per shard, the shards folded (row 15f)
+# ---------------------------------------------------------------------------
+
+def _rows_layout(mesh, specs: list, gid, G: int, slices: list, region_ids,
+                 epochs) -> tuple:
+    """combine_rows_sharded's host half: each region's rows placed on its
+    home shard, the group ids, values and contrib masks copied there
+    block by block on the host (the reference's inputs are host planes,
+    :365-376): (gid_sh, specs_sh, caps, n_rows). Padding rows take the
+    sink segment G and never contribute. Over more than one shard."""
+    S = mesh.n
+    dev = mesh.device
+    shard_of = placement_for(mesh).shard_of(
+        placement_keys(region_ids, len(slices)), epochs)
+    blocks, per_shard, lmax = _shard_blocks(slices, shard_of, S)
+    publish_shard_balance(per_shard)
+    size = S * lmax
+    with kernels.phase("host_shard_layout", dev):
+        gid_sh = _place(np.asarray(gid, np.int64), blocks, size, G)
+        specs_sh = [(op, None if v is None else _place(np.asarray(v),
+                                                       blocks, size, 0),
+                     _place(np.asarray(ok, bool), blocks, size, False))
+                    for op, v, ok in specs]
+    return gid_sh, specs_sh, [lmax] * S, per_shard
+
+
+def combine_rows_sharded(mesh, specs: list, gid, G: int, slices: list,
+                         region_ids=None, epochs=None,
+                         plain: bool = False) -> list:
+    """Combine one fusion's per-region partial aggregates over the mesh
+    (row 15f, the reference's :327 combine_rows_sharded with :290
+    _sharded_combine_fn). `specs` is [(op "sum" / "min" / "max", values
+    host int64 / f64 row plane or None for a count, contrib host bool)],
+    `gid` the host-unified global group id of every row, `slices` each
+    region's [start, end) rows, `region_ids` / `epochs` the placement key
+    of each (positional where a region has none).
+
+    Every region's rows go to their home shard (RegionPlacement, the
+    shard layout), each shard reduces its rows into [G] states, K6 over
+    S spans of lmax rows with G + 1 segments each (the sink G takes the
+    padding), and K7's shard fold (kernels.mesh_allreduce) merges them:
+    psum for counts and sums, pmin / pmax for extrema. At one shard it is
+    one K6 span and no fold. `plain` runs the plain versions
+    (seg_states_ragged_plain, combine_partials_plain) on the mesh's
+    device instead. Returns one [G] numpy array per spec. A fault raises
+    DeviceError, where the reference's caller degrades."""
+    dev = mesh.device
+    if mesh.n == 1:
+        publish_shard_balance([len(gid)])
+        return kernels.rows_states(specs, gid, G, dev, plain=plain)
+    gid_sh, specs_sh, caps, n_rows = _rows_layout(mesh, specs, gid, G,
+                                                  slices, region_ids, epochs)
+    try:
+        with kernels.phase("h2d", dev):
+            k6 = kernels.row_spans_inputs(gid_sh, specs_sh, caps, dev)
+        out = kernels.span_states_fold(
+            k6[0], caps, n_rows, G, k6[1], k6[2], k6[3],
+            kernels.mesh_allreduce, plain=plain)
+    except RuntimeError as e:
+        raise errors.DeviceError(f"sharded row combine failed: {e}") from e
+    return out
 
 
 # ---------------------------------------------------------------------------
