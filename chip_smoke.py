@@ -22,6 +22,12 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    PyTorch version run on the card, at the shapes of Q1 / Q6 / GROUP BY
    l_suppkey on that batch and on edge-case planes (NULLs, int64
    extremes, empty segments); median times over 20 runs from CUDA events.
+   K2 (redesigned in slice 11: one pass, descriptors by value) also on
+   planes that start at odd row offsets (views p[1:], p[3:], a mask in
+   another 16-byte phase than its planes), n of 1, 15, 17, 4099 and
+   2^20 + 333, 70 reductions (two launches of at most K2_MAX_REDS), every
+   op with constant and never arguments, no mask row; every K2 check
+   run twice, the f64 sums bit-identical.
 4. Phase C, the cluster path at SF0.01 through KV: the same rows in a
    DistStore split at handle boundaries into 1, 2 and 8 regions; the six
    shapes of the JAX package's TPC-H sweep (tpch.SWEEP) through
@@ -51,6 +57,12 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    keys beside filtered rows, int64 extremes under DESC, BIGINT keys
    above 2^53 in both orders, -0.0 beside +0.0, no live row, k = 1 and
    k above the live rows, lengths no multiple of a tile), bit for bit.
+   K10 (redesigned in slice 11: a threshold filter over composite keys in
+   registers and shared memory, launches by kernels.topk_plan, counted
+   per statement) also at 2^22 + 13 rows: all keys equal (the first k
+   live rows), the k-th first key shared across blocks, a key sorted in
+   and one against the wanted order (both timed), k 5000, k at and above
+   the live rows.
 7. Phase F, joins at SF1 on Phase B's lineitem batch (its planes
    resident) and orders (one row per order of that lineitem, about 1.5M
    rows), partsupp (800,000) and a 4-row priority table built straight
@@ -124,8 +136,11 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    both routes, the K7 fold (client partials and states combine), Q1's
    shard partials, K20 at SF1 and on edge cases and the sharded K12, each
    against its plain version and timed (median of 20 CUDA-event runs)
-   beside its bound. Last, the default configuration that Phases C, D
-   and I also drive: the process mesh of this one-card rig is one shard,
+   beside its bound; K20's row in the kernels line is topn_price's shape
+   (one key, k 10), beside torch.topk over the same masked f64 score
+   viewed [8, L], and topn_multi's (three keys, k 100) is printed. Last,
+   the default configuration that Phases C, D and I also drive: the
+   process mesh of this one-card rig is one shard,
    whose near-data rung and combine are the batched K6 and the region
    combine; plain_q1 and dec_group checked on it and timed with the tier
    on and off.
@@ -638,6 +653,77 @@ def edge_reductions(batch, device, rng):
             R(kernels.R_MAX_I, const_bits=3, never=True)]
 
 
+def k2_edge_reds(iv, fv, ok, ok2) -> list:
+    """Every K2 op over int64 (with extremes) and f64 planes, NULLs, a
+    constant argument with and without a valid plane, a never argument and
+    count(1)."""
+    R = kernels.Red
+    return [R(kernels.R_COUNT, iv, ok), R(kernels.R_SUM_I, iv, ok),
+            R(kernels.R_SUM_F, fv, ok), R(kernels.R_MIN_I, iv, ok2),
+            R(kernels.R_MAX_I, iv, ok), R(kernels.R_MIN_F, fv, ok2),
+            R(kernels.R_MAX_F, fv, ok), R(kernels.R_FIRST),
+            R(kernels.R_SUM_I, const_bits=7),
+            R(kernels.R_SUM_I, const_bits=-3, valid=ok2),
+            R(kernels.R_MAX_I, const_bits=3, never=True),
+            R(kernels.R_COUNT, const_bits=1), R(kernels.R_SUM_F, fv),
+            R(kernels.R_MIN_I, iv)]
+
+
+def k2_repeat(mask, reds, what: str) -> None:
+    """Two identical K2 calls give the same bits (f64 sums included)."""
+    a_n, a_v = kernels.scalar_agg(mask, reds)
+    b_n, b_v = kernels.scalar_agg(mask, reds)
+    need(torch.equal(a_n, b_n) and torch.equal(a_v, b_v),
+         f"{what}: two identical K2 calls differ")
+
+
+def k2_edges(device, seed: int) -> float:
+    """K2 against its plain version on planes that start at odd row offsets
+    (views p[1:], p[3:], and a mask in another 16-byte phase than its
+    planes), n of 1, 15, 17 and a length no multiple of a block's slice,
+    more reductions than one launch's cap, every op; each case also run
+    twice for the same bits."""
+    rng = np.random.default_rng(seed)
+    n = (1 << 20) + 333
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(device)  # noqa: E731
+    iv = rng.integers(-1000, 1000, n)
+    iv[rng.random(n) < 0.01] = col.I64_MAX
+    iv[rng.random(n) < 0.01] = col.I64_MIN
+    iv, fv = t(iv.astype(np.int64)), t(rng.standard_normal(n) * 1e3)
+    ok, ok2 = t(rng.random(n) > 0.2), t(rng.random(n) > 0.6)
+    mask = t(rng.random(n) < 0.6)
+    cases = [(mask, k2_edge_reds(iv, fv, ok, ok2), f"{n} rows")]
+    for off in (1, 3):
+        cases.append((mask[off:], k2_edge_reds(iv[off:], fv[off:], ok[off:],
+                                               ok2[off:]), f"views [{off}:]"))
+    m = n - 8
+    cases.append((mask[1:1 + m], k2_edge_reds(iv[3:3 + m], fv[3:3 + m],
+                                              ok[5:5 + m], ok2[:m]),
+                  "mask and planes in other phases"))
+    for m in (1, 15, 17, 4099):
+        for off in (0, 1):
+            sl = slice(off, off + m)
+            cases.append((mask[sl], k2_edge_reds(iv[sl], fv[sl], ok[sl],
+                                                 ok2[sl]),
+                          f"n {m} at offset {off}"))
+    cases.append((mask, k2_edge_reds(iv, fv, ok, ok2) * 5,
+                  f"{14 * 5} reductions (cap {kernels.K2_MAX_REDS})"))
+    cases.append((torch.zeros_like(mask), k2_edge_reds(iv, fv, ok, ok2),
+                  "no mask row"))
+    err = 0.0
+    for msk, reds, what in cases:
+        before = kernels.LAUNCHES["scalar_agg"]
+        err = max(err, check_reduce(kernels.scalar_agg,
+                                    kernels.scalar_agg_plain, (msk,), reds,
+                                    f"K2 edge {what}"))
+        want = len(kernels.scalar_agg_chunks(len(reds)))
+        need(device.type != "cuda"
+             or kernels.LAUNCHES["scalar_agg"] - before == want,
+             f"K2 edge {what}: not {want} launches")
+        k2_repeat(msk, reds, f"K2 edge {what}")
+    return err
+
+
 def phase_b(n_rows: int, seed: int, device, edge_cap: int) -> tuple:
     """Returns (per-kernel results, the rows, the batch), the batch holding
     Phase E's and Phase F's columns too."""
@@ -714,6 +800,11 @@ def phase_b(n_rows: int, seed: int, device, edge_cap: int) -> tuple:
     empty = torch.zeros_like(emask)
     err = max(err, check_reduce(kernels.scalar_agg, kernels.scalar_agg_plain,
                                 (empty,), ereds, "K2 empty"))
+    k2_repeat(mask6, reds6, "K2 Q6")
+    err = max(err, k2_edges(device, seed + 11))
+    print("phase B: K2 (one pass, descriptors by value, 16-byte loads, "
+          "a last-block fold) equal to its plain version at Q6 and on the "
+          "edge cases; repeats bit-identical")
     x6 = torch.where(mask6 & reds6[0].valid, reds6[0].values,
                      torch.zeros_like(reds6[0].values))
     out["scalar_agg"] = dict(
@@ -1258,9 +1349,10 @@ E_LAUNCHES = {
     "scalar_distinct": {"expr_vm": 1, "distinct_runs": 4, "scalar_agg": 4},
     "grouped_distinct": {"expr_vm": 1, "seg_agg_onehot": 1,
                          "distinct_runs": 1, "seg_agg_sorted": 1},
-    "topn_price": {"expr_vm": 1, "topk_select": 1},
-    "topn_multi": {"expr_vm": 1, "topk_select": 1},
-    "topn_multi_5000": {"expr_vm": 1, "topk_select": 1},
+    # K10's launches come from its plan (kernels.topk_launch_count)
+    "topn_price": {"expr_vm": 1},
+    "topn_multi": {"expr_vm": 1},
+    "topn_multi_5000": {"expr_vm": 1},
     "ranked_dates repeat": {"expr_vm": 1, "rank_groups": 1,
                             "seg_agg_sorted": 1},
     "tuple_dates repeat": {"expr_vm": 1, "seg_agg_sorted": 1},
@@ -1314,6 +1406,13 @@ def check_k9(args: tuple, what: str) -> float:
     return max_err(got, want)
 
 
+def k10_launches(n: int, k: int, nk: int, device):
+    """K10's launches for one call (its plan), or "plain" off the card."""
+    if torch.device(device).type != "cuda":
+        return "plain"
+    return kernels.topk_launch_count(n, k, nk, device)
+
+
 def check_k10(mask, keys: list, k: int, what: str) -> float:
     gi, gn = kernels.topk_select(mask, keys, k)
     wi, wn = kernels.topk_select_plain(mask, keys, k)
@@ -1359,8 +1458,12 @@ def e_statements(client, batch, data) -> tuple:
             need(client.stats["tuple_grouped"] == tuples + 1,
                  f"{name}: did not take the tuple codes")
         if cuda:
-            need(delta == E_LAUNCHES[name],
-                 f"{name}: launches {delta}, want {E_LAUNCHES[name]}")
+            want = dict(E_LAUNCHES[name])
+            if sel.order_by:
+                want["topk_select"] = k10_launches(
+                    batch.capacity, sel.limit, len(sel.order_by),
+                    client.device)
+            need(delta == want, f"{name}: launches {delta}, want {want}")
         for k, v in delta.items():
             total[k] += v
         print(f"  {name}: {resp.row_count()} rows equal to numpy in "
@@ -1414,6 +1517,43 @@ def edge_topn(device, seed: int) -> list:
     few = t(np.arange(n) % 997 == 3)
     cases.append((few, keys[:2], 100, "k above the live rows"))
     return cases
+
+
+K10_BIG_ROWS = (1 << 22) + 13
+
+
+def k10_big_edges(device, seed: int) -> list:
+    """(mask, keys, k, what) for K10 at 2^22 + 13 rows, many blocks: all
+    keys equal (the first k live rows by position), the k-th first-key
+    value shared by rows in every block, a key sorted in the wanted order
+    and one sorted against it, k above one tile (5000), k at and above the
+    live rows."""
+    rng = np.random.default_rng(seed)
+    n = K10_BIG_ROWS
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(device)  # noqa: E731
+    live = t(rng.random(n) > 0.4)
+    ok = t(np.ones(n, bool))
+    some = t(rng.random(n) > 0.1)
+    rows = np.arange(n, dtype=np.int64)
+    tied = t(rng.integers(0, 64, n).astype(np.int64))
+    price = t(rng.integers(90_000, 10_500_000, n).astype(np.int64))
+    fkey = t(rng.standard_normal(n))
+    sparse = t(rows % 4099 == 7)
+    return [
+        (live, [((t(np.full(n, 5, np.int64)), ok), True)], 100,
+         "all keys equal"),
+        (live, [((tied, ok), True), ((price, some), False)], 1000,
+         "k-th first key shared across blocks"),
+        (live, [((tied, ok), False)], 5000, "one tied key, k 5000"),
+        (live, [((t(rows), ok), False)], 10, "sorted in the wanted order"),
+        (live, [((t(rows), ok), True)], 10, "sorted against the wanted order"),
+        (live, [((fkey, some), True), ((tied, ok), False)], 5000,
+         "k 5000 over f64 with NULLs"),
+        (sparse, [((price, some), True)], int(sparse.sum()),
+         "k equal to the live rows"),
+        (sparse, [((price, some), True), ((tied, ok), False)], 2000,
+         "k above the live rows"),
+    ]
 
 
 def edge_rank(device, seed: int) -> list:
@@ -1568,6 +1708,24 @@ def phase_e(data: dict, batch, device, seed: int) -> dict:
     err = max(check_k10(*a, f"K10 {name}") for name, a in k10.items())
     for mask, keys_p, k, what in edge_topn(device, seed + 2):
         err = max(err, check_k10(mask, keys_p, k, f"K10 edge {what}"))
+    big = k10_big_edges(device, seed + 3)
+    for mask, keys_p, k, what in big:
+        err = max(err, check_k10(mask, keys_p, k, f"K10 edge {what}"))
+    mask, keys_p, k, _w = big[0]
+    need(torch.equal(kernels.topk_select(mask, keys_p, k)[0],
+                     torch.nonzero(mask).reshape(-1)[:k]),
+         "K10 edge all keys equal: not the first live rows")
+    print(f"phase E: K10 (threshold filter, {kernels.K10_STEP}-row steps, "
+          f"plan levels by k) equal to its plain version at the three "
+          f"shapes and on {len(big)} edge cases at {K10_BIG_ROWS} rows")
+    for mask, keys_p, k, what in big[3:5]:
+        nb = mask.shape[0]
+        b = bound(nb * (1 + 9 * len(keys_p)) + 8 * k + 8, nb * len(keys_p))
+        t_k = ms(lambda: kernels.topk_select(mask, keys_p, k))
+        t_p = ms(lambda: kernels.topk_select_plain(mask, keys_p, k))
+        print(f"phase E: K10 {what} ({nb} rows, k {k}): {t_k:.4f} ms, "
+              f"plain {t_p:.4f} ms, bound {b[0]:.4f} ms by {b[1]}; "
+              f"launches {k10_launches(nb, k, 1, device)}")
     mask, keys_p, k = k10["topn_price"]
     (price, price_ok), _desc = keys_p[0]
     score = torch.where(mask & price_ok, price.to(torch.float64),
@@ -1584,7 +1742,8 @@ def phase_e(data: dict, batch, device, seed: int) -> dict:
         b = bound(n * (1 + 9 * len(keys_p)) + 8 * k + 8, n * len(keys_p))
         print(f"phase E: K10 at {name}'s shape (k {k}, {len(keys_p)} "
               f"keys): {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
-              f"{b[0]:.4f} ms by {b[1]}")
+              f"{b[0]:.4f} ms by {b[1]}; launches "
+              f"{k10_launches(n, k, len(keys_p), device)}")
     for name, r in out.items():
         print(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']}, bound {r['bound'][0]:.4f} ms by "
@@ -3404,14 +3563,29 @@ def phase_j(data: dict, batch, d_store: DistStore, d_data: dict,
                                kernels.device_live(batch, device))
         k = min(sel.limit, batch.capacity // MESH_SHARDS)
         err = max(err, check_k20(mask, kp, k, MESH_SHARDS, f"K20 {name}"))
-        if name == "topn_multi":
-            score = kp[0][0][0].to(torch.float64)
+        if name == "topn_price":
+            # the yardstick computes the same function but for ties: one
+            # masked f64 score (dead rows -inf), the top k of each shard
+            (v, ok), _desc = kp[0]
+            score = torch.where(mask & ok, v.to(torch.float64),
+                                torch.full_like(v, -np.inf,
+                                                dtype=torch.float64))
             timed["shard_topk"] = dict(
                 ms=ms(lambda: kernels.shard_topk(mask, kp, k, MESH_SHARDS)),
                 plain_ms=ms(lambda: kernels.shard_topk_plain(
                     mask, kp, k, MESH_SHARDS)),
                 library_ms=ms(lambda: torch.topk(
                     score.view(MESH_SHARDS, -1), k, dim=1)),
+                bound=bound(k20_bytes(mask, kp, k, MESH_SHARDS), 0),
+                shape=f"{MESH_SHARDS} shards x {batch.capacity // MESH_SHARDS}"
+                      f" rows, {len(kp)} key, k {k}")
+        if name == "topn_multi":
+            # no PyTorch call orders by three keys with NULL ranks
+            timed["shard_topk topn_multi"] = dict(
+                ms=ms(lambda: kernels.shard_topk(mask, kp, k, MESH_SHARDS)),
+                plain_ms=ms(lambda: kernels.shard_topk_plain(
+                    mask, kp, k, MESH_SHARDS)),
+                library_ms=None,
                 bound=bound(k20_bytes(mask, kp, k, MESH_SHARDS), 0),
                 shape=f"{MESH_SHARDS} shards x {batch.capacity // MESH_SHARDS}"
                       f" rows, {len(kp)} keys, k {k}")

@@ -48,8 +48,8 @@ SIGNATURES = {
                                    _P], _I),
     },
     "scalar_agg": {
-        "scalar_agg_blocks": ([_L], _I),
-        "scalar_agg_launch": ([_L, _P, _I, _P, _P, _P, _P], _I),
+        "scalar_agg_grid": ([], _I),
+        "scalar_agg_launch": ([_L, _P, _I, _P, _P, _P, _P, _P, _I, _P], _I),
     },
     "seg_agg_onehot": {
         "seg_onehot_blocks": ([_L], _I),
@@ -68,9 +68,10 @@ SIGNATURES = {
         "distinct_runs_launch": ([_L, _P, _P, _P, _P, _P, _P], _I),
     },
     "topk_select": {
-        "topk_tile": ([], _I),
-        "topk_select_launch": ([_L, _L, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                                _P, _P], _I),
+        "topk_grid": ([_I, _I, _I], _I),
+        "topk_level_launch": ([_I, _I, _I, _I, _I, _L, _P, _P, _P, _I, _I,
+                               _P, _P, _I, _I, _P, _L, _L, _P, _I, _I, _P,
+                               _P], _I),
     },
     "seg_states_ragged": {
         "seg_states_tile": ([], _I),

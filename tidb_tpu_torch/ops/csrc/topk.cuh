@@ -1,10 +1,12 @@
-// The selection steps K10 (topk_select.cu), K16 (slot_topn.cu) and K20
-// (shard_topk.cu) share: a bitonic sort of a tile of row indices in shared
-// memory, and one element's placement in a merge round of sorted candidate
-// lists truncated to k. `Ord` orders two rows (less(a, b): does a come
-// before b?) and orders every pair, so no two rows compare equal. K10 and
-// K20 also share the row encoding (topk_encode) and its order (TopkOrd):
-// live first, then per key its null rank and its order word, then the row.
+// The selection steps K16 (slot_topn.cu) and K20 (shard_topk.cu) share: a
+// bitonic sort of a tile of row indices in shared memory, and one
+// element's placement in a merge round of sorted candidate lists truncated
+// to k. `Ord` orders two rows (less(a, b): does a come before b?) and
+// orders every pair, so no two rows compare equal. K20 also uses the row
+// encoding (topk_encode) and its order (TopkOrd): live first, then per key
+// its null rank and its order word, then the row. K10 (topk_select.cu)
+// keeps the same encoding and order in registers (k10_encode, k10_less)
+// and takes only TOPK_DEAD from here.
 #pragma once
 
 #include "common.cuh"

@@ -69,6 +69,7 @@ the dead-row sink.
 
 from __future__ import annotations
 
+import array
 import contextlib
 import threading
 import time
@@ -1043,11 +1044,139 @@ def topk_select_plain(mask, keys: list, k: int):
     return perm[:kk].contiguous(), n_live
 
 
+# K10's parameter block and plan (topk_select.cu: K10Key, K10_THREADS ...)
+K10_STEP = 1024              # K10_THREADS * K10_ROWS: a block's step
+K10_MAX_SLOTS = 8192         # shared-memory slots a block holds at most
+K10_SMEM_LIMIT = 231424      # dynamic shared memory a block may take
+K10_MERGE_ENTRIES = 32768    # list entries a merge block reads (fan_in * K)
+K10_MAX_ROWS = (1 << 32) - 1  # rows are 32-bit in the composite keys
+
+
+# one ORDER BY item of K10's parameter block (topk_select.cu: struct
+# K10Key), by value: each field 8 bytes, packed in this order
+K10_KEY_FIELDS = ("values", "valid", "is_f64", "desc")
+
+
+def topk_max_slots(nk: int) -> int:
+    """The most slots a block's shared memory holds for nk keys, a power
+    of two: a slot takes 8 bytes of flags and row, 8 per key and 8 of
+    slot lists."""
+    P = K10_MAX_SLOTS
+    while P > K10_STEP and P * (8 * nk + 16) > K10_SMEM_LIMIT:
+        P //= 2
+    return P
+
+
+def _pow2(x: int) -> int:
+    return 1 << max(int(x) - 1, 1).bit_length()
+
+
+def topk_plan(n: int, k: int, nk: int, grid) -> list:
+    """K10's launches for the first k <= n rows of n over nk keys:
+    rounds [(K, slots, levels)], each selecting the next K rows (K at most
+    topk_max_slots(nk) - K10_STEP); a round's levels [(blocks, fan_in)]:
+    level 1 over the rows (fan_in 0) with min(grid(slots), row steps)
+    blocks, then merges of fan_in lists a block until one block is left.
+    grid(slots) is the level-1 block count the card holds."""
+    kmax = topk_max_slots(nk) - K10_STEP
+    rounds, done = [], 0
+    while done < k:
+        K = min(kmax, k - done)
+        slots = _pow2(K + K10_STEP)
+        blocks = max(1, min(int(grid(slots)), -(-n // K10_STEP)))
+        levels = [(blocks, 0)]
+        fan = max(2, K10_MERGE_ENTRIES // K)
+        while blocks > 1:
+            blocks = -(-blocks // fan)
+            levels.append((blocks, fan))
+        rounds.append((K, slots, levels))
+        done += K
+    return rounds
+
+
+def _list_bytes(cap: int, lists: int, nk: int) -> int:
+    """A K10 list buffer (topk_select.cu k10_list): words, flags, rows of
+    cap entries and a count per list, rounded up to 256 bytes."""
+    return (cap * (8 * nk + 8) + 4 * lists + 255) // 256 * 256
+
+
+def topk_scratch(plan: list, nk: int) -> tuple:
+    """Byte offsets of K10's scratch for a plan: (list buffer A, list
+    buffer B, the round bound, the level-1 live counts, total). Level i
+    of a round writes buffer i % 2 and reads the other."""
+    sizes = [0, 0]
+    for K, _slots, levels in plan:
+        for i, (blocks, _fan) in enumerate(levels[:-1]):
+            sizes[i % 2] = max(sizes[i % 2], _list_bytes(blocks * K, blocks,
+                                                         nk))
+    a, b = 0, sizes[0]
+    bound = b + sizes[1]
+    live = bound + _list_bytes(1, 1, nk)
+    return a, b, bound, live, live + 8 * plan[0][2][0][0]
+
+
+_SCRATCH: dict = {}
+_scratch_lock = threading.Lock()
+_K10_PLANS: dict = {}
+
+
+def _stream_scratch(name: str, dev: torch.device, nbytes: int,
+                    stream: int) -> torch.Tensor:
+    """A zeroed device buffer of at least nbytes kept per (kernel, device,
+    stream): launches on one stream run in order, so each call reuses its
+    predecessor's scratch instead of allocating (K2's ticket is back at 0
+    when its launch ends)."""
+    key = (name, dev.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is not None and buf.numel() >= nbytes:
+        return buf
+    with _scratch_lock:
+        buf = _SCRATCH.get(key)
+        if buf is None or buf.numel() < nbytes:
+            buf = torch.zeros(max(int(nbytes), 1), dtype=torch.uint8,
+                              device=dev)
+            _SCRATCH[key] = buf
+    return buf
+
+
+def _k10_plan(lib, dev: torch.device, n: int, kk: int, nk: int) -> tuple:
+    """topk_plan on the card and its scratch offsets, kept per shape."""
+    key = (dev.index, n, kk, nk)
+    got = _K10_PLANS.get(key)
+    if got is None:
+        plan = topk_plan(n, kk, nk,
+                         lambda slots: _k10_grid(lib, dev, nk, slots))
+        got = _K10_PLANS[key] = (plan, topk_scratch(plan, nk))
+    return got
+
+
+_K10_GRID: dict = {}
+
+
+def _k10_grid(lib, dev: torch.device, nk: int, slots: int) -> int:
+    key = (dev.index, nk, slots)
+    g = _K10_GRID.get(key)
+    if g is None:
+        g = lib.topk_grid(nk, 1, slots)
+        if g <= 0:
+            raise errors.DeviceError(f"topk_grid failed with CUDA error {-g}")
+        _K10_GRID[key] = g
+    return g
+
+
+def topk_launch_count(n: int, k: int, nk: int, device) -> int:
+    """K10's launches for one call on the card (its plan's levels)."""
+    dev = _device(device)
+    plan, _offs = _k10_plan(_ext.lib("topk_select"), dev, n, min(k, n), nk)
+    return sum(len(levels) for _K, _s, levels in plan)
+
+
 def topk_select(mask: torch.Tensor, keys: list, k: int):
     """K10: (idx int64[min(k, n)], n_live int64[1]) — the first k rows in
     the order (live first; per ORDER BY item (values, valid), desc: null
     rank, then the value, int64 or f64 with -0.0 == +0.0, reversed for
-    DESC; then row position), and min(live rows, k)."""
+    DESC; then row position), and min(live rows, k). On the card the
+    launches follow topk_plan (LAUNCHES counts each)."""
     if len(keys) > TOPN_MAX_KEYS:
         raise errors.DeviceError(f"K10 takes at most {TOPN_MAX_KEYS} keys")
     if _device_kind(mask) == "cpu":
@@ -1059,32 +1188,40 @@ def topk_select(mask: torch.Tensor, keys: list, k: int):
     if kk <= 0:
         return (torch.empty(0, dtype=torch.int64, device=dev),
                 torch.zeros(1, dtype=torch.int64, device=dev))
-    tab = []
+    if n > K10_MAX_ROWS:
+        raise errors.DeviceError(f"K10 takes at most {K10_MAX_ROWS} rows")
+    nk = len(keys)
+    flat = []
     for j, ((v, ok), desc) in enumerate(keys):
         _check_plane(v, n, (torch.int64, torch.float64), f"key {j}", dev)
         _check_plane(ok, n, (torch.bool,), f"key {j} valid", dev)
-        tab.append([v.data_ptr(), ok.data_ptr(),
-                    int(v.dtype == torch.float64), int(bool(desc))])
-    t_tab = torch.tensor(tab or [[0, 0, 0, 0]],
-                         dtype=torch.int64).reshape(-1).to(dev)
+        flat += [v.data_ptr(), ok.data_ptr(), int(v.dtype == torch.float64),
+                 int(bool(desc))]
+    karr = array.array("q", flat or [0] * len(K10_KEY_FIELDS))
     lib = _ext.lib("topk_select")
-    tile = lib.topk_tile()
-    n_tiles = (n + tile - 1) // tile
-    cand = n_tiles * min(kk, tile)
-    enc = torch.empty(max(len(keys), 1) * n, dtype=torch.int64, device=dev)
-    flg = torch.empty(n, dtype=torch.uint8, device=dev)
-    buf_a = torch.empty(cand, dtype=torch.int64, device=dev)
-    buf_b = torch.empty(cand, dtype=torch.int64, device=dev)
-    count = torch.empty(1, dtype=torch.int64, device=dev)
-    idx = torch.empty(kk, dtype=torch.int64, device=dev)
-    n_live = torch.empty(1, dtype=torch.int64, device=dev)
-    rc = lib.topk_select_launch(
-        n, kk, mask.data_ptr(), len(keys), t_tab.data_ptr(), enc.data_ptr(),
-        flg.data_ptr(), buf_a.data_ptr(), buf_b.data_ptr(), count.data_ptr(),
-        idx.data_ptr(), n_live.data_ptr(), _stream(dev))
-    _ext.check(rc, "topk_select")
-    LAUNCHES["topk_select"] += 1
-    return idx, n_live
+    plan, (off_a, off_b, off_bound, off_live, total) = _k10_plan(
+        lib, dev, n, kk, nk)
+    stream = _stream(dev)
+    base = _stream_scratch("topk_select", dev, total, stream).data_ptr()
+    bufs = (base + off_a, base + off_b)
+    out = torch.empty(kk + 1, dtype=torch.int64, device=dev)
+    idx_p, live_p = out.data_ptr(), out.data_ptr() + 8 * kk
+    done = 0
+    for r, (K, slots, levels) in enumerate(plan):
+        for i, (blocks, fan) in enumerate(levels):
+            final = i == len(levels) - 1
+            rc = lib.topk_level_launch(
+                nk, int(i == 0), blocks, K, slots, n, mask.data_ptr(),
+                karr.buffer_info()[0], bufs[(i - 1) % 2] if i else None,
+                levels[i - 1][0] if i else 0, fan,
+                None if final else bufs[i % 2], base + off_bound,
+                int(r > 0 and i == 0), int(final), idx_p, done, kk,
+                base + off_live, int(r == 0 and (i == 0 or final)),
+                levels[0][0], live_p, stream)
+            _ext.check(rc, "topk_select")
+            LAUNCHES["topk_select"] += 1
+        done += K
+    return out[:kk], out[kk:]
 
 
 # ---------------------------------------------------------------------------
@@ -1739,7 +1876,14 @@ def _device(device) -> torch.device:
 
 
 def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of the device's current stream (torch's own binding
+    where it has one: a Stream object costs microseconds a launch)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    dev = torch.device(device)
+    if raw is None or dev.type != "cuda":
+        return torch.cuda.current_stream(device).cuda_stream
+    return raw(torch.cuda.current_device() if dev.index is None
+               else dev.index)
 
 
 def _check_program_planes(fin: Finalized, plane_list: list,
@@ -1796,7 +1940,9 @@ def expr_vm(fin: Finalized, plane_list: list, live: torch.Tensor,
 # K2 / K3 / K4 and their plain version
 # ---------------------------------------------------------------------------
 
-def _red_desc(reds: list[Red], n: int, device) -> torch.Tensor:
+def _red_rows(reds: list[Red], n: int, device) -> list:
+    """Each reduction's descriptor (op, flags, const_bits, values pointer,
+    valid pointer), its planes checked."""
     rows = []
     for red in reds:
         flags = (RED_CONST if red.values is None else 0) \
@@ -1814,7 +1960,30 @@ def _red_desc(reds: list[Red], n: int, device) -> torch.Tensor:
         rows.append([red.op, flags, red.const_bits,
                      0 if red.values is None else red.values.data_ptr(),
                      0 if red.valid is None else red.valid.data_ptr()])
-    return torch.tensor(rows, dtype=torch.int64).reshape(-1).to(device)
+    return rows
+
+
+def _red_desc(reds: list[Red], n: int, device) -> torch.Tensor:
+    """The descriptor table of K3 / K4 / K15 on the device."""
+    return torch.tensor(_red_rows(reds, n, device),
+                        dtype=torch.int64).reshape(-1).to(device)
+
+
+# K2's parameter block (scalar_agg.cu: struct K2Red, K2_MAX_REDS): the
+# descriptors ride by value, at most K2_MAX_REDS a launch; each field is
+# 8 bytes (int64 or a pointer), packed in this order
+K2_MAX_REDS = 64
+K2_RED_FIELDS = ("op", "flags", "const_bits", "values", "valid")
+
+
+_K2_GRID: dict = {}    # device index -> the launch grid's most blocks
+
+
+def scalar_agg_chunks(n_red: int) -> list:
+    """K2's launches for n_red reductions: [start, stop) spans of at most
+    K2_MAX_REDS, in order."""
+    return [(a, min(a + K2_MAX_REDS, n_red))
+            for a in range(0, n_red, K2_MAX_REDS)]
 
 
 def _red_inputs(red: Red, n: int, mask: torch.Tensor):
@@ -1895,25 +2064,41 @@ def seg_agg_plain(gid: torch.Tensor, mask: torch.Tensor, num_segments: int,
 
 
 def scalar_agg(mask: torch.Tensor, reds: list[Red]):
-    """K2: (n int64[R], acc int64[R]) — acc holds f64 bits for f64 ops."""
+    """K2: (n int64[R], acc int64[R]) — acc holds f64 bits for f64 ops.
+    On the card one launch per scalar_agg_chunks span."""
     if _device_kind(mask) == "cpu":
         return scalar_agg_plain(mask, reds)
     dev = mask.device
     n = mask.shape[0]
     _check_plane(mask, n, (torch.bool,), "mask", dev)
+    if not reds:
+        raise errors.DeviceError("K2 needs at least one reduction")
+    descs = array.array("q", [x for row in _red_rows(reds, n, dev)
+                              for x in row])
     lib = _ext.lib("scalar_agg")
-    desc = _red_desc(reds, n, dev)
-    blocks = lib.scalar_agg_blocks(n)
-    partial = torch.empty(len(reds) * blocks * 2, dtype=torch.int64,
-                          device=dev)
-    out = torch.empty(len(reds) * 2, dtype=torch.int64, device=dev)
-    rc = lib.scalar_agg_launch(n, mask.data_ptr(), len(reds),
-                               desc.data_ptr(), partial.data_ptr(),
-                               out.data_ptr(), _stream(dev))
-    _ext.check(rc, "scalar_agg")
-    LAUNCHES["scalar_agg"] += 1
-    out = out.view(len(reds), 2)
-    return out[:, 0], out[:, 1]
+    grid = _K2_GRID.get(dev.index)
+    if grid is None:
+        grid = _K2_GRID[dev.index] = lib.scalar_agg_grid()
+        if grid <= 0:
+            del _K2_GRID[dev.index]
+            raise errors.DeviceError(f"scalar_agg_grid failed with CUDA "
+                                     f"error {-grid}")
+    stream = _stream(dev)
+    # the ticket (8 bytes), then the partials: 2 int64 per reduction and
+    # block
+    base = _stream_scratch("scalar_agg", dev, 8 + grid * K2_MAX_REDS * 16,
+                           stream).data_ptr()
+    R = len(reds)
+    out = torch.empty((2, R), dtype=torch.int64, device=dev)
+    d_ptr, o_ptr = descs.buffer_info()[0], out.data_ptr()
+    size = 8 * len(K2_RED_FIELDS)
+    for a, b in scalar_agg_chunks(R):
+        rc = lib.scalar_agg_launch(n, mask.data_ptr(), b - a, d_ptr + a * size,
+                                   base + 8, base, o_ptr + 8 * a,
+                                   o_ptr + 8 * (R + a), grid, stream)
+        _ext.check(rc, "scalar_agg")
+        LAUNCHES["scalar_agg"] += 1
+    return out.unbind(0)
 
 
 def _check_gid(gid, mask, dev):
