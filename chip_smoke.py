@@ -34,16 +34,29 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    distsql.select(...).columnar() and fused_agg.final_states on the card,
    each held exactly against the same store with device="cpu" (sharing
    its plane cache) and against numpy. Launch counts are reset before
-   and read after each statement: K5 and K6 once each, K7 once over more
-   than one region.
+   and read after each statement: K5 and K6 once each (K6 on one of its
+   routes; every sweep shape's spans fit shared memory at SF0.01), K7
+   once over more than one region.
 5. Phase D, the cluster path at SF1 over 8 regions: region batches built
    straight from the seed, admitted pinned into the plane cache under
    the key the region handler computes; the six shapes through the store
    (a cache hit in every region), each against numpy; the statement time
-   (median of 10) and its split by phase; K5, K6 and K7 against their
-   plain versions on the card at Q1's shapes and on edge cases (NULL
-   predicates, live rows not a multiple of 32, regions with no survivor
-   and G_r = 0, R = 64, spans above K6's shared-memory limit).
+   (median of 10) and its split by phase; d_supplier (10,000 suppliers:
+   K6's sorted route, launches reset before and read after, its count the
+   sorted route's in the kernels line) through a store of the same
+   regions, against numpy; K5, K6 and K7 against their plain versions on
+   the card at Q1's shapes and on edge cases (NULL predicates, live rows
+   not a multiple of 32, regions with no survivor and G_r = 0, R = 64,
+   spans above K6's shared-memory limit). K6 (its block route redesigned
+   in slice 12: one copy of the span a block in the opt-in shared memory)
+   on each of its three routes, read from its launch counts: Q1's spans
+   (a copy a warp), date_group's (4,096 segments a region: one a block),
+   d_supplier's (16,384 at 8 reductions: sorted); the block route at
+   date_group and on edge states (-0.0 beside +0.0, +-inf-only groups,
+   int64 extremes with wrapping sums, f64 sums, an empty region, a hot
+   segment, regions at odd offsets) run twice for the same bits and held
+   to its plain version on the CPU (f64 sums to 1e-12 of the
+   magnitudes); each route timed beside one index_add_.
 6. Phase E, slice 3 on Phase B's SF1 batch (its planes resident): the
    statements of tpch.SLICE3 through GpuClient.serve, each against numpy
    (counts, decimals and row ids exact) with its launches counted — a
@@ -132,13 +145,17 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    on the near-data rung: K6 over the shard layout; every combine on the
    shards); f1_q3_join through the sharded probe, its pairs equal to the
    single-device pairs. Launch counts are reset before and read after
-   that path; then the statements' splits, K6 over the shard layout on
-   both routes, the K7 fold (client partials and states combine), Q1's
+   that path; then the statements' splits, K6 over the shard layout
+   (plain_q1 a copy a warp, dec_group one a block), the K7 fold (client
+   partials and states combine), Q1's
    shard partials, K20 at SF1 and on edge cases and the sharded K12, each
    against its plain version and timed (median of 20 CUDA-event runs)
    beside its bound; K20's row in the kernels line is topn_price's shape
    (one key, k 10), beside torch.topk over the same masked f64 score
-   viewed [8, L], and topn_multi's (three keys, k 100) is printed. Last,
+   viewed [8, L], and topn_multi's and topn_multi_5000's (three keys, k
+   100 and 5000) are printed. K20 (redesigned in slice 12: K10's
+   threshold filter within each shard) is launched per statement as
+   kernels.shard_topk_launch_count says. Last,
    the default configuration that Phases C, D and I also drive: the
    process mesh of this one-card rig is one shard,
    whose near-data rung and combine are the batched K6 and the region
@@ -176,8 +193,8 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    median of 3) and split; row 15f at f1_q3_join's 8-shard shape against
    its plain version bit for bit, timed (median of 20 CUDA-event runs)
    beside its bytes bound and a scatter_reduce_ yardstick; and the f64
-   +-inf identity of K2, K3, K4, K6 (both routes), K7, row 15c, row 15f
-   and K15 against numpy.
+   +-inf identity of K2, K3, K4, K6 (its three routes), K7, row 15c, row
+   15f and K15 against numpy.
 14. A JSON line of per-kernel numbers, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
@@ -251,6 +268,9 @@ KERNELS = {
                        "tidb_tpu/ops/kernels.py:1552"),
     "seg_states_ragged": ("tidb_tpu_torch/ops/csrc/seg_states_ragged.cu",
                           "tidb_tpu/ops/kernels.py:1356"),
+    "seg_states_ragged_smem": (
+        "tidb_tpu_torch/ops/csrc/seg_states_ragged.cu",
+        "tidb_tpu/ops/kernels.py:1356"),
     "seg_states_ragged_sorted": (
         "tidb_tpu_torch/ops/csrc/seg_states_ragged.cu",
         "tidb_tpu/ops/kernels.py:1356"),
@@ -284,11 +304,11 @@ KERNELS = {
     "combine_rows_sharded": ("tidb_tpu_torch/ops/csrc/seg_states_ragged.cu",
                              "tidb_tpu/ops/mesh.py:290"),
 }
-# K6 has two routes, each counted: spans within its shared-memory limit
-# (seg_states_ragged) and larger ones (seg_states_ragged_sorted)
-CLUSTER_KERNELS = ("expr_vm_ragged", "seg_states_ragged",
-                   "seg_states_ragged_sorted", "combine_partials")
-K6_ROUTES = ("seg_states_ragged", "seg_states_ragged_sorted")
+# K6 has three routes, each counted (kernels.k6_route): a span copy per
+# warp (seg_states_ragged), one a block in the opt-in shared memory
+# (seg_states_ragged_smem) and larger spans (seg_states_ragged_sorted)
+K6_ROUTES = kernels.K6_ROUTES
+CLUSTER_KERNELS = ("expr_vm_ragged",) + K6_ROUTES + ("combine_partials",)
 # f64 sums: another summation order; the bound is relative to the sum of
 # the magnitudes of the summed values
 F64_SUM_RTOL = 1e-12
@@ -1000,8 +1020,11 @@ def phase_c(n_rows: int, seed: int, device, regions=(1, 2, 8)) -> dict:
               f"included)")
     print(f"phase C: launches {totals}")
     if device.type == "cuda":
+        # every sweep shape's spans fit shared memory at SF0.01; K6's sorted
+        # route is driven on Phase D's main path (d_supplier)
         for k, v in totals.items():
-            need(v > 0, f"kernel {k} never launched on the cluster path")
+            need(v > 0 or k == "seg_states_ragged_sorted",
+                 f"kernel {k} never launched on the cluster path")
     return totals
 
 
@@ -1132,6 +1155,123 @@ def _edge_states(edge: list, bits, outs, device, big: bool, seed: int):
     return kernels.states_inputs(segs, device)
 
 
+# (case, [(cap, n_rows, G)] a region, [K6 op] a reduction): shapes that
+# take K6's block route (spans of 512 to 4,096 at 3 or 4 reductions)
+K6_BLOCK_EDGES = (
+    ("-0.0 beside +0.0, +-inf-only groups, an f64 sum",
+     [(3001, 2999, 700), (4099, 4099, 900), (1, 1, 600)],
+     [kernels.R_MIN_F, kernels.R_MAX_F, kernels.R_SUM_F, kernels.R_COUNT]),
+    ("int64 extremes, wrapping sums, an empty region",
+     [(5003, 5001, 2000), (17, 0, 0), (20011, 19999, 1500), (9, 9, 3)],
+     [kernels.R_SUM_I, kernels.R_MIN_I, kernels.R_MAX_I]),
+    ("span 4096, one hot segment",
+     [(60001, 59999, 3000), (40003, 40003, 2600)],
+     [kernels.R_COUNT, kernels.R_SUM_I, kernels.R_MAX_I, kernels.R_SUM_F]),
+    ("extrema at span 1024, short regions",
+     [(8191, 6000, 520), (12289, 12289, 1000), (333, 100, 700)],
+     [kernels.R_MIN_I, kernels.R_MAX_F, kernels.R_COUNT]),
+    ("one hot segment of -0.0 and +0.0",
+     [(20011, 20000, 1500), (7001, 7001, 800)],
+     [kernels.R_MIN_F, kernels.R_MAX_F, kernels.R_SUM_F]),
+)
+
+
+def k6_block_edges(device, seed: int) -> list:
+    """[(seg_states_ragged arguments, what)] for the K6_BLOCK_EDGES shapes:
+    regions whose rows start at odd offsets of the concatenated planes,
+    group ids in [0, G_r] (the sink G_r, which rows past n_rows take), a
+    contrib mask and, for every other reduction, a valid plane; f64 planes
+    with -0.0 and +0.0 in groups 1 and 2, only +inf in group 3 and only
+    -inf in group 4, an f64 sum over finite values; int64 planes with
+    I64_MAX and I64_MIN (sums that wrap) and only I64_MIN in group 5; a
+    hot segment (60 % of the rows), once of -0.0 and +0.0."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa
+    out = []
+    for what, regions, ops in K6_BLOCK_EDGES:
+        gids, reds = [], []
+        contribs = [[] for _ in ops]
+        for cap, n, G in regions:
+            g = rng.integers(0, G + 1, cap).astype(np.int64)
+            if "hot" in what:
+                g[rng.random(cap) < 0.6] = 1 if "0.0" in what else 7
+            g[n:] = G
+            gids.append(g)
+            live = np.arange(cap) < n
+            rr = []
+            for j, op in enumerate(ops):
+                if op in kernels.F_OPS:
+                    v = rng.integers(-20, 20, cap) * 0.25
+                    if op != kernels.R_SUM_F:
+                        v[rng.random(cap) < 0.01] = np.inf
+                        v[rng.random(cap) < 0.01] = -np.inf
+                        zeros = np.isin(g, [1, 2])
+                        v[zeros] = np.where(
+                            rng.random(int(zeros.sum())) < 0.5, -0.0, 0.0)
+                        v[g == 3] = np.inf
+                        v[g == 4] = -np.inf
+                else:
+                    v = rng.integers(-1000, 1000, cap).astype(np.int64)
+                    v[rng.random(cap) < 0.05] = kernels.I64_MAX
+                    v[rng.random(cap) < 0.05] = kernels.I64_MIN
+                    v[g == 5] = kernels.I64_MIN
+                c = live & (rng.random(cap) < 0.9)
+                ok = None if j % 2 else t(rng.random(cap) < 0.85)
+                rr.append(kernels.StatesInput(
+                    op, c, None if op == kernels.R_COUNT else t(v), ok))
+                contribs[j].append(c)
+            reds.append(rr)
+        k6 = (t(np.concatenate(gids)), [c for c, _n, _G in regions],
+              [n for _c, n, _G in regions], [G for _c, _n, G in regions],
+              reds, [t(np.concatenate(cs)) for cs in contribs])
+        out.append((k6, what))
+    return out
+
+
+def _k6_on(k6: tuple, device) -> tuple:
+    gid, caps, n_rows, Gs, reds, contribs = k6
+    mv = lambda x: None if x is None else x.to(device)  # noqa: E731
+    return (gid.to(device), caps, n_rows, Gs,
+            [[kernels.StatesInput(si.op, si.contrib, mv(si.values),
+                                  mv(si.valid)) for si in rr] for rr in reds],
+            [c.to(device) for c in contribs])
+
+
+def check_k6_twice(k6: tuple, what: str) -> float:
+    """K6 run twice (the same bits) against its plain version on the CPU,
+    which folds each segment in row order: an extremum tie of -0.0 and
+    +0.0 keeps the first in row order there and in the tile and block
+    routes. Every op exact but f64 sums: those within F64_SUM_RTOL of the
+    segment's sum of magnitudes (the block route adds its blocks' partial
+    sums in block order)."""
+    got = kernels.seg_states_ragged(*k6)
+    again = kernels.seg_states_ragged(*k6)
+    need(torch.equal(got, again), f"{what}: two runs of K6 differ")
+    gid, caps, n_rows, Gs, reds, contribs = _k6_on(k6, torch.device("cpu"))
+    want = kernels.seg_states_ragged_plain(gid, caps, Gs, reds, contribs)
+    got = got.cpu()
+    err = 0.0
+    for j in range(len(contribs)):
+        op = reds[0][j].op
+        if op != kernels.R_SUM_F:
+            need(torch.equal(got[j], want[j]),
+                 f"{what}: K6 reduction {j} (op {op}) differs from its plain "
+                 "version")
+            continue
+        absd = [[kernels.StatesInput(si.op, si.contrib, si.values.abs(),
+                                     si.valid) if i == j else si
+                 for i, si in enumerate(rr)] for rr in reds]
+        mag = kernels.seg_states_ragged_plain(
+            gid, caps, Gs, absd, contribs)[j].view(torch.float64)
+        g, w = got[j].view(torch.float64), want[j].view(torch.float64)
+        d = (g - w).abs()
+        need(bool((d <= F64_SUM_RTOL * mag).all()),
+             f"{what}: K6 f64 sum {j} beyond {F64_SUM_RTOL} of the "
+             "magnitudes")
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+    return err
+
+
 # K5, K6 and K7 are held to their plain versions EXACTLY, bit for bit:
 # f64 argument planes and extrema included (no f64 sum reaches K6 on the
 # cluster path or in these cases; K7 adds f64 states in region order on
@@ -1192,7 +1332,40 @@ def k6_bound(k6: tuple) -> tuple:
     return bound(nbytes, live * len(contribs))
 
 
-def phase_d(n_rows: int, seed: int, device, R: int = 8) -> dict:
+D_SUPPLIER_CIDS = [tpch.C_SUPPKEY, tpch.C_QUANTITY, tpch.C_DISCOUNT,
+                   tpch.C_SHIPDATE]
+
+
+def d_supplier() -> SelectRequest:
+    """tpch.by_supplier with max(l_quantity) for max(l_shipdate) (the
+    cluster path leaves a temporal MAX to the row engine): select
+    count(*), sum(l_quantity), avg(l_discount), max(l_quantity),
+    first_row(l_suppkey) group by l_suppkey, hinted for the cluster path.
+    At SF1 every region holds about 10,000 suppliers: 16,384 segments a
+    region at 8 reductions, past one block's shared memory."""
+    sel = tpch.by_supplier()
+    sel.aggregates[3] = expr_agg("max", [expr_column(tpch.C_QUANTITY)])
+    return tpch.hinted(sel)
+
+
+def check_d_supplier(rows: list, data: dict) -> None:
+    """d_supplier's final rows against numpy: count, sum and max of the
+    quantity, the discount's sum over the count, by supplier."""
+    d2 = lambda v: Decimal(int(v)).scaleb(-2)  # noqa: E731
+    uniq, inv = np.unique(data[tpch.C_SUPPKEY], return_inverse=True)
+    cnt = np.bincount(inv)
+    sq = np.bincount(inv, weights=data[tpch.C_QUANTITY].astype(np.float64))
+    sd = np.bincount(inv, weights=data[tpch.C_DISCOUNT].astype(np.float64))
+    mx = np.full(len(uniq), np.iinfo(np.int64).min)
+    np.maximum.at(mx, inv, data[tpch.C_QUANTITY].astype(np.int64))
+    want = {int(u): [int(c), d2(a), d2(b) / int(c), d2(m)]
+            for u, c, a, b, m in zip(uniq, cnt, sq, sd, mx)}
+    got = {row[-1].val: [d.val for d in row[:4]] for row in rows}
+    need(got == want, f"phase D d_supplier: {len(got)} groups differ from "
+         f"numpy's {len(want)}")
+
+
+def phase_d(n_rows: int, seed: int, device, R: int = 8) -> tuple:
     t0 = time.perf_counter()
     data = tpch.generate(n_rows, seed)
     batches = tpch.region_batches(data, D_CIDS, R)
@@ -1220,6 +1393,32 @@ def phase_d(n_rows: int, seed: int, device, R: int = 8) -> dict:
         print(f"  {name}: equal to numpy; statement {wall:.3f} ms median "
               f"of 10 (host clock; first run {first_s:.2f} s); split "
               + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    # K6's sorted route on the main path: d_supplier through a store of
+    # the same regions with the supplier columns pinned in its own plane
+    # cache (the sweep's store keeps its cache for Phases J, K, L and I)
+    cuda = device.type == "cuda"
+    s_sel = d_supplier()
+    s_store = DistStore([], tpch.split_keys(n_rows, R), device,
+                        plane_cache=PlaneCache(device=device))
+    admit(s_store, s_sel, tpch.region_batches(data, D_SUPPLIER_CIDS, R))
+    zero_launches()
+    t1 = time.perf_counter()
+    rows = final_rows(s_store, s_sel)
+    if cuda:
+        torch.cuda.synchronize()
+    first_s = time.perf_counter() - t1
+    sup_launches = {k: kernels.LAUNCHES[k] for k in K6_ROUTES}
+    need(not cuda or sup_launches == {k: int(k == "seg_states_ragged_sorted")
+                                      for k in K6_ROUTES},
+         f"phase D d_supplier: K6 launches {sup_launches}")
+    check_d_supplier(rows, data)
+    wall = host_ms(lambda: final_rows(s_store, s_sel), 3)
+    stmt["d_supplier"] = {"ms": wall, "groups": fused_agg.stats["last_groups"],
+                          "k6": sup_launches}
+    print(f"  d_supplier: equal to numpy, K6 launches {sup_launches}; "
+          f"statement {wall:.3f} ms median of 3 (first run {first_s:.2f} s)")
+    _r, k6_sup, _s = capture(s_store, s_sel, device)
+    del s_store
     ms = timer(device)
     sel = tpch.sweep_request("q1full")
     regions, k6, (states, codes) = capture(store, sel, device)
@@ -1233,7 +1432,6 @@ def phase_d(n_rows: int, seed: int, device, R: int = 8) -> dict:
     n_out = len(regions[0].fin.out_dts)
     k5_bytes = _nbytes([t for rp in regions for t in rp.planes]) \
         + total // 8 + total * 9 * n_out
-    cuda = device.type == "cuda"
     k5_launch = kernels.k5_prepare(regions, device)[0] if cuda \
         else (lambda: kernels.expr_vm_ragged(regions, device))
     k5_wrapper_ms = ms(lambda: kernels.expr_vm_ragged(regions, device))
@@ -1243,28 +1441,42 @@ def phase_d(n_rows: int, seed: int, device, R: int = 8) -> dict:
         library_ms=None, max_abs_err=k5_err,
         bound=bound(k5_bytes, sum(rp.cap * rp.fin.n_instr
                                   for rp in regions)))
-    # K6 at Q1's shapes (spans within the shared-memory limit) and at
-    # date_group's (about 2.5k dates per region: the sorted route), plus
-    # edge states on each route
+    # K6 on each of its routes (kernels.k6_route): Q1's spans fit the
+    # per-warp copies; date_group's (about 2.5k dates, 4,096 segments a
+    # region) one copy a block in the opt-in shared memory; d_supplier's
+    # (about 10,000 suppliers, 16,384 segments a region at 8 reductions)
+    # neither: the sorted route. Each shape and edge states on each route
+    # against the plain version, its route read from the launch counts; the
+    # block route's twice, the same bits both times.
     _r, k6_date, _s = capture(store, tpch.sweep_request("date_group"), device)
     ebits, eouts = kernels.expr_vm_ragged(eregions, device)
+    checks = [
+        ("seg_states_ragged", k6, "K6 Q1", check_k6),
+        ("seg_states_ragged_smem", k6_date, "K6 date_group", check_k6_twice),
+        ("seg_states_ragged_sorted", k6_sup, "K6 d_supplier", check_k6),
+        ("seg_states_ragged", _edge_states(edge, ebits, eouts, device, False,
+                                           seed + 13), "K6 edge", check_k6),
+        ("seg_states_ragged_sorted",
+         _edge_states(edge, ebits, eouts, device, True, seed + 13),
+         "K6 edge large spans", check_k6)]
+    checks += [("seg_states_ragged_smem", a, f"K6 block edge: {w}",
+                check_k6_twice) for a, w in k6_block_edges(device, seed + 19)]
     k6_err = {}
-    for route, args, what in (
-            ("seg_states_ragged", k6, "K6 Q1"),
-            ("seg_states_ragged_sorted", k6_date, "K6 date_group"),
-            ("seg_states_ragged", _edge_states(edge, ebits, eouts, device,
-                                               False, seed + 13), "K6 edge"),
-            ("seg_states_ragged_sorted",
-             _edge_states(edge, ebits, eouts, device, True, seed + 13),
-             "K6 edge large spans")):
+    for route, args, what, check in checks:
         zero_launches()
-        e = check_k6(args, what)
-        need(not cuda or kernels.LAUNCHES[route] == 1,
-             f"{what}: K6 did not take its {route} route")
+        e = check(args, what)
+        runs = 2 if check is check_k6_twice else 1
+        need(not cuda or {k: kernels.LAUNCHES[k] for k in K6_ROUTES}
+             == {k: runs * (k == route) for k in K6_ROUTES},
+             f"{what}: K6 did not take its {route} route: "
+             f"{ {k: kernels.LAUNCHES[k] for k in K6_ROUTES} }")
         k6_err[route] = max(k6_err.get(route, 0.0), e)
+    print(f"phase D: K6 equal to its plain version on {len(checks)} shapes, "
+          f"each on its route; the block route's runs bit-identical")
     k6_wrapper_ms = {}
     for route, args in (("seg_states_ragged", k6),
-                        ("seg_states_ragged_sorted", k6_date)):
+                        ("seg_states_ragged_smem", k6_date),
+                        ("seg_states_ragged_sorted", k6_sup)):
         gid, caps, n_rows_, Gs, reds, contribs = args
         _sp, offs, _b = kernels._k6_layout(caps, Gs)
         S = int(offs[-1])
@@ -1286,7 +1498,9 @@ def phase_d(n_rows: int, seed: int, device, R: int = 8) -> dict:
             library_ms=ms(lambda S=S, st=stacked, g=g_off: torch.zeros(
                 S, st.shape[1], dtype=torch.int64, device=device)
                 .index_add_(0, g, st)),
-            max_abs_err=k6_err[route], bound=k6_bound(args))
+            max_abs_err=k6_err[route], bound=k6_bound(args),
+            shape=f"{len(caps)} regions, {sum(n_rows_)} rows, {S} segments, "
+                  f"{len(contribs)} reductions")
     gid, caps, n_rows_, Gs, reds, contribs = k6
     S = int(kernels._k6_layout(caps, Gs)[1][-1])
     # K7 at Q1's 8 x 4 states, plus R = 64 with extremes
@@ -1323,16 +1537,17 @@ def phase_d(n_rows: int, seed: int, device, R: int = 8) -> dict:
     print(f"phase D: the wrappers with their host preparation (tables, "
           f"small copies; K7 also its readback): K5 {k5_wrapper_ms:.4f} ms, "
           f"K6 {k6_wrapper_ms['seg_states_ragged']:.4f} ms (date_group, "
-          f"sorted route: {k6_wrapper_ms['seg_states_ragged_sorted']:.4f} "
-          f"ms), K7 {k7_wrapper_ms:.4f} ms")
-    dg = k6_date
+          f"block route: {k6_wrapper_ms['seg_states_ragged_smem']:.4f} ms; "
+          f"d_supplier, sorted route: "
+          f"{k6_wrapper_ms['seg_states_ragged_sorted']:.4f} ms), K7 "
+          f"{k7_wrapper_ms:.4f} ms")
     print(f"phase D: Q1 inputs: {len(regions)} regions, {total} rows, "
           f"{len(contribs)} reductions, {S} segments, K7 {len(states)} "
-          f"states of {states[0].shape}; date_group K6 inputs: "
-          f"{len(dg[5])} reductions, "
-          f"{int(kernels._k6_layout(dg[1], dg[3])[1][-1])} segments")
+          f"states of {states[0].shape}; K6 "
+          + "; ".join(f"{k}: {out[k]['shape']}" for k in K6_ROUTES))
     print("phase D statements: " + json.dumps(stmt))
-    return out, store, data
+    return out, store, data, {
+        "seg_states_ragged_sorted": sup_launches["seg_states_ragged_sorted"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3371,8 +3586,13 @@ def phase_j(data: dict, batch, d_store: DistStore, d_data: dict,
                      "phase J")
         per[name] = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
                      if v != before[k]}
-        need(per[name] == {"expr_vm": 1, "shard_topk": 1} or not cuda,
-             f"phase J {name}: launches {per[name]}")
+        sel = slice3[name]()
+        want = {"expr_vm": 1, "shard_topk": kernels.shard_topk_launch_count(
+            MESH_SHARDS, batch.capacity // MESH_SHARDS,
+            min(sel.limit, batch.capacity // MESH_SHARDS), len(sel.order_by),
+            device)} if cuda else per[name]
+        need(per[name] == want, f"phase J {name}: launches {per[name]}, "
+             f"want {want}")
     for mask, keys, limit, cpu_rows in j_faults(device):
         need(j_merged(mask, keys, limit, 2) == cpu_rows,
              f"phase J: a mesh TopN fault case gives {cpu_rows} wrongly")
@@ -3406,8 +3626,8 @@ def phase_j(data: dict, batch, d_store: DistStore, d_data: dict,
     calls = {k: kernels.CALLS[k] - calls0[k] for k in calls0}
     for k in ("shard_topk", "combine_partials", "join_probe", "expr_vm"):
         need(launches[k] >= 1 or not cuda, f"phase J: {k} never launched")
-    need(launches["seg_states_ragged"] + launches["seg_states_ragged_sorted"]
-         >= 1 or not cuda, "phase J: K6 never launched")
+    need(sum(launches[k] for k in K6_ROUTES) >= 1 or not cuda,
+         "phase J: K6 never launched")
     need(calls["mesh_allreduce"] == len(J_AGGS) + len(sweep),
          f"phase J: mesh_allreduce calls {calls}")
     print(f"phase J: main path over {MESH_SHARDS} shards in {main_s:.1f} s; "
@@ -3579,9 +3799,9 @@ def phase_j(data: dict, batch, d_store: DistStore, d_data: dict,
                 bound=bound(k20_bytes(mask, kp, k, MESH_SHARDS), 0),
                 shape=f"{MESH_SHARDS} shards x {batch.capacity // MESH_SHARDS}"
                       f" rows, {len(kp)} key, k {k}")
-        if name == "topn_multi":
+        if name in ("topn_multi", "topn_multi_5000"):
             # no PyTorch call orders by three keys with NULL ranks
-            timed["shard_topk topn_multi"] = dict(
+            timed[f"shard_topk {name}"] = dict(
                 ms=ms(lambda: kernels.shard_topk(mask, kp, k, MESH_SHARDS)),
                 plain_ms=ms(lambda: kernels.shard_topk_plain(
                     mask, kp, k, MESH_SHARDS)),
@@ -4108,9 +4328,8 @@ def l_rung(rung: str, mesh8) -> None:
     mesh_mod.set_enabled(rung != "mesh_off")
 
 
-# the kernels row 15f launches: K6 (either route) and K7's shard fold
-L_15F_KERNELS = ("seg_states_ragged", "seg_states_ragged_sorted",
-                 "combine_partials")
+# the kernels row 15f launches: K6 (any route) and K7's shard fold
+L_15F_KERNELS = K6_ROUTES + ("combine_partials",)
 
 
 class LCapture:
@@ -4199,7 +4418,7 @@ def l_same_states(got: list, want: list, what: str) -> None:
 
 
 def l_inf_edges(device, mesh8) -> int:
-    """The f64 extremum identity on the card: K2, K3, K4, K6 (both
+    """The f64 extremum identity on the card: K2, K3, K4, K6 (all three
     routes), K7, the sharded states combine (row 15c), row 15f and K15
     over groups made only of +inf (MIN) or -inf (MAX), against numpy.
     Returns the number of checks."""
@@ -4235,9 +4454,10 @@ def l_inf_edges(device, mesh8) -> int:
              and int(cnt[0][2]) == 0,
              f"phase L edge: {route.__name__} over only +-inf")
         checks += 1
-    # K6 in both routes (90 segments; 40,000 past its shared memory), then
-    # K7 over the regions' states
-    for G in (90, 40_000):
+    # K6 on its three routes (90 segments: a copy a warp; 3,000: one copy
+    # a block in the opt-in shared memory; 40,000 past it), then K7 over
+    # the regions' states
+    for G in (90, 3_000, 40_000):
         g2 = gid.copy()
         if G > 90:
             g2[6:] = rng.integers(3, G, n - 6)
@@ -4386,8 +4606,7 @@ def phase_l(joins: tuple, device, seed: int) -> tuple:
                     res.rside.parts if isinstance(res.rside,
                                                   col.ColumnarPartialSet)
                     else [res.rside])
-                    and delta.get("seg_states_ragged", 0) + delta.get(
-                        "seg_states_ragged_sorted", 0) == 1
+                    and sum(delta.get(k, 0) for k in K6_ROUTES) == 1
                     and delta.get("combine_partials", 0)
                     == (rung == "mesh8")),
                      f"phase L {rung} {name}: launches {delta}")
@@ -4456,8 +4675,8 @@ def phase_l(joins: tuple, device, seed: int) -> tuple:
           f"{r['bound'][0]:.4f} ms by {r['bound'][1]}), max_abs_err {err}")
     checks = l_inf_edges(device, mesh8)
     print(f"phase L edge: {checks} +-inf checks equal to numpy (K2, K3, K4, "
-          f"K6 both routes, K7, row 15c, row 15f and its plain version, "
-          f"K15)")
+          f"K6 on its three routes, K7, row 15c, row 15f and its plain "
+          f"version, K15)")
     print("phase L statements: " + json.dumps(stmt))
     print(f"phase L: {time.perf_counter() - t0:.1f} s")
     return out, launches
@@ -4502,9 +4721,12 @@ def main() -> int:
     results.update(g_results)
     results.update(h_results)
     launches.update(phase_c(tpch.SF001_ROWS, seed=1, device=device))
-    d_results, d_store, d_data = phase_d(tpch.SF1_ROWS, seed=2,
-                                         device=device)
+    d_results, d_store, d_data, d_launches = phase_d(tpch.SF1_ROWS, seed=2,
+                                                     device=device)
     results.update(d_results)
+    # the sorted route's main-path launches: d_supplier's (Phase D); the
+    # sweep's spans fit shared memory in Phase C
+    launches.update(d_launches)
     j_results, j_launches, _timed = phase_j(data, batch, d_store, d_data,
                                             joins, device, seed=14)
     results.update(j_results)

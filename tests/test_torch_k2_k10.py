@@ -276,7 +276,8 @@ def test_k2_param_block_matches_source():
 
 
 def test_k10_param_block_matches_source():
-    src = _source("topk_select.cu")
+    # K10's device code lives in the header it shares with K20
+    src = _source("topk_select.cu") + _source("topk_level.cuh")
     fields = _struct_fields(src, "K10Key")
     assert [f for f, _s in fields] == list(pk.K10_KEY_FIELDS)
     assert all(size == 8 for _f, size in fields)

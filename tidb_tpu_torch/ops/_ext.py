@@ -74,10 +74,11 @@ SIGNATURES = {
                                _P], _I),
     },
     "seg_states_ragged": {
-        "seg_states_tile": ([], _I),
         "seg_states_pieces_count": ([_L], _I),
-        "seg_states_smem_bytes": ([_I, _I], _L),
-        "seg_states_smem_limit": ([], _L),
+        "seg_states_block_limit": ([], _L),
+        "seg_states_block_grid": ([_I, _L], _I),
+        "seg_states_block_launch": ([_I, _I, _P, _I, _P, _I, _I, _P, _P, _P,
+                                     _I, _L, _P, _P, _P], _I),
         "seg_states_tiles_launch": ([_I, _P, _I, _P, _P, _I, _P, _P, _P, _I,
                                      _L, _P, _P, _P], _I),
         "seg_states_sorted_launch": ([_L, _P, _P, _P, _I, _L, _I, _P, _P,
@@ -137,9 +138,10 @@ SIGNATURES = {
                                  _I),
     },
     "shard_topk": {
-        "shard_topk_tile": ([], _I),
-        "shard_topk_launch": ([_L, _L, _L, _P, _I, _P, _P, _P, _P, _P, _P,
-                               _P, _P, _P, _P, _P], _I),
+        "shard_topk_grid": ([_I, _I, _I], _I),
+        "shard_topk_level_launch": ([_I, _I, _I, _I, _I, _I, _L, _P, _P, _P,
+                                     _I, _I, _P, _P, _I, _I, _P, _P, _P, _L,
+                                     _L, _P, _I, _I, _P, _P], _I),
     },
 }
 

@@ -589,7 +589,7 @@ class GpuClient(kv.Client):
 
     def _run_topn_mesh(self, sel, batch, prog, where) -> SelectResponse:
         """Every shard's first k = min(limit, shard length) rows (K1, then
-        K20 in one launch) and the host merge of the S * k candidates on
+        K20's launches) and the host merge of the S * k candidates on
         their order words (kernels.merge_topn_partials)."""
         n = self.mesh.n
         shard_len = batch.capacity // n

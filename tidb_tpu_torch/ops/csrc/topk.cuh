@@ -1,64 +1,14 @@
-// The selection steps K16 (slot_topn.cu) and K20 (shard_topk.cu) share: a
-// bitonic sort of a tile of row indices in shared memory, and one
-// element's placement in a merge round of sorted candidate lists truncated
-// to k. `Ord` orders two rows (less(a, b): does a come before b?) and
-// orders every pair, so no two rows compare equal. K20 also uses the row
-// encoding (topk_encode) and its order (TopkOrd): live first, then per key
-// its null rank and its order word, then the row. K10 (topk_select.cu)
-// keeps the same encoding and order in registers (k10_encode, k10_less)
-// and takes only TOPK_DEAD from here.
+// The selection steps K16 (slot_topn.cu) shares: a bitonic sort of a
+// tile of row indices in shared memory, and one element's placement in a
+// merge round of sorted candidate lists truncated to k. `Ord` orders two
+// rows (less(a, b): does a come before b?) and orders every pair, so no
+// two rows compare equal. K10 and K20 (topk_level.cuh) take only
+// TOPK_DEAD, the dead bit of their composite keys' flags.
 #pragma once
 
 #include "common.cuh"
 
-#define TOPK_KEY 4           // (values pointer, valid pointer, is_f64, desc)
 #define TOPK_DEAD 0x80u
-
-struct TopkOrd {
-  i64 n;
-  int nk;
-  const u64* enc;
-  const unsigned char* flg;
-  // does row a come before row b?
-  __device__ __forceinline__ bool less(i64 a, i64 b) const {
-    const unsigned fa = flg[a], fb = flg[b];
-    if ((fa & TOPK_DEAD) != (fb & TOPK_DEAD)) return (fa & TOPK_DEAD) < (fb & TOPK_DEAD);
-    for (int k = 0; k < nk; ++k) {
-      const unsigned na = (fa >> k) & 1u, nb = (fb >> k) & 1u;
-      if (na != nb) return na < nb;
-      const u64 wa = enc[(i64)k * n + a], wb = enc[(i64)k * n + b];
-      if (wa != wb) return wa < wb;
-    }
-    return a < b;
-  }
-};
-
-// The order word of every key of `row` and its flags byte.
-__device__ __forceinline__ void topk_encode(i64 row, i64 n, const unsigned char* mask, int nk,
-                                            const i64* keys, u64* enc, unsigned char* flg) {
-  unsigned f = mask[row] ? 0u : TOPK_DEAD;
-  for (int k = 0; k < nk; ++k) {
-    const i64* kd = keys + TOPK_KEY * k;
-    const unsigned char* ok = (const unsigned char*)kd[1];
-    const bool valid = ok == nullptr || ok[row] != 0;
-    const bool desc = kd[3] != 0;
-    u64 w = 0;
-    if (valid) {
-      i64 x = ((const i64*)kd[0])[row];
-      if (kd[2]) {
-        // f64: -0.0 is +0.0; sign-magnitude bits to two's complement
-        if (as_f64(x) == 0.0) x = 0;
-        if (x < 0) x ^= I64_MAX_V;
-      }
-      w = (u64)x ^ 0x8000000000000000ull;   // int64 order as unsigned order
-      if (desc) w = ~w;
-    }
-    f |= (unsigned)(desc ? !valid : valid) << k;
-    enc[(i64)k * n + row] = w;
-  }
-  flg[row] = (unsigned char)f;
-}
-
 
 // Sort slot[0, TILE) (row indices, -1 for padding, which sorts after
 // every row) by ord; every thread of the block calls it.

@@ -31,7 +31,8 @@ plain PyTorch version for tensors on the CPU; any other case raises.
 A statement over R regions runs K5 (`expr_vm_ragged`: every region's
 WHERE and aggregate-argument programs in one launch, bit-packed survivor
 masks), K6 (`seg_states_ragged`: every region's grouped states in one
-launch) and, in the final aggregate, K7 (`combine_partials`: the merge
+launch, on one of three routes by what a copy of the span costs,
+`k6_route`) and, in the final aggregate, K7 (`combine_partials`: the merge
 over the region axis). `CALLS` counts the calls of their wrappers, kernel
 or plain alike.
 
@@ -45,8 +46,9 @@ On a mesh of S virtual shards (ops.mesh, parallel.CoprMesh) an aggregate
 runs K1, then K3/K4 over segment ids offset by shard (each shard's
 partials in its own block) and K7 over the shard axis
 (`mesh_allreduce`); a TopN runs K1, then K20 (`shard_topk`: every shard's
-first k rows with their order words, one launch), and the host merges the
-S * k candidates (`merge_topn_partials`).
+first k rows with their order words, in the launches of
+`shard_topk_plan`), and the host merges the S * k candidates
+(`merge_topn_partials`).
 
 The key-partitioned join probe of a mesh (ops.mesh.join_probe_partitioned)
 runs K21 (`key_partition`: each side's stable partition-major gather index
@@ -108,11 +110,14 @@ RADIX_MAX_SEGMENTS = 1 << 20
 GC_BASE = -1000
 
 # kernel launches per kernel since the last reset (plain runs not
-# counted); K6 counts its two routes apart: spans within its shared-memory
-# limit (seg_states_ragged) and larger ones (seg_states_ragged_sorted)
+# counted); K6 counts its three routes apart (k6_route): a span copy per
+# warp in the default shared memory (seg_states_ragged), one a block in
+# the opt-in shared memory (seg_states_ragged_smem), and larger spans
+# (seg_states_ragged_sorted)
 LAUNCHES = {"expr_vm": 0, "scalar_agg": 0, "seg_agg_onehot": 0,
             "seg_agg_sorted": 0, "rank_groups": 0, "distinct_runs": 0,
             "topk_select": 0, "expr_vm_ragged": 0, "seg_states_ragged": 0,
+            "seg_states_ragged_smem": 0,
             "seg_states_ragged_sorted": 0, "combine_partials": 0,
             "join_build": 0, "join_probe": 0, "dict_remap": 0,
             "slot_filter": 0, "slot_agg": 0, "slot_topn": 0,
@@ -1100,10 +1105,11 @@ def _list_bytes(cap: int, lists: int, nk: int) -> int:
     return (cap * (8 * nk + 8) + 4 * lists + 255) // 256 * 256
 
 
-def topk_scratch(plan: list, nk: int) -> tuple:
-    """Byte offsets of K10's scratch for a plan: (list buffer A, list
-    buffer B, the round bound, the level-1 live counts, total). Level i
-    of a round writes buffer i % 2 and reads the other."""
+def topk_scratch(plan: list, nk: int, shards: int = 1) -> tuple:
+    """Byte offsets of K10's (or K20's, over `shards` shards) scratch for
+    a plan: (list buffer A, list buffer B, the round bound (an entry a
+    shard), the level-1 live counts, total). Level i of a round writes
+    buffer i % 2 and reads the other."""
     sizes = [0, 0]
     for K, _slots, levels in plan:
         for i, (blocks, _fan) in enumerate(levels[:-1]):
@@ -1111,7 +1117,7 @@ def topk_scratch(plan: list, nk: int) -> tuple:
                                                          nk))
     a, b = 0, sizes[0]
     bound = b + sizes[1]
-    live = bound + _list_bytes(1, 1, nk)
+    live = bound + _list_bytes(shards, shards, nk)
     return a, b, bound, live, live + 8 * plan[0][2][0][0]
 
 
@@ -1285,14 +1291,73 @@ def shard_topk_plain(mask, keys: list, k: int, shards: int):
             torch.stack(nulls))
 
 
+def shard_topk_plan(S: int, L: int, k: int, nk: int, grid) -> list:
+    """K20's launches for the first k <= L rows of each of S shards of L
+    rows over nk keys, as topk_plan's rounds [(K, slots, levels)]: level 1
+    over the rows with grid(slots) // S blocks a shard (at least one;
+    levels[i][0] counts the blocks of every shard), then merges of fan_in
+    of a shard's lists a block until one block a shard is left. The
+    launches depend on S, k, nk and the grid, never on L."""
+    if not 1 <= k <= L:
+        raise errors.DeviceError(f"K20 k = {k} outside [1, {L}]")
+    kmax = topk_max_slots(nk) - K10_STEP
+    rounds, done = [], 0
+    while done < k:
+        K = min(kmax, k - done)
+        slots = _pow2(K + K10_STEP)
+        per = max(1, int(grid(slots)) // S)
+        levels = [(S * per, 0)]
+        fan = max(2, K10_MERGE_ENTRIES // K)
+        while per > 1:
+            per = -(-per // fan)
+            levels.append((S * per, fan))
+        rounds.append((K, slots, levels))
+        done += K
+    return rounds
+
+
+_K20_PLANS: dict = {}
+_K20_GRID: dict = {}
+
+
+def _k20_plan(lib, dev: torch.device, S: int, L: int, k: int,
+              nk: int) -> tuple:
+    """shard_topk_plan on the card and its scratch offsets, kept per
+    shape."""
+    key = (dev.index, S, L, k, nk)
+    got = _K20_PLANS.get(key)
+    if got is None:
+        def grid(slots):
+            g = _K20_GRID.get((dev.index, nk, slots))
+            if g is None:
+                g = lib.shard_topk_grid(nk, 1, slots)
+                if g <= 0:
+                    raise errors.DeviceError(
+                        f"shard_topk_grid failed with CUDA error {-g}")
+                _K20_GRID[(dev.index, nk, slots)] = g
+            return g
+        plan = shard_topk_plan(S, L, k, nk, grid)
+        got = _K20_PLANS[key] = (plan, topk_scratch(plan, nk, S))
+    return got
+
+
+def shard_topk_launch_count(S: int, L: int, k: int, nk: int,
+                            device) -> int:
+    """K20's launches for one call on the card (its plan's levels)."""
+    dev = _device(device)
+    plan, _offs = _k20_plan(_ext.lib("shard_topk"), dev, S, L, k, nk)
+    return sum(len(levels) for _K, _s, levels in plan)
+
+
 def shard_topk(mask: torch.Tensor, keys: list, k: int, shards: int):
     """K20: the first k rows of each of `shards` contiguous row blocks in
     K10's order (live first; per ORDER BY item (values, valid), desc: null
-    rank, then the order word; then row position), in one launch.
-    Returns (idx int64[S, k], block-local; n_live int64[S], min(live rows
-    of the block, k); words int64[S, nk, k] and nulls uint8[S, nk, k], the
-    candidates' order words and null ranks, as topk_words_plain gives
-    them). k must lie in [1, block length]."""
+    rank, then the order word; then row position). Returns (idx int64[S,
+    k], block-local; n_live int64[S], min(live rows of the block, k);
+    words int64[S, nk, k] and nulls uint8[S, nk, k], the candidates' order
+    words and null ranks, as topk_words_plain gives them). k must lie in
+    [1, block length]. On the card the launches follow shard_topk_plan
+    (LAUNCHES counts each)."""
     if len(keys) > TOPN_MAX_KEYS:
         raise errors.DeviceError(f"K20 takes at most {TOPN_MAX_KEYS} keys")
     n = mask.shape[0]
@@ -1306,34 +1371,48 @@ def shard_topk(mask: torch.Tensor, keys: list, k: int, shards: int):
         return shard_topk_plain(mask, keys, k, shards)
     dev = mask.device
     _check_plane(mask, n, (torch.bool,), "mask", dev)
-    tab = []
+    if n > K10_MAX_ROWS:
+        raise errors.DeviceError(f"K20 takes at most {K10_MAX_ROWS} rows")
+    nk = len(keys)
+    flat = []
     for j, ((v, ok), desc) in enumerate(keys):
         _check_plane(v, n, (torch.int64, torch.float64), f"key {j}", dev)
         _check_plane(ok, n, (torch.bool,), f"key {j} valid", dev)
-        tab.append([v.data_ptr(), ok.data_ptr(),
-                    int(v.dtype == torch.float64), int(bool(desc))])
-    t_tab = torch.tensor(tab or [[0, 0, 0, 0]],
-                         dtype=torch.int64).reshape(-1).to(dev)
+        flat += [v.data_ptr(), ok.data_ptr(), int(v.dtype == torch.float64),
+                 int(bool(desc))]
+    karr = array.array("q", flat or [0] * len(K10_KEY_FIELDS))
     lib = _ext.lib("shard_topk")
-    tile = lib.shard_topk_tile()
-    nk = len(keys)
-    cand = shards * ((L + tile - 1) // tile) * min(k, tile)
-    enc = torch.empty(max(nk, 1) * n, dtype=torch.int64, device=dev)
-    flg = torch.empty(n, dtype=torch.uint8, device=dev)
-    buf_a = torch.empty(cand, dtype=torch.int64, device=dev)
-    buf_b = torch.empty(cand, dtype=torch.int64, device=dev)
-    count = torch.empty(shards, dtype=torch.int64, device=dev)
-    idx = torch.empty((shards, k), dtype=torch.int64, device=dev)
-    n_live = torch.empty(shards, dtype=torch.int64, device=dev)
-    words = torch.empty((shards, nk, k), dtype=torch.int64, device=dev)
-    nulls = torch.empty((shards, nk, k), dtype=torch.uint8, device=dev)
-    rc = lib.shard_topk_launch(
-        shards, L, k, mask.data_ptr(), nk, t_tab.data_ptr(), enc.data_ptr(),
-        flg.data_ptr(), buf_a.data_ptr(), buf_b.data_ptr(), count.data_ptr(),
-        idx.data_ptr(), n_live.data_ptr(), words.data_ptr(),
-        nulls.data_ptr(), _stream(dev))
-    _ext.check(rc, "shard_topk")
-    LAUNCHES["shard_topk"] += 1
+    plan, (off_a, off_b, off_bound, off_live, total) = _k20_plan(
+        lib, dev, shards, L, k, nk)
+    stream = _stream(dev)
+    base = _stream_scratch("shard_topk", dev, total, stream).data_ptr()
+    bufs = (base + off_a, base + off_b)
+    S = shards
+    # one buffer for idx, n_live and words, one for nulls: no key leaves
+    # words and nulls empty, and their pointers stay those of the buffers
+    out = torch.empty(S * (k + 1 + nk * k), dtype=torch.int64, device=dev)
+    n_buf = torch.empty(max(S * nk * k, 1), dtype=torch.uint8, device=dev)
+    idx = out[:S * k].view(S, k)
+    n_live = out[S * k:S * (k + 1)]
+    words = out[S * (k + 1):].view(S, nk, k)
+    nulls = n_buf[:S * nk * k].view(S, nk, k)
+    words_p = out.data_ptr() + 8 * S * (k + 1)
+    done = 0
+    for r, (K, slots, levels) in enumerate(plan):
+        for i, (blocks, fan) in enumerate(levels):
+            final = i == len(levels) - 1
+            rc = lib.shard_topk_level_launch(
+                nk, int(i == 0), blocks, K, slots, S, L, mask.data_ptr(),
+                karr.buffer_info()[0], bufs[(i - 1) % 2] if i else None,
+                levels[i - 1][0] if i else 0, fan,
+                None if final else bufs[i % 2], base + off_bound,
+                int(r > 0 and i == 0), int(final), idx.data_ptr(),
+                words_p, n_buf.data_ptr(), done, k,
+                base + off_live, int(r == 0 and (i == 0 or final)),
+                levels[0][0] // S, n_live.data_ptr(), stream)
+            _ext.check(rc, "shard_topk")
+            LAUNCHES["shard_topk"] += 1
+        done += K
     return idx, n_live, words, nulls
 
 
@@ -2392,6 +2471,98 @@ def seg_states_ragged_plain(gid: torch.Tensor, caps: list, Gs: list,
     return torch.stack(out)
 
 
+# K6's routes (seg_states_ragged.cu): a span copy per warp within the
+# default shared memory (K6_WARPS, K6_SMEM_BYTES), one a block within the
+# card's opt-in limit (K6B_*), else the sorted route
+K6_WARPS = 8
+K6_SMEM_BYTES = 49152
+K6_TILE = 4096
+K6B_THREADS = 512
+K6B_WARPS = 16
+K6B_MAX_REDS = 32
+K6B_ROWS = (4, 2, 1)         # rows a thread per chunk, largest first
+K6_ROUTES = ("seg_states_ragged", "seg_states_ragged_smem",
+             "seg_states_ragged_sorted")
+
+
+def k6_block_bytes(n_red: int, n_f64: int, span_max: int, rows: int) -> int:
+    """Dynamic shared memory of a block of K6's block route
+    (seg_states_ragged.cu k6b_smem_bytes): the span copy and, with n_f64
+    f64 reductions, a chunk's staged values, group ids and take bits and
+    two sets of bucket offsets."""
+    c = K6B_THREADS * rows
+    staged = c * (8 * n_f64 + 8) + 8 * (K6B_WARPS * K6B_WARPS * rows + 1) \
+        if n_f64 else 0
+    return 8 * n_red * span_max + staged
+
+
+def k6_route(n_red: int, span_max: int, limit: int, n_f64: int = 0) -> tuple:
+    """K6's route for n_red reductions (n_f64 of them f64 ops) over spans
+    of at most span_max segments, given the block route's shared-memory
+    limit in bytes: (LAUNCHES name, rows a thread per chunk or 0). A copy
+    of the span per warp where 8 of them fit the default 48 KB; else one a
+    block where it (and, for f64 ops, a chunk's staging) fits `limit`;
+    else the sorted route."""
+    if K6_WARPS * n_red * span_max * 8 <= K6_SMEM_BYTES:
+        return "seg_states_ragged", 0
+    if n_red <= K6B_MAX_REDS:
+        for rows in K6B_ROWS:
+            if k6_block_bytes(n_red, n_f64, span_max, rows) <= limit:
+                return "seg_states_ragged_smem", rows
+    return "seg_states_ragged_sorted", 0
+
+
+def k6_block_units(n_rows: list, blocks: int) -> list:
+    """Blocks of K6's block route per region out of `blocks` (the grid
+    resident at once): one for each region with rows, the rest in
+    proportion to the rows by largest remainders, none for a region
+    without rows and no more than one per K6B_THREADS rows. The sum
+    exceeds `blocks` only when more regions than blocks have rows."""
+    n = [max(int(x), 0) for x in n_rows]
+    cap = [-(-x // K6B_THREADS) for x in n]
+    units = [1 if x else 0 for x in n]
+    left, total = blocks - sum(units), sum(n)
+    if left <= 0 or total == 0:
+        return units
+    for r, x in enumerate(n):
+        units[r] += min(x * left // total, cap[r] - units[r])
+    left = blocks - sum(units)
+    order = sorted(range(len(n)), key=lambda r: (-(n[r] * left % total), r))
+    while left > 0 and any(units[r] < cap[r] for r in order):
+        for r in order:
+            if left and units[r] < cap[r]:
+                units[r] += 1
+                left -= 1
+    return units
+
+
+_K6_LIMIT: dict = {}
+_K6_GRID: dict = {}
+
+
+def _k6_block_limit(lib, dev: torch.device) -> int:
+    lim = _K6_LIMIT.get(dev.index)
+    if lim is None:
+        lim = int(lib.seg_states_block_limit())
+        if lim <= 0:
+            raise errors.DeviceError(
+                f"seg_states_block_limit failed with CUDA error {-lim}")
+        _K6_LIMIT[dev.index] = lim
+    return lim
+
+
+def _k6_block_grid(lib, dev: torch.device, rows: int, smem: int) -> int:
+    key = (dev.index, rows, smem)
+    g = _K6_GRID.get(key)
+    if g is None:
+        g = int(lib.seg_states_block_grid(rows, smem))
+        if g <= 0:
+            raise errors.DeviceError(
+                f"seg_states_block_grid failed with CUDA error {-g}")
+        _K6_GRID[key] = g
+    return g
+
+
 def seg_states_ragged(gid: torch.Tensor, caps: list, n_rows: list,
                       Gs: list, reds: list, contribs: list) -> torch.Tensor:
     """K6: int64[n_red, sum bucket_segments(G_r + 1)] (f64 bits for f64
@@ -2410,9 +2581,10 @@ def seg_states_ragged(gid: torch.Tensor, caps: list, n_rows: list,
 
 def k6_prepare(gid: torch.Tensor, caps: list, n_rows: list, Gs: list,
                reds: list, contribs: list):
-    """Everything of a K6 launch but the launch (checks, tables, route,
-    buffers). Returns (launch, out); launch() runs the kernel (with the
-    stable sort of the offset ids on the large-span route) into out."""
+    """Everything of a K6 launch but the launch (checks, tables, route by
+    k6_route, buffers). Returns (launch, out); launch() runs the kernel
+    (with the stable sort of the offset ids on the sorted route) into
+    out."""
     dev = gid.device
     R, n_red = len(caps), len(contribs)
     total = int(sum(caps))
@@ -2420,7 +2592,6 @@ def k6_prepare(gid: torch.Tensor, caps: list, n_rows: list, Gs: list,
     spans, offs, bases = _k6_layout(caps, Gs)
     S = int(offs[-1])
     lib = _ext.lib("seg_states_ragged")
-    tile = lib.seg_states_tile()
     red_rows, vals, valids = [], [], []
     for j, contrib in enumerate(contribs):
         op = reds[0][j].op
@@ -2443,20 +2614,21 @@ def k6_prepare(gid: torch.Tensor, caps: list, n_rows: list, Gs: list,
             vals.append(0 if si.values is None or op == R_COUNT
                         else si.values.data_ptr())
             valids.append(0 if si.valid is None else si.valid.data_ptr())
-    tile_region, rdesc = [], []
-    for r in range(R):
-        rdesc.append([int(bases[r]), int(n_rows[r]), int(offs[r]),
-                      spans[r], len(tile_region)])
-        tile_region.extend([r] * ((int(n_rows[r]) + tile - 1) // tile))
-    t_rdesc = torch.tensor(rdesc, dtype=torch.int64).reshape(-1).to(dev)
     t_red = torch.tensor(red_rows, dtype=torch.int64).reshape(-1).to(dev)
     t_vals = torch.tensor(vals, dtype=torch.int64).to(dev)
     t_valid = torch.tensor(valids, dtype=torch.int64).to(dev)
     out = torch.empty(n_red * S, dtype=torch.int64, device=dev)
     span_max = max(spans)
-    if lib.seg_states_smem_bytes(n_red, span_max) \
-            <= lib.seg_states_smem_limit():
-        route = "seg_states_ragged"
+    n_f64 = sum(r.op in F_OPS for r in reds[0])
+    route, rows = k6_route(n_red, span_max, _k6_block_limit(lib, dev), n_f64)
+    rdesc = [[int(bases[r]), int(n_rows[r]), int(offs[r]), spans[r], 0, 0]
+             for r in range(R)]
+    if route == "seg_states_ragged":
+        tile_region = []
+        for r in range(R):
+            n_t = (int(n_rows[r]) + K6_TILE - 1) // K6_TILE
+            rdesc[r][4:] = [len(tile_region), n_t]
+            tile_region.extend([r] * n_t)
         t_tiles = torch.tensor(tile_region or [0], dtype=torch.int32).to(dev)
         part = torch.empty(max(len(tile_region), 1) * n_red * span_max,
                            dtype=torch.int64, device=dev)
@@ -2467,8 +2639,22 @@ def k6_prepare(gid: torch.Tensor, caps: list, n_rows: list, Gs: list,
                 gid.data_ptr(), n_red, t_red.data_ptr(), t_vals.data_ptr(),
                 t_valid.data_ptr(), span_max, S, part.data_ptr(),
                 out.data_ptr(), _stream(dev))
+    elif route == "seg_states_ragged_smem":
+        smem = k6_block_bytes(n_red, n_f64, span_max, rows)
+        units = k6_block_units(n_rows, _k6_block_grid(lib, dev, rows, smem))
+        first = 0
+        for r in range(R):
+            rdesc[r][4:] = [first, units[r]]
+            first += units[r]
+        part = torch.empty(max(first, 1) * n_red * span_max,
+                           dtype=torch.int64, device=dev)
+
+        def run() -> int:
+            return lib.seg_states_block_launch(
+                rows, first, t_rdesc.data_ptr(), R, gid.data_ptr(), n_red,
+                n_f64, t_red.data_ptr(), t_vals.data_ptr(), t_valid.data_ptr(),
+                span_max, S, part.data_ptr(), out.data_ptr(), _stream(dev))
     else:
-        route = "seg_states_ragged_sorted"
         region_off = torch.repeat_interleave(
             torch.from_numpy(offs[:-1]).to(dev),
             torch.tensor(caps, device=dev))
@@ -2482,6 +2668,8 @@ def k6_prepare(gid: torch.Tensor, caps: list, n_rows: list, Gs: list,
                 S, n_red, t_red.data_ptr(), t_vals.data_ptr(),
                 t_valid.data_ptr(), part.data_ptr(), out.data_ptr(),
                 _stream(dev))
+
+    t_rdesc = torch.tensor(rdesc, dtype=torch.int64).reshape(-1).to(dev)
 
     def launch():
         _ext.check(run(), route)
