@@ -27,7 +27,14 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    another 16-byte phase than its planes), n of 1, 15, 17, 4099 and
    2^20 + 333, 70 reductions (two launches of at most K2_MAX_REDS), every
    op with constant and never arguments, no mask row; every K2 check
-   run twice, the f64 sums bit-identical.
+   run twice, the f64 sums bit-identical. K4 (redesigned in slice 13:
+   kernels.k4_route) at l_suppkey on its segment windows (K6's block
+   route over one region, route and windows printed), on edge reductions
+   over 65, 3,001 and 20,011 segments and over 2^20 segments (its sorted
+   route, the ids sorted by the radix of radix.cuh), each with exactly its
+   route's launches and run twice for the same bits; then the windows
+   against the sorted route at l_suppkey's reductions over more segments
+   (the measurement behind kernels.K4_MAX_WINDOWS).
 4. Phase C, the cluster path at SF0.01 through KV: the same rows in a
    DistStore split at handle boundaries into 1, 2 and 8 regions; the six
    shapes of the JAX package's TPC-H sweep (tpch.SWEEP) through
@@ -93,7 +100,13 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    about 1.5M build rows; f2's composite keys) and on edge cases (I64_MAX
    and I64_MIN keys beside NULLs, +-inf, -0.0 against +0.0, NULLs on both
    sides, empty sides, 8 x 3000 duplicates, one key with 2^20 matches,
-   f64 keys; every K13 mode), bit for bit.
+   f64 keys; every K13 mode), bit for bit. K11 (redesigned in slice 13:
+   one readback of its summary, then a radix pass per varying digit,
+   kernels.radix_plan) on f1's build (in key order: no pass), the same
+   keys under a seeded permutation and f2's
+   K13 codes, each equal to its plain version twice, its passes and time
+   printed beside torch.sort(stable=True) of the same words; each
+   statement's radix passes are those its build side's planes plan.
 8. Phase G, the micro-batch tier at SF1's supplier table (see phase_g).
 9. Phase H, sort and windows on Phase B's SF1 lineitem (its planes
    resident): ORDER BY l_extendedprice DESC, l_orderkey through
@@ -155,7 +168,11 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    viewed [8, L], and topn_multi's and topn_multi_5000's (three keys, k
    100 and 5000) are printed. K20 (redesigned in slice 12: K10's
    threshold filter within each shard) is launched per statement as
-   kernels.shard_topk_launch_count says. Last,
+   kernels.shard_topk_launch_count says. K4 over Q1's 8 x 13 shard ids
+   (one window) beside index_add_ of the same stacked reductions; K4 over
+   by_supplier's 8 x 10,002 (past the cap: the sorted route, the main
+   path's launches of it and of the radix) and the radix alone at those
+   ids beside a stable torch.sort. Last,
    the default configuration that Phases C, D and I also drive: the
    process mesh of this one-card rig is one shard,
    whose near-data rung and combine are the batched K6 and the region
@@ -177,7 +194,9 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    the phase) escalates, same rows; then K21 and the segmented K12
    against their plain versions at K.2's shapes and on edge cases (-0.0
    beside +0.0, NULL keys, one hot key, empty partitions, P = 1 and 1024,
-   lengths no multiple of a tile, a build side with no valid row), timed
+   lengths no multiple of a tile, a build side with no valid row), K11
+   within partitions at the orders side in key order and shuffled (its
+   passes and time), timed
    (median of 20 CUDA-event runs) beside their bounds, K21 beside a stable
    torch.sort of the partition ids.
 13. Phase L, the cluster joins (slice 10), after K and before I: Phase
@@ -258,6 +277,9 @@ KERNELS = {
                        "tidb_tpu/ops/kernels.py:903"),
     "seg_agg_sorted": ("tidb_tpu_torch/ops/csrc/seg_agg_sorted.cu",
                        "tidb_tpu/ops/kernels.py:903"),
+    # K4's segment windows (seg_block.cuh, shared with K6's block route)
+    "seg_agg_block": ("tidb_tpu_torch/ops/csrc/seg_agg_sorted.cu",
+                      "tidb_tpu/ops/kernels.py:903"),
     "rank_groups": ("tidb_tpu_torch/ops/csrc/rank_groups.cu",
                     "tidb_tpu/ops/kernels.py:989"),
     "distinct_runs": ("tidb_tpu_torch/ops/csrc/distinct_runs.cu",
@@ -277,6 +299,10 @@ KERNELS = {
     "combine_partials": ("tidb_tpu_torch/ops/csrc/combine_partials.cu",
                          "tidb_tpu/ops/kernels.py:1082"),
     "join_build": ("tidb_tpu_torch/ops/csrc/join_build.cu",
+                   "tidb_tpu/ops/kernels.py:1666"),
+    # the stable radix of K11 and K4's sorted route, in place of the
+    # reference's lexsort (and the port's former torch.sort)
+    "radix_pass": ("tidb_tpu_torch/ops/csrc/radix.cuh",
                    "tidb_tpu/ops/kernels.py:1666"),
     "join_probe": ("tidb_tpu_torch/ops/csrc/join_probe.cu",
                    "tidb_tpu/ops/kernels.py:1688"),
@@ -309,6 +335,10 @@ KERNELS = {
 # (seg_states_ragged_smem) and larger spans (seg_states_ragged_sorted)
 K6_ROUTES = kernels.K6_ROUTES
 CLUSTER_KERNELS = ("expr_vm_ragged",) + K6_ROUTES + ("combine_partials",)
+# K4's sorted route and the radix that sorts its ids: the main path takes
+# them past K4_MAX_WINDOWS windows (Phase J's by_supplier over 8 shards);
+# Phase A's group-by fits its windows
+K4_SORTED_KERNELS = ("seg_agg_sorted", "radix_pass")
 # f64 sums: another summation order; the bound is relative to the sum of
 # the magnitudes of the summed values
 F64_SUM_RTOL = 1e-12
@@ -434,7 +464,8 @@ def phase_a(n_rows: int, seed: int, device=None) -> dict:
             need(v > 0 or k in CLUSTER_KERNELS or k in SLICE3_KERNELS
                  or k in JOIN_KERNELS or k in SLOT_KERNELS
                  or k in SORT_KERNELS or k in DELTA_KERNELS
-                 or k in MESH_KERNELS or k in OOC_KERNELS,
+                 or k in MESH_KERNELS or k in OOC_KERNELS
+                 or k in K4_SORTED_KERNELS,
                  f"kernel {k} never launched on the main path")
     return launches
 
@@ -744,6 +775,81 @@ def k2_edges(device, seed: int) -> float:
     return err
 
 
+def k4_route_of(reds: list, S: int, device) -> tuple:
+    """K4's route for these reductions over S segments
+    (kernels.k4_route under the card's limit; ("plain", 0, 0) off the
+    card)."""
+    if device.type != "cuda":
+        return "plain", 0, 0
+    slots, _map = kernels.k4_slots(reds)
+    n_f = sum(s[0] in kernels.F_OPS for s in slots)
+    return kernels.k4_route(len(reds), len(slots), n_f, S,
+                            kernels._k4_block_limit(
+                                _ext.lib("seg_agg_sorted"), device))
+
+
+def k4_copies_of(reds: list, S: int, route: tuple, device) -> int:
+    """The copies of the integer states K4's one window keeps
+    (kernels.k4_copies), 1 on more windows or off the windows."""
+    if device.type != "cuda" or route[0] != "seg_agg_block" or route[2] > 1:
+        return 1
+    slots, _map = kernels.k4_slots(reds)
+    return kernels.k4_copies(
+        len(slots), sum(s[0] in kernels.F_OPS for s in slots), S, route[1],
+        kernels._k4_block_limit(_ext.lib("seg_agg_sorted"), device))
+
+
+def k4_launches(route: tuple, S: int) -> dict:
+    """The launches one K4 call on `route` makes."""
+    if route[0] == "seg_agg_block":
+        return {"seg_agg_block": 1}
+    plan = kernels.radix_plan((1 << (S - 1).bit_length()) - 1, False)
+    return {"seg_agg_sorted": 1, "radix_pass": len(plan)}
+
+
+def check_k4(gid, mask, S: int, reds: list, what: str) -> float:
+    """K4 against its plain version on the same tensors, with exactly the
+    launches of its route, and run again for the same bits."""
+    device = mask.device
+    route = k4_route_of(reds, S, device)
+    before = dict(kernels.LAUNCHES)
+    err = check_reduce(kernels.seg_agg_sorted, kernels.seg_agg_plain,
+                       (gid, mask, S), reds, what)
+    launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                if v != before[k]}
+    need(device.type != "cuda" or launched == k4_launches(route, S),
+         f"{what}: launches {launched} on route {route}")
+    a = kernels.seg_agg_sorted(gid, mask, S, reds)
+    b = kernels.seg_agg_sorted(gid, mask, S, reds)
+    need(all(torch.equal(x, y) for x, y in zip(a, b)),
+         f"{what}: two runs of K4 differ")
+    return err
+
+
+def k4_window_sweep(gid, mask, reds: list, device, rng) -> None:
+    """The measurement behind kernels.K4_MAX_WINDOWS: at l_suppkey's rows
+    and reductions, ids over S segments taking several windows, each S on
+    the windowed route (kernels._k4_block, whatever the windows' number)
+    and on the sorted route (kernels._k4_sorted), in turns."""
+    if device.type != "cuda":
+        return
+    ms = timer(device)
+    slots, _map = kernels.k4_slots(reds)
+    n_f = sum(s[0] in kernels.F_OPS for s in slots)
+    limit = kernels._k4_block_limit(_ext.lib("seg_agg_sorted"), device)
+    rows = []
+    for S in (10_002, 20_000, 30_000, 36_000, 40_000):
+        g = torch.from_numpy(rng.integers(0, S, gid.shape[0])).to(device)
+        windows = kernels._k4_windows(len(reds), len(slots), n_f, S,
+                                      limit)[1]
+        blk = ms(lambda: kernels._k4_block(g, mask, S, reds))
+        srt = ms(lambda: kernels._k4_sorted(g, mask, S, reds))
+        rows.append({"segments": S, "windows": windows,
+                     "windows_ms": blk, "sorted_ms": srt})
+    print(f"phase B: K4 windows against the sorted route (cap "
+          f"{kernels.K4_MAX_WINDOWS}): {json.dumps(rows)}")
+
+
 def phase_b(n_rows: int, seed: int, device, edge_cap: int) -> tuple:
     """Returns (per-kernel results, the rows, the batch), the batch holding
     Phase E's and Phase F's columns too."""
@@ -861,22 +967,25 @@ def phase_b(n_rows: int, seed: int, device, edge_cap: int) -> tuple:
                                              for t in (r.values, r.valid)]),
                     n * len(reds1)))
 
-    # K4 at GROUP BY l_suppkey's shape, plus 2^20 segments mostly empty
+    # K4 at GROUP BY l_suppkey's shape (segment windows), plus edge
+    # reductions over windows and over 2^20 segments mostly empty (the
+    # sorted route, its ids sorted by the radix)
     maskS, gidS, outsS = sup.k1()
     redsS = sup.reds(outsS)
     SS = sup.segments
-    err = check_reduce(kernels.seg_agg_sorted, kernels.seg_agg_plain,
-                       (gidS, maskS, SS), redsS, "K4 supp")
+    routeS = k4_route_of(redsS, SS, device)
+    err = check_k4(gidS, maskS, SS, redsS, "K4 supp")
     big = 1 << 20
     egid4 = torch.from_numpy(rng.integers(0, big // 3, edge_cap) * 3)\
         .to(device)
-    err = max(err, check_reduce(kernels.seg_agg_sorted,
-                                kernels.seg_agg_plain, (egid4, emask, big),
-                                ereds, "K4 edge"))
+    err = max(err, check_k4(egid4, emask, big, ereds, "K4 edge 2^20"))
+    for S in (65, 3_001, 20_011):
+        g = torch.from_numpy(rng.integers(0, S, edge_cap)).to(device)
+        err = max(err, check_k4(g, emask, S, ereds, f"K4 edge {S}"))
     stackedS = torch.stack([torch.where(maskS, r.values, torch.zeros_like(
         r.values)).view(torch.int64) for r in redsS
         if r.values is not None], 1)
-    out["seg_agg_sorted"] = dict(
+    out["seg_agg_block"] = dict(
         ms=ms(lambda: kernels.seg_agg_sorted(gidS, maskS, SS, redsS)),
         plain_ms=ms(lambda: kernels.seg_agg_plain(gidS, maskS, SS, redsS)),
         library_ms=ms(lambda: torch.zeros(SS, stackedS.shape[1],
@@ -886,6 +995,14 @@ def phase_b(n_rows: int, seed: int, device, edge_cap: int) -> tuple:
         bound=bound(_nbytes([gidS, maskS] + [t for r in redsS
                                              for t in (r.values, r.valid)]),
                     n * len(redsS)))
+    edge_route = k4_route_of(ereds, big, device)
+    edge_ms = ms(lambda: kernels.seg_agg_sorted(egid4, emask, big, ereds))
+    print(f"phase B: K4 at l_suppkey ({SS} segments, {len(redsS)} "
+          f"reductions) on {routeS}; the 2^20-segment edge ({edge_cap} rows, "
+          f"{len(ereds)} reductions) on {edge_route}: {edge_ms:.4f} ms; "
+          f"every K4 check equal to its plain version, repeats "
+          f"bit-identical")
+    k4_window_sweep(gidS, maskS, redsS, device, rng)
     # build_filter_fn (table row 4): K1's mask of Q6's WHERE, then
     # torch.nonzero; bound: the planes and live plane read, the mask
     # written and read back, 8 B per survivor index
@@ -901,15 +1018,13 @@ def phase_b(n_rows: int, seed: int, device, edge_cap: int) -> tuple:
     print(f"phase B: build_filter_fn (K1 mask + torch.nonzero) at Q6's "
           f"WHERE: {filter_ms:.4f} ms, {survivors} survivors, bound "
           f"{filter_bound[0]:.4f} ms by {filter_bound[1]}")
-    sort_ms = ms(lambda: torch.sort(gidS, stable=True))
     q1_dev = ms(lambda: q1.fn(q1.planes, q1.live))
     for name, r in out.items():
         print(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']}, bound {r['bound'][0]:.4f} ms by "
               f"{r['bound'][1]}), max_abs_err {r['max_abs_err']}")
     print(f"phase B: Q1 device time (K1 + K3 + readback) {q1_dev:.4f} ms; "
-          f"segments Q1 {S1}, l_suppkey {SS}; of seg_agg_sorted's time the "
-          f"stable torch.sort of the group ids takes {sort_ms:.4f} ms")
+          f"segments Q1 {S1}, l_suppkey {SS}")
     # the plain version of build_filter_fn: K1's plain version + nonzero
     filter_plain_ms = ms(lambda: torch.nonzero(run_program_plain(
         ffn.program, fplanes, q6.live)[0]))
@@ -1560,7 +1675,11 @@ SLICE3_KERNELS = ("rank_groups", "distinct_runs", "topk_select")
 # start at the memoized rung (ranked_dates) or go straight to tuple codes
 E_LAUNCHES = {
     "ranked_dates": {"expr_vm": 1, "rank_groups": 3, "seg_agg_sorted": 1},
-    "tuple_dates": {"expr_vm": 2, "rank_groups": 3, "seg_agg_sorted": 1},
+    # the tuple codes' 429,862 segments: K4's sorted route, its ids sorted
+    # by a radix pass per digit of their 19 bits
+    "tuple_dates": {"expr_vm": 2, "rank_groups": 3, "seg_agg_sorted": 1,
+                    "radix_pass": len(kernels.radix_plan((1 << 19) - 1,
+                                                         False))},
     "scalar_distinct": {"expr_vm": 1, "distinct_runs": 4, "scalar_agg": 4},
     "grouped_distinct": {"expr_vm": 1, "seg_agg_onehot": 1,
                          "distinct_runs": 1, "seg_agg_sorted": 1},
@@ -1570,7 +1689,9 @@ E_LAUNCHES = {
     "topn_multi_5000": {"expr_vm": 1},
     "ranked_dates repeat": {"expr_vm": 1, "rank_groups": 1,
                             "seg_agg_sorted": 1},
-    "tuple_dates repeat": {"expr_vm": 1, "seg_agg_sorted": 1},
+    "tuple_dates repeat": {"expr_vm": 1, "seg_agg_sorted": 1,
+                           "radix_pass": len(kernels.radix_plan(
+                               (1 << 19) - 1, False))},
 }
 
 
@@ -1972,7 +2093,8 @@ def phase_e(data: dict, batch, device, seed: int) -> dict:
 
 JOIN_KERNELS = ("join_build", "join_probe", "dict_remap")
 # launches per statement on the card: each scan's filter (K1), then the
-# join's kernels
+# join's kernels (and K11's radix passes, which k11_passes_host counts
+# from the build side's planes)
 F_LAUNCHES = {
     "f1_q3_join": {"expr_vm": 2, "join_build": 1, "join_probe": 1},
     "f2_partsupp": {"expr_vm": 2, "dict_remap": 2, "join_build": 1,
@@ -2037,6 +2159,34 @@ def check_join_kernels(rk, rv, lk, lv, what: str) -> float:
          f"{what}: K12 differs from its plain version")
     return max(max_err(w, wp), max_err(o, op), max_err(p.to(torch.int64),
                                                           pp))
+
+
+def k11_passes_host(rk, rv) -> int:
+    """The radix passes K11 owes a build side, from its planes read back:
+    none where the valid rows' order words are non-decreasing, else one
+    per digit in which two of them differ (kernels.radix_plan)."""
+    key, valid = rk.cpu(), rv.cpu().numpy()
+    w = kernels.orderable(key).numpy()[valid]
+    if len(w) < 2 or bool(np.all(w[1:] >= w[:-1])):
+        return 0
+    u = w.view(np.uint64) ^ np.uint64(1 << 63)
+    varying = int(np.bitwise_or.reduce(u)) ^ int(np.bitwise_and.reduce(u))
+    return len(kernels.radix_plan(varying, False))
+
+
+def check_k11(rk, rv, what: str) -> tuple:
+    """K11 against its plain version on the same card tensors, bit for
+    bit, twice; (max_abs_err, its radix passes)."""
+    before = kernels.LAUNCHES["radix_pass"]
+    w, o = kernels.join_build(rk, rv)
+    passes = kernels.LAUNCHES["radix_pass"] - before
+    wp, op = kernels.join_build_plain(rk, rv)
+    need(torch.equal(w, wp) and torch.equal(o, op),
+         f"{what}: K11 differs from its plain version")
+    w2, o2 = kernels.join_build(rk, rv)
+    need(torch.equal(w, w2) and torch.equal(o, o2),
+         f"{what}: two runs of K11 differ")
+    return max(max_err(w, wp), max_err(o, op)), passes
 
 
 def check_k13(cols: list, n: int, what: str) -> float:
@@ -2128,18 +2278,33 @@ def phase_f(data: dict, batch, device, seed: int) -> tuple:
           f", prio 4 built in {time.perf_counter() - t0:.1f} s")
     total = {k: 0 for k in kernels.LAUNCHES}
     stmt, joins = {}, {}
+    build = kernels.join_build
     for name in tpch.JOINS:
+        builds = []
+
+        def spy(rk_, rv_):
+            builds.append((rk_, rv_))
+            return build(rk_, rv_)
+
+        kernels.join_build = spy
         zero_launches()
         t1 = time.perf_counter()
-        join, agg = f_statement(client, name, batches)
-        rows = agg.drain()
+        try:
+            join, agg = f_statement(client, name, batches)
+            rows = agg.drain()
+        finally:
+            kernels.join_build = build
         if device.type == "cuda":
             torch.cuda.synchronize()
         took = (time.perf_counter() - t1) * 1e3
         delta = {k: v for k, v in kernels.LAUNCHES.items() if v}
         check_join_rows(name, rows, tables, "phase F")
-        need(delta == F_LAUNCHES[name] or device.type != "cuda",
-             f"{name}: launches {delta}, want {F_LAUNCHES[name]}")
+        want = dict(F_LAUNCHES[name])
+        passes = sum(k11_passes_host(*b) for b in builds)
+        if passes:
+            want["radix_pass"] = passes
+        need(delta == want or device.type != "cuda",
+             f"{name}: launches {delta}, want {want}")
         need(join.join_stats["path"] == "device", f"{name}: not on device")
         for k, v in delta.items():
             total[k] += v
@@ -2180,6 +2345,29 @@ def phase_f(data: dict, batch, device, seed: int) -> tuple:
     words, order = kernels.join_build(rk, rv)
     pairs, _totals = kernels.join_probe(words, order, lk, lv)
     nv, n_pairs = words.shape[0], pairs.shape[1]
+    # K11's paths: f1's build (orders in key order: no pass), the same keys
+    # under a seeded permutation (a radix pass per varying digit), and
+    # f2's build side as K13's domain codes
+    perm = torch.from_numpy(np.random.default_rng(seed + 3).permutation(
+        n_o)).to(device)
+    j2 = joins["f2_partsupp"].device_join_result()
+    pairs2 = [(c[0].index, c[1].index, False)
+              for c in joins["f2_partsupp"].plan.eq_conditions]
+    l_specs, r_specs = dictionary.build_join_specs(
+        j2.lside, j2.rside, pairs2, dictionary.DEFAULT_MAX_NDV_RATIO)
+    f2k, f2v = kernels.dict_remap_keys(r_specs, len(j2.rside), device)
+    k11 = {}
+    for what, k_, v_ in (("f1 presorted", rk, rv),
+                         ("f1 shuffled", rk.index_select(0, perm),
+                          rv.index_select(0, perm)),
+                         ("f2 K13 codes", f2k, f2v)):
+        e_, passes = check_k11(k_, v_, f"K11 {what}")
+        err = max(err, e_)
+        k11[what] = {"rows": int(k_.shape[0]), "passes": passes,
+                     "ms": ms(lambda: kernels.join_build(k_, v_)),
+                     "torch_sort_ms": ms(lambda: torch.sort(
+                         kernels.orderable(k_), stable=True))}
+    print("phase F: K11 paths " + json.dumps(k11))
     out["join_build"] = dict(
         ms=ms(lambda: kernels.join_build(rk, rv)),
         plain_ms=ms(lambda: kernels.join_build_plain(rk, rv)),
@@ -2196,11 +2384,6 @@ def phase_f(data: dict, batch, device, seed: int) -> tuple:
           f"{n_pairs} pairs")
 
     # K13 at f2's composite keys (the lineitem side), and edge cases
-    j2 = joins["f2_partsupp"].device_join_result()
-    pairs2 = [(c[0].index, c[1].index, False)
-              for c in joins["f2_partsupp"].plan.eq_conditions]
-    l_specs, _r = dictionary.build_join_specs(
-        j2.lside, j2.rside, pairs2, dictionary.DEFAULT_MAX_NDV_RATIO)
     cols = kernels.remap_cols(l_specs, device)
     n2 = len(j2.lside)
     err = check_k13(cols, n2, "K13 f2_partsupp")
@@ -3624,7 +3807,8 @@ def phase_j(data: dict, batch, d_store: DistStore, d_data: dict,
     main_s = time.perf_counter() - t_main
     launches = dict(kernels.LAUNCHES)
     calls = {k: kernels.CALLS[k] - calls0[k] for k in calls0}
-    for k in ("shard_topk", "combine_partials", "join_probe", "expr_vm"):
+    for k in ("shard_topk", "combine_partials", "join_probe", "expr_vm",
+              "seg_agg_block") + K4_SORTED_KERNELS:
         need(launches[k] >= 1 or not cuda, f"phase J: {k} never launched")
     need(sum(launches[k] for k in K6_ROUTES) >= 1 or not cuda,
          "phase J: K6 never launched")
@@ -3745,21 +3929,86 @@ def phase_j(data: dict, batch, d_store: DistStore, d_data: dict,
     gid_s = gid1 + kernels.shard_ids(gid1.shape[0], MESH_SHARDS, device) \
         * q1r.segments
     n1 = gid1.shape[0]
-    got1 = kernels._seg_agg(gid_s, mask1, n_seg, reds1)
-    want1 = kernels.seg_agg_plain(gid_s, mask1, n_seg, reds1)
-    need(all(torch.equal(g, w) for g, w in zip(got1, want1)),
-         "phase J: Q1's shard partials differ from the plain version")
+    err4 = check_k4(gid_s, mask1, n_seg, reds1, "phase J: Q1's shard "
+                    "partials")
+    route = k4_route_of(reds1, n_seg, device)
+    # the yardstick stacks every reduction's masked values, as row 3's
+    stacked1 = torch.stack([torch.where(mask1, r.values, torch.zeros_like(
+        r.values)).view(torch.int64) for r in reds1
+        if r.values is not None], 1)
     timed["shard_partials"] = dict(
         ms=ms(lambda: kernels._seg_agg(gid_s, mask1, n_seg, reds1)),
         plain_ms=ms(lambda: kernels.seg_agg_plain(gid_s, mask1, n_seg,
                                                   reds1)),
         library_ms=ms(lambda: torch.zeros(
-            n_seg, dtype=torch.int64, device=device).index_add_(
-            0, gid_s, mask1.to(torch.int64))),
+            n_seg, stacked1.shape[1], dtype=torch.int64,
+            device=device).index_add_(0, gid_s, stacked1)),
         bound=bound(n1 * 9 + sum(n1 * 9 for r in reds1
                                  if r.values is not None)
                     + 16 * n_seg * len(reds1), n1 * len(reds1)),
-        shape=f"Q1, {n1} rows, {n_seg} segments, {len(reds1)} reductions")
+        shape=f"Q1, {n1} rows, {n_seg} segments, {len(reds1)} reductions, "
+              f"{route}, {k4_copies_of(reds1, n_seg, route, device)} copies")
+    # what Q1's hot segment costs K4 (each shard's largest group holds
+    # about half its rows): the same rows and reductions, the ids spread
+    # evenly over the same segments
+    hot = float(torch.bincount(gid1[mask1], minlength=q1r.segments).max()) \
+        / max(int(mask1.sum()), 1)
+    spread = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        0, n_seg, n1)).to(device)
+    err4 = max(err4, check_k4(spread, mask1, n_seg, reds1,
+                              "phase J: Q1's reductions over spread ids"))
+    timed["shard_partials spread"] = dict(
+        ms=ms(lambda: kernels._seg_agg(spread, mask1, n_seg, reds1)),
+        plain_ms=ms(lambda: kernels.seg_agg_plain(spread, mask1, n_seg,
+                                                  reds1)),
+        library_ms=ms(lambda: torch.zeros(
+            n_seg, stacked1.shape[1], dtype=torch.int64,
+            device=device).index_add_(0, spread, stacked1)),
+        bound=timed["shard_partials"]["bound"],
+        shape=f"Q1's rows and reductions, ids uniform over {n_seg} "
+              f"segments (Q1's largest group: {hot:.3f} of its rows)")
+    # by_supplier over the shards: 8 x 10,002 ids, past K4_MAX_WINDOWS:
+    # the sorted route, its ids sorted by the radix
+    sr = Request(tpch.by_supplier(), batch, device)
+    maskB, gidB, outsB = sr.k1()
+    redsB = sr.reds(outsB)
+    n_segB = sr.segments * MESH_SHARDS
+    gid_b = gidB + kernels.shard_ids(gidB.shape[0], MESH_SHARDS, device) \
+        * sr.segments
+    err4 = max(err4, check_k4(gid_b, maskB, n_segB, redsB,
+                              "phase J: by_supplier's shard partials"))
+    routeB = k4_route_of(redsB, n_segB, device)
+    planB = kernels.radix_plan((1 << (n_segB - 1).bit_length()) - 1, False)
+    stackedB = torch.stack([torch.where(maskB, r.values, torch.zeros_like(
+        r.values)).view(torch.int64) for r in redsB
+        if r.values is not None], 1)
+    out["seg_agg_sorted"] = dict(
+        ms=ms(lambda: kernels.seg_agg_sorted(gid_b, maskB, n_segB, redsB)),
+        plain_ms=ms(lambda: kernels.seg_agg_plain(gid_b, maskB, n_segB,
+                                                  redsB)),
+        library_ms=ms(lambda: torch.zeros(
+            n_segB, stackedB.shape[1], dtype=torch.int64,
+            device=device).index_add_(0, gid_b, stackedB)),
+        max_abs_err=err4,
+        bound=bound(_nbytes([gid_b, maskB] + [t for r in redsB
+                                              for t in (r.values, r.valid)]),
+                    n1 * len(redsB)),
+        shape=f"by_supplier, {n1} rows, {n_segB} segments, {len(redsB)} "
+              f"reductions, {routeB}")
+    # the radix alone at those ids (its passes, row positions as payload)
+    srt, pos = kernels.radix_sort_t(gid_b, None, planB)
+    want_pos = torch.sort(gid_b, stable=True).indices
+    need(torch.equal(pos, want_pos) and torch.equal(srt, gid_b[want_pos]),
+         "phase J: the radix differs from a stable sort")
+    out["radix_pass"] = dict(
+        ms=ms(lambda: kernels.radix_sort_t(gid_b, None, planB)),
+        plain_ms=ms(lambda: kernels.radix_sort_plain(gid_b, None, planB)),
+        library_ms=ms(lambda: torch.sort(gid_b, stable=True)),
+        max_abs_err=0.0, bound=bound(n1 * 8 + n1 * 16, 0),
+        shape=f"{n1} ids below {n_segB}, {len(planB)} passes of "
+              f"{kernels.RADIX_BITS} bits")
+    timed["by_supplier_partials"] = out["seg_agg_sorted"]
+    timed["radix_by_supplier"] = out["radix_pass"]
     q1 = tpch.q1()
     timed["q1_serve"] = dict(
         ms=host_ms(lambda: client.serve(q1, batch), 5),
@@ -3886,7 +4135,8 @@ def phase_j(data: dict, batch, d_store: DistStore, d_data: dict,
               f"{r['bound'][0]:.6f} ms by {r['bound'][1]})")
     print(f"phase J: {time.perf_counter() - t0:.1f} s")
     out["shard_topk"] = dict(timed["shard_topk"], max_abs_err=err)
-    return out, {"shard_topk": launches["shard_topk"]}, timed
+    return out, {k: launches[k] for k in ("shard_topk",)
+                 + K4_SORTED_KERNELS}, timed
 
 
 # ---------------------------------------------------------------------------
@@ -4241,6 +4491,30 @@ def phase_k(joins: tuple, batch, d_store: DistStore, d_data: dict, device,
         library_ms=ms(lambda: torch.sort(codes, stable=True)),
         max_abs_err=err21,
         bound=bound(n_l * 17 + (MESH_SHARDS + 1) * 8, n_l * 12))}
+    # K11 within K21's partitions at the orders side (f1's keys, in key
+    # order within each partition: no pass) and under a seeded permutation
+    shuf = torch.from_numpy(np.random.default_rng(seed + 25).permutation(
+        rk.shape[0])).to(device)
+    k11p = {}
+    for what, k_, v_ in (("orders", rk, rv),
+                         ("orders shuffled", rk.index_select(0, shuf),
+                          rv.index_select(0, shuf))):
+        sel_, off_ = kernels.key_partition(k_, v_, MESH_SHARDS)
+        pk_, pv_ = k_.index_select(0, sel_), v_.index_select(0, sel_)
+        before = kernels.LAUNCHES["radix_pass"]
+        got = kernels.join_build_partitioned(pk_, pv_, off_)
+        passes = kernels.LAUNCHES["radix_pass"] - before
+        want = kernels.join_build_partitioned_plain(pk_, pv_, off_)
+        need(all(torch.equal(x, y) for x, y in zip(got, want)),
+             f"phase K: K11 within partitions ({what}) differs from its "
+             "plain version")
+        k11p[what] = {"partitions": MESH_SHARDS, "passes": passes,
+                      "ms": ms(lambda: kernels.join_build_partitioned(
+                          pk_, pv_, off_)),
+                      "plain_ms": ms(lambda: kernels
+                                     .join_build_partitioned_plain(
+                                         pk_, pv_, off_))}
+    print("phase K: K11 within partitions " + json.dumps(k11p))
     a = k_segmented(lk, lv, rk, rv, MESH_SHARDS)
     pairs, _t = kernels.join_probe_partitioned(**a)
     nv = a["words"].shape[0]

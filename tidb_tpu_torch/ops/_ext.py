@@ -30,7 +30,7 @@ SOURCES = ("expr_vm", "scalar_agg", "seg_agg_onehot", "seg_agg_sorted",
            "rank_groups", "distinct_runs", "topk_select", "seg_states_ragged",
            "combine_partials", "join_build", "join_probe", "dict_remap",
            "slot_filter", "slot_agg", "slot_topn", "sort_perm", "window_scan",
-           "delta_merge", "shard_topk", "key_partition")
+           "delta_merge", "shard_topk", "key_partition", "radix_sort")
 # -fmad=false: no multiply-add contraction, so every f64 a * b + c rounds
 # twice exactly as the plain versions (and the reference) round it
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -58,6 +58,10 @@ SIGNATURES = {
     "seg_agg_sorted": {
         "seg_sorted_pieces_count": ([_L], _I),
         "seg_sorted_launch": ([_L, _P, _P, _P, _L, _I, _P, _P, _P, _P], _I),
+        "seg_agg_block_limit": ([], _L),
+        "seg_agg_block_grid": ([_I, _L], _I),
+        "seg_agg_block_launch": ([_I, _I, _P, _I, _P, _P, _I, _I, _P, _I, _P,
+                                  _I, _I, _L, _P, _P, _P], _I),
     },
     "rank_groups": {
         "rank_groups_blocks": ([_L], _L),
@@ -89,7 +93,8 @@ SIGNATURES = {
     },
     "join_build": {
         "join_build_blocks": ([_L], _L),
-        "join_build_launch": ([_L, _P, _P, _I, _P, _P, _P, _P, _P, _P], _I),
+        "join_build_launch": ([_L, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P,
+                               _P, _P], _I),
     },
     "join_probe": {
         "join_probe_blocks": ([_L], _L),
@@ -136,6 +141,11 @@ SIGNATURES = {
         "key_partition_blocks": ([_L], _L),
         "key_partition_launch": ([_L, _P, _P, _I, _I, _P, _P, _P, _P, _P],
                                  _I),
+    },
+    "radix_sort": {
+        "radix_scratch_ints": ([_L], _L),
+        "radix_pass_launch": ([_L, _I, _P, _I, _P, _P, _P, _P, _P, _P],
+                              _I),
     },
     "shard_topk": {
         "shard_topk_grid": ([_I, _I, _I], _I),

@@ -18,7 +18,9 @@ MicroBatcher._kernel, _build_agg_wrapper :439, _build_topn_wrapper :532).
 Every request runs as K1 (`expr_vm`: WHERE mask, aggregate arguments and
 group id in one pass) followed, for aggregates, by K2 (`scalar_agg`) or,
 grouped, by K3 (`seg_agg_onehot`, S <= ONEHOT_SEGMENTS_MAX) or K4
-(`seg_agg_sorted`, above). A group-by beyond the radix ceiling is ranked:
+(`seg_agg_sorted`, above: segment windows in shared memory, or past
+`K4_MAX_WINDOWS` windows the segmented pass over ids sorted by the radix
+of `radix_sort_t`; `k4_route`). A group-by beyond the radix ceiling is ranked:
 a stable lexsort of the group columns, K8 (`rank_groups`: group ids in
 sorted space, representatives) and K4's segmented pass in sorted space.
 DISTINCT aggregates sort by (group, contributing first, value), K9
@@ -73,6 +75,7 @@ from __future__ import annotations
 
 import array
 import contextlib
+import ctypes
 import threading
 import time
 import weakref
@@ -113,7 +116,10 @@ GC_BASE = -1000
 # counted); K6 counts its three routes apart (k6_route): a span copy per
 # warp in the default shared memory (seg_states_ragged), one a block in
 # the opt-in shared memory (seg_states_ragged_smem), and larger spans
-# (seg_states_ragged_sorted)
+# (seg_states_ragged_sorted); K4 its two (k4_route): segment windows in
+# the opt-in shared memory (seg_agg_block) and the segmented pass over
+# sorted ids (seg_agg_sorted, also the ranked and DISTINCT paths' pass);
+# radix_pass one pass of the radix sort K11 and K4's sorted route run
 LAUNCHES = {"expr_vm": 0, "scalar_agg": 0, "seg_agg_onehot": 0,
             "seg_agg_sorted": 0, "rank_groups": 0, "distinct_runs": 0,
             "topk_select": 0, "expr_vm_ragged": 0, "seg_states_ragged": 0,
@@ -122,7 +128,8 @@ LAUNCHES = {"expr_vm": 0, "scalar_agg": 0, "seg_agg_onehot": 0,
             "join_build": 0, "join_probe": 0, "dict_remap": 0,
             "slot_filter": 0, "slot_agg": 0, "slot_topn": 0,
             "sort_perm": 0, "window_scan": 0, "delta_merge_order": 0,
-            "shard_topk": 0, "key_partition": 0, "join_probe_seg": 0}
+            "shard_topk": 0, "key_partition": 0, "join_probe_seg": 0,
+            "seg_agg_block": 0, "radix_pass": 0}
 
 # K14 / K15 read each row's planes once into a table of this many entries
 # (ops/csrc/vm.cuh VM_ROW_PLANES); K15 folds at most SLOT_MAX_REDS
@@ -1454,10 +1461,102 @@ def join_build_plain(rkey: torch.Tensor, rvalid: torch.Tensor) -> tuple:
     return words, rows[perm]
 
 
+# the radix sort of K11 and K4's sorted route (ops/csrc/radix.cuh):
+# digit width in bits, rows a tile
+RADIX_BITS = 8
+RADIX_TILE = 2048
+# K11's tile and the fields of its summaries (ops/csrc/join_build.cu)
+K11_TILE = 2048
+K11_TILE_FIELDS = 8
+K11_SUMMARY = 4
+_U64 = (1 << 64) - 1
+
+
+def radix_plan(varying: int, presorted: bool, parts: int = 1) -> list:
+    """The passes of the stable LSD radix sort, lowest digit first, as
+    (source, shift): source 0 the word's digit at `shift` of its unsigned
+    image, 1 the digit of the row's partition (of `parts`). `varying`
+    marks the bits in which the words differ (the OR of their unsigned
+    images xor the AND): a digit with no such bit holds one value in every
+    word and is skipped; the partition digits come last, as the most
+    significant. A presorted sequence needs no pass."""
+    if presorted:
+        return []
+    varying &= _U64
+    plan = [(0, shift) for shift in range(0, 64, RADIX_BITS)
+            if (varying >> shift) & ((1 << RADIX_BITS) - 1)]
+    plan += [(1, shift) for shift in range(0, (parts - 1).bit_length(),
+                                            RADIX_BITS)]
+    return plan
+
+
+def _radix_passes(n: int, plan: list, keys: int, pay: int, bufs: list,
+                  offsets: torch.Tensor | None, dev: torch.device) -> int:
+    """Launch the planned radix passes over raw pointers: keys / pay the
+    inputs (pay 0: the row positions), pass i writing the (words,
+    payloads) pointer pair bufs[i % 2]. Returns the index of the pair that
+    holds the result."""
+    if n >= 1 << 31:
+        raise errors.DeviceError(f"{n} rows exceed the radix sort's 2^31")
+    lib = _ext.lib("radix_sort")
+    stream = _stream(dev)
+    scratch = _stream_scratch("radix_sort", dev, 4 * int(
+        lib.radix_scratch_ints(n)), stream)
+    counts = scratch.data_ptr()
+    off = 0 if offsets is None else offsets.data_ptr()
+    P = 0 if offsets is None else offsets.shape[0] - 1
+    for i, (source, shift) in enumerate(plan):
+        k_out, p_out = bufs[i % 2]
+        rc = lib.radix_pass_launch(n, shift, off if source else 0,
+                                   P if source else 0, keys, pay, k_out,
+                                   p_out, counts, stream)
+        _ext.check(rc, "radix_pass")
+        LAUNCHES["radix_pass"] += 1
+        keys, pay = k_out, p_out
+    return (len(plan) - 1) % 2
+
+
+def radix_sort_plain(keys: torch.Tensor, pay, plan: list,
+                     offsets: torch.Tensor | None = None) -> tuple:
+    bits = (1 << RADIX_BITS) - 1
+    perm = torch.arange(keys.shape[0], dtype=torch.int64, device=keys.device)
+    u = keys ^ I64_MIN                 # the unsigned image's bits
+    for source, shift in plan:
+        if source == 0:
+            src = u[perm]
+        else:
+            rows = perm if pay is None else pay[perm]
+            src = torch.searchsorted(offsets[:-1], rows, right=True) - 1
+        perm = perm[torch.sort(_shr(src, shift) & bits, stable=True).indices]
+    return keys[perm], (perm if pay is None else pay[perm])
+
+
+def radix_sort_t(keys: torch.Tensor, pay, plan: list,
+                 offsets: torch.Tensor | None = None) -> tuple:
+    """The planned radix passes over card planes: (words, payloads) sorted
+    stably. keys int64 [n]; pay int64 [n], or None for the row positions;
+    offsets the P + 1 partition starts a source-1 pass reads. The inputs
+    are left as they are."""
+    if _device_kind(keys) == "cpu":
+        return radix_sort_plain(keys, pay, plan, offsets)
+    n = keys.shape[0]
+    if not plan or n == 0:
+        return keys, (pay if pay is not None else torch.arange(
+            n, dtype=torch.int64, device=keys.device))
+    buf = torch.empty((4, n), dtype=torch.int64, device=keys.device)
+    rows = [buf[i].data_ptr() for i in range(4)]
+    out = _radix_passes(n, plan, keys.data_ptr(),
+                        0 if pay is None else pay.data_ptr(),
+                        [rows[:2], rows[2:]], offsets, keys.device)
+    return buf[2 * out], buf[2 * out + 1]
+
+
 def join_build(rkey: torch.Tensor, rvalid: torch.Tensor) -> tuple:
     """K11: (words int64[n_valid], order int64[n_valid]) — the order words
     (`orderable`: -0.0 == +0.0) of the valid right keys, sorted stably, and
-    the right row of each; equal keys keep right-scan order."""
+    the right row of each; equal keys keep right-scan order. On the card:
+    K11's compaction, one readback of its summary, then the radix passes
+    `radix_plan` names (none where the words arrive in order)."""
     if _device_kind(rvalid) == "cpu":
         return join_build_plain(rkey, rvalid)
     dev = rvalid.device
@@ -1467,32 +1566,74 @@ def join_build(rkey: torch.Tensor, rvalid: torch.Tensor) -> tuple:
     if n == 0:
         empty = torch.empty(0, dtype=torch.int64, device=dev)
         return empty, empty
-    words, rows = _k11_compact(rkey, rvalid)
-    sorted_words, perm = torch.sort(words, stable=True)
-    return sorted_words, rows[perm]
+    return _k11_sort(rkey, rvalid)
 
 
-def _k11_compact(rkey: torch.Tensor, rvalid: torch.Tensor) -> tuple:
-    """K11's launch over n >= 1 checked card planes: the valid rows' order
-    words and rows, in row order."""
+_K11_HOST: dict = {}
+
+
+def _k11_host_summary(dev: torch.device, stream: int) -> tuple:
+    """K11's summary in host memory, one per (device, stream): page-locked
+    on a card, where the launch copies into it and waits for the stream.
+    (the tensor, a ctypes view of its K11_SUMMARY int64, the lock a caller
+    holds from its launch until it has read the view: threads that share
+    a stream share the buffer)"""
+    key = (dev.index, stream)
+    ent = _K11_HOST.get(key)
+    if ent is None:
+        buf = torch.empty(K11_SUMMARY, dtype=torch.int64,
+                          pin_memory=dev.type == "cuda")
+        ent = _K11_HOST.setdefault(key, (buf, (
+            ctypes.c_int64 * K11_SUMMARY).from_address(buf.data_ptr()),
+            threading.Lock()))
+    return ent
+
+
+def _k11_sort(rkey: torch.Tensor, rvalid: torch.Tensor,
+              offsets: torch.Tensor | None = None) -> tuple:
+    """K11 over n >= 1 checked card planes: its launch, which reads its
+    summary back (its one synchronisation), then the radix passes the
+    summary plans (radix_plan: by (partition, word) with K21's `offsets`,
+    the partition id's digits last). Returns (words, rows) sorted, plus,
+    with offsets, each partition's start among them; the buffers and
+    scratch are in place before the readback, and without partitions no
+    tensor operation runs between it and the passes."""
     dev = rvalid.device
     n = rvalid.shape[0]
     lib = _ext.lib("join_build")
     nb = lib.join_build_blocks(n)
-    totals = torch.empty(nb, dtype=torch.int64, device=dev)
-    offs = torch.empty(nb, dtype=torch.int64, device=dev)
-    n_valid = torch.empty(1, dtype=torch.int64, device=dev)
-    words = torch.empty(n, dtype=torch.int64, device=dev)
-    rows = torch.empty(n, dtype=torch.int64, device=dev)
-    rc = lib.join_build_launch(
-        n, rkey.data_ptr(), rvalid.data_ptr(),
-        int(rkey.dtype == torch.float64),
-        totals.data_ptr(), offs.data_ptr(), n_valid.data_ptr(),
-        words.data_ptr(), rows.data_ptr(), _stream(dev))
-    _ext.check(rc, "join_build")
+    stream = _stream(dev)
+    scratch = _stream_scratch("join_build", dev, 8 * (
+        nb * (K11_TILE_FIELDS + 1) + K11_SUMMARY), stream)
+    tiles = scratch.data_ptr()
+    offs = tiles + 8 * nb * K11_TILE_FIELDS
+    host, summary, lock = _k11_host_summary(dev, stream)
+    buf = torch.empty((4, n), dtype=torch.int64, device=dev)
+    rows = [buf.data_ptr() + 8 * n * i for i in range(4)]
+    with lock:
+        rc = lib.join_build_launch(
+            n, rkey.data_ptr(), rvalid.data_ptr(),
+            int(rkey.dtype == torch.float64),
+            0 if offsets is None else offsets.data_ptr(),
+            0 if offsets is None else offsets.shape[0] - 1, tiles, offs,
+            offs + 8 * nb, host.data_ptr(), rows[0], rows[1], stream)
+        _ext.check(rc, "join_build")
+        nv, o, a, presorted = summary
     LAUNCHES["join_build"] += 1
-    nv = int(n_valid.item())
-    return words[:nv], rows[:nv]
+    plan = [] if presorted or nv < 2 else radix_plan(
+        o ^ a, False, parts=1 if offsets is None else offsets.shape[0] - 1)
+    res = buf[:, :nv]
+    # partition p's words start after the valid rows of the partitions
+    # before it: a search of the compacted rows, which ascend (enqueued
+    # before the passes overwrite them)
+    bounds = None if offsets is None else torch.searchsorted(res[1], offsets)
+    # pass i writes pair 2 then 0 in turn: the compaction's buffers are
+    # free once the first pass has read them
+    out = 0 if not plan else 2 - 2 * _radix_passes(
+        nv, plan, rows[0], rows[1], [rows[2:], rows[:2]], offsets, dev)
+    if offsets is None:
+        return res[out], res[out + 1]
+    return res[out], res[out + 1], bounds
 
 
 def join_probe_plain(words, order, lkey, lvalid) -> torch.Tensor:
@@ -1693,21 +1834,13 @@ def key_partition(key: torch.Tensor, valid: torch.Tensor,
     return sel, offsets
 
 
-def _segment_sort(words: torch.Tensor, rows: torch.Tensor,
-                  offsets: torch.Tensor) -> tuple:
-    """Compacted valid build rows (their words, their partition-major
-    positions ascending) sorted by word within each partition, stably:
-    (words, rows, bounds int64[P + 1], partition p's range)."""
-    part = torch.searchsorted(offsets, rows, right=True) - 1
-    perm, _last = lexsort([words, part])
-    bounds = torch.searchsorted(rows, offsets)
-    return words[perm], rows[perm], bounds
-
-
 def join_build_partitioned_plain(rkey: torch.Tensor, rvalid: torch.Tensor,
                                  offsets: torch.Tensor) -> tuple:
     rows = torch.nonzero(rvalid).squeeze(1)
-    return _segment_sort(orderable(rkey)[rows], rows, offsets)
+    words = orderable(rkey)[rows]
+    part = torch.searchsorted(offsets, rows, right=True) - 1
+    perm, _last = lexsort([words, part])
+    return words[perm], rows[perm], torch.searchsorted(rows, offsets)
 
 
 def join_build_partitioned(rkey: torch.Tensor, rvalid: torch.Tensor,
@@ -1716,20 +1849,22 @@ def join_build_partitioned(rkey: torch.Tensor, rvalid: torch.Tensor,
     partition starts): (words, order, bounds) — the valid rows' order words
     sorted within each partition, stably; each word's row (a position in
     the partition-major planes); partition p's words at [bounds[p],
-    bounds[p + 1]). The compaction is K11's launch; the order within the
-    partitions two stable torch.sorts (by word, then by partition), the
-    building block K11 itself uses."""
+    bounds[p + 1]). On the card: K11's compaction (its summary orders
+    (partition, word) pairs), then the radix passes over the word's varying
+    digits and the partition id's digits as the most significant (none
+    where each partition's words arrive in order); bounds by a search of
+    the compacted rows, which ascend."""
     if _device_kind(rvalid) == "cpu":
         return join_build_partitioned_plain(rkey, rvalid, offsets)
     dev = rvalid.device
     n = rvalid.shape[0]
     _check_plane(rkey, n, (torch.int64, torch.float64), "build key", dev)
     _check_plane(rvalid, n, (torch.bool,), "build valid", dev)
+    _check_plane(offsets, offsets.shape[0], (torch.int64,), "offsets", dev)
     if n == 0:
         empty = torch.empty(0, dtype=torch.int64, device=dev)
         return empty, empty, torch.zeros_like(offsets)
-    words, rows = _k11_compact(rkey, rvalid)
-    return _segment_sort(words, rows, offsets)
+    return _k11_sort(rkey, rvalid, offsets)
 
 
 def join_probe_partitioned_plain(words, order, bounds, lkey, lvalid, loff,
@@ -2214,15 +2349,209 @@ def seg_agg_onehot(gid: torch.Tensor, mask: torch.Tensor, num_segments: int,
     return out[..., 0], out[..., 1]
 
 
+# K4's routes (ops/csrc/seg_agg_sorted.cu): segment windows on K6's block
+# route while they are at most K4_MAX_WINDOWS (the point past which the
+# sorted route was faster at l_suppkey's reductions on the card: PERF.md),
+# else the sorted route. The windows' launch takes its tables by value: a
+# slot is K4_SLOT int64, a reduction's map K4_MAP, at most K4_WINDOWS_CAP
+# windows and K4_MAX_REDS reductions
+K4_MAX_WINDOWS = 7
+K4_WINDOWS_CAP = 16
+# one window's integer states in up to this many copies (seg_block.cuh)
+K4_MAX_COPIES = 16
+K4_MAX_REDS = 64
+K4_ROUTES = ("seg_agg_block", "seg_agg_sorted")
+K4_SLOT = 5
+K4_MAP = 3
+K6B_ROW_VALUE = 1
+
+
+def k4_slots(reds: list[Red]) -> tuple:
+    """K4's state slots on the windowed route: (slots, red_map). A slot is
+    [op, flags, constant, values pointer, valid pointer]: one count slot
+    (R_COUNT, constant 1) per distinct valid plane among the reductions
+    (R_FIRST's takes every mask row), one value slot per distinct (op,
+    values or constant, valid); red_map[j] = [op, count slot, value slot]
+    (-1: none; a NULL-constant reduction has neither, R_COUNT no value)."""
+    slots, index, red_map = [], {}, []
+
+    def slot(key, row) -> int:
+        if key not in index:
+            index[key] = len(slots)
+            slots.append(row)
+        return index[key]
+
+    for red in reds:
+        if red.op == R_FIRST:
+            cs = slot(("n", 0), [R_COUNT, 0, 1, 0, 0])
+            vs = slot(("first",), [R_FIRST, K6B_ROW_VALUE, 0, 0, 0])
+        elif red.never:
+            cs = vs = -1
+        else:
+            valid = 0 if red.valid is None else red.valid.data_ptr()
+            cs = slot(("n", valid), [R_COUNT, 0, 1, 0, valid])
+            vs = -1
+            if red.op != R_COUNT:
+                vals = 0 if red.values is None else red.values.data_ptr()
+                const = red.const_bits if red.values is None else 0
+                vs = slot(("v", red.op, vals, const, valid),
+                          [red.op, 0, const, vals, valid])
+        red_map.append([red.op, cs, vs])
+    return slots, red_map
+
+
+def _k4_windows(n_red: int, n_slots: int, n_f64: int, num_segments: int,
+                limit: int) -> tuple | None:
+    """The fewest segment windows K4's block route needs, whatever their
+    number: (rows a thread per chunk, windows), windows of as many segments
+    as one copy of their states (and, for f64 states, a chunk's staging)
+    fits in `limit` bytes, the most rows on a tie; None where no window
+    fits or the launch cannot take the reductions."""
+    best = None
+    if 1 <= n_slots <= K6B_MAX_REDS and n_red <= K4_MAX_REDS:
+        for rows in K6B_ROWS:
+            span = (limit - k6_block_bytes(n_slots, n_f64, 0, rows)) \
+                // (8 * n_slots)
+            if span < 1:
+                continue
+            windows = -(-num_segments // span)
+            if best is None or windows < best[1]:
+                best = (rows, windows)
+    return best
+
+
+def k4_route(n_red: int, n_slots: int, n_f64: int, num_segments: int,
+             limit: int) -> tuple:
+    """K4's route for n_red reductions keeping n_slots states a segment
+    (n_f64 of them f64 ops; see k4_slots) over num_segments segments,
+    given the block route's shared-memory limit in bytes: (LAUNCHES name,
+    rows a thread per chunk, windows). The windows of `_k4_windows` while
+    they are at most K4_MAX_WINDOWS; else the sorted route, (name, 0, 0)."""
+    fit = _k4_windows(n_red, n_slots, n_f64, num_segments, limit)
+    if fit is None or fit[1] > K4_MAX_WINDOWS:
+        return ("seg_agg_sorted", 0, 0)
+    return ("seg_agg_block",) + fit
+
+
+def k4_copies(n_slots: int, n_f64: int, span: int, rows: int,
+              limit: int) -> int:
+    """Copies of a window's integer states for K4's block: the largest
+    power of two up to K4_MAX_COPIES whose copies (with the f64 staging)
+    fit `limit`, so that lanes sharing a segment fold into different
+    copies (few segments: a hot group's lanes pile onto one address)."""
+    base = k6_block_bytes(n_slots, n_f64, span, rows)
+    copies = 1
+    while copies < K4_MAX_COPIES and \
+            base + 8 * (2 * copies - 1) * n_slots * span <= limit:
+        copies *= 2
+    return copies
+
+
+_K4_LIMIT: dict = {}
+_K4_GRID: dict = {}
+
+
+def _card_query(cache: dict, key, query, *args) -> int:
+    """A positive figure the kernel library reports (a block route's
+    shared-memory limit, its persistent grid), asked once per key; a
+    result <= 0 is minus a CUDA error."""
+    v = cache.get(key)
+    if v is None:
+        v = int(query(*args))
+        if v <= 0:
+            raise errors.DeviceError(f"{query.__name__} failed with CUDA "
+                                     f"error {-v}")
+        cache[key] = v
+    return v
+
+
+def _k4_block_limit(lib, dev: torch.device) -> int:
+    return _card_query(_K4_LIMIT, dev.index, lib.seg_agg_block_limit)
+
+
+def _k4_block_grid(lib, dev: torch.device, rows: int, smem: int) -> int:
+    return _card_query(_K4_GRID, (dev.index, rows, smem),
+                       lib.seg_agg_block_grid, rows, smem)
+
+
 def seg_agg_sorted(gid: torch.Tensor, mask: torch.Tensor, num_segments: int,
                    reds: list[Red]):
-    """K4 (S > ONEHOT_SEGMENTS_MAX): a stable sort of the group ids, then
-    the segmented reduction kernel over the sorted runs."""
+    """K4 (S > ONEHOT_SEGMENTS_MAX): (n int64[R, S], acc int64[R, S]). On
+    the card by `k4_route`: segment windows in shared memory (one launch,
+    every window), or the radix sort of the group ids (one pass per digit
+    of their bit length) and the segmented pass over the sorted runs."""
     if _device_kind(mask) == "cpu":
         return seg_agg_plain(gid, mask, num_segments, reds)
-    _check_gid(gid, mask, mask.device)
-    gid_sorted, order = torch.sort(gid, stable=True)
+    dev = mask.device
+    n = mask.shape[0]
+    _check_gid(gid, mask, dev)
+    _red_rows(reds, n, dev)                 # the planes' checks
+    slots, _red_map = k4_slots(reds)
+    n_f = sum(row[0] in F_OPS for row in slots)
+    route = k4_route(len(reds), len(slots), n_f, num_segments,
+                     _k4_block_limit(_ext.lib("seg_agg_sorted"), dev))[0] \
+        if n > 0 else "seg_agg_sorted"
+    if route == "seg_agg_sorted":
+        return _k4_sorted(gid, mask, num_segments, reds)
+    return _k4_block(gid, mask, num_segments, reds)
+
+
+def _k4_sorted(gid: torch.Tensor, mask: torch.Tensor, num_segments: int,
+               reds: list[Red]):
+    """K4's sorted route over checked card planes: the radix sort of the
+    group ids, one pass per digit of their bit length, then the segmented
+    pass over the sorted runs."""
+    plan = radix_plan((1 << (num_segments - 1).bit_length()) - 1, False)
+    gid_sorted, order = radix_sort_t(gid, None, plan)
     return seg_agg_presorted(gid_sorted, order, mask, num_segments, reds)
+
+
+def _k4_block(gid: torch.Tensor, mask: torch.Tensor, num_segments: int,
+              reds: list[Red]):
+    """K4's windowed block route over n >= 1 checked card rows, in the
+    fewest windows that fit (`_k4_windows`: k4_route takes this route only
+    up to K4_MAX_WINDOWS of them; the launch holds K4_WINDOWS_CAP), all in
+    one launch."""
+    dev = mask.device
+    n = mask.shape[0]
+    lib = _ext.lib("seg_agg_sorted")
+    slots, red_map = k4_slots(reds)
+    n_f = sum(row[0] in F_OPS for row in slots)
+    fit = _k4_windows(len(reds), len(slots), n_f, num_segments,
+                      _k4_block_limit(lib, dev))
+    if fit is None or fit[1] > K4_WINDOWS_CAP:
+        raise errors.DeviceError(f"K4's windows do not hold {num_segments} "
+                                 f"segments of {len(slots)} states")
+    rows, windows = fit
+    span = -(-num_segments // windows)
+    copies = k4_copies(len(slots), n_f, span, rows,
+                       _k4_block_limit(lib, dev)) if windows == 1 else 1
+    smem = k6_block_bytes(len(slots), n_f, span, rows) \
+        + 8 * (copies - 1) * len(slots) * span
+    units = k6_block_units([n] * windows,
+                           _k4_block_grid(lib, dev, rows, smem))
+    rdesc, first = [], 0
+    for w in range(windows):
+        rdesc += [0, n, w * span, min(span, num_segments - w * span), first,
+                  units[w]]
+        first += units[w]
+    # the tables go by value: host arrays the launch copies
+    t_rdesc = array.array("q", rdesc)
+    t_slots = array.array("q", [x for row in slots for x in row])
+    t_map = array.array("q", [x for row in red_map for x in row])
+    part = torch.empty(first * len(slots) * span, dtype=torch.int64,
+                       device=dev)
+    out = torch.empty(len(reds) * num_segments * 2, dtype=torch.int64,
+                      device=dev)
+    rc = lib.seg_agg_block_launch(
+        rows, first, t_rdesc.buffer_info()[0], windows, gid.data_ptr(),
+        mask.data_ptr(), len(slots), n_f, t_slots.buffer_info()[0],
+        len(reds), t_map.buffer_info()[0], span, copies, num_segments,
+        part.data_ptr(), out.data_ptr(), _stream(dev))
+    _ext.check(rc, "seg_agg_block")
+    LAUNCHES["seg_agg_block"] += 1
+    out = out.view(len(reds), num_segments, 2)
+    return out[..., 0], out[..., 1]
 
 
 # ---------------------------------------------------------------------------
@@ -2473,7 +2802,9 @@ def seg_states_ragged_plain(gid: torch.Tensor, caps: list, Gs: list,
 
 # K6's routes (seg_states_ragged.cu): a span copy per warp within the
 # default shared memory (K6_WARPS, K6_SMEM_BYTES), one a block within the
-# card's opt-in limit (K6B_*), else the sorted route
+# card's opt-in limit (K6B_*, seg_block.cuh, which K4 shares), else the
+# sorted route
+K6_RDESC = 6
 K6_WARPS = 8
 K6_SMEM_BYTES = 49152
 K6_TILE = 4096
@@ -2541,26 +2872,12 @@ _K6_GRID: dict = {}
 
 
 def _k6_block_limit(lib, dev: torch.device) -> int:
-    lim = _K6_LIMIT.get(dev.index)
-    if lim is None:
-        lim = int(lib.seg_states_block_limit())
-        if lim <= 0:
-            raise errors.DeviceError(
-                f"seg_states_block_limit failed with CUDA error {-lim}")
-        _K6_LIMIT[dev.index] = lim
-    return lim
+    return _card_query(_K6_LIMIT, dev.index, lib.seg_states_block_limit)
 
 
 def _k6_block_grid(lib, dev: torch.device, rows: int, smem: int) -> int:
-    key = (dev.index, rows, smem)
-    g = _K6_GRID.get(key)
-    if g is None:
-        g = int(lib.seg_states_block_grid(rows, smem))
-        if g <= 0:
-            raise errors.DeviceError(
-                f"seg_states_block_grid failed with CUDA error {-g}")
-        _K6_GRID[key] = g
-    return g
+    return _card_query(_K6_GRID, (dev.index, rows, smem),
+                       lib.seg_states_block_grid, rows, smem)
 
 
 def seg_states_ragged(gid: torch.Tensor, caps: list, n_rows: list,
