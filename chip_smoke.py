@@ -82,7 +82,17 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    per statement) also at 2^22 + 13 rows: all keys equal (the first k
    live rows), the k-th first key shared across blocks, a key sorted in
    and one against the wanted order (both timed), k 5000, k at and above
-   the live rows.
+   the live rows. The ranked and DISTINCT sorts are K17 (redesigned in
+   slice 14: kernels.sort_plan's composite words on radix.cuh), each
+   statement's K17 calls and radix passes exactly those its planes plan
+   (the plan recomputed on the host from the planes of each first run);
+   K9 in both modes (sorted words where one composite word holds the
+   planes, else the gather) on every case; the sort split of ranked_dates'
+   and count(distinct l_orderkey)'s keys by K17 and by the chained
+   torch.sort the path ran before, with K17's plan printed; K9's two
+   modes timed at count(distinct l_orderkey) (rows near their sorted
+   order) and at count(distinct l_suppkey) (the gather mode's reads
+   random).
 7. Phase F, joins at SF1 on Phase B's lineitem batch (its planes
    resident) and orders (one row per order of that lineitem, about 1.5M
    rows), partsupp (800,000) and a 4-row priority table built straight
@@ -126,7 +136,14 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    n = 0, 1 and around the tile and the floor; one partition, one row a
    partition, empty frames, SUM wrapping), timed with CUDA events
    (median of 20) beside its bytes bound, K17 beside chained stable
-   torch.sort.
+   torch.sort. K17 (redesigned in slice 14) also on planes whose widths
+   cross 64 bits, uint8 and bool flag planes, one-, two- and three-word
+   plans and past its row limit (kernels._k17_split at a small limit),
+   each equal to np.lexsort and its plain version and run twice for the
+   same permutation, a one-word plan's sorted words equal to the plain
+   pack's; the timed call's plan and its peak device memory beside 32 B
+   a row, and K17's split (past its row limit) at a third of the ORDER
+   BY's rows, equal to K17, with its peak memory.
 10. Phase I, the HTAP freshness tier (slice 7), after Phase D. I.1, at
    SF0.01 through KV: 60,175 lineitem rows committed through
    DistStore.begin() ... commit() into 8 regions; the six sweep shapes
@@ -1672,27 +1689,77 @@ def phase_d(n_rows: int, seed: int, device, R: int = 8) -> tuple:
 SLICE3_KERNELS = ("rank_groups", "distinct_runs", "topk_select")
 # launches per statement on the card: the first run of each statement of
 # tpch.SLICE3 in order, then the repeats of the two group-by shapes, which
-# start at the memoized rung (ranked_dates) or go straight to tuple codes
+# start at the memoized rung (ranked_dates) or go straight to tuple codes.
+# The ranked prepare (once a statement, whatever the rung) and each
+# DISTINCT aggregate sort by one K17 (sort_perm), whose radix passes come
+# from its plan (e_statements adds them)
 E_LAUNCHES = {
-    "ranked_dates": {"expr_vm": 1, "rank_groups": 3, "seg_agg_sorted": 1},
+    "ranked_dates": {"expr_vm": 1, "sort_perm": 1, "rank_groups": 3,
+                     "seg_agg_sorted": 1},
     # the tuple codes' 429,862 segments: K4's sorted route, its ids sorted
     # by a radix pass per digit of their 19 bits
-    "tuple_dates": {"expr_vm": 2, "rank_groups": 3, "seg_agg_sorted": 1,
+    "tuple_dates": {"expr_vm": 2, "sort_perm": 1, "rank_groups": 3,
+                    "seg_agg_sorted": 1,
                     "radix_pass": len(kernels.radix_plan((1 << 19) - 1,
                                                          False))},
-    "scalar_distinct": {"expr_vm": 1, "distinct_runs": 4, "scalar_agg": 4},
-    "grouped_distinct": {"expr_vm": 1, "seg_agg_onehot": 1,
+    "scalar_distinct": {"expr_vm": 1, "sort_perm": 4, "distinct_runs": 4,
+                        "scalar_agg": 4},
+    "grouped_distinct": {"expr_vm": 1, "seg_agg_onehot": 1, "sort_perm": 1,
                          "distinct_runs": 1, "seg_agg_sorted": 1},
     # K10's launches come from its plan (kernels.topk_launch_count)
     "topn_price": {"expr_vm": 1},
     "topn_multi": {"expr_vm": 1},
     "topn_multi_5000": {"expr_vm": 1},
-    "ranked_dates repeat": {"expr_vm": 1, "rank_groups": 1,
+    "ranked_dates repeat": {"expr_vm": 1, "sort_perm": 1, "rank_groups": 1,
                             "seg_agg_sorted": 1},
     "tuple_dates repeat": {"expr_vm": 1, "seg_agg_sorted": 1,
                            "radix_pass": len(kernels.radix_plan(
                                (1 << 19) - 1, False))},
 }
+
+
+def plan_text(plan: list) -> str:
+    """K17's plan (kernels.sort_plan) as words, bits and passes."""
+    if not plan:
+        return "no word (every plane constant), no pass"
+    return f"{len(plan)} word(s) of " + " + ".join(
+        str(sum(w for _j, _s, w in fields)) for fields, _v, _p in plan) \
+        + f" bits, {sum(len(p) for _f, _v, p in plan)} passes"
+
+
+class K17Spy:
+    """Records each K17 sort of a run: its plan and, where `keep`, its
+    planes (to recompute the plan on the host after the run)."""
+
+    def __init__(self):
+        self.calls = []
+        self.keep = True
+        self.orig = kernels._k17_sort
+
+    def __enter__(self):
+        def spy(planes, n, dev, *rest):
+            res = self.orig(planes, n, dev, *rest)
+            self.calls.append((list(planes) if self.keep else None, res[2]))
+            return res
+        kernels._k17_sort = spy
+        return self
+
+    def __exit__(self, *exc):
+        kernels._k17_sort = self.orig
+
+    def take(self, what: str) -> int:
+        """The radix passes of the sorts since the last take, each plan
+        that kept its planes checked against the plan recomputed on the
+        host from the planes read back."""
+        passes = 0
+        for planes, plan in self.calls:
+            if planes is not None:
+                need(kernels.sort_plan(kernels.sort_summary_plain(
+                    [p.cpu() for p in planes])) == plan,
+                     f"{what}: K17's plan differs from the host's")
+            passes += sum(len(p) for _f, _v, p in plan)
+        self.calls = []
+        return passes
 
 
 def cents(d) -> int:
@@ -1735,11 +1802,27 @@ def check_k8(prep, S: int, what: str) -> float:
     return max(max_err(g, w) for g, w in zip(got, want))
 
 
+K9_MODES = {"gather": 0, "sorted words": 0}
+
+
 def check_k9(args: tuple, what: str) -> float:
-    got = kernels.distinct_runs(*args)
-    want = kernels.distinct_runs_plain(*args)
-    need(torch.equal(got, want), f"{what}: K9 differs from its plain version")
-    return max_err(got, want)
+    """K9 against its plain version on distinct_sort's output, in the
+    gather mode and, where K17 packed one word, the sorted-word mode; each
+    run twice for the same bits."""
+    perm, key, contrib, gid_s, words = args
+    want = kernels.distinct_runs_plain(perm, key, contrib, gid_s)
+    err = 0.0
+    for mode, w in (("gather", None), ("sorted words", words)):
+        if mode != "gather" and w is None:
+            continue
+        got = kernels.distinct_runs(perm, key, contrib, gid_s, w)
+        need(torch.equal(got, want), f"{what}: K9 ({mode}) differs from its "
+             "plain version")
+        need(torch.equal(kernels.distinct_runs(perm, key, contrib, gid_s, w),
+                         got), f"{what}: two runs of K9 ({mode}) differ")
+        K9_MODES[mode] += 1
+        err = max(err, max_err(got, want))
+    return err
 
 
 def k10_launches(n: int, k: int, nk: int, device):
@@ -1771,16 +1854,21 @@ def e_statements(client, batch, data) -> tuple:
     zero_launches()
     total = {k: 0 for k in kernels.LAUNCHES}
     repeats = {}
+    spy = K17Spy()
     for name, sel in order:
         before = dict(kernels.LAUNCHES)
         tuples = client.stats["tuple_grouped"]
         if name.endswith("repeat"):
             kernels.SPLIT = {}
+        # a repeat is timed: its sorts keep no planes for the host's plan
+        spy.keep = not name.endswith("repeat")
         t0 = time.perf_counter()
-        resp = client.serve(sel, batch)
+        with spy:
+            resp = client.serve(sel, batch)
         if cuda:
             torch.cuda.synchronize()
         took = time.perf_counter() - t0
+        k17_passes = spy.take(f"phase E {name}")
         if name.endswith("repeat"):
             repeats[name] = (took * 1e3, kernels.SPLIT)
             kernels.SPLIT = None
@@ -1795,6 +1883,8 @@ def e_statements(client, batch, data) -> tuple:
                  f"{name}: did not take the tuple codes")
         if cuda:
             want = dict(E_LAUNCHES[name])
+            if k17_passes:
+                want["radix_pass"] = want.get("radix_pass", 0) + k17_passes
             if sel.order_by:
                 want["topk_select"] = k10_launches(
                     batch.capacity, sel.limit, len(sel.order_by),
@@ -1929,15 +2019,24 @@ def edge_distinct(device, seed: int) -> list:
     fv[::7] = -0.0
     fv[::11] = np.inf
     gid = t(rng.integers(0, 9, n).astype(np.int64))
+    # values of one sign, so that K17 packs one word: I64_MAX beside small
+    # ones (63 bits and the flag), -0.0 / +0.0 / +inf among doubles
+    nv = rng.integers(0, 5, n).astype(np.int64)
+    nv[::13] = (1 << 63) - 1
+    nf = rng.integers(0, 3, n) * 0.25
+    nf[::7] = -0.0
+    nf[::11] = np.inf
+    sv = rng.integers(0, 300, n).astype(np.int64)
     out = []
-    for v in (t(iv), t(fv)):
-        for p in (0.6, 0.0):
+    for v in (t(iv), t(fv), t(nv), t(nf), t(sv)):
+        for p in (0.6, 0.0, 1.0):
             contrib = t(rng.random(n) < p)
             for g in (None, gid):
-                perm, key, gs = kernels.distinct_sort(v, contrib, g)
-                out.append(((perm, key, contrib, gs),
+                perm, key, gs, words = kernels.distinct_sort(v, contrib, g)
+                out.append(((perm, key, contrib, gs, words),
                             f"{v.dtype} contrib {p} "
-                            f"{'grouped' if g is not None else 'scalar'}"))
+                            f"{'grouped' if g is not None else 'scalar'} "
+                            f"{'words' if words is not None else 'gather'}"))
     return out
 
 
@@ -1991,15 +2090,31 @@ def phase_e(data: dict, batch, device, seed: int) -> dict:
     k8_bytes = n * (8 + 1) + sum(n * 9 for _c in prep.cols) + n * 8 + 8 \
         + S * 8 * (1 + len(prep.cols)) + S * len(prep.cols)
     sort_ms = ms(lambda: rfns["ranked_dates"].prepare(planes, live), runs=5)
+    # the sort of ranked_dates' prepare: K17, and the chained torch.sort
+    # the card path ran before (5 stable sorts); K8's yardstick the
+    # library's run numbering of the sorted composite words
+    rkeys = kernels.ranked_keys(prep.cols, prep.mask)
+    rperm, rwords, rplan, _pairs = kernels.sort_perm_words(rkeys, n)
+    if rwords is None:
+        # more than one composite word: the sorted planes side by side
+        rwords = torch.stack([k.index_select(0, rperm).to(torch.int64)
+                              for k in rkeys], 1)
+    split = {"K17": ms(lambda: kernels.lexsort(rkeys)),
+             "chained torch.sort": ms(lambda: kernels.lexsort_plain(rkeys))}
     out["rank_groups"] = dict(
         ms=ms(lambda: kernels.rank_groups(prep.order, prep.mask, prep.cols,
                                           S)),
         plain_ms=ms(lambda: kernels.rank_groups_plain(
             prep.order, prep.mask, prep.cols, S)),
-        library_ms=None, max_abs_err=err,
-        bound=bound(k8_bytes, n * len(prep.cols)))
-    print(f"phase E: ranked_dates' K1 + lexsort (5 stable sorts of {n} "
-          f"rows): {sort_ms:.4f} ms")
+        library_ms=ms(lambda: torch.unique_consecutive(
+            rwords, return_inverse=True, return_counts=True, dim=0)),
+        max_abs_err=err, bound=bound(k8_bytes, n * len(prep.cols)))
+    print(f"phase E: ranked_dates' K1 + sort ({len(rkeys)} planes of {n} "
+          f"rows) {sort_ms:.4f} ms; the sort alone: K17 {split['K17']:.4f} "
+          f"ms, chained torch.sort {split['chained torch.sort']:.4f} ms; "
+          f"plan {plan_text(rplan)}; K8's yardstick unique_consecutive over "
+          + ("one composite word" if rwords.dim() == 1 else
+             f"{rwords.shape[1]} sorted planes"))
 
     # K9 at scalar_distinct's four specs and grouped_distinct's, edges
     k9_args = []
@@ -2008,27 +2123,59 @@ def phase_e(data: dict, batch, device, seed: int) -> dict:
     for spec in sd.specs:
         v, ok = kernels.arg_plane(spec, sd.planes, outs3, n, device)
         contrib = mask3 & ok
-        perm, key, _gs = kernels.distinct_sort(v, contrib)
-        k9_args.append(((perm, key, contrib, None), "scalar_distinct"))
+        perm, key, _gs, words = kernels.distinct_sort(v, contrib)
+        k9_args.append(((perm, key, contrib, None, words), "scalar_distinct",
+                        v))
     gd = Request(sels["grouped_distinct"], batch, device)
     mask4, gid4, outs4 = gd.k1()
     spec = gd.specs[0]
     v, ok = kernels.arg_plane(spec, gd.planes, outs4, n, device)
     contrib4 = mask4 & ok
-    perm4, key4, gs4 = kernels.distinct_sort(v, contrib4, gid4)
-    k9_args.append(((perm4, key4, contrib4, gs4), "grouped_distinct"))
-    err = max(check_k9(a, f"K9 {what}") for a, what in k9_args)
-    for a, what in edge_distinct(device, seed + 1):
+    perm4, key4, gs4, words4 = kernels.distinct_sort(v, contrib4, gid4)
+    k9_args.append(((perm4, key4, contrib4, gs4, words4), "grouped_distinct",
+                    v))
+    err = max(check_k9(a, f"K9 {what}") for a, what, _v in k9_args)
+    edges = edge_distinct(device, seed + 1)
+    for a, what in edges:
         err = max(err, check_k9(a, f"K9 edge {what}"))
-    # timed at count(distinct l_orderkey)'s shape
-    (perm, key, contrib, _n), _w = k9_args[1]
+    need(K9_MODES["gather"] and K9_MODES["sorted words"],
+         f"phase E: K9's modes checked {K9_MODES}")
+    # timed at count(distinct l_orderkey)'s shape, in the mode the path
+    # takes there
+    (perm, key, contrib, _n, words), _w, v1 = k9_args[1]
+    need(words is not None, "phase E: count(distinct l_orderkey) is not on "
+         "K9's sorted-word mode")
     sorted_keys = key[perm][contrib[perm]]
+    dkeys = [key, (~contrib).to(torch.uint8)]
+    dplan = kernels.sort_perm_words(dkeys, n)[2]
+    dsplit = {"K17": ms(lambda: kernels.distinct_sort(v1, contrib)),
+              "chained torch.sort": ms(lambda: kernels.lexsort_plain(dkeys))}
+    gather_ms = ms(lambda: kernels.distinct_runs(perm, key, contrib))
     out["distinct_runs"] = dict(
-        ms=ms(lambda: kernels.distinct_runs(perm, key, contrib)),
+        ms=ms(lambda: kernels.distinct_runs(perm, key, contrib, None,
+                                            words)),
         plain_ms=ms(lambda: kernels.distinct_runs_plain(perm, key, contrib,
                                                         None)),
         library_ms=ms(lambda: torch.unique_consecutive(sorted_keys)),
-        max_abs_err=err, bound=bound(n * (8 + 8 + 1 + 1), n))
+        max_abs_err=err, bound=bound(n * (8 + 8 + 1), n))
+    print(f"phase E: K9 at count(distinct l_orderkey): sorted words "
+          f"{out['distinct_runs']['ms']:.4f} ms, gather {gather_ms:.4f} ms; "
+          f"its sort: distinct_sort (K17) {dsplit['K17']:.4f} ms, chained "
+          f"torch.sort {dsplit['chained torch.sort']:.4f} ms; plan "
+          f"{plan_text(dplan)}; K9 modes checked {K9_MODES}")
+    # both modes where the gather mode's reads are random: l_suppkey's
+    # rows sorted by value (the lineitem batch is in l_orderkey order)
+    (perm0, key0, contrib0, _n, words0), _w, _v = k9_args[0]
+    need(words0 is not None, "phase E: count(distinct l_suppkey) is not on "
+         "K9's sorted-word mode")
+    modes0 = {"sorted words": ms(lambda: kernels.distinct_runs(
+        perm0, key0, contrib0, None, words0)),
+        "gather": ms(lambda: kernels.distinct_runs(perm0, key0, contrib0))}
+    plan0 = kernels.sort_perm_words([key0, (~contrib0).to(torch.uint8)],
+                                    n)[2]
+    print(f"phase E: K9 at count(distinct l_suppkey) (random gathers): "
+          f"sorted words {modes0['sorted words']:.4f} ms, gather "
+          f"{modes0['gather']:.4f} ms; plan {plan_text(plan0)}")
 
     # K10 at topn_price's, topn_multi's and topn_multi_5000's shapes, edges
     k10 = {}
@@ -2862,13 +3009,20 @@ def h_edge_planes(n: int, seed: int) -> list:
             rng.choice(ext, n), np.ones(n, np.int8)]
 
 
-def check_k17(planes: list, device, what: str) -> float:
+def check_k17(planes: list, device, what: str, max_rows=None) -> float:
     """K17 on the card against np.lexsort and its plain version on the
-    card, bit for bit (max_abs_err 0)."""
+    card, bit for bit (max_abs_err 0), run twice for the same permutation;
+    a one-word plan's sorted words equal to the plain pack's. max_rows: a
+    row limit for kernels._k17_sort (its split past the limit)."""
     n = len(planes[0])
     ts = [torch.from_numpy(np.ascontiguousarray(p)).to(device)
           for p in planes]
-    got = kernels.sort_perm(ts, n)
+    if max_rows is None or device.type != "cuda":
+        got, words, plan, _pairs = kernels.sort_perm_words(ts, n)
+        again = kernels.sort_perm(ts, n)
+    else:
+        got, words, plan, _pairs = kernels._k17_sort(ts, n, device, max_rows)
+        again = kernels._k17_sort(ts, n, device, max_rows)[0]
     if device.type == "cuda":
         torch.cuda.synchronize()
     plain = kernels.sort_perm_plain(ts, n)
@@ -2877,7 +3031,41 @@ def check_k17(planes: list, device, what: str) -> float:
     need(np.array_equal(g, want), f"{what}: K17 differs from np.lexsort")
     need(np.array_equal(g, plain.cpu().numpy()),
          f"{what}: K17 differs from its plain version")
+    need(torch.equal(got, again), f"{what}: two runs of K17 differ")
+    if words is not None:
+        need(torch.equal(words, kernels.sort_pack_plain(
+            ts, plan[0][0] if plan else (), got)),
+             f"{what}: K17's sorted words differ from the plain pack's")
     return 0.0
+
+
+def k17_edge_sets(seed: int) -> list:
+    """(planes, what, max_rows) past Phase H's edge planes: widths that
+    cross 64 bits, uint8 and bool flags, one-, two- and three-word plans,
+    and a split past a small row limit."""
+    rng = np.random.default_rng(seed)
+    m = 300_000
+
+    def width(w: int) -> np.ndarray:
+        p = rng.integers(0, 1 << 62, m) >> (62 - w) if w < 63 else \
+            rng.integers(col.I64_MIN, col.I64_MAX, m, endpoint=True)
+        p[0], p[1] = (0, (1 << w) - 1) if w < 63 else (col.I64_MIN,
+                                                       col.I64_MAX)
+        return p
+
+    flag = (rng.random(m) < 0.4).astype(np.uint8)
+    return [
+        ([width(31), flag, width(32)], "one word of 64 bits", None),
+        ([width(33), width(32)], "65 bits in two words", None),
+        ([width(40), flag, width(30)], "two words, a uint8 flag", None),
+        ([width(7), width(64), rng.random(m) < 0.5, width(50)],
+         "three words, a bool flag", None),
+        ([flag, rng.random(m) < 0.5, rng.integers(0, 3, m).astype(np.int8)],
+         "uint8 and bool flags", None),
+        ([rng.integers(0, 1 << 8, m), (rng.random(m) < 0.1).astype(np.int8),
+          np.where(np.arange(m) < m // 2, 1, rng.integers(0, 3, m))],
+         "split past 4000 rows", 4000),
+    ]
 
 
 def h_window_inputs(n: int, nparts: int, seed: int, device):
@@ -3131,14 +3319,42 @@ def phase_h(data: dict, batch, device, seed: int,
     err = max(err, check_k17([np.zeros(50_000, np.int64),
                               np.ones(50_000, np.int8)], device,
                              "K17 all tied"))
+    for planes, what, max_rows in k17_edge_sets(seed + 7):
+        err = max(err, check_k17(planes, device, f"K17 {what}", max_rows))
     tk = [t(k) for k in keys]
     lib = [t(k) for k in keys]
+    k17_plan = kernels.sort_perm_words(tk, n)[2]
+    peak = None
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        kernels.sort_perm(tk, n)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        # the split past K17's row limit (2^31 - 1), here at a third of the
+        # rows: the same permutation within the same four buffers
+        torch.cuda.reset_peak_memory_stats()
+        got = kernels._k17_sort(tk, n, device, n // 3)[0]
+        torch.cuda.synchronize()
+        split_peak = torch.cuda.max_memory_allocated() - base
+        need(torch.equal(got, kernels.sort_perm(tk, n)),
+             "phase H: K17 split at a third of the rows differs")
+        print(f"  K17 split at a limit of {n // 3} rows: equal; peak device "
+              f"memory over its inputs {split_peak} B "
+              f"({split_peak / n:.2f} B a row)")
+        del got
     out["sort_perm"] = dict(
         ms=ms(lambda: kernels.sort_perm(tk, n)),
         plain_ms=ms(lambda: kernels.sort_perm_plain(tk, n)),
         library_ms=ms(lambda: _chained_torch_sort(lib)),
         max_abs_err=err,
         bound=bound(sum(k.nbytes for k in keys) + 8 * n, 0))
+    print(f"  K17 at the ORDER BY ({n} rows, {len(keys)} planes): plan "
+          f"{plan_text(k17_plan)}; peak device memory over its inputs "
+          f"{peak} B "
+          f"({'not measured' if peak is None else f'{peak / n:.2f}'} B a "
+          f"row; two word and two permutation buffers are 32 B a row)")
     err = check_k18(dseg, dpeer, sf1_specs, "K18 SF1")
     # tied peers at SF1: partition by l_orderkey order by l_tax (nine
     # values, so lines of one order share a peer group)

@@ -70,6 +70,7 @@ SIGNATURES = {
     },
     "distinct_runs": {
         "distinct_runs_launch": ([_L, _P, _P, _P, _P, _P, _P], _I),
+        "distinct_runs_words_launch": ([_L, _P, _P, _I, _P, _P], _I),
     },
     "topk_select": {
         "topk_grid": ([_I, _I, _I], _I),
@@ -123,9 +124,8 @@ SIGNATURES = {
                               _P, _P, _P], _I),
     },
     "sort_perm": {
-        "sort_perm_blocks": ([_L], _L),
-        "sort_perm_load_launch": ([_L, _P, _I, _P, _P, _P, _P, _P, _P], _I),
-        "sort_perm_digit_launch": ([_L, _I, _P, _P, _P, _P, _P, _P, _P], _I),
+        "sort_perm_summary_launch": ([_L, _I, _P, _P, _P, _P, _P], _I),
+        "sort_perm_pack_launch": ([_L, _I, _P, _P, _P, _P, _P, _P, _P], _I),
     },
     "window_scan": {
         "window_scan_blocks": ([_L], _L),

@@ -11,6 +11,10 @@
 typedef long long i64;
 typedef unsigned long long u64;
 
+// the sign bit: a signed word xor it is its unsigned image, whose order
+// is the signed order (radix.cuh's digits, sort_perm.cu's order words)
+#define RADIX_SIGN 0x8000000000000000ull
+
 // ---- K1 bytecode: instruction = (op, dst, a, b, c, imm) as int64 ----
 enum K1Op {
   OP_LOAD = 0,

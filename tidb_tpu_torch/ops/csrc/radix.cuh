@@ -2,8 +2,9 @@
 // int64 payload, one digit a pass: K11 join_build (the valid build keys'
 // order words, carrying their rows; within K21's partitions the
 // partition id's digits as the most significant ones) and K4
-// seg_agg_sorted's sorted route (group ids, carrying row positions), so
-// that neither card path calls a library sort.
+// seg_agg_sorted's sorted route (group ids, carrying row positions) and
+// K17 sort_perm (its composite words, carrying row positions), so that
+// none of their card paths calls a library sort.
 //
 // A word's digits are those of its unsigned image (the sign bit flipped,
 // so that unsigned order is int64 order); the caller plans the passes
@@ -46,7 +47,6 @@
 #define RADIX_WARPS (RADIX_THREADS / 32)
 #define RADIX_ITEMS 8
 #define RADIX_TILE (RADIX_THREADS * RADIX_ITEMS)
-#define RADIX_SIGN 0x8000000000000000ull
 // 8-bit digits: 11-bit ones take the same passes for o_orderkey's 23 bits
 // at eight times the bins, and measured twice as slow at f1's build (PERF.md)
 #define RADIX_BITS 8

@@ -699,16 +699,25 @@ def _flag(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.uint8)
 
 
-def lexsort(keys: list) -> tuple:
-    """Stable lexicographic row order: keys least-significant first
-    (np.lexsort's order), each an integer tensor [n]; equal rows keep their
-    row order. One stable torch.sort per key. Returns (permutation, the
-    most significant key in sorted order)."""
+def lexsort_plain(keys: list) -> tuple:
+    """Chained stable torch.sort passes, one per key: lexsort's CPU
+    route."""
     perm = last = None
     for k in keys:
         last, idx = torch.sort(k if perm is None else k[perm], stable=True)
         perm = idx if perm is None else perm[idx]
     return perm, last
+
+
+def lexsort(keys: list) -> tuple:
+    """Stable lexicographic row order: keys least-significant first
+    (np.lexsort's order), each an integer tensor [n]; equal rows keep their
+    row order. On the card one K17 (sort_perm), on the CPU lexsort_plain.
+    Returns (permutation, the most significant key in sorted order)."""
+    if _device_kind(keys[0]) == "cpu":
+        return lexsort_plain(keys)
+    perm = sort_perm(keys, keys[0].shape[0])
+    return perm, keys[-1].index_select(0, perm)
 
 
 def arg_plane(spec: AggSpec, planes: dict, outs: dict, n: int, dev):
@@ -757,13 +766,23 @@ def seg_agg_presorted(gid_sorted: torch.Tensor, order: torch.Tensor,
 
 
 def distinct_sort(v: torch.Tensor, contrib: torch.Tensor, gid=None):
-    """The lexsort of the DISTINCT kernels: rows by (group id, contributing
-    first, orderable value). Returns (perm, key, gid in sorted order or
-    None)."""
+    """The sort of the DISTINCT kernels: rows by (group id, contributing
+    first, orderable value), one K17 on the card (sort_perm_words).
+    Returns (perm, key, gid in sorted order or None, words): words (the
+    sorted composite word, K9's flag) where K17 packed the planes into one
+    word, for K9's sorted-word mode, else None."""
     key = orderable(v)
     keys = [key, _flag(~contrib)] + ([gid] if gid is not None else [])
-    perm, last = lexsort(keys)
-    return perm, key, (last if gid is not None else None)
+    perm, w, plan, pairs = sort_perm_words(keys, key.shape[0])
+    gid_s = None if gid is None else gid.index_select(0, perm)
+    words = None
+    if w is not None:
+        flag = [shift for fields, _v, _p in plan for j, shift, _w in fields
+                if j == 1]
+        # a constant flag plane: every row contributes, or none does
+        const = (pairs[1][0] ^ (1 << 63)) & 1
+        words = (w, flag[0] if flag else (K9_NONE if const else K9_ALL))
+    return perm, key, gid_s, words
 
 
 def distinct_totals(spec: AggSpec, planes: dict, outs: dict,
@@ -777,9 +796,9 @@ def distinct_totals(spec: AggSpec, planes: dict, outs: dict,
     v, ok = arg_plane(spec, planes, outs, mask.shape[0], dev)
     contrib = mask & ok
     with phase("sort", dev):
-        perm, key, gid_s = distinct_sort(v, contrib, gid)
+        perm, key, gid_s, words = distinct_sort(v, contrib, gid)
     with phase("k9", dev):
-        firsts = distinct_runs(perm, key, contrib, gid_s)
+        firsts = distinct_runs(perm, key, contrib, gid_s, words)
     if spec.name == "count":
         red = Red(R_COUNT)
     elif v.dtype == torch.float64:
@@ -810,6 +829,19 @@ class RankedPrep:
         self.cols = cols
 
 
+def ranked_keys(cols: list, mask: torch.Tensor) -> list:
+    """The sort keys of a ranked group-by, least significant first: the
+    columns in declaration order, each its orderable value (0 where NULL)
+    under its NULL flag, then liveness (live rows first)."""
+    keys = []
+    for v, ok in reversed(cols):
+        keys.append(torch.where(ok, orderable(v), torch.zeros(
+            (), dtype=torch.int64, device=v.device)))
+        keys.append(_flag(~ok))
+    keys.append(_flag(~mask))
+    return keys
+
+
 def build_ranked_group_fn(prog: Program, where: CompiledExpr | None,
                           specs: list[AggSpec], group_cids: list[int]):
     """Group-by over any columns by sort and rank (the port of the
@@ -829,14 +861,7 @@ def build_ranked_group_fn(prog: Program, where: CompiledExpr | None,
             mask, _gid, outs = run_k1(fin, planes, live, outputs, False)
         cols = [planes[cid] for cid in group_cids]
         with phase("sort", live.device):
-            keys = []
-            for v, ok in reversed(cols):
-                keys.append(torch.where(ok, orderable(v),
-                                        torch.zeros((), dtype=torch.int64,
-                                                    device=v.device)))
-                keys.append(_flag(~ok))
-            keys.append(_flag(~mask))          # live rows first
-            order, _last = lexsort(keys)
+            order, _last = lexsort(ranked_keys(cols, mask))
         return RankedPrep(mask, outs, order, cols)
 
     def run(prep: RankedPrep, planes, S: int):
@@ -1001,6 +1026,12 @@ def rank_groups(order: torch.Tensor, mask: torch.Tensor, cols: list, S: int):
     return gid_s, ngroups, starts, rep, nonnull
 
 
+# K9's flag for a constant flag plane: the contract with
+# ops/csrc/distinct_runs.cu
+K9_ALL = -1
+K9_NONE = -2
+
+
 def distinct_runs_plain(perm, key, contrib, gid_s):
     n = perm.shape[0]
     ks = key[perm]
@@ -1013,27 +1044,61 @@ def distinct_runs_plain(perm, key, contrib, gid_s):
     return firsts
 
 
+def distinct_runs_words_plain(perm, words, flag: int):
+    """K9's sorted-word mode: a row at sorted position i opens a run iff
+    it contributes (the flag's bit of the composite is 0, or K9_ALL) and
+    i == 0 or its word differs from the previous one."""
+    n = perm.shape[0]
+    if flag >= 0:
+        contrib = (_shr(words ^ I64_MIN, flag) & 1) == 0
+    else:
+        contrib = torch.full((n,), flag == K9_ALL, dtype=torch.bool,
+                             device=perm.device)
+    new = torch.ones(n, dtype=torch.bool, device=perm.device)
+    new[1:] = words[1:] != words[:-1]
+    firsts = torch.empty(n, dtype=torch.bool, device=perm.device)
+    firsts[perm] = contrib & new
+    return firsts
+
+
 def distinct_runs(perm: torch.Tensor, key: torch.Tensor,
-                  contrib: torch.Tensor, gid_s=None) -> torch.Tensor:
-    """K9 over rows lexsorted by (group id, contributing first, orderable
+                  contrib: torch.Tensor, gid_s=None,
+                  words=None) -> torch.Tensor:
+    """K9 over rows sorted by (group id, contributing first, orderable
     key) under `perm`; gid_s the group ids in sorted order (None: one
     group). Returns firsts bool[n] in ROW order: a contributing row that
     opens a run, i.e. is sorted first or differs from the previous sorted
-    row in group or key."""
-    if _device_kind(contrib) == "cpu":
+    row in group or key. With `words` (distinct_sort's: the sorted
+    composite word and the flag's bit) the sorted-word mode, which reads
+    no key, contrib or group id; else the gather mode."""
+    if words is not None:
+        w, flag = words
+        if _device_kind(contrib) == "cpu":
+            return distinct_runs_words_plain(perm, w, flag)
+    elif _device_kind(contrib) == "cpu":
         return distinct_runs_plain(perm, key, contrib, gid_s)
     dev = contrib.device
     n = contrib.shape[0]
-    _check_plane(contrib, n, (torch.bool,), "contrib", dev)
     _check_plane(perm, n, (torch.int64,), "perm", dev)
-    _check_plane(key, n, (torch.int64,), "key", dev)
-    if gid_s is not None:
-        _check_plane(gid_s, n, (torch.int64,), "sorted group id", dev)
     firsts = torch.empty(n, dtype=torch.bool, device=dev)
-    rc = _ext.lib("distinct_runs").distinct_runs_launch(
-        n, perm.data_ptr(), key.data_ptr(), contrib.data_ptr(),
-        0 if gid_s is None else gid_s.data_ptr(), firsts.data_ptr(),
-        _stream(dev))
+    lib = _ext.lib("distinct_runs")
+    if words is not None:
+        _check_plane(w, n, (torch.int64,), "sorted words", dev)
+        if (w.data_ptr() | perm.data_ptr()) % 16:
+            raise errors.DeviceError("K9's sorted words and permutation "
+                                     "must be 16-byte aligned")
+        rc = lib.distinct_runs_words_launch(
+            n, perm.data_ptr(), w.data_ptr(), int(flag), firsts.data_ptr(),
+            _stream(dev))
+    else:
+        _check_plane(contrib, n, (torch.bool,), "contrib", dev)
+        _check_plane(key, n, (torch.int64,), "key", dev)
+        if gid_s is not None:
+            _check_plane(gid_s, n, (torch.int64,), "sorted group id", dev)
+        rc = lib.distinct_runs_launch(
+            n, perm.data_ptr(), key.data_ptr(), contrib.data_ptr(),
+            0 if gid_s is None else gid_s.data_ptr(), firsts.data_ptr(),
+            _stream(dev))
     _ext.check(rc, "distinct_runs")
     LAUNCHES["distinct_runs"] += 1
     return firsts
@@ -1051,7 +1116,7 @@ def topk_select_plain(mask, keys: list, k: int):
         sk.append(_flag(~ok if desc else ok))   # NULL first asc, last desc
     sk.append(_flag(~mask))                     # dead rows last
     kk = min(k, n)
-    perm, _ = lexsort(sk)
+    perm, _ = lexsort_plain(sk)
     n_live = torch.clamp(mask.sum(dtype=torch.int64), max=kk).reshape(1)
     return perm[:kk].contiguous(), n_live
 
@@ -1839,7 +1904,7 @@ def join_build_partitioned_plain(rkey: torch.Tensor, rvalid: torch.Tensor,
     rows = torch.nonzero(rvalid).squeeze(1)
     words = orderable(rkey)[rows]
     part = torch.searchsorted(offsets, rows, right=True) - 1
-    perm, _last = lexsort([words, part])
+    perm, _last = lexsort_plain([words, part])
     return words[perm], rows[perm], torch.searchsorted(rows, offsets)
 
 
@@ -3474,9 +3539,15 @@ def slot_topn(words: torch.Tensor, keys: list, k: int):
 # plain versions (ops.extsort and executor.window drive them)
 # ---------------------------------------------------------------------------
 
-# K17 plane dtypes: the contract with ops/csrc/sort_perm.cu
+# K17 plane dtypes: the contract with ops/csrc/sort_perm.cu (bool as
+# uint8: its 0 / 1 bytes)
 _SORT_DTYPES = {torch.int64: 0, torch.float64: 1, torch.int32: 2,
-                torch.int8: 3}
+                torch.int8: 3, torch.uint8: 4, torch.bool: 4}
+# planes a summary launch reads, fields a composite word packs
+K17_MAX_PLANES = 64
+# rows one sort by radix.cuh takes (its int32 offsets); K17 splits longer
+# ones (_k17_split)
+K17_MAX_ROWS = (1 << 31) - 1
 # the order word of every NaN: one above +inf's, numpy's NaN-last order
 NAN_WORD = 0x7FF0000000000001
 
@@ -3505,64 +3576,309 @@ def sort_perm_plain(planes: list, n: int) -> torch.Tensor:
     return perm
 
 
+def sort_summary_plain(planes: list) -> list:
+    """K17's summary: each plane's (AND, OR) of the unsigned images of its
+    order words (the int64 word with its sign bit flipped)."""
+    out = []
+    for p in planes:
+        u = sort_words(p).cpu().numpy().view(np.uint64) ^ np.uint64(1 << 63)
+        # no row: nothing varies
+        out.append((int(np.bitwise_and.reduce(u)) if len(u) else 0,
+                    int(np.bitwise_or.reduce(u)) if len(u) else 0))
+    return out
+
+
+def sort_plan(pairs: list) -> list:
+    """K17's composite words, from each plane's (AND, OR) of its unsigned
+    order words, planes least significant first. Plane j keeps its low
+    w_j = bit_length(AND ^ OR) bits (those above are equal in every word;
+    w_j = 0 drops the plane); the kept planes are packed, the most
+    significant highest, into as few 64-bit words as hold them, none split
+    across two. Returns the words least significant first (the order they
+    are sorted in), each (fields, varying, passes): fields (plane, shift,
+    width) from the word's lowest bits, varying the bits in which its rows
+    differ, passes radix_plan's over them."""
+    widths = [((a ^ o) & _U64).bit_length() for a, o in pairs]
+    groups, cur, used = [], [], 0
+    for j in reversed(range(len(pairs))):
+        if not widths[j]:
+            continue
+        if used + widths[j] > 64:
+            groups.append(cur)
+            cur, used = [], 0
+        cur.append(j)
+        used += widths[j]
+    if cur:
+        groups.append(cur)
+    words = []
+    for group in reversed(groups):
+        fields, shift, varying = [], 0, 0
+        for j in reversed(group):
+            a, o = pairs[j]
+            fields.append((j, shift, widths[j]))
+            varying |= ((a ^ o) & _U64) << shift
+            shift += widths[j]
+        words.append((tuple(fields), varying, radix_plan(varying, False)))
+    return words
+
+
+def sort_pack_plain(planes: list, fields, perm=None) -> torch.Tensor:
+    """The composite word K17's pack writes: each field's low `width` bits
+    of its plane's unsigned order word at its shift, the whole stored with
+    its top bit flipped (so that int64 order is the composite's unsigned
+    order); rows through `perm` (None: row order)."""
+    n = planes[0].shape[0] if perm is None else perm.shape[0]
+    c = torch.zeros(n, dtype=torch.int64, device=planes[0].device)
+    for j, shift, width in fields:
+        u = sort_words(planes[j]) ^ I64_MIN
+        if perm is not None:
+            u = u[perm]
+        if width < 64:
+            u = u & ((1 << width) - 1)
+        c |= u << shift
+    return c ^ I64_MIN
+
+
 def device_oom(what: str, e: Exception) -> errors.DeviceOOM:
     """The DeviceOOM a torch.cuda.OutOfMemoryError in `what` maps to."""
     return errors.DeviceOOM(f"{what}: the card is out of memory ({e})")
 
 
-def sort_perm(planes: list, n: int) -> torch.Tensor:
-    """K17: the stable sort permutation (int64 [n]) of the key planes
-    (f64 / int64 / int32 / int8 [n], np.lexsort's convention: least
-    significant first, direction and NULL order already encoded by the
-    caller), equal to np.lexsort(planes) bit for bit: ties keep input
-    order, -0.0 ties +0.0, NaN sorts last. On the card an out-of-memory
-    raises DeviceOOM, any other fault DeviceError."""
-    n = int(n)
+def _check_sort(planes: list, n: int):
+    """The device of K17's key planes (None: the CPU), checked."""
     if not planes:
         raise errors.DeviceError("sort_perm needs at least one key plane")
     if _device_kind(planes[0]) == "cpu":
-        return sort_perm_plain(planes, n)
+        return None
     dev = planes[0].device
     for j, p in enumerate(planes):
         _check_plane(p, n, tuple(_SORT_DTYPES), f"sort key {j}", dev)
+    return dev
+
+
+def sort_perm(planes: list, n: int) -> torch.Tensor:
+    """K17: the stable sort permutation (int64 [n]) of the key planes
+    (f64 / int64 / int32 / int8 / uint8 / bool [n], np.lexsort's
+    convention: least significant first, direction and NULL order already
+    encoded by the caller), equal to np.lexsort(planes) bit for bit: ties
+    keep input order, -0.0 ties +0.0, NaN sorts last. On the card: one
+    summary launch read back once, then radix.cuh's passes over the packed
+    composite words (sort_plan); an out-of-memory raises DeviceOOM, any
+    other fault DeviceError."""
+    n = int(n)
+    dev = _check_sort(planes, n)
+    if dev is None:
+        return sort_perm_plain(planes, n)
     if n <= 1:
         return torch.zeros(n, dtype=torch.int64, device=dev)
+    return _k17_sort(planes, n, dev)[0]
+
+
+def sort_perm_words(planes: list, n: int) -> tuple:
+    """K17 with what it sorted: (perm, words, plan, pairs). plan is
+    sort_plan's, pairs the summary it came from; words the sorted
+    composite word (its stored image, int64 [n]) where the plan packs every
+    kept plane into one word or none (then every word is equal), else None
+    (and for n <= 1). On the card the last radix pass's word buffer, at no
+    extra cost; on the CPU the plain versions."""
+    n = int(n)
+    dev = _check_sort(planes, n)
+    if dev is not None:
+        if n > 1:
+            return _k17_sort(planes, n, dev)
+        return torch.zeros(n, dtype=torch.int64, device=dev), None, [], []
+    pairs = sort_summary_plain(planes)
+    plan = sort_plan(pairs)
+    perm = sort_perm_plain(planes, n)
+    if n <= 1:
+        return perm, None, plan, pairs
+    words = None if len(plan) > 1 else sort_pack_plain(
+        planes, plan[0][0] if plan else (), perm)
+    return perm, words, plan, pairs
+
+
+_K17_HOST: dict = {}
+
+
+def _k17_host_summary(dev: torch.device, stream: int, k: int) -> tuple:
+    """K17's summary in page-locked host memory, one per (device, stream),
+    at least 2k u64 (grown by replacing it): (the tensor, a ctypes view,
+    the lock a caller holds from its launch until it has read the view)."""
+    key = (dev.index, stream)
+    ent = _K17_HOST.get(key)
+    if ent is None or ent[0].numel() < 2 * k:
+        with _scratch_lock:
+            ent = _K17_HOST.get(key)
+            if ent is None or ent[0].numel() < 2 * k:
+                size = max(2 * k, 16)
+                buf = torch.empty(size, dtype=torch.int64,
+                                  pin_memory=dev.type == "cuda")
+                ent = (buf, (ctypes.c_uint64 * size).from_address(
+                    buf.data_ptr()), threading.Lock())
+                _K17_HOST[key] = ent
+    return ent
+
+
+def _c_array(ctype, values: list):
+    return (ctype * max(len(values), 1))(*values)
+
+
+def _k17_pack(lib, planes: list, fields, n: int, perm: int, out: int,
+              stream: int) -> None:
+    """One pack launch: the composite word of `fields` into `out`, rows
+    through the permutation at `perm` (0: row order)."""
+    rc = lib.sort_perm_pack_launch(
+        n, len(fields),
+        _c_array(ctypes.c_void_p, [planes[j].data_ptr() for j, _s, _w in
+                                   fields]),
+        _c_array(ctypes.c_int, [_SORT_DTYPES[planes[j].dtype]
+                                for j, _s, _w in fields]),
+        _c_array(ctypes.c_int, [s for _j, s, _w in fields]),
+        _c_array(ctypes.c_uint64, [(1 << w) - 1 for _j, _s, w in fields]),
+        perm, out, stream)
+    _ext.check(rc, "sort_perm pack")
+
+
+def _k17_sort(planes: list, n: int, dev: torch.device,
+              max_rows: int = K17_MAX_ROWS) -> tuple:
+    """K17 over n >= 2 checked card planes, as sort_perm_words: the
+    summary launch and its readback (the one synchronisation; the buffers
+    are in place before it), then per composite word, least significant
+    first, a pack launch (row order for the first, through the
+    permutation after) and its radix passes. Two word and two permutation
+    buffers, 32 B a row, its whole working set; past max_rows rows,
+    _k17_split within the same four."""
     lib = _ext.lib("sort_perm")
-    nb = lib.sort_perm_blocks(n)
-    st = _stream(dev)
+    stream = _stream(dev)
+    k = len(planes)
     try:
-        keys = [torch.empty(n, dtype=torch.int64, device=dev)
-                for _ in range(2)]
-        idx = [torch.empty(n, dtype=torch.int64, device=dev)
-               for _ in range(2)]
-        counts = torch.empty(256 * nb, dtype=torch.int64, device=dev)
-        totals = torch.empty(256, dtype=torch.int64, device=dev)
-        part = torch.empty(2 * nb, dtype=torch.int64, device=dev)
-        bits = torch.empty(2, dtype=torch.int64, device=dev)
-        cur = 0
-        for j, p in enumerate(planes):
-            rc = lib.sort_perm_load_launch(
-                n, p.data_ptr(), _SORT_DTYPES[p.dtype],
-                idx[cur].data_ptr() if j else None, keys[cur].data_ptr(),
-                None if j else idx[cur].data_ptr(), part.data_ptr(),
-                bits.data_ptr(), st)
-            _ext.check(rc, "sort_perm load")
-            # the bytes where every word agrees are constant digits: no pass
-            b_and, b_or = (int(x) & 0xFFFFFFFFFFFFFFFF for x in bits.tolist())
-            vary = b_and ^ b_or
-            for d in range(8):
-                if not (vary >> (8 * d)) & 0xFF:
-                    continue
-                rc = lib.sort_perm_digit_launch(
-                    n, 8 * d, keys[cur].data_ptr(), idx[cur].data_ptr(),
-                    keys[1 - cur].data_ptr(), idx[1 - cur].data_ptr(),
-                    counts.data_ptr(), totals.data_ptr(), st)
-                _ext.check(rc, "sort_perm digit pass")
-                cur = 1 - cur
+        bufs = [torch.empty(n, dtype=torch.int64, device=dev)
+                for _ in range(4)]
+        scratch = _stream_scratch("sort_perm", dev, 16 * k, stream)
+        host, view, lock = _k17_host_summary(dev, stream, k)
+        with lock:
+            rc = lib.sort_perm_summary_launch(
+                n, k, _c_array(ctypes.c_void_p,
+                               [p.data_ptr() for p in planes]),
+                _c_array(ctypes.c_int, [_SORT_DTYPES[p.dtype]
+                                        for p in planes]),
+                scratch.data_ptr(), host.data_ptr(), stream)
+            _ext.check(rc, "sort_perm summary")
+            pairs = [(~view[2 * j] & _U64, view[2 * j + 1])
+                     for j in range(k)]
+        LAUNCHES["sort_perm"] += 1
+        plan = sort_plan(pairs)
+        if not plan:
+            return (torch.arange(n, dtype=torch.int64, device=dev),
+                    bufs[0].fill_(I64_MIN), plan, pairs)
+        if n > max_rows:
+            torch.arange(n, out=bufs[2])
+            return _k17_split(lib, planes, plan, bufs, max_rows, dev,
+                              stream), None, plan, pairs
+        # buffer pairs (words, permutation)
+        a = [bufs[0].data_ptr(), bufs[1].data_ptr()]
+        b = [bufs[2].data_ptr(), bufs[3].data_ptr()]
+        cur = _k17_run(lib, planes, plan, n, a, b, False, dev, stream)
     except torch.cuda.OutOfMemoryError as e:
         raise device_oom("sort_perm", e) from e
-    LAUNCHES["sort_perm"] += 1
-    return idx[cur]
+    i = 0 if cur is a else 2
+    return bufs[i + 1], (bufs[i] if len(plan) == 1 else None), plan, pairs
+
+
+def _k17_run(lib, planes: list, plan: list, n: int, a: list, b: list,
+             listed: bool, dev: torch.device, stream: int) -> list:
+    """The plan's packs and radix passes over n rows, with the buffer
+    pairs a and b ((words, permutation) pointers): a pass writes the pair
+    the previous one did not, a pack overwrites the words of the pair
+    holding the permutation it reads. The rows are in row order, or
+    (listed) those that a's permutation buffer lists. Returns the pair
+    holding the sorted rows."""
+    cur = a if listed else None
+    for fields, _varying, passes in plan:
+        if cur is None:
+            _k17_pack(lib, planes, fields, n, 0, a[0], stream)
+            order = [b, a]
+            cur = order[_radix_passes(n, passes, a[0], 0, order, None,
+                                      dev)]
+        else:
+            _k17_pack(lib, planes, fields, n, cur[1], cur[0], stream)
+            order = [a if cur is b else b, cur]
+            cur = order[_radix_passes(n, passes, cur[0], cur[1], order,
+                                      None, dev)]
+    return cur
+
+
+# _k17_split's digit and row-list work goes in steps of a 64th of its rows
+# (at least _K17_SPLIT_MIN_STEP), its temporaries a few bytes a step row
+_K17_SPLIT_STEPS = 64
+_K17_SPLIT_MIN_STEP = 1 << 16
+
+
+def _k17_split(lib, planes: list, plan: list, bufs: list, max_rows: int,
+               dev: torch.device, stream: int) -> torch.Tensor:
+    """K17 over the rows that bufs[2] lists (ascending), past max_rows
+    rows (radix.cuh counts in int32), within the four buffers [words,
+    words, rows, rows] of as many rows: the top word (the plan's highest
+    varying digit) packed into bufs[0], its digit into bufs[1]'s bytes,
+    the rows regrouped stably into bufs[3] by parts (runs of digits, each
+    of at most max_rows rows), each part then sorted in its slices of the
+    four. A part of one digit drops that digit's pass; past max_rows it
+    splits again by the next digit. Returns bufs[3], then the sorted
+    rows; beyond the four only temporaries of a step's rows."""
+    w0, w1, rows, out = bufs
+    m = rows.shape[0]
+    step = max(_K17_SPLIT_MIN_STEP, -(-m // _K17_SPLIT_STEPS))
+    fields, varying, passes = plan[-1]
+    shift = passes[-1][1]
+    _k17_pack(lib, planes, fields, m, rows.data_ptr(), w0.data_ptr(), stream)
+    digit = w1.view(torch.uint8)[:m]
+    counts = torch.zeros(1 << RADIX_BITS, dtype=torch.int64, device=dev)
+    for c in range(0, m, step):
+        # the low 8 bits of an arithmetic shift are the digit's
+        d = w0[c:c + step] ^ I64_MIN
+        d.bitwise_right_shift_(shift).bitwise_and_((1 << RADIX_BITS) - 1)
+        counts += torch.bincount(d, minlength=1 << RADIX_BITS)
+        digit[c:c + step] = d
+    # parts: (first digit, last digit, rows), the digits of rows only
+    parts, size = [], 0
+    for dg, cnt in enumerate(counts.tolist()):
+        if not cnt:
+            continue
+        if size and size + cnt > max_rows:
+            parts.append((lo, hi, size))
+            size = 0
+        if not size:
+            lo = dg
+        hi, size = dg, size + cnt
+    parts.append((lo, hi, size))
+    # the plan of a part of one digit: that digit's pass dropped
+    rest = varying & ~(((1 << RADIX_BITS) - 1) << shift)
+    one = plan[:-1] + ([(fields, rest, radix_plan(rest, False))]
+                       if rest else [])
+    spans, off = [], 0
+    for lo, hi, size in parts:
+        at = off
+        for c in range(0, m, step):
+            d = digit[c:c + step]
+            sel = rows[c:c + step][(d >= lo) & (d <= hi)]
+            out[at:at + sel.shape[0]] = sel
+            at += sel.shape[0]
+        spans.append((off, size, one if lo == hi else plan))
+        off += size
+    for off, size, sub in spans:
+        part = [t[off:off + size] for t in (w0, w1, out, rows)]
+        if size <= 1 or not sub:
+            continue
+        if size > max_rows:
+            got = _k17_split(lib, planes, sub, part, max_rows, dev, stream)
+        else:
+            pa = [part[0].data_ptr(), part[2].data_ptr()]
+            pb = [part[1].data_ptr(), part[3].data_ptr()]
+            cur = _k17_run(lib, planes, sub, size, pa, pb, True, dev, stream)
+            got = part[2] if cur is pa else part[3]
+        if got.data_ptr() != part[2].data_ptr():
+            part[2].copy_(got)
+    return out
 
 
 # K18 scan modes and finishing ops: the contract with
