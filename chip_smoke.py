@@ -55,15 +55,17 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    the card at Q1's shapes and on edge cases (NULL predicates, live rows
    not a multiple of 32, regions with no survivor and G_r = 0, R = 64,
    spans above K6's shared-memory limit). K6 (its block route redesigned
-   in slice 12: one copy of the span a block in the opt-in shared memory)
-   on each of its three routes, read from its launch counts: Q1's spans
-   (a copy a warp), date_group's (4,096 segments a region: one a block),
-   d_supplier's (16,384 at 8 reductions: sorted); the block route at
-   date_group and on edge states (-0.0 beside +0.0, +-inf-only groups,
-   int64 extremes with wrapping sums, f64 sums, an empty region, a hot
-   segment, regions at odd offsets) run twice for the same bits and held
-   to its plain version on the CPU (f64 sums to 1e-12 of the
-   magnitudes); each route timed beside one index_add_.
+   in slice 12: copies of the span a block in the opt-in shared memory;
+   since slice 15 it also takes the small spans, with copies of the
+   integer states and two blocks an SM) on each of its two routes, read
+   from its launch counts: Q1's spans and date_group's (4,096 segments a
+   region) on the block route, d_supplier's (16,384 at 8 reductions)
+   sorted; the block route at Q1, date_group and on edge states (-0.0
+   beside +0.0, +-inf-only groups, int64 extremes with wrapping sums, f64
+   sums, an empty region, a hot segment, regions at odd offsets) run
+   twice for the same bits and held to its plain version on the CPU (f64
+   sums to 1e-12 of the magnitudes); each shape timed beside one
+   index_add_, and Q1 over Phase C's SF0.01 regions too.
 6. Phase E, slice 3 on Phase B's SF1 batch (its planes resident): the
    statements of tpch.SLICE3 through GpuClient.serve, each against numpy
    (counts, decimals and row ids exact) with its launches counted — a
@@ -176,7 +178,7 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    shards); f1_q3_join through the sharded probe, its pairs equal to the
    single-device pairs. Launch counts are reset before and read after
    that path; then the statements' splits, K6 over the shard layout
-   (plain_q1 a copy a warp, dec_group one a block), the K7 fold (client
+   (plain_q1 and dec_group on the block route), the K7 fold (client
    partials and states combine), Q1's
    shard partials, K20 at SF1 and on edge cases and the sharded K12, each
    against its plain version and timed (median of 20 CUDA-event runs)
@@ -229,8 +231,8 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    median of 3) and split; row 15f at f1_q3_join's 8-shard shape against
    its plain version bit for bit, timed (median of 20 CUDA-event runs)
    beside its bytes bound and a scatter_reduce_ yardstick; and the f64
-   +-inf identity of K2, K3, K4, K6 (its three routes), K7, row 15c, row
-   15f and K15 against numpy.
+   +-inf identity of K2, K3, K4, K6 (its two routes, the block route at
+   both instantiations), K7, row 15c, row 15f and K15 against numpy.
 14. A JSON line of per-kernel numbers, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
@@ -305,9 +307,16 @@ KERNELS = {
                     "tidb_tpu/ops/kernels.py:1980"),
     "expr_vm_ragged": ("tidb_tpu_torch/ops/csrc/expr_vm.cu",
                        "tidb_tpu/ops/kernels.py:1552"),
-    "seg_states_ragged": ("tidb_tpu_torch/ops/csrc/seg_states_ragged.cu",
-                          "tidb_tpu/ops/kernels.py:1356"),
+    # K6's block route: its row is q1full over 8 regions at SF1 (small
+    # spans, copies of the integer states), then date_group's spans and
+    # q1full over Phase C's SF0.01 regions
     "seg_states_ragged_smem": (
+        "tidb_tpu_torch/ops/csrc/seg_states_ragged.cu",
+        "tidb_tpu/ops/kernels.py:1356"),
+    "seg_states_ragged_smem/date_group": (
+        "tidb_tpu_torch/ops/csrc/seg_states_ragged.cu",
+        "tidb_tpu/ops/kernels.py:1356"),
+    "seg_states_ragged_smem/sf001": (
         "tidb_tpu_torch/ops/csrc/seg_states_ragged.cu",
         "tidb_tpu/ops/kernels.py:1356"),
     "seg_states_ragged_sorted": (
@@ -347,9 +356,9 @@ KERNELS = {
     "combine_rows_sharded": ("tidb_tpu_torch/ops/csrc/seg_states_ragged.cu",
                              "tidb_tpu/ops/mesh.py:290"),
 }
-# K6 has three routes, each counted (kernels.k6_route): a span copy per
-# warp (seg_states_ragged), one a block in the opt-in shared memory
-# (seg_states_ragged_smem) and larger spans (seg_states_ragged_sorted)
+# K6 has two routes, each counted (kernels.k6_route): span copies a block
+# in the opt-in shared memory (seg_states_ragged_smem) and larger spans
+# (seg_states_ragged_sorted)
 K6_ROUTES = kernels.K6_ROUTES
 CLUSTER_KERNELS = ("expr_vm_ragged",) + K6_ROUTES + ("combine_partials",)
 # K4's sorted route and the radix that sorts its ids: the main path takes
@@ -397,7 +406,8 @@ def build() -> None:
           f"({', '.join(_ext.SOURCES)})")
     for name, log in _ext.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line \
+                    or "Function properties" in line:
                 print(f"  {name}: {line.strip()}")
 
 
@@ -1108,7 +1118,7 @@ def zero_launches() -> None:
         kernels.LAUNCHES[k] = 0
 
 
-def phase_c(n_rows: int, seed: int, device, regions=(1, 2, 8)) -> dict:
+def phase_c(n_rows: int, seed: int, device, regions=(1, 2, 8)) -> tuple:
     t0 = time.perf_counter()
     data = tpch.generate(n_rows, seed)
     pairs = list(tpch.kv_pairs(data))
@@ -1157,7 +1167,19 @@ def phase_c(n_rows: int, seed: int, device, regions=(1, 2, 8)) -> dict:
         for k, v in totals.items():
             need(v > 0 or k == "seg_states_ragged_sorted",
                  f"kernel {k} never launched on the cluster path")
-    return totals
+    # K6 at q1full's SF0.01 regions (the last store: 8 regions)
+    _r, k6, _s = capture(gpu, tpch.sweep_request("q1full"), device)
+    zero_launches()
+    err = check_k6_twice(k6, "K6 SF0.01 q1full")
+    need(device.type != "cuda"
+         or kernels.LAUNCHES["seg_states_ragged_smem"] == 2,
+         "phase C: K6 at q1full's SF0.01 regions left the block route")
+    r = dict(k6_timed(k6, device), max_abs_err=err)
+    print(f"  K6 at q1full over {R} regions ({r['shape']}): {r['ms']:.4f} "
+          f"ms (plain {r['plain_ms']:.4f} ms, library index_add_ "
+          f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms by "
+          f"{r['bound'][1]})")
+    return totals, {"seg_states_ragged_smem/sf001": r}
 
 
 D_CIDS = [tpch.C_QUANTITY, tpch.C_EXTENDEDPRICE, tpch.C_DISCOUNT,
@@ -1372,8 +1394,8 @@ def _k6_on(k6: tuple, device) -> tuple:
 def check_k6_twice(k6: tuple, what: str) -> float:
     """K6 run twice (the same bits) against its plain version on the CPU,
     which folds each segment in row order: an extremum tie of -0.0 and
-    +0.0 keeps the first in row order there and in the tile and block
-    routes. Every op exact but f64 sums: those within F64_SUM_RTOL of the
+    +0.0 keeps the first in row order there and on the block route.
+    Every op exact but f64 sums: those within F64_SUM_RTOL of the
     segment's sum of magnitudes (the block route adds its blocks' partial
     sums in block order)."""
     got = kernels.seg_states_ragged(*k6)
@@ -1447,6 +1469,51 @@ def check_k7(states: list, codes: list, device, what: str) -> float:
         both = torch.isfinite(g) if g.dtype == torch.float64 else None
         err = max(err, max_err(g, w, both))
     return err
+
+
+def k6_timed(k6: tuple, device) -> dict:
+    """K6's launch at these arguments (median of 20 CUDA-event runs), its
+    plain version's and one index_add_ of the same contributions stacked
+    [rows, reductions] into the layout's segments; with its bound and
+    shape."""
+    ms = timer(device)
+    gid, caps, n_rows_, Gs, reds, contribs = k6
+    _sp, offs, _b = kernels._k6_layout(caps, Gs)
+    S = int(offs[-1])
+    g_off = gid + torch.repeat_interleave(
+        torch.from_numpy(offs[:-1]).to(device),
+        torch.tensor(caps, device=device))
+    stacked = torch.stack(
+        [torch.where(c_, torch.cat([r[j].values for r in reds])
+                     if reds[0][j].values is not None
+                     else torch.ones_like(gid), torch.zeros_like(gid))
+         .view(torch.int64) for j, c_ in enumerate(contribs)], 1)
+    launch = kernels.k6_prepare(*k6)[0] if device.type == "cuda" \
+        else (lambda: kernels.seg_states_ragged(*k6))
+    return dict(
+        ms=ms(launch),
+        plain_ms=ms(lambda: kernels.seg_states_ragged_plain(
+            gid, caps, Gs, reds, contribs)),
+        library_ms=ms(lambda: torch.zeros(
+            S, stacked.shape[1], dtype=torch.int64, device=device)
+            .index_add_(0, g_off, stacked)),
+        bound=k6_bound(k6),
+        shape=f"{len(caps)} regions, {sum(n_rows_)} rows, {S} segments, "
+              f"{len(contribs)} reductions, {k6_plan(k6, device)}")
+
+
+def k6_plan(k6: tuple, device) -> str:
+    """K6's route at these arguments on this card (kernels.k6_route)."""
+    if device.type != "cuda":
+        return "plain"
+    _gid, _caps, _n, Gs, reds, contribs = k6
+    span = max(kernels.bucket_segments(g + 1) for g in Gs)
+    route, rows, minb, copies = kernels.k6_route(
+        len(contribs), span, kernels._k6_block_limit(
+            _ext.lib("seg_states_ragged"), device),
+        sum(r.op in kernels.F_OPS for r in reds[0]))
+    return (f"{route}: {rows} rows a thread, {minb} blocks an SM, "
+            f"{copies} copies" if rows else route)
 
 
 def k6_bound(k6: tuple) -> tuple:
@@ -1573,21 +1640,23 @@ def phase_d(n_rows: int, seed: int, device, R: int = 8) -> tuple:
         library_ms=None, max_abs_err=k5_err,
         bound=bound(k5_bytes, sum(rp.cap * rp.fin.n_instr
                                   for rp in regions)))
-    # K6 on each of its routes (kernels.k6_route): Q1's spans fit the
-    # per-warp copies; date_group's (about 2.5k dates, 4,096 segments a
-    # region) one copy a block in the opt-in shared memory; d_supplier's
+    # K6 on each of its routes (kernels.k6_route): Q1's spans (8 segments
+    # a region) and date_group's (about 2.5k dates, 4,096 segments a
+    # region) the block route in the opt-in shared memory, Q1's with 16
+    # copies of its integer states at two blocks an SM; d_supplier's
     # (about 10,000 suppliers, 16,384 segments a region at 8 reductions)
-    # neither: the sorted route. Each shape and edge states on each route
-    # against the plain version, its route read from the launch counts; the
-    # block route's twice, the same bits both times.
+    # the sorted route. Each shape and edge states on each route against
+    # the plain version, its route read from the launch counts; the block
+    # route's twice, the same bits both times.
     _r, k6_date, _s = capture(store, tpch.sweep_request("date_group"), device)
     ebits, eouts = kernels.expr_vm_ragged(eregions, device)
     checks = [
-        ("seg_states_ragged", k6, "K6 Q1", check_k6),
+        ("seg_states_ragged_smem", k6, "K6 Q1", check_k6_twice),
         ("seg_states_ragged_smem", k6_date, "K6 date_group", check_k6_twice),
         ("seg_states_ragged_sorted", k6_sup, "K6 d_supplier", check_k6),
-        ("seg_states_ragged", _edge_states(edge, ebits, eouts, device, False,
-                                           seed + 13), "K6 edge", check_k6),
+        ("seg_states_ragged_smem", _edge_states(
+            edge, ebits, eouts, device, False, seed + 13), "K6 edge",
+         check_k6_twice),
         ("seg_states_ragged_sorted",
          _edge_states(edge, ebits, eouts, device, True, seed + 13),
          "K6 edge large spans", check_k6)]
@@ -1606,33 +1675,12 @@ def phase_d(n_rows: int, seed: int, device, R: int = 8) -> tuple:
     print(f"phase D: K6 equal to its plain version on {len(checks)} shapes, "
           f"each on its route; the block route's runs bit-identical")
     k6_wrapper_ms = {}
-    for route, args in (("seg_states_ragged", k6),
-                        ("seg_states_ragged_smem", k6_date),
+    for route, args in (("seg_states_ragged_smem", k6),
+                        ("seg_states_ragged_smem/date_group", k6_date),
                         ("seg_states_ragged_sorted", k6_sup)):
-        gid, caps, n_rows_, Gs, reds, contribs = args
-        _sp, offs, _b = kernels._k6_layout(caps, Gs)
-        S = int(offs[-1])
-        g_off = gid + torch.repeat_interleave(
-            torch.from_numpy(offs[:-1]).to(device),
-            torch.tensor(caps, device=device))
-        stacked = torch.stack(
-            [torch.where(c_, torch.cat([r[j].values for r in reds])
-                         if reds[0][j].values is not None
-                         else torch.ones_like(gid), torch.zeros_like(gid))
-             .view(torch.int64) for j, c_ in enumerate(contribs)], 1)
-        k6_launch = kernels.k6_prepare(*args)[0] if cuda \
-            else (lambda a=args: kernels.seg_states_ragged(*a))
         k6_wrapper_ms[route] = ms(lambda a=args: kernels.seg_states_ragged(*a))
-        out[route] = dict(
-            ms=ms(k6_launch),
-            plain_ms=ms(lambda a=args: kernels.seg_states_ragged_plain(
-                a[0], a[1], a[3], a[4], a[5])),
-            library_ms=ms(lambda S=S, st=stacked, g=g_off: torch.zeros(
-                S, st.shape[1], dtype=torch.int64, device=device)
-                .index_add_(0, g, st)),
-            max_abs_err=k6_err[route], bound=k6_bound(args),
-            shape=f"{len(caps)} regions, {sum(n_rows_)} rows, {S} segments, "
-                  f"{len(contribs)} reductions")
+        out[route] = dict(k6_timed(args, device), max_abs_err=k6_err[
+            route.split("/")[0]])
     gid, caps, n_rows_, Gs, reds, contribs = k6
     S = int(kernels._k6_layout(caps, Gs)[1][-1])
     # K7 at Q1's 8 x 4 states, plus R = 64 with extremes
@@ -1668,15 +1716,17 @@ def phase_d(n_rows: int, seed: int, device, R: int = 8) -> tuple:
               f"{r['bound'][1]}), max_abs_err {r['max_abs_err']}")
     print(f"phase D: the wrappers with their host preparation (tables, "
           f"small copies; K7 also its readback): K5 {k5_wrapper_ms:.4f} ms, "
-          f"K6 {k6_wrapper_ms['seg_states_ragged']:.4f} ms (date_group, "
-          f"block route: {k6_wrapper_ms['seg_states_ragged_smem']:.4f} ms; "
+          f"K6 {k6_wrapper_ms['seg_states_ragged_smem']:.4f} ms (date_group, "
+          f"block route: "
+          f"{k6_wrapper_ms['seg_states_ragged_smem/date_group']:.4f} ms; "
           f"d_supplier, sorted route: "
           f"{k6_wrapper_ms['seg_states_ragged_sorted']:.4f} ms), K7 "
           f"{k7_wrapper_ms:.4f} ms")
     print(f"phase D: Q1 inputs: {len(regions)} regions, {total} rows, "
           f"{len(contribs)} reductions, {S} segments, K7 {len(states)} "
           f"states of {states[0].shape}; K6 "
-          + "; ".join(f"{k}: {out[k]['shape']}" for k in K6_ROUTES))
+          + "; ".join(f"{k}: {out[k]['shape']}" for k in k6_wrapper_ms)
+          + f"; K6's block route at Q1: {k6_plan(k6, device)}")
     print("phase D statements: " + json.dumps(stmt))
     return out, store, data, {
         "seg_states_ragged_sorted": sup_launches["seg_states_ragged_sorted"]}
@@ -2630,7 +2680,8 @@ def slot_inputs(batch, sels: list, device) -> dict:
             topn = sched._lower_slot_topn(sel, batch)
             need(topn is not None, "ORDER BY outside the slot kind")
     planes = kernels.batch_planes(batch, device)
-    out = dict(fin=fin, pools=torch.from_numpy(np.stack(pools)).to(device),
+    # the pools stay on the host: they ride in the launch's parameters
+    out = dict(fin=fin, pools=torch.from_numpy(np.stack(pools)),
                plane_list=[planes[key][w] for key, w in fin.plane_keys],
                live=kernels.device_live(batch, device), reds=None, keys=None,
                k=0)
@@ -2779,10 +2830,45 @@ def slot_ops(a: dict, kernel: str) -> int:
     return k * n * max(int(np.log2(a["k"] + 1)), 1) * len(a["keys"])
 
 
+def g_h2d_copies(a: dict, launches: int = 20) -> tuple:
+    """Host-to-device copies over `launches` K14 launches at these inputs
+    (after a warm-up launch), read from torch.profiler: the card's HtoD
+    memcpy records and the host's copy operators (aten::copy_,
+    aten::_to_copy; an aten::to that copies nothing, as Tensor.numpy()'s
+    on a host tensor, is not one). Returns (the copies' names, the
+    durations in µs of the K14 kernels the profiler saw on the card: none
+    where it traces no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+    args = (a["fin"], a["pools"], a["plane_list"], a["live"])
+    kernels.slot_filter(*args)
+    torch.cuda.synchronize()
+    before = kernels.LAUNCHES["slot_filter"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            kernels.slot_filter(*args)
+        torch.cuda.synchronize()
+    need(kernels.LAUNCHES["slot_filter"] - before == launches,
+         "phase G: the profiled K14 launches were not counted")
+    copies, seen = [], []
+    for e in prof.events():
+        if "Memcpy HtoD" in e.name or e.name in ("aten::copy_",
+                                                 "aten::_to_copy"):
+            copies.append(e.name)
+        elif "slot_filter_kernel" in e.name:
+            seen.append(e.time_range.elapsed_us())
+    return copies, seen
+
+
 def phase_g(lineitem, device, seed: int) -> tuple:
     """The tier at TPC-H SF1's supplier table (10,000 rows, capacity
-    16,384: under the 16,384-row floor at its real size). Returns
-    (per-kernel results, the launches of the tier's run)."""
+    16,384: under the 16,384-row floor at its real size): the sessions'
+    traffic with the tier on and off, K14, K15 and K16 against their
+    plain versions, 20 K14 launches at the tier's shape with no
+    host-to-device copy (torch.profiler), K14's time beside the launch
+    floor (an empty kernel and a [32, 256] readback), and the stress
+    shape over Phase B's lineitem. Returns (per-kernel results, the
+    launches of the tier's run)."""
     ms = timer(device)
     t0 = time.perf_counter()
     data, words = tpch.supplier(tpch.SF1_SUPPLIERS, seed)
@@ -2890,6 +2976,47 @@ def phase_g(lineitem, device, seed: int) -> tuple:
 
     for kname, shape in zip(SLOT_KERNELS, ("g_nation", "g_agg", "g_topn")):
         out[kname] = timed(tier[shape], kname)
+    if device.type == "cuda":
+        # K14 at the tier's shape copies nothing to the card per launch
+        a = tier["g_nation"]
+        copies, seen = g_h2d_copies(a)
+        need(not copies, f"phase G: {len(copies)} host-to-device copies "
+             f"over 20 K14 launches at the tier's shape: {set(copies)}")
+        r = out["slot_filter"]
+        r["device_us"] = float(np.median(seen)) if seen else None
+        print(f"phase G: 20 K14 launches at the tier's shape (32 slots x "
+              f"{a['live'].shape[0]} rows): {len(copies)} host-to-device "
+              f"copies (torch.profiler; {len(seen)} K14 kernels traced on "
+              f"the card, median {r['device_us']} µs each)")
+        # the launch floor beside the bytes bound: an empty kernel and the
+        # readback of a [32, 256] int64 block into page-locked memory; and
+        # K14 with its words read back the same way, as the tier reads
+        # them
+        args = (a["fin"], a["pools"], a["plane_list"], a["live"])
+        words_ = kernels.slot_filter(*args)
+        need(tuple(words_.shape) == (32, 256), "phase G: the tier's words "
+             f"are {tuple(words_.shape)}, not [32, 256]")
+        r["floor_ms"] = ms(lambda: (torch.cuda._sleep(0),
+                                    kernels.to_host(words_)))
+        r["readback_ms"] = ms(lambda: kernels.to_host(
+            kernels.slot_filter(*args)))
+        # the same launch in the larger parameter block: pools padded to
+        # more words than the smaller block holds (the program reads
+        # only its own slots of a row)
+        wide = torch.zeros((32, kernels.SLOT_BLOCKS[0][1] // 32 + 1),
+                           dtype=torch.int64)
+        wide[:, :a["pools"].shape[1]] = a["pools"]
+        wargs = (a["fin"], wide, a["plane_list"], a["live"])
+        need(torch.equal(kernels.slot_filter(*wargs), words_),
+             "phase G: K14 in the larger parameter block differs")
+        r["large_block_ms"] = ms(lambda: kernels.slot_filter(*wargs))
+        print(f"phase G: K14 at the tier's shape {r['ms']:.4f} ms, with its "
+              f"words read back into page-locked memory "
+              f"{r['readback_ms']:.4f} ms; the launch floor (an empty "
+              f"kernel and a [32, 256] int64 readback) {r['floor_ms']:.4f} "
+              f"ms; the bytes bound {r['bound'][0]:.6f} ms; in the larger "
+              f"parameter block (pools padded past the smaller's) "
+              f"{r['large_block_ms']:.4f} ms")
     # the stress shape: 32 statements over Phase B's SF1 lineitem planes
     c = expr_column
     ti = tpch.table_info([tpch.C_ORDERKEY, tpch.C_QUANTITY,
@@ -4944,10 +5071,11 @@ def l_inf_edges(device, mesh8) -> int:
              and int(cnt[0][2]) == 0,
              f"phase L edge: {route.__name__} over only +-inf")
         checks += 1
-    # K6 on its three routes (90 segments: a copy a warp; 3,000: one copy
-    # a block in the opt-in shared memory; 40,000 past it), then K7 over
-    # the regions' states
-    for G in (90, 3_000, 40_000):
+    # K6 on its two routes (90 and 3,000 segments: the block route's
+    # small-span instantiation, two blocks an SM; 7,000: one block an SM;
+    # 40,000 past the opt-in shared memory: sorted), then K7 over the
+    # regions' states
+    for G in (90, 3_000, 7_000, 40_000):
         g2 = gid.copy()
         if G > 90:
             g2[6:] = rng.integers(3, G, n - 6)
@@ -5003,7 +5131,7 @@ def l_inf_edges(device, mesh8) -> int:
     planes = kernels.batch_planes(sb, device)
     sreds = [kernels.Red(kernels.R_MIN_F, planes[2][0]),
              kernels.Red(kernels.R_MAX_F, planes[2][0])]
-    cnt, acc = kernels.slot_agg(fin, t(np.stack(pools)),
+    cnt, acc = kernels.slot_agg(fin, torch.from_numpy(np.stack(pools)),
                                 [planes[k][w] for k, w in fin.plane_keys],
                                 kernels.device_live(sb, device), sreds)
     got = acc.view(torch.float64).cpu().numpy()
@@ -5165,7 +5293,7 @@ def phase_l(joins: tuple, device, seed: int) -> tuple:
           f"{r['bound'][0]:.4f} ms by {r['bound'][1]}), max_abs_err {err}")
     checks = l_inf_edges(device, mesh8)
     print(f"phase L edge: {checks} +-inf checks equal to numpy (K2, K3, K4, "
-          f"K6 on its three routes, K7, row 15c, row 15f and its plain "
+          f"K6 on its two routes, K7, row 15c, row 15f and its plain "
           f"version, K15)")
     print("phase L statements: " + json.dumps(stmt))
     print(f"phase L: {time.perf_counter() - t0:.1f} s")
@@ -5210,7 +5338,9 @@ def main() -> int:
     results.update(f_results)
     results.update(g_results)
     results.update(h_results)
-    launches.update(phase_c(tpch.SF001_ROWS, seed=1, device=device))
+    c_launches, c_results = phase_c(tpch.SF001_ROWS, seed=1, device=device)
+    launches.update(c_launches)
+    results.update(c_results)
     d_results, d_store, d_data, d_launches = phase_d(tpch.SF1_ROWS, seed=2,
                                                      device=device)
     results.update(d_results)
@@ -5235,8 +5365,10 @@ def main() -> int:
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = results[name]
+        # a second shape of one route counts the route's launches
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces,
+                     "launches": launches[name.split("/")[0]],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                      "bound_by": r["bound"][1],

@@ -304,7 +304,8 @@ LIMIT = 232448 - 1088          # the H100's opt-in limit less static memory
 
 
 @pytest.mark.parametrize("n_red,span,n_f,want", [
-    (4, 64, 0, "seg_states_ragged"), (1, 512, 0, "seg_states_ragged"),
+    (4, 64, 0, "seg_states_ragged_smem"), (1, 512, 0,
+                                           "seg_states_ragged_smem"),
     (3, 512, 0, "seg_states_ragged_smem"), (4, 4096, 0,
                                             "seg_states_ragged_smem"),
     (4, 4096, 3, "seg_states_ragged_smem"), (3, 2048, 1,
@@ -315,16 +316,27 @@ LIMIT = 232448 - 1088          # the H100's opt-in limit less static memory
     (2, 8192, 0, "seg_states_ragged_smem"),
     (2, 16384, 0, "seg_states_ragged_sorted")])
 def test_k6_route(n_red, span, n_f, want):
-    route, rows = pk.k6_route(n_red, span, LIMIT, n_f)
+    route, rows, minb, copies = pk.k6_route(n_red, span, LIMIT, n_f)
     assert route == want
     if route == "seg_states_ragged_smem":
-        assert rows in pk.K6B_ROWS
-        assert pk.k6_block_bytes(n_red, n_f, span, rows) <= LIMIT
-        bigger = [r for r in pk.K6B_ROWS if r > rows]
-        assert all(pk.k6_block_bytes(n_red, n_f, span, r) > LIMIT
-                   for r in bigger)
+        small = LIMIT // pk.K6B_SMALL_BLOCKS - pk.K6B_SMALL_RESERVE
+        fits_small = pk.k6_block_bytes(n_red, n_f, span,
+                                       pk.K6B_SMALL_ROWS) <= small
+        if fits_small:
+            # two blocks an SM, each in half the limit with its copies
+            assert (rows, minb) == (pk.K6B_SMALL_ROWS, pk.K6B_SMALL_BLOCKS)
+            budget = small
+        else:
+            assert rows in pk.K6B_ROWS and minb == 1
+            bigger = [r for r in pk.K6B_ROWS if r > rows]
+            assert all(pk.k6_block_bytes(n_red, n_f, span, r) > LIMIT
+                       for r in bigger)
+            budget = LIMIT
+        assert copies == pk.k4_copies(n_red, n_f, span, rows, budget)
+        assert pk.k6_block_bytes(n_red, n_f, span, rows) \
+            + 8 * (copies - 1) * n_red * span <= budget
     else:
-        assert rows == 0
+        assert (rows, minb, copies) == (0, 0, 0)
     # no opt-in memory: the block route is never taken
     assert pk.k6_route(n_red, span, 0, n_f)[0] != "seg_states_ragged_smem"
 
@@ -374,12 +386,16 @@ def test_k20_param_block_matches_source():
 def test_k6_constants_match_source():
     # the block route lives in seg_block.cuh, which K4 shares
     src = _source("seg_states_ragged.cu") + _source("seg_block.cuh")
-    assert _define(src, "K6_SMEM_BYTES") == pk.K6_SMEM_BYTES
-    assert _define(src, "K6_TILE") == pk.K6_TILE
+    assert _define(src, "K6B_SMALL_ROWS") == pk.K6B_SMALL_ROWS
+    assert _define(src, "K6B_SMALL_BLOCKS") == pk.K6B_SMALL_BLOCKS
     assert _define(src, "K6B_THREADS") == pk.K6B_THREADS
     assert _define(src, "K6B_MAX_REDS") == pk.K6B_MAX_REDS
-    assert re.search(r"#define K6_WARPS \(K6_THREADS / 32\)", src)
-    assert _define(src, "K6_THREADS") // 32 == pk.K6_WARPS
+    assert _define(src, "K6_PARAM_REGIONS") == pk.K6_PARAM_REGIONS
+    assert _define(src, "K6_PARAM_TAB") == pk.K6_PARAM_TAB
+    # the per-warp tile route is gone: two routes, block and sorted
+    assert "seg_states_tiles" not in src and "K6_WARPS" not in src
+    assert pk.K6_ROUTES == ("seg_states_ragged_smem",
+                            "seg_states_ragged_sorted")
     assert re.search(r"#define K6B_WARPS \(K6B_THREADS / 32\)", src)
     assert pk.K6B_THREADS // 32 == pk.K6B_WARPS
     assert _define(src, "K6_RDESC") == 6
@@ -389,8 +405,11 @@ def test_k6_constants_match_source():
     assert "8LL*n_red*span_max" in compact
     assert "c*(8LL*n_f+8)+8LL*(K6B_WARPS*K6B_WARPS*rows+1)" in compact
     # the block route takes a launch's ROWS from the wrapper's K6B_ROWS
+    # (one block an SM) and the small-span instantiation's
     for rows in pk.K6B_ROWS:
-        assert f"seg_states_block<{rows}>" in src
+        assert f"seg_states_block<{rows}, 1>" in src
+    assert "seg_states_block<K6B_SMALL_ROWS, K6B_SMALL_BLOCKS>" in src
+    assert "__launch_bounds__(K6B_THREADS, MINB)" in src
 
 
 # ---------------------------------------------------------------------------
@@ -418,21 +437,19 @@ class _Recorder:
     def seg_states_block_limit(self):
         return LIMIT
 
-    def seg_states_block_grid(self, rows, smem):
+    def seg_states_block_grid(self, rows, minb, smem):
         return self.grid
 
     def seg_states_pieces_count(self, n):
         return -(-n // 2048)
 
     def seg_states_block_launch(self, *args):
-        R, rdesc_p = args[3], args[2]
-        self.calls.append(("block", args,
-                           np.frombuffer(ctypes.string_at(rdesc_p, 48 * R),
-                                         np.int64).reshape(R, 6).copy()))
-        return 0
-
-    def seg_states_tiles_launch(self, *args):
-        self.calls.append(("tiles", args, None))
+        # the library copies the tables into the parameter block during
+        # the call; so does the recorder
+        tables_p, R, n_red = args[4], args[6], args[8]
+        self.calls.append(("block", args, np.frombuffer(ctypes.string_at(
+            tables_p, 8 * (6 * R + 2 * n_red + 2 * n_red * R)),
+            np.int64).copy()))
         return 0
 
     def seg_states_sorted_launch(self, *args):
@@ -545,14 +562,19 @@ def test_seg_states_block_route_drives_its_launch(stub_card):
     launch()
     assert pk.LAUNCHES["seg_states_ragged_smem"] == 1
     assert sum(pk.LAUNCHES.values()) == 1
-    (kind, call, rdesc), = stub_card.calls
+    (kind, call, tables), = stub_card.calls
     assert kind == "block"
-    (rows, n_blocks, _rd, R, gid_p, n_red, n_f, _red, _vals, _valid,
+    (rows, minb, copies, n_blocks, _tab, on_card, R, gid_p, n_red, n_f,
      span_max, n_seg, _part, out_p, _st) = call
     spans = [pk.bucket_segments(G + 1) for G in Gs]
     assert (R, n_red, n_f, span_max) == (4, 4, 2, max(spans))
-    assert rows == pk.k6_route(4, max(spans), LIMIT, 2)[1]
+    assert (rows, minb, copies) == pk.k6_route(4, max(spans), LIMIT, 2)[1:]
+    assert on_card == 0                       # the tables ride by value
     assert (gid_p, out_p) == (args[0].data_ptr(), out.data_ptr())
+    rdesc = tables[:6 * R].reshape(R, 6)
+    red = tables[6 * R:6 * R + 2 * n_red].reshape(n_red, 2)
+    assert list(red[:, 0]) == ops
+    assert list(red[:, 1]) == [c.data_ptr() for c in args[5]]
     assert n_seg == sum(spans) and out.shape == (4, n_seg)
     units = pk.k6_block_units(n_rows, stub_card.grid)
     assert n_blocks == sum(units)
@@ -565,15 +587,16 @@ def test_seg_states_block_route_drives_its_launch(stub_card):
 
 
 @pytest.mark.parametrize("ops,Gs,route", [
-    ([pk.R_COUNT, pk.R_SUM_I], [9, 40], "tiles"),
+    ([pk.R_COUNT, pk.R_SUM_I], [9, 40], "block"),
     ([pk.R_COUNT] * 8, [12_000, 9_000], "sorted")])
 def test_seg_states_other_routes_drive_their_launch(stub_card, ops, Gs,
                                                     route):
+    # small spans, which the per-warp tile route took, ride the block route
     args = _k6_args([700, 900], [700, 850], Gs, ops)
     launch, _out = pk.k6_prepare(*args)
     launch()
     (kind, _call, _r), = stub_card.calls
     assert kind == route
-    name = {"tiles": "seg_states_ragged",
+    name = {"block": "seg_states_ragged_smem",
             "sorted": "seg_states_ragged_sorted"}[route]
     assert pk.LAUNCHES[name] == 1 and sum(pk.LAUNCHES.values()) == 1

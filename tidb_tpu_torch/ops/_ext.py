@@ -81,11 +81,9 @@ SIGNATURES = {
     "seg_states_ragged": {
         "seg_states_pieces_count": ([_L], _I),
         "seg_states_block_limit": ([], _L),
-        "seg_states_block_grid": ([_I, _L], _I),
-        "seg_states_block_launch": ([_I, _I, _P, _I, _P, _I, _I, _P, _P, _P,
+        "seg_states_block_grid": ([_I, _I, _L], _I),
+        "seg_states_block_launch": ([_I, _I, _I, _I, _P, _I, _I, _P, _I, _I,
                                      _I, _L, _P, _P, _P], _I),
-        "seg_states_tiles_launch": ([_I, _P, _I, _P, _P, _I, _P, _P, _P, _I,
-                                     _L, _P, _P, _P], _I),
         "seg_states_sorted_launch": ([_L, _P, _P, _P, _I, _L, _I, _P, _P,
                                       _P, _P, _P, _P], _I),
     },
@@ -110,13 +108,13 @@ SIGNATURES = {
         "dict_remap_launch": ([_L, _I, _P, _P, _P, _P], _I),
     },
     "slot_filter": {
-        "slot_filter_launch": ([_L, _I, _P, _I, _P, _I, _P, _P, _I, _U, _P,
-                                _P, _P], _I),
+        "slot_filter_launch": ([_L, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P,
+                                _P, _I, _P, _P, _P], _I),
     },
     "slot_agg": {
         "slot_agg_blocks": ([_L], _I),
-        "slot_agg_launch": ([_L, _I, _P, _I, _P, _I, _P, _P, _I, _U, _P, _I,
-                             _P, _P, _P, _P], _I),
+        "slot_agg_launch": ([_L, _I, _I, _P, _I, _U, _P, _I, _I, _P, _P, _I,
+                             _P, _I, _P, _P, _P, _P], _I),
     },
     "slot_topn": {
         "slot_topn_tile": ([], _I),

@@ -1,4 +1,4 @@
-// The block route of segmented states: one copy of a span of segments a
+// The block route of segmented states: copies of a span of segments a
 // block, in Hopper's opt-in shared memory. Shared by K6
 // (seg_states_ragged.cu: a region's span, region-local group ids) and K4
 // (seg_agg_sorted.cu: a window of a statement's segments, global group
@@ -16,8 +16,9 @@
 // The region table holds K6_RDESC int64 a region: row base, rows,
 // first segment, span, first block, blocks. A persistent grid gives each
 // region blocks (ops/kernels.py k6_block_units), each block a fixed
-// contiguous slice of the region's rows and ONE copy of the region's
-// span for all its slots. The block reads its rows once, in order, a
+// contiguous slice of the region's rows and its own copies of the
+// region's span for all its slots (one copy, or as many copies of the
+// integer states as the caller asks for: kernels.k4_copies). The block reads its rows once, in order, a
 // chunk of K6B_THREADS * ROWS rows at a time (one row a thread a step,
 // coalesced loads, each group of K6B_GROUP slots' contrib, valid and value
 // loads issued together); rows outside the span and rows that contribute
@@ -150,11 +151,11 @@ __device__ __forceinline__ bool k6b_is_f64(int op) {
 }
 
 // The block's work; the caller's kernel is __launch_bounds__(K6B_THREADS,
-// 1) and runs it with ROWS rows a thread per chunk. `copies` (a power of
-// two; 1 keeps one copy) replicates the integer states: lane l folds into
-// copy l mod copies, so the lanes of a step that share a segment spread
-// over as many addresses; the copies follow the staging in shared memory
-// (k6b_copies_bytes) and fold into the first at the end.
+// blocks an SM) and runs it with ROWS rows a thread per chunk. `copies`
+// (a power of two; 1 keeps one copy) replicates the integer states: lane
+// l folds into copy l mod copies, so the lanes of a step that share a
+// segment spread over as many addresses; the copies follow the staging in
+// shared memory (k6b_copies_bytes) and fold into the first at the end.
 template <int ROWS, class Src>
 __device__ __forceinline__ void seg_block_run(const i64* __restrict__ rdesc, int R,
                                               const i64* __restrict__ gid, const Src& src,

@@ -10,60 +10,53 @@
 //
 // Inputs: a region table of K6_RDESC int64 per region (row base in the
 // concatenated gid/contrib arrays, rows to reduce, segment offset, span,
-// first partial unit and units: tiles or blocks), the concatenated
-// region-local group ids, and per reduction (op, concatenated contrib
-// mask) plus one values and one valid pointer per region (null values:
-// the reduction counts; null valid: all valid). Output: one int64 per
-// (reduction, global segment): a count, a wrapping int64 sum, an f64 sum
-// (bits), or an extremum with the exact I64 sentinel or f64 +-inf
-// identity where no row contributes. Rows past a region's row count are
-// never read. Three routes, by what one copy of the span costs
-// (kernels.k6_route):
+// first block and blocks), the concatenated region-local group ids, and
+// per reduction (op, concatenated contrib mask) plus one values and one
+// valid pointer per region (null values: the reduction counts; null
+// valid: all valid). Output: one int64 per (reduction, global segment): a
+// count, a wrapping int64 sum, an f64 sum (bits), or an extremum with the
+// exact I64 sentinel or f64 +-inf identity where no row contributes. Rows
+// past a region's row count are never read. Two routes, by what one copy
+// of the span costs (kernels.k6_route):
 //
-// Small spans (warps * reductions * max span * 8 B <= K6_SMEM_BYTES):
-// tiles of K6_TILE rows never cross a region; each warp walks a contiguous
-// part of its tile 32 rows at a time, groups the lanes that take a row by
-// group id (__match_any_sync), and the lowest lane of each group folds the
-// group's values in lane order into the warp's own copy of the region's
-// span in shared memory. Warp copies fold in warp order into a per-tile
-// partial; pass 2, a thread per (reduction, segment), folds the region's
-// tile partials in tile order.
-//
-// Spans up to Hopper's opt-in shared memory (one copy of reductions *
-// max span * 8 B, plus an f64 chunk's staging, within the limit the card
-// reports; seg_states_block_limit): the block route of seg_block.cuh,
-// which K4 shares. A persistent grid gives each region blocks in
-// proportion to its rows, each block a contiguous slice of them and ONE
-// copy of the region's span for all its reductions; integer reductions
-// fold by shared-memory integer atomics, f64 ones class-bucketed in row
-// order; pass 2 folds a region's block partials in block order. There is
-// no sort and no search per row.
+// Spans up to Hopper's opt-in shared memory (reductions * max span * 8 B,
+// plus an f64 chunk's staging, within the limit the card reports;
+// seg_states_block_limit): the block route of seg_block.cuh, which K4
+// shares. A persistent grid gives each region blocks in proportion to its
+// rows, each block a contiguous slice of them and copies of the region's
+// span for all its reductions; integer reductions fold by shared-memory
+// atomics, lane l into copy l mod copies, f64 ones class-bucketed in row
+// order into the first copy; pass 2 folds a region's block partials in
+// block order. There is no sort and no search per row. Small spans (Q1's
+// few groups, one of them holding half the rows) take as many copies as
+// fit half an SM's shared memory (kernels.k4_copies, up to 16), so the
+// lanes of a step that share the hot group spread over as many addresses,
+// and an instantiation that runs two blocks an SM; larger spans one block
+// an SM, with the copies that fit the card's limit (one for date_group).
+// The tables (regions, reductions, plane pointers) ride by value in the
+// launch's parameters (struct K6Params), so the launch copies nothing to
+// the card first; tables past K6Params' room are read from the card.
 //
 // Larger spans: the caller sorts the offset ids stably (torch.sort), and
 // K4's segmented pass over the sorted runs (seg_sorted.cuh) reduces them,
 // finding each row's region by binary search over the row bases.
 //
 // No floating-point atomics anywhere: f64 sums are the same from run to
-// run. The tile and block routes fold each segment's rows in row order
-// (the block route's per-warp trees keep lane order, the left part
-// first), so an extremum tie of -0.0 and +0.0 keeps the first in row
-// order, as the plain version does.
+// run. The block route folds each segment's f64 rows in row order (its
+// per-warp trees keep lane order, the left part first), so an extremum
+// tie of -0.0 and +0.0 keeps the first in row order, as the plain version
+// does.
 //
 // Bound by bytes: 8 B of group id, 1 B of contrib, 8 B of value and 1 B
 // of valid per row and reduction (the sorted route adds 16 B of sorted id
-// and permutation per row, and gathers values at random). At one block
-// an SM (the span copy takes most of the shared memory) the block route
+// and permutation per row, and gathers values at random). The block route
 // spends its time on each chunk's dependent steps: a memory round trip a
-// group of reductions, the f64 staging's two barriers and block scan; a
-// segment that takes most rows contends on one atomic address (integer
-// ops) or leaves one warp most of the f64 fold.
+// group of reductions, the f64 staging's two barriers and block scan.
+#include <cstring>
+
 #include "seg_block.cuh"
 #include "seg_sorted.cuh"
 
-#define K6_THREADS 256
-#define K6_WARPS (K6_THREADS / 32)
-#define K6_TILE 4096
-#define K6_SMEM_BYTES 49152
 #define K6_RED 2   // (op, contrib pointer) per reduction
 
 // Does concatenated row `row` (region r, local row `local`) contribute to
@@ -81,71 +74,43 @@ __device__ __forceinline__ bool k6_take(const i64* red, const u64* vals_tab,
   return true;
 }
 
-__global__ void seg_states_tiles(const i64* __restrict__ rdesc, int R,
-                                 const int* __restrict__ tile_region,
-                                 const i64* __restrict__ gid, int n_red,
-                                 const i64* __restrict__ red,
-                                 const u64* __restrict__ vals_tab,
-                                 const u64* __restrict__ valid_tab, int span_max,
-                                 i64* __restrict__ part) {
-  extern __shared__ i64 acc[];   // [warp][reduction][span_max]
-  const int r = tile_region[blockIdx.x];
-  const i64* d = rdesc + K6_RDESC * r;
-  const i64 base = d[0], n_rows = d[1];
-  const i64 t0 = (i64)(blockIdx.x - (int)d[4]) * K6_TILE;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int slab = n_red * span_max;
-  for (int i = threadIdx.x; i < K6_WARPS * slab; i += K6_THREADS)
-    acc[i] = val_ident((int)red[K6_RED * ((i % slab) / span_max)]);
-  __syncthreads();
-  i64* mine = acc + (i64)warp * slab;
-  const int per_warp = K6_TILE / K6_WARPS;
-  for (int k = 0; k < per_warp; k += 32) {
-    const i64 local = t0 + (i64)warp * per_warp + k + lane;
-    const bool in = local < n_rows;
-    const i64 row = base + local;
-    const i64 g = in ? gid[row] : -1;
-    for (int j = 0; j < n_red; ++j) {
-      const int op = (int)red[K6_RED * j];
-      i64 x = 0;
-      const bool take = in && k6_take(red, vals_tab, valid_tab, R, j, r, row, local, &x);
-      const unsigned int takers = __ballot_sync(0xffffffffu, take);
-      if (takers == 0) continue;
-      const unsigned int peers = __match_any_sync(0xffffffffu, take ? g : (i64)-1);
-      const bool leader = take && (__ffs(peers) - 1) == lane;
-      i64 a = val_ident(op);
-      for (unsigned int m = takers; m != 0; m &= m - 1) {
-        const int s = __ffs(m) - 1;
-        const i64 y = __shfl_sync(0xffffffffu, x, s);
-        if (leader && ((peers >> s) & 1u)) a = val_merge(op, a, y);
-      }
-      if (leader) {
-        i64* p = mine + (i64)j * span_max + g;
-        *p = val_merge(op, *p, a);
-      }
-    }
-  }
-  __syncthreads();
-  i64* out = part + (i64)blockIdx.x * slab;
-  for (int i = threadIdx.x; i < slab; i += K6_THREADS) {
-    const int op = (int)red[K6_RED * (i / span_max)];
-    i64 a = acc[i];
-    for (int w = 1; w < K6_WARPS; ++w) a = val_merge(op, a, acc[(i64)w * slab + i]);
-    out[i] = a;
-  }
+// ---- the block route (seg_block.cuh); a region's slots are its
+// reductions. Its tables by value: K6_PARAM_REGIONS regions, K6_PARAM_TAB
+// plane pointers (values then valid, [n_red][R] each); larger tables are
+// read from the card through the _dev pointers.
+#define K6_PARAM_REGIONS 16
+#define K6_PARAM_TAB 512
+
+struct K6Params {
+  i64 rdesc[K6_PARAM_REGIONS * K6_RDESC];
+  i64 red[K6B_MAX_REDS * K6_RED];
+  u64 tab[K6_PARAM_TAB];
+  const i64* rdesc_dev;   // non-null: every table on the card
+  const i64* red_dev;
+  const u64* tab_dev;
+};
+
+__device__ __forceinline__ const i64* k6p_rdesc(const K6Params& p) {
+  return p.rdesc_dev != nullptr ? p.rdesc_dev : p.rdesc;
+}
+__device__ __forceinline__ const i64* k6p_red(const K6Params& p) {
+  return p.red_dev != nullptr ? p.red_dev : p.red;
+}
+__device__ __forceinline__ const u64* k6p_tab(const K6Params& p) {
+  return p.tab_dev != nullptr ? p.tab_dev : p.tab;
 }
 
-// Pass 2 of the tile and block routes: a thread per (reduction, segment)
-// folds the region's partial units (tiles or blocks) in order.
-__global__ void seg_states_fold(const i64* __restrict__ rdesc, int R, i64 n_seg,
-                                int n_red, const i64* __restrict__ red, int span_max,
-                                const i64* __restrict__ part, i64* __restrict__ out) {
+// Pass 2: a thread per (reduction, segment) folds the region's block
+// partials in block order.
+__global__ void seg_states_fold(const __grid_constant__ K6Params p, int R, i64 n_seg, int n_red,
+                                int span_max, const i64* __restrict__ part,
+                                i64* __restrict__ out) {
   const i64 idx = (i64)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (i64)n_red * n_seg) return;
+  const i64* rdesc = k6p_rdesc(p);
   const int j = (int)(idx / n_seg);
   const i64 s = idx % n_seg;
-  const int op = (int)red[K6_RED * j];
+  const int op = (int)k6p_red(p)[K6_RED * j];
   const int r = k6_region(rdesc, R, 2, s);
   const i64* d = rdesc + K6_RDESC * r;
   const i64 local = s - d[2];
@@ -156,8 +121,6 @@ __global__ void seg_states_fold(const i64* __restrict__ rdesc, int R, i64 n_seg,
   out[idx] = a;
 }
 
-// ---- spans in the opt-in shared memory: one copy a block
-// (seg_block.cuh); a region's slots are its reductions
 struct K6BSrc {
   static constexpr bool GLOBAL = false;
   int n_slots;
@@ -177,28 +140,39 @@ struct K6BSrc {
   }
 };
 
-template <int ROWS>
-__global__ void __launch_bounds__(K6B_THREADS, 1)
-seg_states_block(const i64* __restrict__ rdesc, int R, const i64* __restrict__ gid, int n_red,
-                 const i64* __restrict__ red, const u64* __restrict__ vals_tab,
-                 const u64* __restrict__ valid_tab, int span_max, i64* __restrict__ part) {
-  const K6BSrc src = {n_red, red, vals_tab, valid_tab, R};
-  seg_block_run<ROWS>(rdesc, R, gid, src, span_max, 1, part);
+// MINB blocks an SM: 1 for spans that take most of the shared memory, 2
+// for small spans (at most 64 registers a thread).
+template <int ROWS, int MINB>
+__global__ void __launch_bounds__(K6B_THREADS, MINB)
+seg_states_block(const __grid_constant__ K6Params p, int R, const i64* __restrict__ gid,
+                 int n_red, int span_max, int copies, i64* __restrict__ part) {
+  const u64* tab = k6p_tab(p);
+  const K6BSrc src = {n_red, k6p_red(p), tab, tab + (size_t)n_red * R, R};
+  seg_block_run<ROWS>(k6p_rdesc(p), R, gid, src, span_max, copies, part);
 }
 
 // The kernel's shared-memory opt-in, once per device: the card's limit
 // for one block less the kernel's static shared memory.
-template <int ROWS>
+template <int ROWS, int MINB>
 static cudaError_t k6b_ready(long long* limit) {
   static bool ready[64];
-  return k6b_optin(seg_states_block<ROWS>, ready, limit);
+  return k6b_optin(seg_states_block<ROWS, MINB>, ready, limit);
 }
 
-static cudaError_t k6b_ready_rows(int rows, long long* limit) {
+// The instantiations: rows a thread per chunk and blocks an SM
+// (kernels.K6B_ROWS with one block an SM, K6B_SMALL_ROWS with
+// K6B_SMALL_BLOCKS).
+#define K6B_SMALL_ROWS 2
+#define K6B_SMALL_BLOCKS 2
+
+static cudaError_t k6b_ready_rows(int rows, int minb, long long* limit) {
+  if (minb == K6B_SMALL_BLOCKS && rows == K6B_SMALL_ROWS)
+    return k6b_ready<K6B_SMALL_ROWS, K6B_SMALL_BLOCKS>(limit);
+  if (minb != 1) return cudaErrorInvalidValue;
   switch (rows) {
-    case 1: return k6b_ready<1>(limit);
-    case 2: return k6b_ready<2>(limit);
-    case 4: return k6b_ready<4>(limit);
+    case 1: return k6b_ready<1, 1>(limit);
+    case 2: return k6b_ready<2, 1>(limit);
+    case 4: return k6b_ready<4, 1>(limit);
   }
   return cudaErrorInvalidValue;
 }
@@ -225,27 +199,6 @@ struct K6Src {
 
 extern "C" int seg_states_pieces_count(i64 n) { return sorted_pieces_count(n); }
 
-extern "C" int seg_states_tiles_launch(int n_tiles, const i64* rdesc, int R,
-                                       const int* tile_region, const i64* gid, int n_red,
-                                       const i64* red, const u64* vals_tab,
-                                       const u64* valid_tab, int span_max, i64 n_seg,
-                                       i64* part, i64* out, void* stream) {
-  if (n_red < 1 || R < 1 || n_seg < 1) return -1;
-  const long long smem = (long long)K6_WARPS * n_red * span_max * 8;
-  if (smem > K6_SMEM_BYTES) return -1;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (n_tiles > 0) {
-    seg_states_tiles<<<(unsigned)n_tiles, K6_THREADS, (size_t)smem, st>>>(
-        rdesc, R, tile_region, gid, n_red, red, vals_tab, valid_tab, span_max, part);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  const i64 total = (i64)n_red * n_seg;
-  seg_states_fold<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-      rdesc, R, n_seg, n_red, red, span_max, part, out);
-  return (int)cudaGetLastError();
-}
-
 extern "C" int seg_states_sorted_launch(i64 n, const i64* gid_sorted, const i64* order,
                                         const i64* rdesc, int R, i64 n_seg, int n_red,
                                         const i64* red, const u64* vals_tab,
@@ -260,53 +213,79 @@ extern "C" int seg_states_sorted_launch(i64 n, const i64* gid_sorted, const i64*
 // its opt-in), or minus a CUDA error.
 extern "C" long long seg_states_block_limit() {
   long long lim = 0;
-  const cudaError_t e = k6b_ready_rows(1, &lim);
+  const cudaError_t e = k6b_ready_rows(1, 1, &lim);
   return e == cudaSuccess ? lim : -(long long)e;
 }
 
 // The block route's persistent grid: SMs x resident blocks at smem bytes,
 // or minus a CUDA error.
-extern "C" int seg_states_block_grid(int rows, long long smem) {
-  const cudaError_t e = k6b_ready_rows(rows, nullptr);
+extern "C" int seg_states_block_grid(int rows, int minb, long long smem) {
+  const cudaError_t e = k6b_ready_rows(rows, minb, nullptr);
   if (e != cudaSuccess) return -(int)e;
+  if (minb == K6B_SMALL_BLOCKS)
+    return k6b_grid(seg_states_block<K6B_SMALL_ROWS, K6B_SMALL_BLOCKS>, smem);
   switch (rows) {
-    case 1: return k6b_grid(seg_states_block<1>, smem);
-    case 2: return k6b_grid(seg_states_block<2>, smem);
+    case 1: return k6b_grid(seg_states_block<1, 1>, smem);
+    case 2: return k6b_grid(seg_states_block<2, 1>, smem);
   }
-  return k6b_grid(seg_states_block<4>, smem);
+  return k6b_grid(seg_states_block<4, 1>, smem);
 }
 
-// rdesc's fields 4 and 5 hold each region's first block and blocks (in
-// proportion to its rows; n_blocks in all); n_f of the n_red reductions
-// are f64 ops (the kernel finds which); part holds n_blocks * n_red *
-// span_max int64.
-extern "C" int seg_states_block_launch(int rows, int n_blocks, const i64* rdesc, int R,
-                                       const i64* gid, int n_red, int n_f, const i64* red,
-                                       const u64* vals_tab, const u64* valid_tab, int span_max,
-                                       i64 n_seg, i64* part, i64* out, void* stream) {
+// tables: R region rows (K6_RDESC int64: fields 4 and 5 hold each
+// region's first block and blocks, n_blocks in all), n_red (op, contrib
+// pointer) pairs, then the values and the valid pointers ([n_red][R]
+// each): a host array that rides by value where it fits K6Params, else
+// (on_card) the same layout on the card. n_f of the n_red reductions are
+// f64 ops (the kernel finds which); copies (a power of two) of the
+// integer states; part holds n_blocks * n_red * span_max int64.
+extern "C" int seg_states_block_launch(int rows, int minb, int copies, int n_blocks,
+                                       const i64* tables, int on_card, int R, const i64* gid,
+                                       int n_red, int n_f, int span_max, i64 n_seg, i64* part,
+                                       i64* out, void* stream) {
   if (n_red < 1 || n_red > K6B_MAX_REDS || n_f < 0 || n_f > n_red || R < 1 || n_seg < 1 ||
-      span_max < 1)
+      span_max < 1 || copies < 1 || (copies & (copies - 1)))
     return -1;
   long long lim = 0;
-  cudaError_t e = k6b_ready_rows(rows, &lim);
+  cudaError_t e = k6b_ready_rows(rows, minb, &lim);
   if (e != cudaSuccess) return (int)e;
-  const long long smem = k6b_smem_bytes(n_red, n_f, span_max, rows);
+  const long long smem = k6b_copies_bytes(n_red, n_f, span_max, rows, copies);
   if (smem > lim) return -1;
+  K6Params p;
+  const size_t n_rd = (size_t)R * K6_RDESC, n_rr = (size_t)n_red * K6_RED,
+               n_tab = 2 * (size_t)n_red * R;
+  if (on_card) {
+    p.rdesc_dev = tables;
+    p.red_dev = tables + n_rd;
+    p.tab_dev = (const u64*)(tables + n_rd + n_rr);
+  } else {
+    if (R > K6_PARAM_REGIONS || n_tab > K6_PARAM_TAB) return -1;
+    memcpy(p.rdesc, tables, 8 * n_rd);
+    memcpy(p.red, tables + n_rd, 8 * n_rr);
+    memcpy(p.tab, tables + n_rd + n_rr, 8 * n_tab);
+    p.rdesc_dev = nullptr;
+    p.red_dev = nullptr;
+    p.tab_dev = nullptr;
+  }
   cudaStream_t st = (cudaStream_t)stream;
   if (n_blocks > 0) {
-    switch (rows) {
-      case 1: seg_states_block<1><<<(unsigned)n_blocks, K6B_THREADS, (size_t)smem, st>>>(
-                  rdesc, R, gid, n_red, red, vals_tab, valid_tab, span_max, part); break;
-      case 2: seg_states_block<2><<<(unsigned)n_blocks, K6B_THREADS, (size_t)smem, st>>>(
-                  rdesc, R, gid, n_red, red, vals_tab, valid_tab, span_max, part); break;
-      default: seg_states_block<4><<<(unsigned)n_blocks, K6B_THREADS, (size_t)smem, st>>>(
-                   rdesc, R, gid, n_red, red, vals_tab, valid_tab, span_max, part);
-    }
+    const dim3 g((unsigned)n_blocks);
+    if (minb == K6B_SMALL_BLOCKS)
+      seg_states_block<K6B_SMALL_ROWS, K6B_SMALL_BLOCKS><<<g, K6B_THREADS, (size_t)smem, st>>>(
+          p, R, gid, n_red, span_max, copies, part);
+    else if (rows == 1)
+      seg_states_block<1, 1><<<g, K6B_THREADS, (size_t)smem, st>>>(p, R, gid, n_red, span_max,
+                                                                  copies, part);
+    else if (rows == 2)
+      seg_states_block<2, 1><<<g, K6B_THREADS, (size_t)smem, st>>>(p, R, gid, n_red, span_max,
+                                                                  copies, part);
+    else
+      seg_states_block<4, 1><<<g, K6B_THREADS, (size_t)smem, st>>>(p, R, gid, n_red, span_max,
+                                                                  copies, part);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   const i64 total = (i64)n_red * n_seg;
-  seg_states_fold<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-      rdesc, R, n_seg, n_red, red, span_max, part, out);
+  seg_states_fold<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(p, R, n_seg, n_red, span_max,
+                                                                  part, out);
   return (int)cudaGetLastError();
 }

@@ -16,6 +16,11 @@
 // int64 sums are exact because the lowering refuses a sum that could wrap
 // (max_abs * n_rows).
 //
+// Its arguments take K14's path (vm.cuh SlotParams): the plane pointers,
+// the program, the pools, the reduction descriptors and the LUT ride by
+// value in the launch's parameters, so a launch copies nothing to the
+// card first.
+//
 // Bound by bytes: the program's planes, the live byte and each reduction's
 // value and valid planes read once per row per slot (the slot axis is in
 // the grid, so a slot's blocks re-read what the others read: k times the
@@ -23,23 +28,21 @@
 #include "vm.cuh"
 
 #define K15_THREADS 256
-#define K15_MAX_RED 9
+#define K15_MAX_RED SLOT_MAX_RED
 
+template <class Prm>
 __global__ void __launch_bounds__(K15_THREADS)
-slot_agg_partial(i64 n, const i64* __restrict__ meta, int meta_len,
-                 const i64* __restrict__ params, int P, const unsigned char* __restrict__ lut,
-                 const u64* __restrict__ planes, int n_planes, unsigned valid_bits,
-                 const unsigned char* __restrict__ live, int n_red,
-                 const i64* __restrict__ desc, i64* __restrict__ partial) {
-  __shared__ i64 sm[K1_MAX_META];
+slot_agg_partial(const __grid_constant__ Prm p, i64 n, int n_instr, int where_reg, int P,
+                 int n_planes, unsigned valid_bits, const unsigned char* __restrict__ live,
+                 int n_red, i64* __restrict__ partial) {
+  __shared__ i64 sm[6 * SLOT_MAX_INSTR];
   __shared__ i64 sn[K15_THREADS];
   __shared__ i64 sv[K15_THREADS];
-  for (int i = threadIdx.x; i < meta_len; i += blockDim.x) sm[i] = meta[i];
+  for (int i = threadIdx.x; i < 6 * n_instr; i += blockDim.x) sm[i] = p.ins[i];
   __syncthreads();
-  const int n_instr = (int)sm[0];
-  const int where_reg = (int)sm[1];
-  const i64* ins = sm + K1_HDR;
-  const i64* pool = params + (i64)blockIdx.y * P;
+  const i64* ins = sm;
+  const i64* pool = p.pools + (i64)blockIdx.y * P;
+  const i64* desc = p.desc;
   const int t = threadIdx.x;
   Acc acc[K15_MAX_RED];
 #pragma unroll
@@ -48,10 +51,10 @@ slot_agg_partial(i64 n, const i64* __restrict__ meta, int meta_len,
   const i64 stride = (i64)gridDim.x * blockDim.x;
   for (i64 row = (i64)blockIdx.x * blockDim.x + t; row < n; row += stride) {
     VmRow pr;
-    pr.load(planes, n_planes, valid_bits, row);
+    pr.load(p.planes, n_planes, valid_bits, row);
     i64 v[K1_MAX_REGS];
     bool ok[K1_MAX_REGS];
-    vm_run(ins, n_instr, row, pool, lut, pr, v, ok);
+    vm_run(ins, n_instr, row, pool, p.lut, pr, v, ok);
     bool m = live[row] != 0;
     if (where_reg >= 0) m = m && ok[where_reg] && v[where_reg] != 0;
     if (!m) continue;
@@ -67,25 +70,30 @@ slot_agg_partial(i64 n, const i64* __restrict__ meta, int meta_len,
     if (r >= n_red) break;
     const Acc b = block_merge<K15_THREADS>((int)desc[RED_DESC * r], acc[r], sn, sv);
     if (t == 0) {
-      i64* p = partial + 2 * (((i64)blockIdx.y * gridDim.x + blockIdx.x) * n_red + r);
-      p[0] = b.n;
-      p[1] = b.v;
+      i64* q = partial + 2 * (((i64)blockIdx.y * gridDim.x + blockIdx.x) * n_red + r);
+      q[0] = b.n;
+      q[1] = b.v;
     }
     __syncthreads();
   }
 }
 
-__global__ void slot_agg_combine(int n_red, int n_blocks, const i64* __restrict__ desc,
+// The reductions' ops, by value.
+struct K15Ops {
+  int op[K15_MAX_RED];
+};
+
+__global__ void slot_agg_combine(int n_red, int n_blocks, const __grid_constant__ K15Ops ops,
                                  const i64* __restrict__ partial, i64* __restrict__ out) {
   const int r = threadIdx.x;
   const i64 s = blockIdx.x;
   if (r >= n_red) return;
-  const int op = (int)desc[RED_DESC * r];
+  const int op = ops.op[r];
   Acc a = acc_init(op);
   for (int b = 0; b < n_blocks; ++b) {
-    const i64* p = partial + 2 * ((s * n_blocks + b) * n_red + r);
-    Acc q = {p[0], p[1]};
-    a = acc_merge(op, a, q);
+    const i64* q = partial + 2 * ((s * n_blocks + b) * n_red + r);
+    Acc c = {q[0], q[1]};
+    a = acc_merge(op, a, c);
   }
   out[2 * (s * n_red + r)] = a.n;
   out[2 * (s * n_red + r) + 1] = a.v;
@@ -100,23 +108,43 @@ extern "C" int slot_agg_blocks(i64 n) {
   return (int)b;
 }
 
-// out: k * n_red * 2 int64, (count, value) per slot and reduction.
-extern "C" int slot_agg_launch(i64 n, int k, const i64* meta, int meta_len, const i64* params,
-                               int P, const unsigned char* lut, const u64* planes,
-                               int n_planes, unsigned valid_bits, const unsigned char* live,
-                               int n_red, const i64* desc, i64* partial, i64* out,
-                               void* stream) {
-  if (meta_len > K1_MAX_META || meta_len < K1_HDR) return -1;
-  if (n <= 0 || k < 1 || k > 65535 || P < 1) return -1;
-  if (n_red < 1 || n_red > K15_MAX_RED) return -1;
-  if (n_planes < 0 || n_planes > VM_ROW_PLANES) return -1;
+template <class Prm>
+static int k15_go(const Prm& p, i64 n, int k, int n_instr, int where_reg, int P, int n_planes,
+                  unsigned valid_bits, const unsigned char* live, int n_red, const i64* desc,
+                  i64* partial, i64* out, cudaStream_t st) {
   const int blocks = slot_agg_blocks(n);
-  cudaStream_t st = (cudaStream_t)stream;
-  slot_agg_partial<<<dim3((unsigned)blocks, (unsigned)k), K15_THREADS, 0, st>>>(
-      n, meta, meta_len, params, P, lut, planes, n_planes, valid_bits, live, n_red, desc,
-      partial);
+  slot_agg_partial<Prm><<<dim3((unsigned)blocks, (unsigned)k), K15_THREADS, 0, st>>>(
+      p, n, n_instr, where_reg, P, n_planes, valid_bits, live, n_red, partial);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  slot_agg_combine<<<(unsigned)k, 32, 0, st>>>(n_red, blocks, desc, partial, out);
+  K15Ops ops;
+  for (int r = 0; r < n_red; ++r) ops.op[r] = (int)desc[RED_DESC * r];
+  slot_agg_combine<<<(unsigned)k, 32, 0, st>>>(n_red, blocks, ops, partial, out);
   return (int)cudaGetLastError();
+}
+
+// out: k * n_red * 2 int64, (count, value) per slot and reduction.
+// planes, ins (the program's n_instr instructions), pools (k x P), lut
+// and desc (n_red descriptors) are host arrays; they ride by value.
+extern "C" int slot_agg_launch(i64 n, int k, int P, const u64* planes, int n_planes,
+                               unsigned valid_bits, const i64* ins, int n_instr, int where_reg,
+                               const i64* pools, const unsigned char* lut, int lut_len,
+                               const unsigned char* live, int n_red, const i64* desc,
+                               i64* partial, i64* out, void* stream) {
+  if (n <= 0 || k < 1 || k > 65535 || P < 1) return -1;
+  if (n_red < 1 || n_red > K15_MAX_RED || where_reg >= K1_MAX_REGS) return -1;
+  const i64 pool_words = (i64)k * P;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (slot_small(n_instr, pool_words, lut_len)) {
+    SlotParamsSmall p;
+    const int e = slot_fill(&p, planes, n_planes, ins, n_instr, pools, pool_words, lut, lut_len,
+                            desc, n_red);
+    return e ? e : k15_go(p, n, k, n_instr, where_reg, P, n_planes, valid_bits, live, n_red,
+                          desc, partial, out, st);
+  }
+  SlotParamsLarge p;
+  const int e = slot_fill(&p, planes, n_planes, ins, n_instr, pools, pool_words, lut, lut_len,
+                          desc, n_red);
+  return e ? e : k15_go(p, n, k, n_instr, where_reg, P, n_planes, valid_bits, live, n_red, desc,
+                        partial, out, st);
 }

@@ -1,16 +1,23 @@
 // The K1 bytecode interpreter, shared by K1 and K5 (expr_vm.cu), K14
 // (slot_filter.cu) and K15 (slot_agg.cu).
 //
-// One thread runs the whole program for one row; registers v/ok live in
-// local memory. A plane slot of the program (OP_LOAD's a and b) names an
-// 8-byte value plane or a 1-byte valid plane; how the slot is read is the
-// caller's choice:
+// One thread runs the program for one row. A plane slot of the program
+// (OP_LOAD's a and b) names an 8-byte value plane or a 1-byte valid
+// plane; how the slot is read is the caller's choice:
 //   VmPlanes reads the device planes directly (K1, K5: one program run
-//            per row, so each plane is read once anyway);
-//   VmRow    reads one row's planes loaded beforehand (K14, K15: one row
-//            runs the program once per slot, with another constant pool
-//            each time, and loads its planes only once).
+//            per row, so each plane is read once anyway; K14, whose
+//            slot-invariant part loads each plane once a row);
+//   VmRow    reads one row's planes loaded beforehand (K15: one row runs
+//            the program once per slot, with another constant pool each
+//            time, and loads its planes only once).
+// So is where the registers live:
+//   VmArrayRegs the thread's own arrays v[] / ok[] (K1, K5, K15): indexed
+//            at run time, so the compiler puts them in local memory;
+//   VmSmemRegs  values in shared memory, one column a thread, and the
+//            valid bits in one 32-bit register (K14): no local memory.
 #pragma once
+
+#include <cstring>
 
 #include "common.cuh"
 
@@ -24,9 +31,11 @@ struct VmPlanes {
   }
 };
 
-// At most this many plane slots per row (kernels.SLOT_MAX_PLANES).
+// At most this many plane slots per program of K14 / K15
+// (kernels.SLOT_MAX_PLANES).
 #define VM_ROW_PLANES 16
 
+// One row's planes, loaded once (K15).
 struct VmRow {
   i64 vals[VM_ROW_PLANES];   // per slot: the row's value, or its valid byte
 
@@ -42,14 +51,37 @@ struct VmRow {
   __device__ __forceinline__ bool valid(i64 slot, i64) const { return vals[slot] != 0; }
 };
 
-// Run a K1 program over one row: registers v/ok hold every result. `pl`
-// reads the row's planes (VmPlanes or VmRow).
-template <class Planes>
-__device__ __forceinline__ void vm_run(const i64* __restrict__ ins, int n_instr, i64 row,
-                                       const i64* __restrict__ pool,
-                                       const unsigned char* __restrict__ lut, const Planes& pl,
-                                       i64* v, bool* ok) {
-  for (int k = 0; k < n_instr; ++k) {
+struct VmArrayRegs {
+  i64* v;
+  bool* ok;
+  __device__ __forceinline__ i64 val(int r) const { return v[r]; }
+  __device__ __forceinline__ bool valid(int r) const { return ok[r]; }
+  __device__ __forceinline__ void put(int r, i64 x, bool k) {
+    v[r] = x;
+    ok[r] = k;
+  }
+};
+
+struct VmSmemRegs {
+  i64* v;          // this thread's register 0; register r at v[r * stride]
+  int stride;      // threads of the block
+  unsigned okm;    // bit r: register r is valid
+  __device__ __forceinline__ i64 val(int r) const { return v[r * stride]; }
+  __device__ __forceinline__ bool valid(int r) const { return (okm >> r) & 1u; }
+  __device__ __forceinline__ void put(int r, i64 x, bool k) {
+    v[r * stride] = x;
+    okm = (okm & ~(1u << r)) | ((unsigned)k << r);
+  }
+};
+
+// Run instructions [from, to) of a K1 program over one row into the
+// register file `R`. `pl` reads the row's planes (VmPlanes or VmRow).
+template <class Planes, class Regs>
+__device__ __forceinline__ void vm_exec(const i64* __restrict__ ins, int from, int to, i64 row,
+                                        const i64* __restrict__ pool,
+                                        const unsigned char* __restrict__ lut,
+                                        const Planes& pl, Regs& R) {
+  for (int k = from; k < to; ++k) {
     const i64* in = ins + 6 * k;
     const int op = (int)in[0];
     const int d = (int)in[1];
@@ -67,7 +99,7 @@ __device__ __forceinline__ void vm_run(const i64* __restrict__ ins, int n_instr,
         break;
       case OP_EQ_I: case OP_NE_I: case OP_LT_I:
       case OP_LE_I: case OP_GT_I: case OP_GE_I: {
-        const i64 x = v[a], y = v[b];
+        const i64 x = R.val(a), y = R.val(b);
         bool r;
         switch (op) {
           case OP_EQ_I: r = x == y; break;
@@ -78,12 +110,12 @@ __device__ __forceinline__ void vm_run(const i64* __restrict__ ins, int n_instr,
           default: r = x >= y;
         }
         rv = r;
-        rk = ok[a] && ok[b];
+        rk = R.valid(a) && R.valid(b);
         break;
       }
       case OP_EQ_F: case OP_NE_F: case OP_LT_F:
       case OP_LE_F: case OP_GT_F: case OP_GE_F: {
-        const double x = as_f64(v[a]), y = as_f64(v[b]);
+        const double x = as_f64(R.val(a)), y = as_f64(R.val(b));
         bool r;
         switch (op) {
           case OP_EQ_F: r = x == y; break;
@@ -94,12 +126,12 @@ __device__ __forceinline__ void vm_run(const i64* __restrict__ ins, int n_instr,
           default: r = x >= y;
         }
         rv = r;
-        rk = ok[a] && ok[b];
+        rk = R.valid(a) && R.valid(b);
         break;
       }
       case OP_AND: case OP_OR: case OP_XOR: {
-        const bool at = v[a] != 0, bt = v[b] != 0;
-        const bool aa = ok[a], bb = ok[b];
+        const bool at = R.val(a) != 0, bt = R.val(b) != 0;
+        const bool aa = R.valid(a), bb = R.valid(b);
         if (op == OP_AND) {
           rv = at && bt;
           rk = (aa && bb) || (aa && !at) || (bb && !bt);
@@ -113,78 +145,160 @@ __device__ __forceinline__ void vm_run(const i64* __restrict__ ins, int n_instr,
         break;
       }
       case OP_NOT:
-        rv = v[a] == 0;
-        rk = ok[a];
+        rv = R.val(a) == 0;
+        rk = R.valid(a);
         break;
-      case OP_ADD_I: rv = (i64)((u64)v[a] + (u64)v[b]); rk = ok[a] && ok[b]; break;
-      case OP_SUB_I: rv = (i64)((u64)v[a] - (u64)v[b]); rk = ok[a] && ok[b]; break;
-      case OP_MUL_I: rv = (i64)((u64)v[a] * (u64)v[b]); rk = ok[a] && ok[b]; break;
+      case OP_ADD_I:
+        rv = (i64)((u64)R.val(a) + (u64)R.val(b));
+        rk = R.valid(a) && R.valid(b);
+        break;
+      case OP_SUB_I:
+        rv = (i64)((u64)R.val(a) - (u64)R.val(b));
+        rk = R.valid(a) && R.valid(b);
+        break;
+      case OP_MUL_I:
+        rv = (i64)((u64)R.val(a) * (u64)R.val(b));
+        rk = R.valid(a) && R.valid(b);
+        break;
       case OP_IDIV_I: case OP_MOD_I: {
         // truncating division, remainder with the dividend's sign;
         // divisor 0 -> NULL; -1 handled apart (INT64_MIN / -1 overflows)
-        const i64 x = v[a], y = v[b];
+        const i64 x = R.val(a), y = R.val(b);
         if (y == 0) rv = op == OP_IDIV_I ? x : 0;
         else if (y == -1) rv = op == OP_IDIV_I ? (i64)(0ULL - (u64)x) : 0;
         else rv = op == OP_IDIV_I ? x / y : x % y;
-        rk = ok[a] && ok[b] && y != 0;
+        rk = R.valid(a) && R.valid(b) && y != 0;
         break;
       }
-      case OP_ADD_F: rv = as_i64(as_f64(v[a]) + as_f64(v[b])); rk = ok[a] && ok[b]; break;
-      case OP_SUB_F: rv = as_i64(as_f64(v[a]) - as_f64(v[b])); rk = ok[a] && ok[b]; break;
-      case OP_MUL_F: rv = as_i64(as_f64(v[a]) * as_f64(v[b])); rk = ok[a] && ok[b]; break;
+      case OP_ADD_F:
+        rv = as_i64(as_f64(R.val(a)) + as_f64(R.val(b)));
+        rk = R.valid(a) && R.valid(b);
+        break;
+      case OP_SUB_F:
+        rv = as_i64(as_f64(R.val(a)) - as_f64(R.val(b)));
+        rk = R.valid(a) && R.valid(b);
+        break;
+      case OP_MUL_F:
+        rv = as_i64(as_f64(R.val(a)) * as_f64(R.val(b)));
+        rk = R.valid(a) && R.valid(b);
+        break;
       case OP_DIV_F: case OP_IDIV_F: case OP_MOD_F: {
-        const double x = as_f64(v[a]), y = as_f64(v[b]);
+        const double x = as_f64(R.val(a)), y = as_f64(R.val(b));
         const bool zero = y == 0.0;
         const double safe = zero ? 1.0 : y;
         if (op == OP_DIV_F) rv = as_i64(x / safe);
         else if (op == OP_IDIV_F) rv = __double2ll_rz(trunc(x / safe));
         else rv = as_i64(fmod(x, safe));
-        rk = ok[a] && ok[b] && !zero;
+        rk = R.valid(a) && R.valid(b) && !zero;
         break;
       }
-      case OP_I2F: rv = as_i64((double)v[a] / as_f64(pool[imm])); rk = ok[a]; break;
-      case OP_MULC_I: rv = (i64)((u64)v[a] * (u64)pool[imm]); rk = ok[a]; break;
-      case OP_NEG_I: rv = (i64)(0ULL - (u64)v[a]); rk = ok[a]; break;
-      case OP_NEG_F: rv = as_i64(-as_f64(v[a])); rk = ok[a]; break;
-      case OP_ISNULL: rv = !ok[a]; rk = true; break;
-      case OP_NOTNULL: rv = ok[a]; rk = true; break;
+      case OP_I2F: rv = as_i64((double)R.val(a) / as_f64(pool[imm])); rk = R.valid(a); break;
+      case OP_MULC_I: rv = (i64)((u64)R.val(a) * (u64)pool[imm]); rk = R.valid(a); break;
+      case OP_NEG_I: rv = (i64)(0ULL - (u64)R.val(a)); rk = R.valid(a); break;
+      case OP_NEG_F: rv = as_i64(-as_f64(R.val(a))); rk = R.valid(a); break;
+      case OP_ISNULL: rv = !R.valid(a); rk = true; break;
+      case OP_NOTNULL: rv = R.valid(a); rk = true; break;
       case OP_IN_I: case OP_IN_F: {
         bool hit = false;
         if (op == OP_IN_I) {
-          const i64 x = v[a];
+          const i64 x = R.val(a);
           for (i64 j = 0; j < b; ++j) hit |= pool[imm + j] == x;
         } else {
-          const double x = as_f64(v[a]);
+          const double x = as_f64(R.val(a));
           for (i64 j = 0; j < b; ++j) hit |= as_f64(pool[imm + j]) == x;
         }
         rv = (c & 1) ? !hit : hit;
-        rk = ok[a] && (hit || !(c & 2));
+        rk = R.valid(a) && (hit || !(c & 2));
         break;
       }
       case OP_LUT: {
-        i64 code = v[a];
+        i64 code = R.val(a);
         code = code < 0 ? 0 : (code > b - 1 ? b - 1 : code);
         const bool hit = lut[imm + code] != 0;
         rv = c ? !hit : hit;
-        rk = ok[a];
+        rk = R.valid(a);
         break;
       }
-      case OP_BOOLV: rv = imm; rk = ok[a]; break;
+      case OP_BOOLV: rv = imm; rk = R.valid(a); break;
       case OP_SELECT: {
-        const bool cond = v[a] != 0 && ok[a];
-        rv = cond ? v[b] : v[c];
-        rk = cond ? ok[b] : ok[c];
+        const bool cond = R.val(a) != 0 && R.valid(a);
+        rv = cond ? R.val(b) : R.val(c);
+        rk = cond ? R.valid(b) : R.valid(c);
         break;
       }
       case OP_IFNULL:
-        rv = ok[a] ? v[a] : v[b];
-        rk = ok[a] || ok[b];
+        rv = R.valid(a) ? R.val(a) : R.val(b);
+        rk = R.valid(a) || R.valid(b);
         break;
-      case OP_TRUTHY_I: rv = v[a] != 0; rk = ok[a]; break;
-      case OP_TRUTHY_F: rv = as_f64(v[a]) != 0.0; rk = ok[a]; break;
+      case OP_TRUTHY_I: rv = R.val(a) != 0; rk = R.valid(a); break;
+      case OP_TRUTHY_F: rv = as_f64(R.val(a)) != 0.0; rk = R.valid(a); break;
       default: break;
     }
-    v[d] = rv;
-    ok[d] = rk;
+    R.put(d, rv, rk);
   }
+}
+
+// The whole program over one row into the thread's arrays v / ok.
+template <class Planes>
+__device__ __forceinline__ void vm_run(const i64* __restrict__ ins, int n_instr, i64 row,
+                                       const i64* __restrict__ pool,
+                                       const unsigned char* __restrict__ lut, const Planes& pl,
+                                       i64* v, bool* ok) {
+  VmArrayRegs R{v, ok};
+  vm_exec(ins, 0, n_instr, row, pool, lut, pl, R);
+}
+
+// ---- K14 and K15's parameter block: everything a slot launch reads
+// besides the planes' rows rides by value in the launch's parameters
+// (__grid_constant__), so a launch copies nothing to the card first and
+// never waits for the stream: the plane pointers, the program's
+// instructions, the slots' constant pools (k rows of P), K15's
+// reduction descriptors and the program's LUT. ops/kernels.py packs the
+// parts (SLOT_* there mirror the limits) and the launcher picks the
+// smaller block where the parts fit it. CUDA takes 32,764 bytes of
+// parameters a launch (12.1 and later); the larger block and the
+// launchers' other arguments stay well under that.
+#define SLOT_MAX_INSTR 64      // exprc.MAX_INSTRS
+#define SLOT_POOL_WORDS 2048   // k * P: sched.MAX_SLOTS x MAX_INSTRS
+#define SLOT_LUT_BYTES 512
+#define SLOT_MAX_RED 9         // K15's reductions a slot
+#define SLOT_PARAM_LIMIT 32764
+
+template <int NI, int NP, int NL>
+struct SlotParams {
+  static constexpr int MAX_INSTR = NI, POOL_WORDS = NP, LUT_BYTES = NL;
+  u64 planes[VM_ROW_PLANES];
+  i64 ins[6 * NI];
+  i64 pools[NP];
+  i64 desc[RED_DESC * SLOT_MAX_RED];
+  unsigned char lut[NL];
+};
+
+typedef SlotParams<24, 256, 64> SlotParamsSmall;
+typedef SlotParams<SLOT_MAX_INSTR, SLOT_POOL_WORDS, SLOT_LUT_BYTES> SlotParamsLarge;
+static_assert(sizeof(SlotParamsLarge) + 256 <= SLOT_PARAM_LIMIT,
+              "the slot parameter block and the launchers' other arguments "
+              "exceed CUDA's parameter limit");
+
+// Whether the parts fit the smaller block.
+__host__ inline bool slot_small(int n_instr, i64 pool_words, int lut_len) {
+  return n_instr <= SlotParamsSmall::MAX_INSTR && pool_words <= SlotParamsSmall::POOL_WORDS &&
+         lut_len <= SlotParamsSmall::LUT_BYTES;
+}
+
+// Fill a block's parts from host arrays; -1 where a part does not fit.
+template <class Prm>
+static int slot_fill(Prm* p, const u64* planes, int n_planes, const i64* ins, int n_instr,
+                     const i64* pools, i64 pool_words, const unsigned char* lut, int lut_len,
+                     const i64* desc, int n_red) {
+  if (n_planes < 0 || n_planes > VM_ROW_PLANES || n_instr < 0 || n_instr > Prm::MAX_INSTR ||
+      pool_words < 1 || pool_words > Prm::POOL_WORDS || lut_len < 0 ||
+      lut_len > Prm::LUT_BYTES || n_red < 0 || n_red > SLOT_MAX_RED)
+    return -1;
+  if (n_planes > 0) memcpy(p->planes, planes, 8 * (size_t)n_planes);
+  if (n_instr > 0) memcpy(p->ins, ins, 48 * (size_t)n_instr);
+  memcpy(p->pools, pools, 8 * (size_t)pool_words);
+  if (n_red > 0) memcpy(p->desc, desc, 8 * RED_DESC * (size_t)n_red);
+  if (lut_len > 0) memcpy(p->lut, lut, (size_t)lut_len);
+  return 0;
 }

@@ -848,26 +848,143 @@ def run_program_plain(fin: Finalized, plane_list: list, live: torch.Tensor):
     → (mask bool[n], gid int64[n] or None, [(values, valid)] per output).
     Values are int64 or float64 tensors per fin.out_dts; booleans are
     int64 0/1 as in K1."""
+    dev = live.device
+    regs: dict[int, tuple] = {}
+    _run_plain(fin.instructions(), regs, torch.from_numpy(fin.pool).to(dev),
+               torch.from_numpy(fin.lut).to(dev), plane_list, live)
+    where, outs, grp = fin.tail()
+    mask = live.clone()
+    if where >= 0:
+        v, ok = regs[where]
+        mask &= ok & (_view(v, torch.int64) != 0)
+    gid = None
+    if grp:
+        sink = int(fin.meta[4])
+        for vslot, kslot, size, radix in grp:
+            c = torch.where(plane_list[kslot], plane_list[vslot],
+                            torch.full_like(plane_list[vslot], size))
+            gid = c if gid is None else gid * radix + c
+        gid = torch.where(mask, gid, torch.full_like(gid, sink))
+    values = []
+    for r, dt in zip(outs, fin.out_dts):
+        v, ok = regs[r]
+        v = _view(v, torch.float64 if dt == "f" else torch.int64)
+        values.append((v.contiguous(), ok.contiguous()))
+    return mask, gid, values
+
+
+def _view(v: torch.Tensor, dtype) -> torch.Tensor:
+    """A register's 64-bit values as `dtype` (int64 or float64 bits)."""
+    return v if v.dtype == dtype else v.view(dtype)
+
+
+# ops that read the constant pool: under a micro-batch launch their
+# results, and every register downstream of them, differ from slot to slot
+POOL_OPS = (OP_CONST, OP_IN_I, OP_IN_F, OP_I2F, OP_MULC_I)
+
+
+def slot_split(fin: Finalized) -> tuple[list, int, int]:
+    """`fin`'s program as K14 runs it: (instructions, n_inv, where
+    register). The slot-invariant instructions come first (a row runs
+    them once), then those that read the constant pool or a value
+    downstream of one (run once a slot), each part in program order, with
+    registers allocated anew for that order: a value of the first part
+    that the second reads keeps its register to the end, so every slot
+    finds it. Where the new order needs more than MAX_REGS registers, the
+    program as it is, all of it per slot (n_inv 0)."""
+    ins = list(fin.instructions())
+    where = int(fin.meta[1])
+    # the program as values: instruction i defines value i; srcs[i] names
+    # the values its register operands read (None for a non-register)
+    cur: dict[int, int] = {}
+    srcs = []
+    for i, (op, d, a, b, c, _imm) in enumerate(ins):
+        srcs.append([cur[v] if is_reg else None
+                     for is_reg, v in zip(_REG_ARGS[op], (a, b, c))])
+        cur[d] = i
+    root = cur[where] if where >= 0 else None
+    dep: list[bool] = []
+    for i, x in enumerate(ins):
+        dep.append(x[0] in POOL_OPS
+                   or any(s is not None and dep[s] for s in srcs[i]))
+    order = [i for i in range(len(ins)) if not dep[i]] \
+        + [i for i in range(len(ins)) if dep[i]]
+    end = len(order)
+    last: dict[int, int] = {}
+    for p, i in enumerate(order):
+        for s in srcs[i]:
+            if s is not None:
+                last[s] = end if dep[i] and not dep[s] \
+                    else max(last.get(s, p), p)
+    if root is not None:
+        last[root] = end
+    free = list(range(MAX_REGS - 1, -1, -1))
+    phys: dict[int, int] = {}
+    code = []
+    for p, i in enumerate(order):
+        op, _d, a, b, c, imm = ins[i]
+        ra = [v if s is None else phys[s]
+              for s, v in zip(srcs[i], (a, b, c))]
+        for s in srcs[i]:
+            if s is not None and last[s] == p and s in phys:
+                free.append(phys.pop(s))
+        if not free:
+            return ins, 0, where
+        phys[i] = free.pop()
+        code.append([op, phys[i]] + ra + [imm])
+        if i not in last:          # read by nothing: free at once
+            free.append(phys.pop(i))
+    n_inv = dep.count(False)
+    return code, n_inv, (phys[root] if root is not None else -1)
+
+
+def run_split_plain(fin: Finalized, pools: torch.Tensor, plane_list: list,
+                    live: torch.Tensor) -> list:
+    """K14's order of evaluation in plain torch: `slot_split`'s invariant
+    part once over the rows with no constant pool at all, then its
+    per-slot part once a slot with that slot's row of `pools` (int64
+    [k, P]), over the registers the invariant part left → one mask
+    bool[n] a slot (live & valid & truthy WHERE)."""
+    dev = live.device
+    ins, n_inv, where = slot_split(fin)
+    lut = torch.from_numpy(fin.lut).to(dev)
+    regs: dict[int, tuple] = {}
+    _run_plain(ins[:n_inv], regs, None, lut, plane_list, live)
+    masks = []
+    for s in range(pools.shape[0]):
+        _run_plain(ins[n_inv:], regs, pools[s].to(dev), lut, plane_list,
+                   live)
+        mask = live.clone()
+        if where >= 0:
+            v, ok = regs[where]
+            mask &= ok & (_view(v, torch.int64) != 0)
+        masks.append(mask)
+    return masks
+
+
+def _run_plain(instrs, regs: dict, pool, lut, plane_list: list,
+               live: torch.Tensor) -> None:
+    """Run `instrs` over whole planes into `regs` (register → (values,
+    valid)). `pool` None: the instructions may not read the pool."""
     n = live.shape[0]
     dev = live.device
-    pool = torch.from_numpy(fin.pool).to(dev)
-    pool_f = pool.view(torch.float64)
-    lut = torch.from_numpy(fin.lut).to(dev)
+    if pool is not None:
+        pool_f = pool.view(torch.float64)
     true_ = torch.ones(n, dtype=torch.bool, device=dev)
-    regs: dict[int, tuple] = {}
 
     def iv(r):      # int64 view of a register
-        v = regs[r][0]
-        return v if v.dtype == torch.int64 else v.view(torch.int64)
+        return _view(regs[r][0], torch.int64)
 
     def fv(r):      # f64 view of a register
-        v = regs[r][0]
-        return v if v.dtype == torch.float64 else v.view(torch.float64)
+        return _view(regs[r][0], torch.float64)
 
     def ok(r):
         return regs[r][1]
 
-    for op, d, a, b, c, imm in fin.instructions():
+    for op, d, a, b, c, imm in instrs:
+        if pool is None and op in POOL_OPS:
+            raise errors.DeviceError(f"instruction {op} reads the constant "
+                                     "pool in the slot-invariant part")
         if op == OP_LOAD:
             val = plane_list[a]
             if val.dtype not in (torch.int64, torch.float64):
@@ -967,23 +1084,6 @@ def run_program_plain(fin: Finalized, plane_list: list, live: torch.Tensor):
         else:
             raise errors.DeviceError(f"unknown K1 opcode {op}")
         regs[d] = res
-    where, outs, grp = fin.tail()
-    mask = live.clone()
-    if where >= 0:
-        mask &= ok(where) & (iv(where) != 0)
-    gid = None
-    if grp:
-        sink = int(fin.meta[4])
-        for vslot, kslot, size, radix in grp:
-            c = torch.where(plane_list[kslot], plane_list[vslot],
-                            torch.full_like(plane_list[vslot], size))
-            gid = c if gid is None else gid * radix + c
-        gid = torch.where(mask, gid, torch.full_like(gid, sink))
-    values = []
-    for r, dt in zip(outs, fin.out_dts):
-        v = fv(r) if dt == "f" else iv(r)
-        values.append((v.contiguous(), ok(r).contiguous()))
-    return mask, gid, values
 
 
 def _cmp(k: int, x, y):

@@ -86,9 +86,10 @@ import torch
 from tidb_tpu_torch import errors
 from tidb_tpu_torch.copr.proto import AGG_NAME, ExprType, SelectRequest
 from tidb_tpu_torch.ops import _ext, columnar as col, membudget
-from tidb_tpu_torch.ops.exprc import (CompiledExpr, Finalized, Program,
-                                      Unsupported, _dec_guard, compile_expr,
-                                      run_program_plain)
+from tidb_tpu_torch.ops.exprc import (HDR, CompiledExpr, Finalized,
+                                      Program, Unsupported, _dec_guard,
+                                      compile_expr, run_program_plain,
+                                      slot_split)
 
 I64_MAX = (1 << 63) - 1
 I64_MIN = -(1 << 63)
@@ -113,16 +114,15 @@ RADIX_MAX_SEGMENTS = 1 << 20
 GC_BASE = -1000
 
 # kernel launches per kernel since the last reset (plain runs not
-# counted); K6 counts its three routes apart (k6_route): a span copy per
-# warp in the default shared memory (seg_states_ragged), one a block in
-# the opt-in shared memory (seg_states_ragged_smem), and larger spans
-# (seg_states_ragged_sorted); K4 its two (k4_route): segment windows in
+# counted); K6 counts its two routes apart (k6_route): span copies a
+# block in the opt-in shared memory (seg_states_ragged_smem), and larger
+# spans (seg_states_ragged_sorted); K4 its two (k4_route): segment windows in
 # the opt-in shared memory (seg_agg_block) and the segmented pass over
 # sorted ids (seg_agg_sorted, also the ranked and DISTINCT paths' pass);
 # radix_pass one pass of the radix sort K11 and K4's sorted route run
 LAUNCHES = {"expr_vm": 0, "scalar_agg": 0, "seg_agg_onehot": 0,
             "seg_agg_sorted": 0, "rank_groups": 0, "distinct_runs": 0,
-            "topk_select": 0, "expr_vm_ragged": 0, "seg_states_ragged": 0,
+            "topk_select": 0, "expr_vm_ragged": 0,
             "seg_states_ragged_smem": 0,
             "seg_states_ragged_sorted": 0, "combine_partials": 0,
             "join_build": 0, "join_probe": 0, "dict_remap": 0,
@@ -131,9 +131,9 @@ LAUNCHES = {"expr_vm": 0, "scalar_agg": 0, "seg_agg_onehot": 0,
             "shard_topk": 0, "key_partition": 0, "join_probe_seg": 0,
             "seg_agg_block": 0, "radix_pass": 0}
 
-# K14 / K15 read each row's planes once into a table of this many entries
+# K14 / K15 take a program's planes from a table of this many entries
 # (ops/csrc/vm.cuh VM_ROW_PLANES); K15 folds at most SLOT_MAX_REDS
-# reductions per slot (ops/csrc/slot_agg.cu K15_MAX_RED)
+# reductions per slot (vm.cuh SLOT_MAX_RED)
 SLOT_MAX_PLANES = 16
 SLOT_MAX_REDS = 9
 
@@ -2173,9 +2173,15 @@ def _check_program_planes(fin: Finalized, plane_list: list,
     if len(plane_list) != len(fin.plane_keys):
         raise errors.DeviceError("plane list does not match the program")
     for key_which, t in zip(fin.plane_keys, plane_list):
-        dtypes = (torch.bool,) if key_which[1] else (torch.int64,
-                                                     torch.float64)
-        _check_plane(t, n, dtypes, f"plane {key_which}", dev)
+        try:
+            _check_plane(t, n, _VALID_DTYPES if key_which[1]
+                         else _VALUE_DTYPES, "plane", dev)
+        except errors.DeviceError as e:
+            raise errors.DeviceError(f"{e} ({key_which})") from None
+
+
+_VALID_DTYPES = (torch.bool,)
+_VALUE_DTYPES = (torch.int64, torch.float64)
 
 
 def expr_vm(fin: Finalized, plane_list: list, live: torch.Tensor,
@@ -2422,7 +2428,8 @@ def seg_agg_onehot(gid: torch.Tensor, mask: torch.Tensor, num_segments: int,
 # windows and K4_MAX_REDS reductions
 K4_MAX_WINDOWS = 7
 K4_WINDOWS_CAP = 16
-# one window's integer states in up to this many copies (seg_block.cuh)
+# one window's (K6: one region's) integer states in up to this many
+# copies (seg_block.cuh)
 K4_MAX_COPIES = 16
 K4_MAX_REDS = 64
 K4_ROUTES = ("seg_agg_block", "seg_agg_sorted")
@@ -2500,10 +2507,11 @@ def k4_route(n_red: int, n_slots: int, n_f64: int, num_segments: int,
 
 def k4_copies(n_slots: int, n_f64: int, span: int, rows: int,
               limit: int) -> int:
-    """Copies of a window's integer states for K4's block: the largest
-    power of two up to K4_MAX_COPIES whose copies (with the f64 staging)
-    fit `limit`, so that lanes sharing a segment fold into different
-    copies (few segments: a hot group's lanes pile onto one address)."""
+    """Copies of a span's integer states for a block of seg_block.cuh
+    (K4's window, K6's region): the largest power of two up to
+    K4_MAX_COPIES whose copies (with the f64 staging) fit `limit`, so that
+    lanes sharing a segment fold into different copies (few segments: a
+    hot group's lanes pile onto one address)."""
     base = k6_block_bytes(n_slots, n_f64, span, rows)
     copies = 1
     while copies < K4_MAX_COPIES and \
@@ -2865,20 +2873,25 @@ def seg_states_ragged_plain(gid: torch.Tensor, caps: list, Gs: list,
     return torch.stack(out)
 
 
-# K6's routes (seg_states_ragged.cu): a span copy per warp within the
-# default shared memory (K6_WARPS, K6_SMEM_BYTES), one a block within the
-# card's opt-in limit (K6B_*, seg_block.cuh, which K4 shares), else the
-# sorted route
+# K6's routes (seg_states_ragged.cu): the block route within the card's
+# opt-in shared memory (K6B_*, seg_block.cuh, which K4 shares), else the
+# sorted route. The block route's instantiations: K6B_ROWS rows a thread
+# per chunk at one block an SM, and for small spans K6B_SMALL_ROWS rows at
+# K6B_SMALL_BLOCKS blocks an SM; its tables ride by value (struct
+# K6Params) up to K6_PARAM_REGIONS regions and K6_PARAM_TAB plane pointers
 K6_RDESC = 6
-K6_WARPS = 8
-K6_SMEM_BYTES = 49152
-K6_TILE = 4096
 K6B_THREADS = 512
 K6B_WARPS = 16
 K6B_MAX_REDS = 32
 K6B_ROWS = (4, 2, 1)         # rows a thread per chunk, largest first
-K6_ROUTES = ("seg_states_ragged", "seg_states_ragged_smem",
-             "seg_states_ragged_sorted")
+K6B_SMALL_ROWS = 2
+K6B_SMALL_BLOCKS = 2
+# a small-span block's share of the limit: half of it, less what each
+# block's static shared memory and the card's reserve take
+K6B_SMALL_RESERVE = 2048
+K6_PARAM_REGIONS = 16
+K6_PARAM_TAB = 512
+K6_ROUTES = ("seg_states_ragged_smem", "seg_states_ragged_sorted")
 
 
 def k6_block_bytes(n_red: int, n_f64: int, span_max: int, rows: int) -> int:
@@ -2895,17 +2908,25 @@ def k6_block_bytes(n_red: int, n_f64: int, span_max: int, rows: int) -> int:
 def k6_route(n_red: int, span_max: int, limit: int, n_f64: int = 0) -> tuple:
     """K6's route for n_red reductions (n_f64 of them f64 ops) over spans
     of at most span_max segments, given the block route's shared-memory
-    limit in bytes: (LAUNCHES name, rows a thread per chunk or 0). A copy
-    of the span per warp where 8 of them fit the default 48 KB; else one a
-    block where it (and, for f64 ops, a chunk's staging) fits `limit`;
-    else the sorted route."""
-    if K6_WARPS * n_red * span_max * 8 <= K6_SMEM_BYTES:
-        return "seg_states_ragged", 0
+    limit in bytes: (LAUNCHES name, rows a thread per chunk, blocks an SM,
+    copies of the integer states; 0, 0, 0 off the block route). Small
+    spans, whose copy (and, for f64 ops, a chunk's staging) fits a
+    K6B_SMALL_BLOCKS-th of `limit`: the K6B_SMALL_ROWS instantiation at
+    K6B_SMALL_BLOCKS blocks an SM, with as many copies as fit that share
+    (k4_copies: a hot group's lanes spread over them); else one block an
+    SM at the most rows of K6B_ROWS that fit `limit`, with the copies that
+    fit it; else the sorted route."""
     if n_red <= K6B_MAX_REDS:
+        small = limit // K6B_SMALL_BLOCKS - K6B_SMALL_RESERVE
+        if k6_block_bytes(n_red, n_f64, span_max, K6B_SMALL_ROWS) <= small:
+            return ("seg_states_ragged_smem", K6B_SMALL_ROWS,
+                    K6B_SMALL_BLOCKS, k4_copies(n_red, n_f64, span_max,
+                                                K6B_SMALL_ROWS, small))
         for rows in K6B_ROWS:
             if k6_block_bytes(n_red, n_f64, span_max, rows) <= limit:
-                return "seg_states_ragged_smem", rows
-    return "seg_states_ragged_sorted", 0
+                return ("seg_states_ragged_smem", rows, 1,
+                        k4_copies(n_red, n_f64, span_max, rows, limit))
+    return "seg_states_ragged_sorted", 0, 0, 0
 
 
 def k6_block_units(n_rows: list, blocks: int) -> list:
@@ -2940,9 +2961,10 @@ def _k6_block_limit(lib, dev: torch.device) -> int:
     return _card_query(_K6_LIMIT, dev.index, lib.seg_states_block_limit)
 
 
-def _k6_block_grid(lib, dev: torch.device, rows: int, smem: int) -> int:
-    return _card_query(_K6_GRID, (dev.index, rows, smem),
-                       lib.seg_states_block_grid, rows, smem)
+def _k6_block_grid(lib, dev: torch.device, rows: int, minb: int,
+                   smem: int) -> int:
+    return _card_query(_K6_GRID, (dev.index, rows, minb, smem),
+                       lib.seg_states_block_grid, rows, minb, smem)
 
 
 def seg_states_ragged(gid: torch.Tensor, caps: list, n_rows: list,
@@ -2966,7 +2988,8 @@ def k6_prepare(gid: torch.Tensor, caps: list, n_rows: list, Gs: list,
     """Everything of a K6 launch but the launch (checks, tables, route by
     k6_route, buffers). Returns (launch, out); launch() runs the kernel
     (with the stable sort of the offset ids on the sorted route) into
-    out."""
+    out. The block route copies nothing to the card while its tables fit
+    K6Params."""
     dev = gid.device
     R, n_red = len(caps), len(contribs)
     total = int(sum(caps))
@@ -2996,47 +3019,43 @@ def k6_prepare(gid: torch.Tensor, caps: list, n_rows: list, Gs: list,
             vals.append(0 if si.values is None or op == R_COUNT
                         else si.values.data_ptr())
             valids.append(0 if si.valid is None else si.valid.data_ptr())
-    t_red = torch.tensor(red_rows, dtype=torch.int64).reshape(-1).to(dev)
-    t_vals = torch.tensor(vals, dtype=torch.int64).to(dev)
-    t_valid = torch.tensor(valids, dtype=torch.int64).to(dev)
     out = torch.empty(n_red * S, dtype=torch.int64, device=dev)
     span_max = max(spans)
     n_f64 = sum(r.op in F_OPS for r in reds[0])
-    route, rows = k6_route(n_red, span_max, _k6_block_limit(lib, dev), n_f64)
+    route, rows, minb, copies = k6_route(
+        n_red, span_max, _k6_block_limit(lib, dev), n_f64)
     rdesc = [[int(bases[r]), int(n_rows[r]), int(offs[r]), spans[r], 0, 0]
              for r in range(R)]
-    if route == "seg_states_ragged":
-        tile_region = []
-        for r in range(R):
-            n_t = (int(n_rows[r]) + K6_TILE - 1) // K6_TILE
-            rdesc[r][4:] = [len(tile_region), n_t]
-            tile_region.extend([r] * n_t)
-        t_tiles = torch.tensor(tile_region or [0], dtype=torch.int32).to(dev)
-        part = torch.empty(max(len(tile_region), 1) * n_red * span_max,
-                           dtype=torch.int64, device=dev)
-
-        def run() -> int:
-            return lib.seg_states_tiles_launch(
-                len(tile_region), t_rdesc.data_ptr(), R, t_tiles.data_ptr(),
-                gid.data_ptr(), n_red, t_red.data_ptr(), t_vals.data_ptr(),
-                t_valid.data_ptr(), span_max, S, part.data_ptr(),
-                out.data_ptr(), _stream(dev))
-    elif route == "seg_states_ragged_smem":
-        smem = k6_block_bytes(n_red, n_f64, span_max, rows)
-        units = k6_block_units(n_rows, _k6_block_grid(lib, dev, rows, smem))
+    if route == "seg_states_ragged_smem":
+        smem = k6_block_bytes(n_red, n_f64, span_max, rows) \
+            + 8 * (copies - 1) * n_red * span_max
+        units = k6_block_units(
+            n_rows, _k6_block_grid(lib, dev, rows, minb, smem))
         first = 0
         for r in range(R):
             rdesc[r][4:] = [first, units[r]]
             first += units[r]
         part = torch.empty(max(first, 1) * n_red * span_max,
                            dtype=torch.int64, device=dev)
+        # the tables go by value (a host array the launch copies) where
+        # they fit K6Params, else they are read from the card
+        tables = array.array("q", [x for row in rdesc + red_rows for x in row]
+                             + vals + valids)
+        on_card = R > K6_PARAM_REGIONS or 2 * n_red * R > K6_PARAM_TAB
+        if on_card:
+            tables = torch.tensor(tables, dtype=torch.int64).to(dev)
 
         def run() -> int:
+            ptr = tables.data_ptr() if on_card else tables.buffer_info()[0]
             return lib.seg_states_block_launch(
-                rows, first, t_rdesc.data_ptr(), R, gid.data_ptr(), n_red,
-                n_f64, t_red.data_ptr(), t_vals.data_ptr(), t_valid.data_ptr(),
-                span_max, S, part.data_ptr(), out.data_ptr(), _stream(dev))
+                rows, minb, copies, first, ptr, int(on_card), R,
+                gid.data_ptr(), n_red, n_f64, span_max, S, part.data_ptr(),
+                out.data_ptr(), _stream(dev))
     else:
+        t_red = torch.tensor(red_rows, dtype=torch.int64).reshape(-1).to(dev)
+        t_vals = torch.tensor(vals, dtype=torch.int64).to(dev)
+        t_valid = torch.tensor(valids, dtype=torch.int64).to(dev)
+        t_rdesc = torch.tensor(rdesc, dtype=torch.int64).reshape(-1).to(dev)
         region_off = torch.repeat_interleave(
             torch.from_numpy(offs[:-1]).to(dev),
             torch.tensor(caps, device=dev))
@@ -3050,8 +3069,6 @@ def k6_prepare(gid: torch.Tensor, caps: list, n_rows: list, Gs: list,
                 S, n_red, t_red.data_ptr(), t_vals.data_ptr(),
                 t_valid.data_ptr(), part.data_ptr(), out.data_ptr(),
                 _stream(dev))
-
-    t_rdesc = torch.tensor(rdesc, dtype=torch.int64).reshape(-1).to(dev)
 
     def launch():
         _ext.check(run(), route)
@@ -3363,6 +3380,20 @@ def region_agg_states(gid: np.ndarray, specs: list, G: int, n_rows: int,
 # run with the slot's row of `pools` (int64 [k, P]) as its constant pool.
 # ---------------------------------------------------------------------------
 
+# K14 / K15's parameter block (ops/csrc/vm.cuh struct SlotParams): the
+# plane pointers, the program, the slots' pools, K15's descriptors and
+# the program's LUT ride by value in the launch, within these limits
+SLOT_MAX_INSTRS = 64         # exprc.MAX_INSTRS
+SLOT_POOL_WORDS = 2048       # k * P: sched.MAX_SLOTS x MAX_INSTRS
+SLOT_LUT_BYTES = 512
+# CUDA's limit on a launch's parameters (12.1 and later)
+SLOT_PARAM_LIMIT = 32764
+# the two blocks' (instructions, pool words, LUT bytes): the launcher
+# takes the smaller where the parts fit it
+SLOT_BLOCKS = ((24, 256, 64), (SLOT_MAX_INSTRS, SLOT_POOL_WORDS,
+                               SLOT_LUT_BYTES))
+
+
 def _slot_fin(fin: Finalized, pool: torch.Tensor) -> Finalized:
     return Finalized(fin.meta, pool.cpu().numpy(), fin.lut, fin.plane_keys,
                      fin.out_dts)
@@ -3374,32 +3405,74 @@ def _slot_masks_plain(fin: Finalized, pools: torch.Tensor, plane_list: list,
             for s in range(pools.shape[0])]
 
 
+class _SlotProgram:
+    """What K14 and K15 carry of one program, made once per bytecode and
+    LUT: K14's order of it (exprc.slot_split: instructions, the invariant
+    part's length, the WHERE register, the registers written), K15's
+    instructions in program order, the LUT, their host addresses (the
+    arrays are the object's own), and the valid-plane bits of its plane
+    table."""
+
+    __slots__ = ("split", "n_inv", "split_where", "n_regs", "ins",
+                 "n_instr", "where", "lut", "valid_bits", "p_split", "p_ins",
+                 "p_lut")
+
+    def __init__(self, fin: Finalized):
+        if fin.n_instr > SLOT_MAX_INSTRS or len(fin.plane_keys) \
+                > SLOT_MAX_PLANES or fin.lut.shape[0] > SLOT_LUT_BYTES:
+            raise errors.DeviceError(
+                f"{fin.n_instr} instructions, {len(fin.plane_keys)} planes "
+                f"and a {fin.lut.shape[0]}-byte LUT exceed the slot "
+                f"launch's parameters ({SLOT_MAX_INSTRS}, "
+                f"{SLOT_MAX_PLANES}, {SLOT_LUT_BYTES})")
+        code, self.n_inv, self.split_where = slot_split(fin)
+        self.split = np.asarray(code, dtype=np.int64).reshape(-1)
+        self.n_regs = 1 + max([x[1] for x in code], default=-1)
+        self.n_instr = fin.n_instr
+        self.ins = np.ascontiguousarray(fin.meta[HDR:HDR + 6 * self.n_instr])
+        self.where = int(fin.meta[1])
+        self.lut = fin.lut.copy()
+        self.valid_bits = sum(1 << i for i, (_key, which)
+                              in enumerate(fin.plane_keys) if which)
+        self.p_split, self.p_ins, self.p_lut = (
+            a.__array_interface__["data"][0]
+            for a in (self.split, self.ins, self.lut))
+
+
+_SLOT_PROGS: dict = {}       # (bytecode, LUT) -> _SlotProgram
+_SLOT_LOCK = threading.Lock()
+
+
 def _slot_inputs(fin: Finalized, pools: torch.Tensor, plane_list: list,
-                 live: torch.Tensor) -> dict:
-    """The launch arguments K14 and K15 share, checked."""
-    dev = live.device
+                 live: torch.Tensor) -> tuple:
+    """The launch arguments K14 and K15 share, checked: (rows, slots, pool
+    width, the program's _SlotProgram, its plane pointers as a host
+    array). The launch copies the host parts into its parameters."""
     n = live.shape[0]
     _check_program_planes(fin, plane_list, live)
     if n % 64:
         raise errors.DeviceError(f"slot kernels need rows in multiples of "
                                  f"64, got {n}")
-    if pools.device != dev or pools.dtype != torch.int64 \
-            or pools.dim() != 2 or not pools.is_contiguous() \
-            or pools.shape[0] < 1 or pools.shape[1] < len(fin.pool):
-        raise errors.DeviceError("pools must be a contiguous int64 [k, P] "
-                                 "block on the planes' device")
-    if len(plane_list) > SLOT_MAX_PLANES:
-        raise errors.DeviceError(f"{len(plane_list)} planes exceed "
-                                 f"{SLOT_MAX_PLANES}")
-    if fin.meta.shape[0] > 1024:
-        raise errors.DeviceError("program exceeds the kernel's table")
-    valid_bits = sum(1 << i for i, (_key, which)
-                     in enumerate(fin.plane_keys) if which)
-    return dict(n=n, k=int(pools.shape[0]), P=int(pools.shape[1]),
-                meta=torch.from_numpy(fin.meta).to(dev),
-                lut=torch.from_numpy(fin.lut).to(dev),
-                planes=_ptr_table(plane_list, dev),
-                n_planes=len(plane_list), valid_bits=valid_bits)
+    if not isinstance(pools, torch.Tensor) or pools.device.type != "cpu" \
+            or pools.dtype != torch.int64 or pools.dim() != 2 \
+            or not pools.is_contiguous():
+        raise errors.DeviceError("pools ride by value: a contiguous host "
+                                 "int64 [k, P] tensor")
+    k, P = pools.shape
+    if k < 1 or P < len(fin.pool) or k * P > SLOT_POOL_WORDS:
+        raise errors.DeviceError(
+            f"{k} x {P} pool words for a {len(fin.pool)}-word pool: the "
+            f"slot launch's parameters hold {SLOT_POOL_WORDS}")
+    key = (fin.meta.tobytes(), fin.lut.tobytes())
+    prog = _SLOT_PROGS.get(key)
+    if prog is None:
+        prog = _SlotProgram(fin)
+        with _SLOT_LOCK:
+            if len(_SLOT_PROGS) >= 512:
+                _SLOT_PROGS.pop(next(iter(_SLOT_PROGS)))
+            _SLOT_PROGS[key] = prog
+    planes = array.array("Q", [t.data_ptr() for t in plane_list] or [0])
+    return n, k, P, prog, planes
 
 
 def slot_filter_plain(fin: Finalized, pools: torch.Tensor, plane_list: list,
@@ -3413,21 +3486,34 @@ def slot_filter(fin: Finalized, pools: torch.Tensor, plane_list: list,
                 live: torch.Tensor) -> torch.Tensor:
     """K14: int64 [k, n / 64] — bit r % 64 of word r / 64 of row s is
     live[r] & valid & truthy(WHERE) of the program run with pools[s]
-    (the reference's packed words, bit 63 the sign bit)."""
+    (the reference's packed words, bit 63 the sign bit). `pools` is a
+    host int64 [k, P] tensor: on the card it rides in the launch's
+    parameters with the program, nothing copied first."""
     if _device_kind(live) == "cpu":
         return slot_filter_plain(fin, pools, plane_list, live)
-    a = _slot_inputs(fin, pools, plane_list, live)
+    n, k, P, prog, planes = _slot_inputs(fin, pools, plane_list, live)
     dev = live.device
-    words = torch.empty((a["k"], a["n"] // 64), dtype=torch.int64,
-                        device=dev)
+    words = torch.empty((k, n // 64), dtype=torch.int64, device=dev)
     rc = _ext.lib("slot_filter").slot_filter_launch(
-        a["n"], a["k"], a["meta"].data_ptr(), int(a["meta"].shape[0]),
-        pools.data_ptr(), a["P"], a["lut"].data_ptr(),
-        a["planes"].data_ptr(), a["n_planes"], a["valid_bits"],
+        n, k, P, planes.buffer_info()[0], len(plane_list), prog.p_split,
+        prog.n_instr, prog.n_inv, prog.split_where, prog.n_regs,
+        pools.data_ptr(), prog.p_lut, prog.lut.shape[0],
         live.data_ptr(), words.data_ptr(), _stream(dev))
     _ext.check(rc, "slot_filter")
     LAUNCHES["slot_filter"] += 1
     return words
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """A card tensor's copy in page-locked host memory, the stream waited
+    for (a pageable copy would stage through a bounce buffer); a host
+    tensor as it is."""
+    if t.device.type != "cuda":
+        return t
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return h
 
 
 def slot_agg_plain(fin: Finalized, pools: torch.Tensor, plane_list: list,
@@ -3444,26 +3530,28 @@ def slot_agg(fin: Finalized, pools: torch.Tensor, plane_list: list,
              live: torch.Tensor, reds: list[Red]):
     """K15: (n int64 [k, R], acc int64 [k, R]) — K2's reductions `reds`
     (acc holds f64 bits for f64 ops, the exact sentinels where no row
-    contributes) under each slot's WHERE mask."""
+    contributes) under each slot's WHERE mask. `pools` as slot_filter's;
+    the descriptors too ride in the launch's parameters."""
     if _device_kind(live) == "cpu":
         return slot_agg_plain(fin, pools, plane_list, live, reds)
     if not 1 <= len(reds) <= SLOT_MAX_REDS:
         raise errors.DeviceError(f"K15 folds 1 to {SLOT_MAX_REDS} "
                                  f"reductions, got {len(reds)}")
-    a = _slot_inputs(fin, pools, plane_list, live)
+    n, k, P, prog, planes = _slot_inputs(fin, pools, plane_list, live)
     dev = live.device
-    n, k, R = a["n"], a["k"], len(reds)
-    desc = _red_desc(reds, n, dev)
+    R = len(reds)
+    desc = array.array("q", [x for row in _red_rows(reds, n, dev)
+                             for x in row])
     lib = _ext.lib("slot_agg")
     blocks = lib.slot_agg_blocks(n)
     partial = torch.empty(k * blocks * R * 2, dtype=torch.int64, device=dev)
     out = torch.empty((k, R, 2), dtype=torch.int64, device=dev)
     rc = lib.slot_agg_launch(
-        n, k, a["meta"].data_ptr(), int(a["meta"].shape[0]),
-        pools.data_ptr(), a["P"], a["lut"].data_ptr(),
-        a["planes"].data_ptr(), a["n_planes"], a["valid_bits"],
-        live.data_ptr(), R, desc.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), _stream(dev))
+        n, k, P, planes.buffer_info()[0], len(plane_list), prog.valid_bits,
+        prog.p_ins, prog.n_instr, prog.where, pools.data_ptr(),
+        prog.p_lut, prog.lut.shape[0], live.data_ptr(), R,
+        desc.buffer_info()[0], partial.data_ptr(), out.data_ptr(),
+        _stream(dev))
     _ext.check(rc, "slot_agg")
     LAUNCHES["slot_agg"] += 1
     return out[:, :, 0], out[:, :, 1]

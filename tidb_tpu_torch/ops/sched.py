@@ -18,7 +18,9 @@ that arrive within one gather window share ONE launch instead:
      per statement (the reference pads to slot buckets for XLA's compile
      cache; nothing here compiles per shape).
   3. A filter runs K14 `slot_filter` (the slots' survivor masks, bit-packed
-     64 rows to an int64 word, one readback); an aggregate K15 `slot_agg`
+     64 rows to an int64 word, one readback into page-locked memory; the
+     program and the slots' pools ride in the launch's parameters, nothing
+     is copied to the card first); an aggregate K15 `slot_agg`
      (each slot's where-pass count and masked reductions); a TopN K14 then
      K16 `slot_topn` (each slot's first k rows and live count). Each
      statement demultiplexes its own slot on its own thread's behalf and
@@ -602,7 +604,8 @@ class MicroBatcher:
         batch = proto.batch
         k = len(chunk)
         dev = client.device
-        pools = torch.from_numpy(np.stack([e.pool for e in chunk])).to(dev)
+        # the slots' pools ride by value in the launch (host int64 [k, P])
+        pools = torch.from_numpy(np.stack([e.pool for e in chunk]))
         planes = kernels.batch_planes(batch, dev)
         live = kernels.device_live(batch, dev)
         plane_list = [planes[key][which]
@@ -626,8 +629,9 @@ class MicroBatcher:
                 return idx.cpu().numpy(), n_live.cpu().numpy()
         else:
             def run(_p, _lv):
-                return kernels.slot_filter(proto.fin, pools, plane_list,
-                                           live).cpu()
+                # the words come back into page-locked memory
+                return kernels.to_host(kernels.slot_filter(
+                    proto.fin, pools, plane_list, live))
         out = client._dispatch(run, planes, live)
         client.note_launch(k)
         if k > 1:
