@@ -49,23 +49,23 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    the key the region handler computes; the six shapes through the store
    (a cache hit in every region), each against numpy; the statement time
    (median of 10) and its split by phase; d_supplier (10,000 suppliers:
-   K6's sorted route, launches reset before and read after, its count the
-   sorted route's in the kernels line) through a store of the same
-   regions, against numpy; K5, K6 and K7 against their plain versions on
+   K6's segment windows) and d_part (190,000 parts: K6's sorted route)
+   through a store of the same regions, launches reset before and read
+   after, against numpy; K5, K6 and K7 against their plain versions on
    the card at Q1's shapes and on edge cases (NULL predicates, live rows
    not a multiple of 32, regions with no survivor and G_r = 0, R = 64,
-   spans above K6's shared-memory limit). K6 (its block route redesigned
-   in slice 12: copies of the span a block in the opt-in shared memory;
-   since slice 15 it also takes the small spans, with copies of the
-   integer states and two blocks an SM) on each of its two routes, read
-   from its launch counts: Q1's spans and date_group's (4,096 segments a
-   region) on the block route, d_supplier's (16,384 at 8 reductions)
-   sorted; the block route at Q1, date_group and on edge states (-0.0
-   beside +0.0, +-inf-only groups, int64 extremes with wrapping sums, f64
-   sums, an empty region, a hot segment, regions at odd offsets) run
-   twice for the same bits and held to its plain version on the CPU (f64
-   sums to 1e-12 of the magnitudes); each shape timed beside one
-   index_add_, and Q1 over Phase C's SF0.01 regions too.
+   spans above K6's shared-memory limit). K6 on each of its three routes,
+   read from its launch counts: Q1's spans and date_group's (4,096
+   segments a region) on the block route (copies of the span a block in
+   the opt-in shared memory; small spans with copies of the integer
+   states at two blocks an SM), d_supplier's (16,384 at 8 reductions) on
+   segment windows of it, d_part's and shapes past the windows' cap or
+   past 32 reductions on the radix and the sorted pass; every shape and
+   edge states (-0.0 beside +0.0, +-inf-only groups, int64 extremes with
+   wrapping sums, f64 sums, an empty region, a hot segment, regions at odd
+   offsets) run twice for the same bits and held to its plain version on
+   the CPU (f64 sums to 1e-12 of the magnitudes); each main shape timed
+   beside one index_add_, and Q1 over Phase C's SF0.01 regions too.
 6. Phase E, slice 3 on Phase B's SF1 batch (its planes resident): the
    statements of tpch.SLICE3 through GpuClient.serve, each against numpy
    (counts, decimals and row ids exact) with its launches counted — a
@@ -319,6 +319,12 @@ KERNELS = {
     "seg_states_ragged_smem/sf001": (
         "tidb_tpu_torch/ops/csrc/seg_states_ragged.cu",
         "tidb_tpu/ops/kernels.py:1356"),
+    # K6's segment windows: d_supplier over 8 regions at SF1 (about 10,000
+    # suppliers a region at 8 reductions); its sorted route past the
+    # windows' cap: d_part (about 190,000 parts a region)
+    "seg_states_ragged_window": (
+        "tidb_tpu_torch/ops/csrc/seg_states_ragged.cu",
+        "tidb_tpu/ops/kernels.py:1356"),
     "seg_states_ragged_sorted": (
         "tidb_tpu_torch/ops/csrc/seg_states_ragged.cu",
         "tidb_tpu/ops/kernels.py:1356"),
@@ -356,8 +362,10 @@ KERNELS = {
     "combine_rows_sharded": ("tidb_tpu_torch/ops/csrc/seg_states_ragged.cu",
                              "tidb_tpu/ops/mesh.py:290"),
 }
-# K6 has two routes, each counted (kernels.k6_route): span copies a block
-# in the opt-in shared memory (seg_states_ragged_smem) and larger spans
+# K6 has three routes, each counted (kernels.k6_route): span copies a
+# block in the opt-in shared memory (seg_states_ragged_smem), segment
+# windows of larger spans (seg_states_ragged_window) and, past the
+# windows' cap, the radix sort and the sorted pass
 # (seg_states_ragged_sorted)
 K6_ROUTES = kernels.K6_ROUTES
 CLUSTER_KERNELS = ("expr_vm_ragged",) + K6_ROUTES + ("combine_partials",)
@@ -1162,10 +1170,12 @@ def phase_c(n_rows: int, seed: int, device, regions=(1, 2, 8)) -> tuple:
               f"included)")
     print(f"phase C: launches {totals}")
     if device.type == "cuda":
-        # every sweep shape's spans fit shared memory at SF0.01; K6's sorted
-        # route is driven on Phase D's main path (d_supplier)
+        # every sweep shape's spans fit shared memory at SF0.01; K6's
+        # windows and sorted route are driven on Phase D's main path
+        # (d_supplier, d_part)
         for k, v in totals.items():
-            need(v > 0 or k == "seg_states_ragged_sorted",
+            need(v > 0 or k in ("seg_states_ragged_window",
+                                "seg_states_ragged_sorted"),
                  f"kernel {k} never launched on the cluster path")
     # K6 at q1full's SF0.01 regions (the last store: 8 regions)
     _r, k6, _s = capture(gpu, tpch.sweep_request("q1full"), device)
@@ -1330,8 +1340,37 @@ K6_BLOCK_EDGES = (
 )
 
 
-def k6_block_edges(device, seed: int) -> list:
-    """[(seg_states_ragged arguments, what)] for the K6_BLOCK_EDGES shapes:
+# shapes that take K6's window route (spans past one block: up to 12,001
+# segments a region at 8 reductions, 30,001 at 4), one past the windows'
+# cap (the sorted route: 120,001 segments at 5 reductions) and two past
+# the block route's 32 reductions (the sorted route with its tables on the
+# card, over one region and over seven); the -0.0 / +0.0 ties hold on
+# every route
+K6_WINDOW_EDGES = (
+    ("windows: -0.0 beside +0.0, +-inf-only groups, an f64 sum",
+     [(300001, 299999, 9000), (200003, 200003, 12000), (1, 1, 5000)],
+     [kernels.R_MIN_F, kernels.R_MAX_F, kernels.R_SUM_F, kernels.R_COUNT,
+      kernels.R_SUM_I, kernels.R_MIN_I, kernels.R_MAX_I, kernels.R_COUNT]),
+    ("windows: int64 extremes, wrapping sums, an empty region, a hot segment",
+     [(400003, 400001, 20000), (17, 0, 0), (100011, 99999, 30000)],
+     [kernels.R_SUM_I, kernels.R_MIN_I, kernels.R_MAX_I, kernels.R_COUNT]),
+)
+K6_PAST_CAP_EDGES = (
+    ("past the window cap: -0.0 beside +0.0, int64 extremes",
+     [(500003, 500001, 120000), (300007, 300007, 60000)],
+     [kernels.R_COUNT, kernels.R_SUM_I, kernels.R_MAX_I, kernels.R_MIN_F,
+      kernels.R_MAX_F]),
+    ("33 reductions over one region: -0.0 beside +0.0, int64 extremes",
+     [(40001, 39989, 9)], [kernels.K6_OPS[j % 7] for j in range(33)]),
+    ("33 reductions over seven regions: int64 extremes, an empty region",
+     [(5003, 4999, 300)] * 3 + [(11, 0, 0)] + [(3001, 3001, 40)] * 3,
+     [kernels.K6_OPS[j % 7] for j in range(33)]),
+)
+
+
+def k6_block_edges(device, seed: int, shapes=K6_BLOCK_EDGES) -> list:
+    """[(seg_states_ragged arguments, what)] for the K6_BLOCK_EDGES shapes
+    (or `shapes` of that form):
     regions whose rows start at odd offsets of the concatenated planes,
     group ids in [0, G_r] (the sink G_r, which rows past n_rows take), a
     contrib mask and, for every other reduction, a valid plane; f64 planes
@@ -1342,7 +1381,7 @@ def k6_block_edges(device, seed: int) -> list:
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa
     out = []
-    for what, regions, ops in K6_BLOCK_EDGES:
+    for what, regions, ops in shapes:
         gids, reds = [], []
         contribs = [[] for _ in ops]
         for cap, n, G in regions:
@@ -1391,15 +1430,25 @@ def _k6_on(k6: tuple, device) -> tuple:
             [c.to(device) for c in contribs])
 
 
-def check_k6_twice(k6: tuple, what: str) -> float:
-    """K6 run twice (the same bits) against its plain version on the CPU,
-    which folds each segment in row order: an extremum tie of -0.0 and
-    +0.0 keeps the first in row order there and on the block route.
-    Every op exact but f64 sums: those within F64_SUM_RTOL of the
-    segment's sum of magnitudes (the block route adds its blocks' partial
-    sums in block order)."""
-    got = kernels.seg_states_ragged(*k6)
-    again = kernels.seg_states_ragged(*k6)
+def k6_run(k6: tuple, route: str | None = None) -> torch.Tensor:
+    """K6 on its own route, or (on the card) on `route`."""
+    if route is None or k6[0].device.type != "cuda":
+        return kernels.seg_states_ragged(*k6)
+    launch, out = kernels._k6_on_route(route, *k6)
+    launch()
+    return out
+
+
+def check_k6_twice(k6: tuple, what: str, route: str | None = None) -> float:
+    """K6 run twice (the same bits; on `route` where given) against its
+    plain version on the CPU, which folds each segment in row order: an
+    extremum tie of -0.0 and +0.0 keeps the first in row order there and
+    on every route. Every op exact but f64 sums: those within
+    F64_SUM_RTOL of the segment's sum of magnitudes (the block and window
+    routes add their blocks' partial sums in block order, the sorted route
+    its lanes' in a butterfly)."""
+    got = k6_run(k6, route)
+    again = k6_run(k6, route)
     need(torch.equal(got, again), f"{what}: two runs of K6 differ")
     gid, caps, n_rows, Gs, reds, contribs = _k6_on(k6, torch.device("cpu"))
     want = kernels.seg_states_ragged_plain(gid, caps, Gs, reds, contribs)
@@ -1506,12 +1555,10 @@ def k6_plan(k6: tuple, device) -> str:
     """K6's route at these arguments on this card (kernels.k6_route)."""
     if device.type != "cuda":
         return "plain"
-    _gid, _caps, _n, Gs, reds, contribs = k6
-    span = max(kernels.bucket_segments(g + 1) for g in Gs)
-    route, rows, minb, copies = kernels.k6_route(
-        len(contribs), span, kernels._k6_block_limit(
-            _ext.lib("seg_states_ragged"), device),
-        sum(r.op in kernels.F_OPS for r in reds[0]))
+    route, rows, minb, copies = k6_route_of(k6, device)
+    if route == "seg_states_ragged_window":
+        return (f"{route}: {rows} rows a thread, {copies} windows a region "
+                f"at most")
     return (f"{route}: {rows} rows a thread, {minb} blocks an SM, "
             f"{copies} copies" if rows else route)
 
@@ -1564,6 +1611,52 @@ def check_d_supplier(rows: list, data: dict) -> None:
          f"numpy's {len(want)}")
 
 
+D_PART_CIDS = [tpch.C_PARTKEY, tpch.C_QUANTITY]
+
+
+def d_part() -> SelectRequest:
+    """select count(*), sum(l_quantity), max(l_quantity),
+    first_row(l_partkey) group by l_partkey, hinted for the cluster path.
+    At SF1 every region holds about 190,000 of the 200,000 parts: 262,144
+    segments a region, past K6's window cap (its sorted route)."""
+    c = expr_column
+    return tpch.hinted(SelectRequest(
+        start_ts=1, table_info=tpch.table_info(D_PART_CIDS),
+        group_by=[ByItem(c(tpch.C_PARTKEY))],
+        aggregates=[expr_agg("count", [expr_value(Datum.i64(1))]),
+                    expr_agg("sum", [c(tpch.C_QUANTITY)]),
+                    expr_agg("max", [c(tpch.C_QUANTITY)]),
+                    expr_agg("first_row", [c(tpch.C_PARTKEY)])]))
+
+
+def check_d_part(rows: list, data: dict) -> None:
+    """d_part's final rows against numpy: count, sum and max of the
+    quantity by part."""
+    d2 = lambda v: Decimal(int(v)).scaleb(-2)  # noqa: E731
+    q = data[tpch.C_QUANTITY].astype(np.int64)
+    uniq, inv = np.unique(data[tpch.C_PARTKEY], return_inverse=True)
+    cnt = np.bincount(inv)
+    sq = np.zeros(len(uniq), np.int64)
+    np.add.at(sq, inv, q)
+    mx = np.full(len(uniq), np.iinfo(np.int64).min)
+    np.maximum.at(mx, inv, q)
+    want = {int(u): [int(n), d2(a), d2(m)]
+            for u, n, a, m in zip(uniq, cnt, sq, mx)}
+    got = {row[-1].val: [d.val for d in row[:3]] for row in rows}
+    need(got == want, f"phase D d_part: {len(got)} groups differ from "
+         f"numpy's {len(want)}")
+
+
+def k6_route_of(k6: tuple, device) -> tuple:
+    """kernels.k6_route at these arguments on this card (the card's
+    opt-in limit; each region's groups and sink as its segments)."""
+    _gid, _caps, _n, Gs, reds, contribs = k6
+    return kernels.k6_route(
+        len(contribs), max(kernels.bucket_segments(g + 1) for g in Gs),
+        kernels._k6_block_limit(_ext.lib("seg_states_ragged"), device),
+        sum(r.op in kernels.F_OPS for r in reds[0]), [g + 1 for g in Gs])
+
+
 def phase_d(n_rows: int, seed: int, device, R: int = 8) -> tuple:
     t0 = time.perf_counter()
     data = tpch.generate(n_rows, seed)
@@ -1592,32 +1685,57 @@ def phase_d(n_rows: int, seed: int, device, R: int = 8) -> tuple:
         print(f"  {name}: equal to numpy; statement {wall:.3f} ms median "
               f"of 10 (host clock; first run {first_s:.2f} s); split "
               + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
-    # K6's sorted route on the main path: d_supplier through a store of
-    # the same regions with the supplier columns pinned in its own plane
-    # cache (the sweep's store keeps its cache for Phases J, K, L and I)
+    # K6's window and sorted routes on the main path: d_supplier (windows)
+    # and d_part (past the windows' cap) through a store of the same
+    # regions with their columns pinned in its own plane cache (the
+    # sweep's store keeps its cache for Phases J, K, L and I)
     cuda = device.type == "cuda"
-    s_sel = d_supplier()
     s_store = DistStore([], tpch.split_keys(n_rows, R), device,
                         plane_cache=PlaneCache(device=device))
-    admit(s_store, s_sel, tpch.region_batches(data, D_SUPPLIER_CIDS, R))
-    zero_launches()
-    t1 = time.perf_counter()
-    rows = final_rows(s_store, s_sel)
-    if cuda:
-        torch.cuda.synchronize()
-    first_s = time.perf_counter() - t1
-    sup_launches = {k: kernels.LAUNCHES[k] for k in K6_ROUTES}
-    need(not cuda or sup_launches == {k: int(k == "seg_states_ragged_sorted")
-                                      for k in K6_ROUTES},
-         f"phase D d_supplier: K6 launches {sup_launches}")
-    check_d_supplier(rows, data)
-    wall = host_ms(lambda: final_rows(s_store, s_sel), 3)
-    stmt["d_supplier"] = {"ms": wall, "groups": fused_agg.stats["last_groups"],
-                          "k6": sup_launches}
-    print(f"  d_supplier: equal to numpy, K6 launches {sup_launches}; "
-          f"statement {wall:.3f} ms median of 3 (first run {first_s:.2f} s)")
-    _r, k6_sup, _s = capture(s_store, s_sel, device)
+    main_launches = {}
+    k6_main = {}
+    for name, make, cids, check, route in (
+            ("d_supplier", d_supplier, D_SUPPLIER_CIDS, check_d_supplier,
+             "seg_states_ragged_window"),
+            ("d_part", d_part, D_PART_CIDS, check_d_part,
+             "seg_states_ragged_sorted")):
+        s_sel = make()
+        admit(s_store, s_sel, tpch.region_batches(data, cids, R))
+        zero_launches()
+        # K6's arguments kept as the statement passes them (d_part's
+        # statement takes tens of seconds of host work: run it once)
+        captured = []
+        orig = kernels.seg_states_ragged
+
+        def spy(*a):
+            captured.append(a)
+            return orig(*a)
+
+        kernels.seg_states_ragged = spy
+        t1 = time.perf_counter()
+        try:
+            rows = final_rows(s_store, s_sel)
+        finally:
+            kernels.seg_states_ragged = orig
+        if cuda:
+            torch.cuda.synchronize()
+        first_s = time.perf_counter() - t1
+        need(len(captured) == 1, f"phase D {name}: {len(captured)} K6 calls")
+        got = {k: kernels.LAUNCHES[k] for k in K6_ROUTES}
+        need(not cuda or got == {k: int(k == route) for k in K6_ROUTES},
+             f"phase D {name}: K6 launches {got}, not one on {route}")
+        main_launches[route] = got[route]
+        check(rows, data)
+        groups = fused_agg.stats["last_groups"]
+        wall, runs = first_s * 1e3, 1
+        if name == "d_supplier":
+            wall, runs = host_ms(lambda: final_rows(s_store, s_sel), 3), 3
+        stmt[name] = {"ms": wall, "groups": groups, "k6": got}
+        print(f"  {name}: equal to numpy, K6 launches {got}; statement "
+              f"{wall:.3f} ms median of {runs} (first run {first_s:.2f} s)")
+        k6_main[route] = captured[0]
     del s_store
+    k6_sup = k6_main["seg_states_ragged_window"]
     ms = timer(device)
     sel = tpch.sweep_request("q1full")
     regions, k6, (states, codes) = capture(store, sel, device)
@@ -1645,39 +1763,52 @@ def phase_d(n_rows: int, seed: int, device, R: int = 8) -> tuple:
     # region) the block route in the opt-in shared memory, Q1's with 16
     # copies of its integer states at two blocks an SM; d_supplier's
     # (about 10,000 suppliers, 16,384 segments a region at 8 reductions)
-    # the sorted route. Each shape and edge states on each route against
-    # the plain version, its route read from the launch counts; the block
-    # route's twice, the same bits both times.
+    # segment windows; d_part's (about 190,000 parts a region) the sorted
+    # route past the windows' cap. Each shape and edge states on its route
+    # (read from the launch counts) against the plain version on the CPU,
+    # twice, the same bits both times; the large-span edge states also
+    # forced onto the sorted route (`route`).
     _r, k6_date, _s = capture(store, tpch.sweep_request("date_group"), device)
     ebits, eouts = kernels.expr_vm_ragged(eregions, device)
+    big = _edge_states(edge, ebits, eouts, device, True, seed + 13)
+    big_route = k6_route_of(big, device)[0] if cuda else "plain"
     checks = [
-        ("seg_states_ragged_smem", k6, "K6 Q1", check_k6_twice),
-        ("seg_states_ragged_smem", k6_date, "K6 date_group", check_k6_twice),
-        ("seg_states_ragged_sorted", k6_sup, "K6 d_supplier", check_k6),
+        ("seg_states_ragged_smem", k6, "K6 Q1", None),
+        ("seg_states_ragged_smem", k6_date, "K6 date_group", None),
+        ("seg_states_ragged_window", k6_sup, "K6 d_supplier", None),
+        ("seg_states_ragged_sorted", k6_main["seg_states_ragged_sorted"],
+         "K6 d_part", None),
         ("seg_states_ragged_smem", _edge_states(
-            edge, ebits, eouts, device, False, seed + 13), "K6 edge",
-         check_k6_twice),
-        ("seg_states_ragged_sorted",
-         _edge_states(edge, ebits, eouts, device, True, seed + 13),
-         "K6 edge large spans", check_k6)]
-    checks += [("seg_states_ragged_smem", a, f"K6 block edge: {w}",
-                check_k6_twice) for a, w in k6_block_edges(device, seed + 19)]
+            edge, ebits, eouts, device, False, seed + 13), "K6 edge", None),
+        (big_route, big, "K6 edge large spans", None),
+        ("seg_states_ragged_sorted", big, "K6 edge large spans, sorted",
+         "seg_states_ragged_sorted")]
+    checks += [("seg_states_ragged_smem", a, f"K6 block edge: {w}", None)
+               for a, w in k6_block_edges(device, seed + 19)]
+    checks += [("seg_states_ragged_window", a, f"K6 window edge: {w}", None)
+               for a, w in k6_block_edges(device, seed + 23,
+                                          K6_WINDOW_EDGES)]
+    checks += [("seg_states_ragged_sorted", a, f"K6 edge: {w}", None)
+               for a, w in k6_block_edges(device, seed + 29,
+                                          K6_PAST_CAP_EDGES)]
     k6_err = {}
-    for route, args, what, check in checks:
+    for route, args, what, force in checks:
         zero_launches()
-        e = check(args, what)
-        runs = 2 if check is check_k6_twice else 1
+        e = check_k6_twice(args, what, force)
         need(not cuda or {k: kernels.LAUNCHES[k] for k in K6_ROUTES}
-             == {k: runs * (k == route) for k in K6_ROUTES},
+             == {k: 2 * (k == route) for k in K6_ROUTES},
              f"{what}: K6 did not take its {route} route: "
              f"{ {k: kernels.LAUNCHES[k] for k in K6_ROUTES} }")
         k6_err[route] = max(k6_err.get(route, 0.0), e)
     print(f"phase D: K6 equal to its plain version on {len(checks)} shapes, "
-          f"each on its route; the block route's runs bit-identical")
+          f"each on its route ({big_route} for the large-span edge states, "
+          f"and the sorted route), each twice with the same bits")
     k6_wrapper_ms = {}
     for route, args in (("seg_states_ragged_smem", k6),
                         ("seg_states_ragged_smem/date_group", k6_date),
-                        ("seg_states_ragged_sorted", k6_sup)):
+                        ("seg_states_ragged_window", k6_sup),
+                        ("seg_states_ragged_sorted",
+                         k6_main["seg_states_ragged_sorted"])):
         k6_wrapper_ms[route] = ms(lambda a=args: kernels.seg_states_ragged(*a))
         out[route] = dict(k6_timed(args, device), max_abs_err=k6_err[
             route.split("/")[0]])
@@ -1719,17 +1850,17 @@ def phase_d(n_rows: int, seed: int, device, R: int = 8) -> tuple:
           f"K6 {k6_wrapper_ms['seg_states_ragged_smem']:.4f} ms (date_group, "
           f"block route: "
           f"{k6_wrapper_ms['seg_states_ragged_smem/date_group']:.4f} ms; "
-          f"d_supplier, sorted route: "
-          f"{k6_wrapper_ms['seg_states_ragged_sorted']:.4f} ms), K7 "
-          f"{k7_wrapper_ms:.4f} ms")
+          f"d_supplier, windows: "
+          f"{k6_wrapper_ms['seg_states_ragged_window']:.4f} ms; d_part, "
+          f"sorted route: {k6_wrapper_ms['seg_states_ragged_sorted']:.4f} "
+          f"ms), K7 {k7_wrapper_ms:.4f} ms")
     print(f"phase D: Q1 inputs: {len(regions)} regions, {total} rows, "
           f"{len(contribs)} reductions, {S} segments, K7 {len(states)} "
           f"states of {states[0].shape}; K6 "
           + "; ".join(f"{k}: {out[k]['shape']}" for k in k6_wrapper_ms)
           + f"; K6's block route at Q1: {k6_plan(k6, device)}")
     print("phase D statements: " + json.dumps(stmt))
-    return out, store, data, {
-        "seg_states_ragged_sorted": sup_launches["seg_states_ragged_sorted"]}
+    return out, store, data, main_launches
 
 
 # ---------------------------------------------------------------------------
@@ -2794,8 +2925,35 @@ def g_edge_cases(batch) -> list:
         ([sel(expr_op(Op.LE, c(3), iv(x)), order=[
             ByItem(c(4), True), ByItem(c(3), False), ByItem(c(1), True)],
               limit=7) for x in (-5000, 0, 5000)], "three keys limit 7"),
+        # K16's edges: slots with no live row, every row live, k above
+        # the live rows, four keys, ties that only the row position breaks
+        ([sel(expr_op(Op.LT, c(1), iv(x)), order=[ByItem(c(1), True)],
+              limit=10) for x in (-(1 << 63), -(1 << 63), 0, 45)],
+         "a < x order by a desc limit 10: two slots with no live row"),
+        ([sel(k16_all_live(x), order=[ByItem(c(5), False),
+                                       ByItem(c(1), True)], limit=128)
+          for x in (-(1 << 63), 0, 49)],
+         "a >= x or a is null order by g, a desc limit 128: every row live "
+         "at x = -2^63"),
+        ([sel(expr_op(Op.EQ, c(1), iv(x)), order=[ByItem(c(2), True)],
+              limit=100) for x in (7, -3, 1000)],
+         "a = x order by f desc limit 100: k above the live rows"),
+        ([sel(expr_op(Op.LE, c(3), iv(x)), order=[
+            ByItem(c(4), True), ByItem(c(5), False), ByItem(c(1), True),
+            ByItem(c(2), False)], limit=100) for x in (-5000, 0, 5000)],
+         "four keys limit 100"),
+        ([sel(expr_op(Op.GE, c(1), iv(x)), order=[ByItem(c(4), False)],
+              limit=100) for x in (-40, 0, 30)],
+         "order by s limit 100: ties broken by the row position"),
     ]
     return cases
+
+
+def k16_all_live(x: int) -> Expr:
+    """a >= x or a is null: every row of the edge batch at x = -2^63."""
+    a = expr_column(1)
+    return expr_op(Op.OrOr, expr_op(Op.GE, a, expr_value(Datum.i64(x))),
+                   Expr(ExprType.IS_NULL, children=[a]))
 
 
 def slot_bytes(a: dict, kernel: str) -> int:
@@ -2830,33 +2988,44 @@ def slot_ops(a: dict, kernel: str) -> int:
     return k * n * max(int(np.log2(a["k"] + 1)), 1) * len(a["keys"])
 
 
-def g_h2d_copies(a: dict, launches: int = 20) -> tuple:
-    """Host-to-device copies over `launches` K14 launches at these inputs
-    (after a warm-up launch), read from torch.profiler: the card's HtoD
-    memcpy records and the host's copy operators (aten::copy_,
-    aten::_to_copy; an aten::to that copies nothing, as Tensor.numpy()'s
-    on a host tensor, is not one). Returns (the copies' names, the
-    durations in µs of the K14 kernels the profiler saw on the card: none
-    where it traces no device activity)."""
+def g_h2d_copies(a: dict, launches: int = 20,
+                 kernel: str = "slot_filter") -> tuple:
+    """Host-to-device copies over `launches` calls of K14 (or, kernel
+    "slot_topn", of K16 over K14's words) at these inputs (after a warm-up
+    call), read from torch.profiler: the card's HtoD memcpy records and
+    the host's copy operators (aten::copy_, aten::_to_copy; an aten::to
+    that copies nothing, as Tensor.numpy()'s on a host tensor, is not
+    one). Returns (the copies' names, the durations in µs of the K14 (or
+    K16) kernels the profiler saw on the card, by kernel name: none where
+    it traces no device activity)."""
     from torch.profiler import ProfilerActivity, profile
     args = (a["fin"], a["pools"], a["plane_list"], a["live"])
-    kernels.slot_filter(*args)
+    if kernel == "slot_topn":
+        words = kernels.slot_filter(*args)
+        call = lambda: kernels.slot_topn(words, a["keys"], a["k"])  # noqa
+    else:
+        call = lambda: kernels.slot_filter(*args)  # noqa: E731
+    call()
     torch.cuda.synchronize()
-    before = kernels.LAUNCHES["slot_filter"]
+    before = kernels.LAUNCHES[kernel]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(launches):
-            kernels.slot_filter(*args)
+            call()
         torch.cuda.synchronize()
-    need(kernels.LAUNCHES["slot_filter"] - before == launches,
-         "phase G: the profiled K14 launches were not counted")
-    copies, seen = [], []
+    per = 1 if kernel == "slot_filter" else kernels.slot_topn_launch_count(
+        a["pools"].shape[0], a["live"].shape[0], a["k"], len(a["keys"]),
+        a["live"].device)
+    need(kernels.LAUNCHES[kernel] - before == launches * per,
+         f"phase G: the profiled {kernel} launches were not counted")
+    copies, seen = [], {}
     for e in prof.events():
         if "Memcpy HtoD" in e.name or e.name in ("aten::copy_",
                                                  "aten::_to_copy"):
             copies.append(e.name)
-        elif "slot_filter_kernel" in e.name:
-            seen.append(e.time_range.elapsed_us())
+        elif ("slot_filter_kernel" if kernel == "slot_filter"
+              else "k10_level") in e.name:
+            seen.setdefault(e.name, []).append(e.time_range.elapsed_us())
     return copies, seen
 
 
@@ -2951,8 +3120,31 @@ def phase_g(lineitem, device, seed: int) -> tuple:
         for kname, e in check_slots(slot_inputs(eb, sels, device),
                                     f"edge {what}").items():
             err[kname] = max(err[kname], e)
+    # K16 past one round of K10's level kernel (k above the largest K a
+    # block holds, which the tier's lowering never asks: its k is at most
+    # 128), and above the live rows, with every row live in one slot;
+    # over two and over four keys
+    c = expr_column
+    ti = tpch.table_info(sorted(G_ECOLS), 200, G_ECOLS)
+    for order in ([ByItem(c(5), False), ByItem(c(1), True)],
+                  [ByItem(c(4), True), ByItem(c(5), False),
+                   ByItem(c(1), True), ByItem(c(2), False)]):
+        sels = [SelectRequest(start_ts=1, table_info=ti,
+                              where=k16_all_live(x), order_by=order,
+                              limit=100) for x in (-(1 << 63), 0)]
+        a = slot_inputs(eb, sels, device)
+        a["k"] = 5000
+        nk = len(a["keys"])
+        n_e = a["live"].shape[0]
+        need(device.type != "cuda" or len(kernels.shard_topk_plan(
+            2, n_e, min(a["k"], n_e), nk, lambda sl: 264)) > 1,
+             "phase G: K16's edge at k 5000 runs one round")
+        err["slot_topn"] = max(err["slot_topn"], check_slots(
+            a, f"edge: k 5000 past one round, {nk} keys")["slot_topn"])
     print("phase G: K14, K15 and K16 equal their plain versions at k = 32 "
-          "on the supplier batch, one slot, and edge cases")
+          "on the supplier batch, one slot, and edge cases (K16: no live "
+          "row, every row live, k above the live rows and past one round, "
+          "four keys, ties)")
 
     def timed(a: dict, kernel: str, runs_: int = 20) -> dict:
         args = (a["fin"], a["pools"], a["plane_list"], a["live"])
@@ -2976,10 +3168,44 @@ def phase_g(lineitem, device, seed: int) -> tuple:
 
     for kname, shape in zip(SLOT_KERNELS, ("g_nation", "g_agg", "g_topn")):
         out[kname] = timed(tier[shape], kname)
+    # K16's yardstick: one torch.topk over g_topn's two keys as one int64
+    # score a slot (s_acctbal * 2^14 - s_suppkey: the balance descending,
+    # then the supplier key ascending, which is unique and below 2^14;
+    # dead rows at -2^63), k 100: the same rows at this shape
+    a = tier["g_topn"]
+    (bal, _bok), _d0 = a["keys"][0]
+    (supp, _sok), _d1 = a["keys"][1]
+    live16 = kernels.unpack_slot_words(kernels.slot_filter(
+        a["fin"], a["pools"], a["plane_list"], a["live"]))
+    score = torch.where(live16, bal.view(1, -1) * (1 << 14) - supp.view(1, -1),
+                        torch.full_like(live16, kernels.I64_MIN,
+                                        dtype=torch.int64))
+    out["slot_topn"]["library_ms"] = ms(lambda: torch.topk(score, a["k"],
+                                                           dim=1))
+    if device.type == "cuda":
+        n16, nk16 = a["live"].shape[0], len(a["keys"])
+        per16 = kernels.slot_topn_launch_count(32, n16, a["k"], nk16, device)
+        out["slot_topn"]["launches_per_call"] = per16
+        copies16, by_name16 = g_h2d_copies(a, kernel="slot_topn")
+        need(not copies16, f"phase G: {len(copies16)} host-to-device copies "
+             f"over 20 K16 calls at the tier's shape: {set(copies16)}")
+        seen16 = [d for ds in by_name16.values() for d in ds]
+        out["slot_topn"]["device_us"] = sum(seen16) / 20 if seen16 else None
+        levels16 = {name.split("(")[0]: float(np.median(ds))
+                    for name, ds in by_name16.items()}
+        print(f"phase G: K16 at the tier's shape (32 slots x {n16} rows, "
+              f"{nk16} keys, k {a['k']}): {per16} kernel launches a call "
+              f"(kernels.shard_topk_plan); {len(copies16)} host-to-device "
+              f"copies over 20 calls ({20 * per16} launches; "
+              f"torch.profiler, {len(seen16)} level kernels traced, "
+              f"{out['slot_topn']['device_us']} µs a call on the card; "
+              f"median µs by kernel {levels16}); torch.topk over the "
+              f"composite score {out['slot_topn']['library_ms']:.4f} ms")
     if device.type == "cuda":
         # K14 at the tier's shape copies nothing to the card per launch
         a = tier["g_nation"]
-        copies, seen = g_h2d_copies(a)
+        copies, by_name = g_h2d_copies(a)
+        seen = [d for ds in by_name.values() for d in ds]
         need(not copies, f"phase G: {len(copies)} host-to-device copies "
              f"over 20 K14 launches at the tier's shape: {set(copies)}")
         r = out["slot_filter"]
@@ -3044,6 +3270,11 @@ def phase_g(lineitem, device, seed: int) -> tuple:
         print(f"phase G stress (32 slots over {lineitem.capacity} lineitem "
               f"rows): {kname} {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
               f"ms, bound {r['bound'][0]:.4f} ms by {r['bound'][1]}")
+    if device.type == "cuda":
+        per = kernels.slot_topn_launch_count(
+            32, sa["live"].shape[0], sa["k"], len(sa["keys"]), device)
+        out["slot_topn"]["stress"]["launches_per_call"] = per
+        print(f"phase G stress: K16 {per} kernel launches a call")
     for kname in SLOT_KERNELS:
         out[kname]["max_abs_err"] = err[kname]
         r = out[kname]
@@ -4186,7 +4417,8 @@ def phase_j(data: dict, batch, d_store: DistStore, d_data: dict,
     print("phase J statements: " + json.dumps(stmts))
 
     # the near-data rung's K6 over the shard layout: plain_q1 (spans in
-    # shared memory) and dec_group (the sorted route), captured and timed
+    # shared memory) and dec_group (4,096 segments a shard: the block
+    # route), captured and timed
     timed = {}
     orig = kernels.seg_states_ragged
     for name in ("plain_q1", "dec_group"):

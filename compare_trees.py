@@ -18,10 +18,16 @@ with the helpers both checkouts' chip_smoke.py share:
   checkout's tier reads them (kernels.to_host where it has one, else
   Tensor.cpu()): median of 20 CUDA-event runs of the wrapper, as
   chip_smoke.cuda_ms;
+- K16 (kernels.slot_topn over K14's words: median of 20 CUDA-event runs)
+  at the tier's shape (32 statements of g_topn over the supplier batch)
+  and at the stress shape (32 TopN statements over SF1's lineitem, as
+  chip_smoke's Phase G), with a digest of the rows;
 - K6 (kernels.k6_prepare's launch, median of 20 CUDA-event runs, and the
-  route it took) at q1full over 8 regions at SF1 and at SF0.01, and at
-  plain_q1 over 8 shards of one card (the mesh tier's near-data rung), with
-  a digest of the states, which must be equal in every run.
+  route it took) at q1full over 8 regions at SF1 and at SF0.01, at
+  plain_q1 over 8 shards of one card (the mesh tier's near-data rung), and
+  at d_supplier over 8 regions at SF1 (with the statement's time, median
+  of 3 on the host clock), with a digest of the states, which must be
+  equal in every run.
 
 Each run prints one JSON line after "RESULT"; this script prints them,
 each metric's median per checkout, and the card's name and power limit.
@@ -97,6 +103,26 @@ def child(root: str) -> dict:
             out["k15_ms"] = cs.cuda_ms(
                 lambda: kernels.slot_agg(*args, a["reds"]))
 
+    # K16 at the tier's shape and at the stress shape
+    def k16_time(key: str, a: dict) -> None:
+        words = kernels.slot_filter(a["fin"], a["pools"], a["plane_list"],
+                                    a["live"])
+        idx, n_live = kernels.slot_topn(words, a["keys"], a["k"])
+        out[f"{key}_digest"] = hashlib.sha1(
+            idx.cpu().numpy().tobytes() + n_live.cpu().numpy().tobytes()
+        ).hexdigest()[:16]
+        out[f"{key}_ms"] = cs.cuda_ms(
+            lambda: kernels.slot_topn(words, a["keys"], a["k"]))
+
+    reqs = [tpch.g_statement("g_topn", x % 25) for x in range(32)]
+    batch = client._get_batch(reqs[0].data, reqs[0].key_ranges)
+    k16_time("k16_tier", cs.slot_inputs(batch, [r.data for r in reqs], dev))
+    line = tpch.generate(tpch.SF1_ROWS, 2)
+    lbatch = tpch.batch(line, [tpch.C_ORDERKEY, tpch.C_QUANTITY,
+                               tpch.C_EXTENDEDPRICE, tpch.C_SHIPDATE])
+    k16_time("k16_stress", cs.slot_inputs(lbatch, stress_statements(), dev))
+    del line, lbatch
+
     # K6 at q1full over 8 regions (SF1 and SF0.01) and plain_q1 over 8
     # shards of the card
     def k6_time(key: str, k6: tuple) -> None:
@@ -138,6 +164,47 @@ def child(root: str) -> dict:
     cs.need(st.plane_cache.stats["hits"] - hits == 8 and len(captured) == 1,
             "plain_q1 missed the plane cache or its K6")
     k6_time("k6_plain_q1_8shards", captured[0])
+
+    # d_supplier over 8 regions at SF1: K6 and the statement
+    d = tpch.generate(tpch.SF1_ROWS, 2)
+    st = DistStore([], tpch.split_keys(tpch.SF1_ROWS, 8), dev,
+                   plane_cache=PlaneCache(device=dev))
+    sup = cs.d_supplier()
+    cs.admit(st, sup, tpch.region_batches(d, cs.D_SUPPLIER_CIDS, 8))
+    cs.final_rows(st, sup)
+    out["d_supplier_stmt_ms"] = cs.host_ms(lambda: cs.final_rows(st, sup), 3)
+    k6_time("k6_d_supplier", cs.capture(st, sup, dev)[1])
+    return out
+
+
+def stress_statements() -> list:
+    """chip_smoke Phase G's stress statements: 32 filters of SF1's
+    lineitem with three aggregates and ORDER BY l_extendedprice desc,
+    l_orderkey limit 100."""
+    from decimal import Decimal
+
+    from tidb_tpu_torch import tpch
+    from tidb_tpu_torch.copr.proto import (ByItem, SelectRequest, expr_agg,
+                                           expr_column, expr_op, expr_value)
+    from tidb_tpu_torch.sqlast.opcode import Op
+    from tidb_tpu_torch.types.datum import Datum
+    c = expr_column
+    ti = tpch.table_info([tpch.C_ORDERKEY, tpch.C_QUANTITY,
+                          tpch.C_EXTENDEDPRICE, tpch.C_SHIPDATE])
+    one = expr_value(Datum.i64(1))
+    out = []
+    for j in range(32):
+        where = expr_op(Op.AndAnd, expr_op(
+            Op.LT, c(tpch.C_QUANTITY), expr_value(Datum.dec(Decimal(
+                10 + j)))), expr_op(Op.LE, c(tpch.C_SHIPDATE), expr_value(
+                    tpch._date(f"199{2 + j % 7}-0{1 + j % 9}-15"))))
+        out.append(SelectRequest(
+            start_ts=1, table_info=ti, where=where,
+            aggregates=[expr_agg("count", [one]),
+                        expr_agg("sum", [c(tpch.C_QUANTITY)]),
+                        expr_agg("max", [c(tpch.C_EXTENDEDPRICE)])],
+            order_by=[ByItem(c(tpch.C_EXTENDEDPRICE), True),
+                      ByItem(c(tpch.C_ORDERKEY), False)], limit=100))
     return out
 
 

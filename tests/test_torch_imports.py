@@ -1,7 +1,8 @@
 """The port imports neither JAX nor anything of the JAX package.
 
 The AST scan covers every module of tidb_tpu_torch (cluster/, distsql/,
-executor/ and the join path's modules included) and chip_smoke.py; the
+executor/ and the join path's modules included), chip_smoke.py and the
+card scripts beside it (compare_trees.py, k6_window_sweep.py); the
 subprocess tests run TPC-H Q1 through GpuClient(device="cpu"), the
 slice-3 shapes (a ranked group-by, DISTINCT, TopN) through it too, Q1
 through the cluster path over two regions, and a join statement through
@@ -26,7 +27,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, f) for f in ("chip_smoke.py",
+                                           "compare_trees.py",
+                                           "k6_window_sweep.py")]
     for dirpath, _dirs, files in os.walk(os.path.join(ROOT,
                                                       "tidb_tpu_torch")):
         out.extend(os.path.join(dirpath, f) for f in sorted(files)

@@ -310,11 +310,11 @@ LIMIT = 232448 - 1088          # the H100's opt-in limit less static memory
                                             "seg_states_ragged_smem"),
     (4, 4096, 3, "seg_states_ragged_smem"), (3, 2048, 1,
                                              "seg_states_ragged_smem"),
-    (8, 16384, 0, "seg_states_ragged_sorted"),
-    (9, 4096, 2, "seg_states_ragged_sorted"),
+    (8, 16384, 0, "seg_states_ragged_window"),
+    (9, 4096, 2, "seg_states_ragged_window"),
     (33, 64, 0, "seg_states_ragged_sorted"),
     (2, 8192, 0, "seg_states_ragged_smem"),
-    (2, 16384, 0, "seg_states_ragged_sorted")])
+    (2, 16384, 0, "seg_states_ragged_window")])
 def test_k6_route(n_red, span, n_f, want):
     route, rows, minb, copies = pk.k6_route(n_red, span, LIMIT, n_f)
     assert route == want
@@ -335,6 +335,12 @@ def test_k6_route(n_red, span, n_f, want):
         assert copies == pk.k4_copies(n_red, n_f, span, rows, budget)
         assert pk.k6_block_bytes(n_red, n_f, span, rows) \
             + 8 * (copies - 1) * n_red * span <= budget
+    elif route == "seg_states_ragged_window":
+        # past one block: windows of the span, one block an SM, within
+        # the cap; the fourth field counts the windows
+        assert pk.k6_block_bytes(n_red, n_f, span, min(pk.K6B_ROWS)) > LIMIT
+        assert (rows, copies) == pk.k6_windows(n_red, n_f, [span], LIMIT)
+        assert minb == 1 and 2 <= copies <= pk.K6_MAX_WINDOWS
     else:
         assert (rows, minb, copies) == (0, 0, 0)
     # no opt-in memory: the block route is never taken
@@ -378,8 +384,9 @@ def test_k20_param_block_matches_source():
     assert '#include "topk_level.cuh"' in k20
     assert '#include "topk_level.cuh"' in _source("topk_select.cu")
     # no order-word plane, no per-call table: the first design's pieces
-    # are gone from the shared header
-    assert "topk_encode" not in _source("topk.cuh") + src + k20
+    # are gone, and with K16 on the level kernel so is topk.cuh
+    assert not os.path.exists(os.path.join(CSRC, "topk.cuh"))
+    assert "topk_encode" not in src + k20
     assert "cudaMemcpy" not in k20 and "enc" not in re.findall(r"\w+", k20)
 
 
@@ -392,9 +399,12 @@ def test_k6_constants_match_source():
     assert _define(src, "K6B_MAX_REDS") == pk.K6B_MAX_REDS
     assert _define(src, "K6_PARAM_REGIONS") == pk.K6_PARAM_REGIONS
     assert _define(src, "K6_PARAM_TAB") == pk.K6_PARAM_TAB
-    # the per-warp tile route is gone: two routes, block and sorted
+    assert _define(src, "K6_PARAM_ROWS") == pk.K6_PARAM_ROWS
+    assert _define(src, "K6_WIN") == pk.K6_WIN
+    # the per-warp tile route is gone: block, windows and sorted
     assert "seg_states_tiles" not in src and "K6_WARPS" not in src
     assert pk.K6_ROUTES == ("seg_states_ragged_smem",
+                            "seg_states_ragged_window",
                             "seg_states_ragged_sorted")
     assert re.search(r"#define K6B_WARPS \(K6B_THREADS / 32\)", src)
     assert pk.K6B_THREADS // 32 == pk.K6B_WARPS
@@ -452,6 +462,24 @@ class _Recorder:
             np.int64).copy()))
         return 0
 
+    def seg_states_window_launch(self, *args):
+        tables_p, W, R, n_red = args[3], args[5], args[6], args[8]
+        self.calls.append(("window", args, np.frombuffer(ctypes.string_at(
+            tables_p, 8 * (8 * W + 2 * n_red + 2 * n_red * R)),
+            np.int64).copy()))
+        return 0
+
+    def seg_states_keys_launch(self, *args):
+        self.calls.append(("keys", args, None))
+        return 0
+
+    def radix_scratch_ints(self, n):
+        return 256 * (-(-n // 2048) + 1)
+
+    def radix_pass_launch(self, *args):
+        self.calls.append(("radix", args, None))
+        return 0
+
     def seg_states_sorted_launch(self, *args):
         self.calls.append(("sorted", args, None))
         return 0
@@ -467,7 +495,7 @@ def stub_card(monkeypatch):
     monkeypatch.setattr(pk, "_stream", lambda dev: 0)
     monkeypatch.setattr(pk, "_SCRATCH", {})
     monkeypatch.setattr(pk, "_K20_PLANS", {})
-    monkeypatch.setattr(pk, "_K20_GRID", {})
+    monkeypatch.setattr(pk, "_K10_GRID", {})
     monkeypatch.setattr(pk, "_K6_LIMIT", {})
     monkeypatch.setattr(pk, "_K6_GRID", {})
     # the process's counts stay as they were: other tests read them
@@ -588,15 +616,27 @@ def test_seg_states_block_route_drives_its_launch(stub_card):
 
 @pytest.mark.parametrize("ops,Gs,route", [
     ([pk.R_COUNT, pk.R_SUM_I], [9, 40], "block"),
-    ([pk.R_COUNT] * 8, [12_000, 9_000], "sorted")])
+    ([pk.R_COUNT] * 8, [12_000, 9_000], "window"),
+    ([pk.R_COUNT] * 8, [60_000, 9_000], "sorted")])
 def test_seg_states_other_routes_drive_their_launch(stub_card, ops, Gs,
                                                     route):
-    # small spans, which the per-warp tile route took, ride the block route
+    # small spans, which the per-warp tile route took, ride the block
+    # route; spans past one block windows, and past the windows' cap the
+    # radix sort and the sorted pass
     args = _k6_args([700, 900], [700, 850], Gs, ops)
     launch, _out = pk.k6_prepare(*args)
     launch()
-    (kind, _call, _r), = stub_card.calls
-    assert kind == route
+    kinds = [kind for kind, _c, _r in stub_card.calls]
     name = {"block": "seg_states_ragged_smem",
+            "window": "seg_states_ragged_window",
             "sorted": "seg_states_ragged_sorted"}[route]
-    assert pk.LAUNCHES[name] == 1 and sum(pk.LAUNCHES.values()) == 1
+    if route == "sorted":
+        S = sum(pk.bucket_segments(G + 1) for G in Gs)
+        passes = len(pk.radix_plan((1 << (S - 1).bit_length()) - 1, False))
+        assert kinds == ["keys"] + ["radix"] * passes + ["sorted"]
+        assert pk.LAUNCHES["radix_pass"] == passes
+        assert sum(pk.LAUNCHES.values()) == 1 + passes
+    else:
+        assert kinds == [route]
+        assert sum(pk.LAUNCHES.values()) == 1
+    assert pk.LAUNCHES[name] == 1

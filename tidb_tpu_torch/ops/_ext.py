@@ -84,8 +84,11 @@ SIGNATURES = {
         "seg_states_block_grid": ([_I, _I, _L], _I),
         "seg_states_block_launch": ([_I, _I, _I, _I, _P, _I, _I, _P, _I, _I,
                                      _I, _L, _P, _P, _P], _I),
-        "seg_states_sorted_launch": ([_L, _P, _P, _P, _I, _L, _I, _P, _P,
-                                      _P, _P, _P, _P], _I),
+        "seg_states_window_launch": ([_I, _I, _I, _P, _I, _I, _I, _P, _I,
+                                      _I, _I, _L, _P, _P, _P], _I),
+        "seg_states_keys_launch": ([_P, _I, _I, _I, _L, _P, _P, _P], _I),
+        "seg_states_sorted_launch": ([_L, _P, _P, _P, _I, _I, _L, _I, _P,
+                                      _P, _P], _I),
     },
     "combine_partials": {
         "combine_partials_launch": ([_I, _I, _P, _P, _P, _L, _P], _I),
@@ -117,9 +120,9 @@ SIGNATURES = {
                              _P, _I, _P, _P, _P, _P], _I),
     },
     "slot_topn": {
-        "slot_topn_tile": ([], _I),
-        "slot_topn_launch": ([_L, _I, _L, _P, _I, _P, _P, _P, _P, _P, _P,
-                              _P, _P, _P], _I),
+        "slot_topn_grid": ([_I, _I, _I], _I),
+        "slot_topn_launch": ([_I, _P, _I, _I, _L, _P, _P, _P, _P, _L, _P,
+                              _P], _I),
     },
     "sort_perm": {
         "sort_perm_summary_launch": ([_L, _I, _P, _P, _P, _P, _P], _I),

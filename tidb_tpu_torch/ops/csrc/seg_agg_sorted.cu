@@ -91,10 +91,10 @@ struct K4Params {
 };
 
 struct K4BSrc {
-  static constexpr bool GLOBAL = true;
   int n_slots;
   const i64* slots;
   const unsigned char* mask;
+  __device__ i64 first(int, const i64* d) const { return d[2]; }   // global ids
   __device__ SbSlot slot(int j, int r, i64 base) const {
     const i64* d = slots + K4_SLOT * j;
     SbSlot s;

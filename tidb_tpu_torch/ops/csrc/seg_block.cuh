@@ -5,16 +5,21 @@
 // ids). A source type tells the two apart:
 //
 //   int n_slots;                                       states a segment keeps
-//   static constexpr bool GLOBAL;                      ids are global: a
-//                                                      region's first segment
-//                                                      is subtracted
+//   __device__ i64 first(int r, const i64* d) const;   the id of region r's
+//                                                      first segment (d its
+//                                                      table row), which is
+//                                                      subtracted from each
+//                                                      row's id
 //   __device__ SbSlot slot(int j, int r, i64 base) const;
 //                                                      slot j's inputs in
 //                                                      region r (rows from
 //                                                      `base`)
 //
 // The region table holds K6_RDESC int64 a region: row base, rows,
-// first segment, span, first block, blocks. A persistent grid gives each
+// first segment, span, first block, blocks. A "region" of the table is
+// what one span copy covers: K6's region, a window of K4's segments, or
+// a window of one of K6's regions (several table rows then share the
+// region's rows). A persistent grid gives each
 // region blocks (ops/kernels.py k6_block_units), each block a fixed
 // contiguous slice of the region's rows and its own copies of the
 // region's span for all its slots (one copy, or as many copies of the
@@ -177,7 +182,7 @@ __device__ __forceinline__ void seg_block_run(const i64* __restrict__ rdesc, int
   const int r = k6_region(rdesc, R, 4, blockIdx.x);
   const i64* d = rdesc + K6_RDESC * r;
   const i64 base = d[0], n_rows = d[1], units = d[5], jb = blockIdx.x - d[4];
-  const i64 sub = Src::GLOBAL ? d[2] : 0;
+  const i64 sub = src.first(r, d);
   const int span = (int)d[3];
   const i64 lo = n_rows * jb / units, hi = n_rows * (jb + 1) / units;
   for (int j = t; j < n_red; j += K6B_THREADS) {

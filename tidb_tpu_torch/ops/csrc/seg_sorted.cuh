@@ -16,13 +16,18 @@
 // holds 2.4M of 8.4M rows), so work is cut by position, not by segment:
 // pass 1 gives each block a fixed piece of SORTED_PIECE sorted positions;
 // a warp per segment present in the piece finds the segment's part of the
-// piece by binary search and reduces it with a fixed-order butterfly. A
-// segment wholly inside the piece is stored; the piece's first and last
+// piece by binary search and reduces it with a fixed-order butterfly
+// (f64 extrema in row order: each lane a contiguous run, the lanes merged
+// as a tree in lane order, so a tie of -0.0 and +0.0 keeps the first row,
+// as K6's plain version does). A segment wholly inside the piece is
+// stored; the piece's first and last
 // segment, when they cross its edges, leave a partial (n, v) in `part`
 // (4 int64 per reduction and piece). Pass 2, a thread per segment, stores
 // the identity for empty segments and folds the partials of a crossing
 // segment piece by piece in order. No atomics, so f64 sums are
-// bit-identical from run to run.
+// bit-identical from run to run. The source rides in each launch's
+// parameters (__grid_constant__: K6's holds its tables by value, read in
+// place).
 #pragma once
 
 #include "common.cuh"
@@ -31,10 +36,24 @@
 #define SORTED_WARPS (SORTED_THREADS / 32)
 #define SORTED_PIECE 2048
 
+// Lane 0 ends with the fold of every lane's accumulator in lane order,
+// the left part first at each step of the tree.
+__device__ __forceinline__ Acc warp_merge_ordered(int op, Acc a) {
+  const int lane = threadIdx.x & 31;
+  for (int off = 1; off < 32; off <<= 1) {
+    Acc b;
+    b.n = __shfl_down_sync(0xffffffffu, a.n, off);
+    b.v = __shfl_down_sync(0xffffffffu, a.v, off);
+    if ((lane & (2 * off - 1)) == 0) a = acc_merge(op, a, b);
+  }
+  return a;
+}
+
 template <class Src>
 __global__ void sorted_pieces(i64 n, const i64* __restrict__ gs,
-                              const i64* __restrict__ order, i64 n_seg, Src src,
-                              i64* __restrict__ out, i64* __restrict__ part) {
+                              const i64* __restrict__ order, i64 n_seg,
+                              const __grid_constant__ Src src, i64* __restrict__ out,
+                              i64* __restrict__ part) {
   const i64 b0 = (i64)blockIdx.x * SORTED_PIECE;
   const i64 b1 = b0 + SORTED_PIECE < n ? b0 + SORTED_PIECE : n;
   const int lane = threadIdx.x & 31;
@@ -52,11 +71,25 @@ __global__ void sorted_pieces(i64 n, const i64* __restrict__ gs,
     for (int j = 0; j < src.n_red; ++j) {
       const int op = src.op(j);
       Acc a = acc_init(op);
-      for (i64 i = lo + lane; i < hi; i += 32) {
-        i64 x;
-        if (src.take(j, order[i], &x)) acc_add(op, a, x);
+      if (op == R_MIN_F || op == R_MAX_F) {
+        // in row order (a tie of -0.0 and +0.0 keeps the first row): each
+        // lane a contiguous run of the segment's rows, the lanes merged as
+        // a tree in lane order
+        const i64 c = (hi - lo + 31) / 32;
+        const i64 i0 = lo + lane * c < hi ? lo + lane * c : hi;
+        const i64 i1 = i0 + c < hi ? i0 + c : hi;
+        for (i64 i = i0; i < i1; ++i) {
+          i64 x;
+          if (src.take(j, order[i], &x)) acc_add(op, a, x);
+        }
+        a = warp_merge_ordered(op, a);
+      } else {
+        for (i64 i = lo + lane; i < hi; i += 32) {
+          i64 x;
+          if (src.take(j, order[i], &x)) acc_add(op, a, x);
+        }
+        a = warp_merge(op, a);
       }
-      a = warp_merge(op, a);
       if (lane == 0) {
         if (!crosses) {
           src.store(out, n_seg, j, s, a);
@@ -72,7 +105,8 @@ __global__ void sorted_pieces(i64 n, const i64* __restrict__ gs,
 
 template <class Src>
 __global__ void sorted_finish(i64 n, const i64* __restrict__ gs, i64 n_seg, int n_pieces,
-                              Src src, const i64* __restrict__ part, i64* __restrict__ out) {
+                              const __grid_constant__ Src src, const i64* __restrict__ part,
+                              i64* __restrict__ out) {
   const i64 s = (i64)blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= n_seg) return;
   const i64 lo = lower_bound_i64(gs, 0, n, s);
@@ -98,16 +132,18 @@ __host__ __forceinline__ int sorted_pieces_count(i64 n) {
   return (int)((n + SORTED_PIECE - 1) / SORTED_PIECE);
 }
 
-// Both passes over n sorted ids; `part` holds 4 * n_red *
-// sorted_pieces_count(n) int64.
+// Both passes over n sorted ids (none: pass 2 stores every identity);
+// `part` holds 4 * n_red * sorted_pieces_count(n) int64.
 template <class Src>
 int sorted_launch(i64 n, const i64* gs, const i64* order, i64 n_seg, Src src, i64* part,
                   i64* out, cudaStream_t st) {
-  if (n_seg < 1 || src.n_red < 1 || n < 1) return -1;
+  if (n_seg < 1 || src.n_red < 1 || n < 0) return -1;
   const int pieces = sorted_pieces_count(n);
-  sorted_pieces<Src><<<pieces, SORTED_THREADS, 0, st>>>(n, gs, order, n_seg, src, out, part);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  if (n > 0) {
+    sorted_pieces<Src><<<pieces, SORTED_THREADS, 0, st>>>(n, gs, order, n_seg, src, out, part);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
   sorted_finish<Src><<<(unsigned)((n_seg + 255) / 256), 256, 0, st>>>(n, gs, n_seg, pieces,
                                                                       src, part, out);
   return (int)cudaGetLastError();

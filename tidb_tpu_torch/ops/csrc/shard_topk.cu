@@ -55,6 +55,6 @@ extern "C" int shard_topk_level_launch(int nk, int level1, int blocks, int K, in
   if (words == nullptr) return -1;
   return k10_launch(nk, level1, blocks, K, slots, (i64)shards * L, L, shards, mask, keys, in,
                     in_lists, fan_in, out, bound, has_lb, final_level, idx, words, nulls,
-                    idx_off, kk, live_part, count_live, live_blocks, n_live,
+                    idx_off, kk, live_part, count_live, live_blocks, n_live, nullptr,
                     (cudaStream_t)stream);
 }

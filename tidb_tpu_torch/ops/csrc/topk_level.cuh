@@ -1,16 +1,20 @@
-// The threshold-filter selection of K10 (topk_select.cu) and K20
-// (shard_topk.cu): composite keys in registers and shared memory, a
-// persistent level-1 grid over the rows, merge levels over the blocks'
-// lists, rounds past the largest K a block holds. K10 runs it over one
-// run of n rows; K20 over S shards of L rows, each level's blocks split
-// evenly over the shards, so no list mixes two shards and the last level
-// is one block a shard. The design and what bounds it are in
-// topk_select.cu's note.
+// The threshold-filter selection of K10 (topk_select.cu), K20
+// (shard_topk.cu) and K16 (slot_topn.cu): composite keys in registers and
+// shared memory, a persistent level-1 grid over the rows, merge levels
+// over the blocks' lists, rounds past the largest K a block holds. K10
+// runs it over one run of n rows; K20 over S shards of L rows, each
+// level's blocks split evenly over the shards, so no list mixes two
+// shards and the last level is one block a shard; K16 as K20, but every
+// shard (a statement slot) reads the same L rows, and a row is live in
+// slot s where bit r of the slot's mask words (K14's) is set. The design
+// and what bounds it are in topk_select.cu's note.
 #pragma once
 
 #include <cstring>
 
-#include "topk.cuh"
+#include "common.cuh"
+
+#define TOPK_DEAD 0x80u   // a composite key's flag: the row is dead (sorts last)
 
 #define K10_THREADS 512
 #define K10_ROWS 2
@@ -20,6 +24,7 @@
 #define K10_MAX_SLOTS 8192
 #define K10_SMEM_LIMIT 231424   // dynamic shared memory: 227 KB less 1 KB static
 #define K10_MERGE_ENTRIES 32768
+#define K16_COUNT_ROWS (1 << 18)   // K16: a level-1 block counts its slot's live rows up to this
 
 // One ORDER BY item, passed by value (kernels.K10Key mirrors this layout).
 struct K10Key {
@@ -69,6 +74,10 @@ struct K10Args {
   int shards;
   i64* words;
   unsigned char* nulls;
+  // K16: every shard reads the same L rows (row r of shard s is row r),
+  // live where bit r of live_words[s * L / 32 + r / 32] is set (K14's
+  // mask words; the byte mask is unused)
+  const unsigned* live_words;
 };
 
 template <int NK>
@@ -95,8 +104,10 @@ __device__ __forceinline__ bool k10_less(const K10Ent<NK>& a, const K10Ent<NK>& 
 // A row's planes as loaded (bit 0 of f: live; bit 1 + j: key j valid; the
 // values' bits in w), so that a step's loads are all in flight at once.
 template <int NK>
-__device__ __forceinline__ void k10_fetch(const K10Args& a, i64 row, K10Ent<NK>& e) {
-  unsigned f = a.mask[row] != 0;
+__device__ __forceinline__ void k10_fetch(const K10Args& a, int sh, i64 row, K10Ent<NK>& e) {
+  unsigned f = a.live_words != nullptr
+                   ? (a.live_words[(i64)sh * (a.L >> 5) + (row >> 5)] >> (row & 31)) & 1u
+                   : a.mask[row] != 0;
 #pragma unroll
   for (int j = 0; j < NK; ++j) {
     const K10Key& kd = a.key[j];
@@ -317,12 +328,13 @@ __global__ void __launch_bounds__(K10_THREADS, K10_MINB) k10_level(const __grid_
   i64 live = 0;
   __syncthreads();
 
-  // the block's inputs: a slice of its shard's rows, or fan_in of its
-  // shard's lists of K entries
+  // the block's inputs: a slice of its shard's rows (K16: of the rows
+  // every slot shares), or fan_in of its shard's lists of K entries
+  const i64 rbase = a.live_words != nullptr ? 0 : (i64)sh * a.L;
   i64 lo, hi;
   if (L1) {
-    lo = (i64)sh * a.L + a.L * jb / per;
-    hi = (i64)sh * a.L + a.L * (jb + 1) / per;
+    lo = rbase + a.L * jb / per;
+    hi = rbase + a.L * (jb + 1) / per;
   } else {
     const int per_in = a.in_lists / a.shards;
     const i64 l0 = (i64)sh * per_in + (i64)jb * a.fan_in;
@@ -331,11 +343,47 @@ __global__ void __launch_bounds__(K10_THREADS, K10_MINB) k10_level(const __grid_
     lo = l0 * a.K;
     hi = l1 * a.K;
   }
+  // K16: dead rows sort after every live row, so where this round's K
+  // rows are all live a dead row is never taken (a slot of the tier keeps
+  // about one row in 25: without this its blocks would sort a step of
+  // dead rows before they hold a threshold). Past the first round the
+  // slot's live rows are known (n_live, written by the first round's
+  // last level); in the first, the block counts its slot's mask bits, or
+  // past K16_COUNT_ROWS rows its own slice's (the slice's best K rows are
+  // then live)
+  bool dead_out = false;
+  if (L1 && a.live_words != nullptr) {
+    i64 cnt = 0;
+    if (has_lb) {
+      cnt = a.n_live[sh];
+    } else {
+      const unsigned* wrd = a.live_words + (i64)sh * (a.L >> 5);
+      const bool whole = a.L <= K16_COUNT_ROWS;
+      const i64 w0 = whole ? 0 : (lo - rbase) >> 5;
+      const i64 w1 = whole ? a.L >> 5 : (hi - rbase + 31) >> 5;
+      for (i64 w = w0 + t; w < w1; w += K10_THREADS) {
+        unsigned x = wrd[w];
+        if (!whole) {
+          const i64 r0 = rbase + 32 * w;
+          if (r0 < lo) x &= ~((1u << (lo - r0)) - 1u);
+          if (r0 + 32 > hi) x &= (1u << (hi - r0)) - 1u;
+        }
+        cnt += __popc(x);
+      }
+      for (int off = 16; off > 0; off >>= 1) cnt += __shfl_down_sync(0xffffffffu, cnt, off);
+      if ((t & 31) == 0) s_live[t >> 5] = cnt;
+      __syncthreads();
+      cnt = 0;
+      for (int j = 0; j < K10_THREADS / 32; ++j) cnt += s_live[j];
+      __syncthreads();
+    }
+    dead_out = cnt >= a.idx_off + a.K;
+  }
   const i64 in_cap = (i64)a.in_lists * a.K;
   auto fetch = [&](i64 i, K10Ent<NK>& e) -> bool {
     if (i >= hi) return false;
     if (L1) {
-      k10_fetch<NK>(a, i, e);
+      k10_fetch<NK>(a, sh, i, e);
       return true;
     }
     const i64 l = i / a.K;
@@ -360,7 +408,8 @@ __global__ void __launch_bounds__(K10_THREADS, K10_MINB) k10_level(const __grid_
         k10_encode<NK>(a, e[u]);
         live += (e[u].f & TOPK_DEAD) == 0u;
       }
-      const bool take = in[u] && (!has_lb || k10_less(lb, e[u])) &&
+      const bool take = in[u] && !(dead_out && (e[u].f & TOPK_DEAD)) &&
+                        (!has_lb || k10_less(lb, e[u])) &&
                         (!has_thr || k10_less(e[u], thr));
       k10_push<NK>(s, &s_cnt, take, e[u]);
     }
@@ -430,7 +479,7 @@ __global__ void __launch_bounds__(K10_THREADS, K10_MINB) k10_level(const __grid_
     return;
   }
   // the last level: a block a shard, K keys kept
-  const i64 o0 = (i64)sh * a.kk + a.idx_off, rbase = (i64)sh * a.L;
+  const i64 o0 = (i64)sh * a.kk + a.idx_off;
   for (int j = t; j < keep; j += K10_THREADS) {
     const unsigned q = s.ord[j];
     a.idx[o0 + j] = (i64)s.r[q] - rbase;
@@ -520,21 +569,23 @@ static int k10_grid(int nk, int level1, int slots) {
   return sms * (occ > 0 ? occ : 1);
 }
 
-// One level of one round over `shards` shards of L rows (n = shards * L):
-// keys: nk K10Key in host memory, copied into the parameter block; in /
-// out / bound: list buffers laid out as k10_list with capacities
-// in_lists * K, blocks * K and shards. Returns 0, -1 for arguments the
-// kernel does not take, or a CUDA error.
+// One level of one round over `shards` shards of L rows (n = shards * L;
+// with live_words, K16's slots over one set of n = L rows, L a multiple
+// of 32): keys: nk K10Key in host memory, copied into the parameter
+// block; in / out / bound: list buffers laid out as k10_list with
+// capacities in_lists * K, blocks * K and shards. Returns 0, -1 for
+// arguments the kernel does not take, or a CUDA error.
 static int k10_launch(int nk, int level1, int blocks, int K, int slots, i64 n, i64 L,
                       int shards, const unsigned char* mask, const K10Key* keys, void* in,
                       int in_lists, int fan_in, void* out, void* bound, int has_lb,
                       int final_level, i64* idx, i64* words, unsigned char* nulls, i64 idx_off,
                       i64 kk, i64* live_part, int count_live, int live_blocks, i64* n_live,
-                      cudaStream_t st) {
+                      const unsigned* live_words, cudaStream_t st) {
   if (nk < 0 || nk > K10_MAXK || blocks < 1 || K < 1 || slots < K + K10_STEP ||
       slots > K10_MAX_SLOTS || (slots & (slots - 1)) != 0 ||
       (i64)slots * (8 * nk + 16) > K10_SMEM_LIMIT || shards < 1 || L < 0 ||
-      n != (i64)shards * L || n > 0xffffffffLL || blocks % shards != 0 ||
+      n != (live_words != nullptr ? L : (i64)shards * L) || n > 0xffffffffLL ||
+      (live_words != nullptr && (L & 31) != 0) || blocks % shards != 0 ||
       (!level1 && (in_lists < shards || in_lists % shards != 0 || fan_in < 1)) ||
       (final_level && blocks != shards) || (words != nullptr && nulls == nullptr))
     return -1;
@@ -563,6 +614,7 @@ static int k10_launch(int nk, int level1, int blocks, int K, int slots, i64 n, i
   a.shards = shards;
   a.words = words;
   a.nulls = nulls;
+  a.live_words = live_words;
   return (int)k10_dispatch(nk, level1, (unsigned)blocks, (size_t)slots * (8 * nk + 16), st, &a,
                           nullptr);
 }

@@ -62,5 +62,5 @@ extern "C" int topk_level_launch(int nk, int level1, int blocks, int K, int slot
                                  void* stream) {
   return k10_launch(nk, level1, blocks, K, slots, n, n, 1, mask, keys, in, in_lists, fan_in, out,
                     bound, has_lb, final_level, idx, nullptr, nullptr, idx_off, kk, live_part,
-                    count_live, live_blocks, n_live, (cudaStream_t)stream);
+                    count_live, live_blocks, n_live, nullptr, (cudaStream_t)stream);
 }

@@ -114,16 +114,19 @@ RADIX_MAX_SEGMENTS = 1 << 20
 GC_BASE = -1000
 
 # kernel launches per kernel since the last reset (plain runs not
-# counted); K6 counts its two routes apart (k6_route): span copies a
-# block in the opt-in shared memory (seg_states_ragged_smem), and larger
-# spans (seg_states_ragged_sorted); K4 its two (k4_route): segment windows in
+# counted); K6 counts its three routes apart (k6_route): span copies a
+# block in the opt-in shared memory (seg_states_ragged_smem), segment
+# windows of larger spans (seg_states_ragged_window), and past the
+# windows' cap the segmented pass over radix-sorted ids
+# (seg_states_ragged_sorted); K4 its two (k4_route): segment windows in
 # the opt-in shared memory (seg_agg_block) and the segmented pass over
 # sorted ids (seg_agg_sorted, also the ranked and DISTINCT paths' pass);
-# radix_pass one pass of the radix sort K11 and K4's sorted route run
+# radix_pass one pass of the radix sort K11, K4's and K6's sorted routes
+# and K17 run
 LAUNCHES = {"expr_vm": 0, "scalar_agg": 0, "seg_agg_onehot": 0,
             "seg_agg_sorted": 0, "rank_groups": 0, "distinct_runs": 0,
             "topk_select": 0, "expr_vm_ragged": 0,
-            "seg_states_ragged_smem": 0,
+            "seg_states_ragged_smem": 0, "seg_states_ragged_window": 0,
             "seg_states_ragged_sorted": 0, "combine_partials": 0,
             "join_build": 0, "join_probe": 0, "dict_remap": 0,
             "slot_filter": 0, "slot_agg": 0, "slot_topn": 0,
@@ -1222,24 +1225,21 @@ def _k10_plan(lib, dev: torch.device, n: int, kk: int, nk: int) -> tuple:
     key = (dev.index, n, kk, nk)
     got = _K10_PLANS.get(key)
     if got is None:
-        plan = topk_plan(n, kk, nk,
-                         lambda slots: _k10_grid(lib, dev, nk, slots))
+        plan = topk_plan(n, kk, nk, lambda slots: _k10_grid(
+            lib.topk_grid, dev, nk, slots))
         got = _K10_PLANS[key] = (plan, topk_scratch(plan, nk))
     return got
 
 
+# the resident grid of topk_level.cuh's level kernel, which K10, K20 and
+# K16 each build: one query per (device, keys, slots), whichever library
+# answers it
 _K10_GRID: dict = {}
 
 
-def _k10_grid(lib, dev: torch.device, nk: int, slots: int) -> int:
-    key = (dev.index, nk, slots)
-    g = _K10_GRID.get(key)
-    if g is None:
-        g = lib.topk_grid(nk, 1, slots)
-        if g <= 0:
-            raise errors.DeviceError(f"topk_grid failed with CUDA error {-g}")
-        _K10_GRID[key] = g
-    return g
+def _k10_grid(query, dev: torch.device, nk: int, slots: int) -> int:
+    return _card_query(_K10_GRID, (dev.index, nk, slots), query, nk, 1,
+                       slots)
 
 
 def topk_launch_count(n: int, k: int, nk: int, device) -> int:
@@ -1389,26 +1389,17 @@ def shard_topk_plan(S: int, L: int, k: int, nk: int, grid) -> list:
 
 
 _K20_PLANS: dict = {}
-_K20_GRID: dict = {}
 
 
-def _k20_plan(lib, dev: torch.device, S: int, L: int, k: int,
+def _k20_plan(query, dev: torch.device, S: int, L: int, k: int,
               nk: int) -> tuple:
-    """shard_topk_plan on the card and its scratch offsets, kept per
-    shape."""
+    """shard_topk_plan on the card (K20's shards, K16's slots) and its
+    scratch offsets, kept per shape; `query` the library's grid query."""
     key = (dev.index, S, L, k, nk)
     got = _K20_PLANS.get(key)
     if got is None:
-        def grid(slots):
-            g = _K20_GRID.get((dev.index, nk, slots))
-            if g is None:
-                g = lib.shard_topk_grid(nk, 1, slots)
-                if g <= 0:
-                    raise errors.DeviceError(
-                        f"shard_topk_grid failed with CUDA error {-g}")
-                _K20_GRID[(dev.index, nk, slots)] = g
-            return g
-        plan = shard_topk_plan(S, L, k, nk, grid)
+        plan = shard_topk_plan(S, L, k, nk, lambda slots: _k10_grid(
+            query, dev, nk, slots))
         got = _K20_PLANS[key] = (plan, topk_scratch(plan, nk, S))
     return got
 
@@ -1417,7 +1408,8 @@ def shard_topk_launch_count(S: int, L: int, k: int, nk: int,
                             device) -> int:
     """K20's launches for one call on the card (its plan's levels)."""
     dev = _device(device)
-    plan, _offs = _k20_plan(_ext.lib("shard_topk"), dev, S, L, k, nk)
+    plan, _offs = _k20_plan(_ext.lib("shard_topk").shard_topk_grid, dev, S,
+                            L, k, nk)
     return sum(len(levels) for _K, _s, levels in plan)
 
 
@@ -1455,7 +1447,7 @@ def shard_topk(mask: torch.Tensor, keys: list, k: int, shards: int):
     karr = array.array("q", flat or [0] * len(K10_KEY_FIELDS))
     lib = _ext.lib("shard_topk")
     plan, (off_a, off_b, off_bound, off_live, total) = _k20_plan(
-        lib, dev, shards, L, k, nk)
+        lib.shard_topk_grid, dev, shards, L, k, nk)
     stream = _stream(dev)
     base = _stream_scratch("shard_topk", dev, total, stream).data_ptr()
     bufs = (base + off_a, base + off_b)
@@ -2478,18 +2470,11 @@ def _k4_windows(n_red: int, n_slots: int, n_f64: int, num_segments: int,
     number: (rows a thread per chunk, windows), windows of as many segments
     as one copy of their states (and, for f64 states, a chunk's staging)
     fits in `limit` bytes, the most rows on a tie; None where no window
-    fits or the launch cannot take the reductions."""
-    best = None
-    if 1 <= n_slots <= K6B_MAX_REDS and n_red <= K4_MAX_REDS:
-        for rows in K6B_ROWS:
-            span = (limit - k6_block_bytes(n_slots, n_f64, 0, rows)) \
-                // (8 * n_slots)
-            if span < 1:
-                continue
-            windows = -(-num_segments // span)
-            if best is None or windows < best[1]:
-                best = (rows, windows)
-    return best
+    fits or the launch cannot take the reductions (K6's windows of one
+    region, k6_windows)."""
+    if n_red > K4_MAX_REDS:
+        return None
+    return k6_windows(n_slots, n_f64, [num_segments], limit)
 
 
 def k4_route(n_red: int, n_slots: int, n_f64: int, num_segments: int,
@@ -2874,11 +2859,13 @@ def seg_states_ragged_plain(gid: torch.Tensor, caps: list, Gs: list,
 
 
 # K6's routes (seg_states_ragged.cu): the block route within the card's
-# opt-in shared memory (K6B_*, seg_block.cuh, which K4 shares), else the
-# sorted route. The block route's instantiations: K6B_ROWS rows a thread
-# per chunk at one block an SM, and for small spans K6B_SMALL_ROWS rows at
-# K6B_SMALL_BLOCKS blocks an SM; its tables ride by value (struct
-# K6Params) up to K6_PARAM_REGIONS regions and K6_PARAM_TAB plane pointers
+# opt-in shared memory (K6B_*, seg_block.cuh, which K4 shares), segment
+# windows of larger spans on the same kernel up to K6_MAX_WINDOWS a region,
+# else the sorted route (radix.cuh and seg_sorted.cuh). The block route's
+# instantiations: K6B_ROWS rows a thread per chunk at one block an SM, and
+# for small spans K6B_SMALL_ROWS rows at K6B_SMALL_BLOCKS blocks an SM; the
+# tables ride by value (struct K6Params) up to K6_PARAM_REGIONS regions
+# (the windows: K6_PARAM_ROWS rows) and K6_PARAM_TAB plane pointers
 K6_RDESC = 6
 K6B_THREADS = 512
 K6B_WARPS = 16
@@ -2890,8 +2877,19 @@ K6B_SMALL_BLOCKS = 2
 # block's static shared memory and the card's reserve take
 K6B_SMALL_RESERVE = 2048
 K6_PARAM_REGIONS = 16
+K6_PARAM_ROWS = 64
 K6_PARAM_TAB = 512
-K6_ROUTES = ("seg_states_ragged_smem", "seg_states_ragged_sorted")
+K6_WIN = 2
+# windows a region on the window route: the most at which the windows
+# beat the sorted route by 1.2x at every shape of k6_window_sweep.py on an
+# H100 at 700 W (PERF.md). d_supplier's 8 reductions over 6M rows set it
+# (16 windows 1.25x, 20 1.14x); d_part's 6 reductions hold 1.2x up to 24,
+# two reductions past 32
+K6_MAX_WINDOWS = 16
+# the window route's blocks a window row at least (k6_window_blocks)
+K6_WINDOW_BLOCKS = 4
+K6_ROUTES = ("seg_states_ragged_smem", "seg_states_ragged_window",
+             "seg_states_ragged_sorted")
 
 
 def k6_block_bytes(n_red: int, n_f64: int, span_max: int, rows: int) -> int:
@@ -2905,17 +2903,69 @@ def k6_block_bytes(n_red: int, n_f64: int, span_max: int, rows: int) -> int:
     return 8 * n_red * span_max + staged
 
 
-def k6_route(n_red: int, span_max: int, limit: int, n_f64: int = 0) -> tuple:
+def k6_windows(n_red: int, n_f64: int, segs: list,
+               limit: int) -> tuple | None:
+    """The fewest segment windows a region that K6's window route needs
+    for regions of segs[r] segments each (a region's groups and its sink),
+    whatever their number: (rows a thread per chunk, windows of the region
+    that needs the most), windows of as many segments as one copy of their
+    states (and, with n_f64 f64 ops, a chunk's staging) fits in `limit`
+    bytes, the most rows on a tie; None where no window fits or the
+    reductions are more than a block folds."""
+    best = None
+    if 1 <= n_red <= K6B_MAX_REDS:
+        for rows in K6B_ROWS:
+            span = (limit - k6_block_bytes(n_red, n_f64, 0, rows)) \
+                // (8 * n_red)
+            if span < 1:
+                continue
+            windows = max(-(-int(g) // span) for g in segs)
+            if best is None or windows < best[1]:
+                best = (rows, windows)
+    return best
+
+
+def k6_window_plan(n_red: int, n_f64: int, segs: list,
+                   limit: int) -> tuple:
+    """K6's windows: (rows a thread per chunk, [(region, first
+    region-local segment, segments)] in segment order, the longest
+    window). Region r's segs[r] segments are cut into the fewest windows
+    that fit (k6_windows' window length), of even length; every segment
+    of [0, segs[r]) lies in exactly one window."""
+    rows, _w = k6_windows(n_red, n_f64, segs, limit)
+    span = (limit - k6_block_bytes(n_red, n_f64, 0, rows)) // (8 * n_red)
+    wins = []
+    for r, g in enumerate(segs):
+        g = int(g)
+        count = -(-g // span)
+        size = -(-g // count)
+        wins += [(r, lo, min(size, g - lo)) for lo in range(0, g, size)]
+    return rows, wins, max(n for _r, _lo, n in wins)
+
+
+def k6_window_blocks(W: int, grid: int) -> int:
+    """Blocks of the window route's launch for W window rows: whole waves
+    of the card's resident grid, at least K6_WINDOW_BLOCKS a row, so that
+    one block more or less a row (k6_block_units) moves a row's time by
+    no more than a fraction of it; one wave while that holds."""
+    return grid * max(1, -(-K6_WINDOW_BLOCKS * W // grid))
+
+
+def k6_route(n_red: int, span_max: int, limit: int, n_f64: int = 0,
+             segs: list | None = None) -> tuple:
     """K6's route for n_red reductions (n_f64 of them f64 ops) over spans
     of at most span_max segments, given the block route's shared-memory
     limit in bytes: (LAUNCHES name, rows a thread per chunk, blocks an SM,
-    copies of the integer states; 0, 0, 0 off the block route). Small
-    spans, whose copy (and, for f64 ops, a chunk's staging) fits a
-    K6B_SMALL_BLOCKS-th of `limit`: the K6B_SMALL_ROWS instantiation at
-    K6B_SMALL_BLOCKS blocks an SM, with as many copies as fit that share
-    (k4_copies: a hot group's lanes spread over them); else one block an
-    SM at the most rows of K6B_ROWS that fit `limit`, with the copies that
-    fit it; else the sorted route."""
+    copies of the integer states on the block route or windows a region on
+    the window route; 0, 0, 0 on the sorted route). Small spans, whose
+    copy (and, for f64 ops, a chunk's staging) fits a K6B_SMALL_BLOCKS-th
+    of `limit`: the K6B_SMALL_ROWS instantiation at K6B_SMALL_BLOCKS blocks
+    an SM, with as many copies as fit that share (k4_copies: a hot group's
+    lanes spread over them); else one block an SM at the most rows of
+    K6B_ROWS that fit `limit`, with the copies that fit it; else segment
+    windows of the regions' segs (their groups and sinks; the whole spans
+    where not given), one block an SM, while a region needs at most
+    K6_MAX_WINDOWS (k6_windows); else the sorted route."""
     if n_red <= K6B_MAX_REDS:
         small = limit // K6B_SMALL_BLOCKS - K6B_SMALL_RESERVE
         if k6_block_bytes(n_red, n_f64, span_max, K6B_SMALL_ROWS) <= small:
@@ -2926,6 +2976,9 @@ def k6_route(n_red: int, span_max: int, limit: int, n_f64: int = 0) -> tuple:
             if k6_block_bytes(n_red, n_f64, span_max, rows) <= limit:
                 return ("seg_states_ragged_smem", rows, 1,
                         k4_copies(n_red, n_f64, span_max, rows, limit))
+        fit = k6_windows(n_red, n_f64, segs or [span_max], limit)
+        if fit is not None and fit[1] <= K6_MAX_WINDOWS:
+            return ("seg_states_ragged_window", fit[0], 1, fit[1])
     return "seg_states_ragged_sorted", 0, 0, 0
 
 
@@ -2983,20 +3036,36 @@ def seg_states_ragged(gid: torch.Tensor, caps: list, n_rows: list,
     return out
 
 
+class _K6Call:
+    """A K6 call's checked inputs, layout and host tables, which each
+    route's builder (_K6_BUILDERS) turns into a launch."""
+
+    __slots__ = ("dev", "lib", "gid", "n_rows", "R", "n_red", "n_f64",
+                 "total", "S", "offs", "bases", "span_max", "segs", "limit",
+                 "rdesc", "plane_tab", "out")
+
+
 def k6_prepare(gid: torch.Tensor, caps: list, n_rows: list, Gs: list,
                reds: list, contribs: list):
     """Everything of a K6 launch but the launch (checks, tables, route by
-    k6_route, buffers). Returns (launch, out); launch() runs the kernel
-    (with the stable sort of the offset ids on the sorted route) into
-    out. The block route copies nothing to the card while its tables fit
-    K6Params."""
-    dev = gid.device
-    R, n_red = len(caps), len(contribs)
-    total = int(sum(caps))
+    k6_route, buffers). Returns (launch, out); launch() runs the kernels
+    into out. No route copies anything to the card while its tables fit
+    K6Params, and none calls a library sort."""
+    k = _k6_call(gid, caps, n_rows, Gs, reds, contribs)
+    name = k6_route(k.n_red, k.span_max, k.limit, k.n_f64, k.segs)[0]
+    return _K6_BUILDERS[name](k)
+
+
+def _k6_call(gid: torch.Tensor, caps: list, n_rows: list, Gs: list,
+             reds: list, contribs: list) -> _K6Call:
+    k = _K6Call()
+    k.dev = dev = gid.device
+    k.R, k.n_red = R, n_red = len(caps), len(contribs)
+    k.total = total = int(sum(caps))
     _check_plane(gid, total, (torch.int64,), "group id", dev)
-    spans, offs, bases = _k6_layout(caps, Gs)
-    S = int(offs[-1])
-    lib = _ext.lib("seg_states_ragged")
+    spans, k.offs, k.bases = _k6_layout(caps, Gs)
+    k.S = int(k.offs[-1])
+    k.lib = _ext.lib("seg_states_ragged")
     red_rows, vals, valids = [], [], []
     for j, contrib in enumerate(contribs):
         op = reds[0][j].op
@@ -3019,62 +3088,147 @@ def k6_prepare(gid: torch.Tensor, caps: list, n_rows: list, Gs: list,
             vals.append(0 if si.values is None or op == R_COUNT
                         else si.values.data_ptr())
             valids.append(0 if si.valid is None else si.valid.data_ptr())
-    out = torch.empty(n_red * S, dtype=torch.int64, device=dev)
-    span_max = max(spans)
-    n_f64 = sum(r.op in F_OPS for r in reds[0])
-    route, rows, minb, copies = k6_route(
-        n_red, span_max, _k6_block_limit(lib, dev), n_f64)
-    rdesc = [[int(bases[r]), int(n_rows[r]), int(offs[r]), spans[r], 0, 0]
-             for r in range(R)]
-    if route == "seg_states_ragged_smem":
-        smem = k6_block_bytes(n_red, n_f64, span_max, rows) \
-            + 8 * (copies - 1) * n_red * span_max
-        units = k6_block_units(
-            n_rows, _k6_block_grid(lib, dev, rows, minb, smem))
-        first = 0
-        for r in range(R):
-            rdesc[r][4:] = [first, units[r]]
-            first += units[r]
-        part = torch.empty(max(first, 1) * n_red * span_max,
-                           dtype=torch.int64, device=dev)
-        # the tables go by value (a host array the launch copies) where
-        # they fit K6Params, else they are read from the card
-        tables = array.array("q", [x for row in rdesc + red_rows for x in row]
-                             + vals + valids)
-        on_card = R > K6_PARAM_REGIONS or 2 * n_red * R > K6_PARAM_TAB
-        if on_card:
-            tables = torch.tensor(tables, dtype=torch.int64).to(dev)
+    k.gid, k.n_rows = gid, n_rows
+    k.out = torch.empty(n_red * k.S, dtype=torch.int64, device=dev)
+    k.span_max = max(spans)
+    k.n_f64 = sum(r.op in F_OPS for r in reds[0])
+    k.limit = _k6_block_limit(k.lib, dev)
+    k.segs = [int(g) + 1 for g in Gs]
+    k.rdesc = [[int(k.bases[r]), int(n_rows[r]), int(k.offs[r]), spans[r],
+                0, 0] for r in range(R)]
+    k.plane_tab = [x for row in red_rows for x in row] + vals + valids
+    return k
 
-        def run() -> int:
-            ptr = tables.data_ptr() if on_card else tables.buffer_info()[0]
-            return lib.seg_states_block_launch(
-                rows, minb, copies, first, ptr, int(on_card), R,
-                gid.data_ptr(), n_red, n_f64, span_max, S, part.data_ptr(),
-                out.data_ptr(), _stream(dev))
-    else:
-        t_red = torch.tensor(red_rows, dtype=torch.int64).reshape(-1).to(dev)
-        t_vals = torch.tensor(vals, dtype=torch.int64).to(dev)
-        t_valid = torch.tensor(valids, dtype=torch.int64).to(dev)
-        t_rdesc = torch.tensor(rdesc, dtype=torch.int64).reshape(-1).to(dev)
-        region_off = torch.repeat_interleave(
-            torch.from_numpy(offs[:-1]).to(dev),
-            torch.tensor(caps, device=dev))
-        part = torch.empty(4 * n_red * lib.seg_states_pieces_count(total),
-                           dtype=torch.int64, device=dev)
 
-        def run() -> int:
-            gs, order = torch.sort(gid + region_off, stable=True)
-            return lib.seg_states_sorted_launch(
-                total, gs.data_ptr(), order.data_ptr(), t_rdesc.data_ptr(), R,
-                S, n_red, t_red.data_ptr(), t_vals.data_ptr(),
-                t_valid.data_ptr(), part.data_ptr(), out.data_ptr(),
-                _stream(dev))
-
+def _k6_launch(k: _K6Call, route: str, run):
     def launch():
         _ext.check(run(), route)
         LAUNCHES[route] += 1
 
-    return launch, out.view(n_red, S)
+    return launch, k.out.view(k.n_red, k.S)
+
+
+def _k6_block(k: _K6Call):
+    """The block route: each region's span in one block's shared memory."""
+    lib, dev, R, n_red = k.lib, k.dev, k.R, k.n_red
+    name, rows, minb, copies = k6_route(n_red, k.span_max, k.limit, k.n_f64)
+    if name != "seg_states_ragged_smem":
+        raise errors.DeviceError(f"K6's block route does not hold a span of "
+                                 f"{k.span_max} segments")
+    smem = k6_block_bytes(n_red, k.n_f64, k.span_max, rows) \
+        + 8 * (copies - 1) * n_red * k.span_max
+    units = k6_block_units(
+        k.n_rows, _k6_block_grid(lib, dev, rows, minb, smem))
+    rdesc, first = [list(row) for row in k.rdesc], 0
+    for r in range(R):
+        rdesc[r][4:] = [first, units[r]]
+        first += units[r]
+    part = torch.empty(max(first, 1) * n_red * k.span_max,
+                       dtype=torch.int64, device=dev)
+    tables, on_card = _k6_tables(
+        [x for row in rdesc for x in row] + k.plane_tab,
+        R > K6_PARAM_REGIONS or 2 * n_red * R > K6_PARAM_TAB, dev)
+
+    def run() -> int:
+        return lib.seg_states_block_launch(
+            rows, minb, copies, first, _k6_ptr(tables), on_card, R,
+            k.gid.data_ptr(), n_red, k.n_f64, k.span_max, k.S,
+            part.data_ptr(), k.out.data_ptr(), _stream(dev))
+    return _k6_launch(k, name, run)
+
+
+def _k6_window(k: _K6Call):
+    """The window route: each region's groups and sink in segment windows
+    (k6_window_plan), as many a region as they need."""
+    lib, dev, R, n_red, n_f64 = k.lib, k.dev, k.R, k.n_red, k.n_f64
+    if k6_windows(n_red, n_f64, k.segs, k.limit) is None:
+        raise errors.DeviceError(f"no K6 window holds a segment of {n_red} "
+                                 f"states")
+    rows, wins, wspan = k6_window_plan(n_red, n_f64, k.segs, k.limit)
+    copies = k4_copies(n_red, n_f64, wspan, rows, k.limit)
+    smem = k6_block_bytes(n_red, n_f64, wspan, rows) \
+        + 8 * (copies - 1) * n_red * wspan
+    units = k6_block_units([k.n_rows[r] for r, _lo, _n in wins],
+                           k6_window_blocks(len(wins), _k6_block_grid(
+                               lib, dev, rows, 1, smem)))
+    wdesc, wmap, first = [], [], 0
+    for (r, lo, n), u in zip(wins, units):
+        wdesc += [int(k.bases[r]), int(k.n_rows[r]), int(k.offs[r]) + lo, n,
+                  first, u]
+        wmap += [r, lo]
+        first += u
+    W = len(wins)
+    part = torch.empty(max(first, 1) * n_red * wspan, dtype=torch.int64,
+                       device=dev)
+    tables, on_card = _k6_tables(
+        wdesc + wmap + k.plane_tab,
+        W > K6_PARAM_ROWS or 2 * n_red * R > K6_PARAM_TAB, dev)
+
+    def run() -> int:
+        return lib.seg_states_window_launch(
+            rows, copies, first, _k6_ptr(tables), on_card, W, R,
+            k.gid.data_ptr(), n_red, n_f64, wspan, k.S, part.data_ptr(),
+            k.out.data_ptr(), _stream(dev))
+    return _k6_launch(k, "seg_states_ragged_window", run)
+
+
+def _k6_sorted(k: _K6Call):
+    """The sorted route: the offset ids, radix.cuh's passes over S - 1's
+    bits, seg_sorted.cuh's pass. Any number of reductions: past
+    K6B_MAX_REDS (K6Params' room for them) the tables are on the card."""
+    lib, dev, R, n_red, total = k.lib, k.dev, k.R, k.n_red, k.total
+    tables, on_card = _k6_tables(
+        [x for row in k.rdesc for x in row] + k.plane_tab,
+        R > K6_PARAM_ROWS or n_red > K6B_MAX_REDS
+        or 2 * n_red * R > K6_PARAM_TAB, dev)
+    plan = radix_plan((1 << (k.S - 1).bit_length()) - 1, False)
+    part = torch.empty(4 * n_red * lib.seg_states_pieces_count(
+        max(total, 1)), dtype=torch.int64, device=dev)
+    gid = k.gid
+
+    def run() -> int:
+        if total == 0:
+            gs = order = gid
+        else:
+            keys = torch.empty(total, dtype=torch.int64, device=dev)
+            rc = lib.seg_states_keys_launch(
+                _k6_ptr(tables), on_card, R, n_red, total, gid.data_ptr(),
+                keys.data_ptr(), _stream(dev))
+            _ext.check(rc, "seg_states_ragged_sorted")
+            gs, order = radix_sort_t(keys, None, plan)
+        return lib.seg_states_sorted_launch(
+            total, gs.data_ptr(), order.data_ptr(), _k6_ptr(tables), on_card,
+            R, k.S, n_red, part.data_ptr(), k.out.data_ptr(), _stream(dev))
+    return _k6_launch(k, "seg_states_ragged_sorted", run)
+
+
+# K6's builders by route (k6_prepare takes k6_route's; the chip check's
+# comparisons of the routes call one through _k6_on_route)
+_K6_BUILDERS = {"seg_states_ragged_smem": _k6_block,
+                "seg_states_ragged_window": _k6_window,
+                "seg_states_ragged_sorted": _k6_sorted}
+
+
+def _k6_on_route(route: str, *args):
+    """k6_prepare's (launch, out) on `route` (one of K6_ROUTES), whichever
+    route k6_route would take."""
+    if route not in _K6_BUILDERS:
+        raise errors.DeviceError(f"no K6 route {route}")
+    return _K6_BUILDERS[route](_k6_call(*args))
+
+
+def _k6_tables(flat: list, on_card: bool, dev) -> tuple:
+    """K6's tables: a host array the launch copies into its parameters,
+    or (on_card: past K6Params' room) the same layout on the card."""
+    tables = array.array("q", flat)
+    if on_card:
+        return torch.tensor(tables, dtype=torch.int64).to(dev), 1
+    return tables, 0
+
+
+def _k6_ptr(tables) -> int:
+    return tables.data_ptr() if isinstance(tables, torch.Tensor) \
+        else tables.buffer_info()[0]
 
 
 def combine_partials_plain(states: list, codes: list) -> list:
@@ -3574,13 +3728,57 @@ def slot_topn_plain(words: torch.Tensor, keys: list, k: int):
     return torch.stack(idx), torch.cat(n_live)
 
 
+_K16_CALLS: dict = {}
+# int64 fields of a launch in K16's table (slot_topn.cu K16_CALL)
+K16_CALL = 15
+
+
+def _k16_calls(lib, dev: torch.device, slots: int, n: int, kk: int,
+               nk: int) -> tuple:
+    """K16's plan (_k20_plan with one shard a slot over the shared rows:
+    merges never mix slots, the last level one block a slot), kept per
+    shape as (scratch bytes, launches, the launches' table for
+    slot_topn_launch: K16_CALL int64 a launch, scratch offsets relative to
+    the stream's buffer, -1 for no list)."""
+    key = (dev.index, slots, n, kk, nk)
+    got = _K16_CALLS.get(key)
+    if got is None:
+        plan, (off_a, off_b, off_bound, off_live, total) = _k20_plan(
+            lib.slot_topn_grid, dev, slots, n, kk, nk)
+        bufs, table, done = (off_a, off_b), [], 0
+        for r, (K, p_slots, levels) in enumerate(plan):
+            for i, (blocks, fan) in enumerate(levels):
+                final = i == len(levels) - 1
+                table += [int(i == 0), blocks, K, p_slots,
+                          bufs[(i - 1) % 2] if i else -1,
+                          levels[i - 1][0] if i else 0, fan,
+                          -1 if final else bufs[i % 2], off_bound,
+                          int(r > 0 and i == 0), int(final), done,
+                          int(r == 0 and (i == 0 or final)),
+                          levels[0][0] // slots, off_live]
+            done += K
+        got = _K16_CALLS[key] = (total, len(table) // K16_CALL,
+                                 array.array("q", table))
+    return got
+
+
+def slot_topn_launch_count(slots: int, n: int, k: int, nk: int,
+                           device) -> int:
+    """K16's launches for one call on the card (its plan's levels)."""
+    dev = _device(device)
+    return _k16_calls(_ext.lib("slot_topn"), dev, slots, n, min(int(k), n),
+                      nk)[1]
+
+
 def slot_topn(words: torch.Tensor, keys: list, k: int):
     """K16: (idx int64 [slots, min(k, n)], n_live int64 [slots]) — per slot
     K10's order (live first under the slot's mask words from K14; per
     ORDER BY item (values, valid), desc its null rank and value, -0.0 ==
     +0.0, reversed for DESC by complement; then row position) and
-    min(live rows, k). The keys' order words are encoded once for every
-    slot."""
+    min(live rows, k). On the card the launches follow shard_topk_plan
+    (LAUNCHES counts each): K10's threshold filter with one shard a slot
+    over the shared key rows, the keys by value, nothing copied to the
+    card."""
     if len(keys) > TOPN_MAX_KEYS:
         raise errors.DeviceError(f"K16 takes at most {TOPN_MAX_KEYS} keys")
     if _device_kind(words) == "cpu":
@@ -3595,31 +3793,27 @@ def slot_topn(words: torch.Tensor, keys: list, k: int):
     if kk <= 0:
         return (torch.empty((slots, 0), dtype=torch.int64, device=dev),
                 torch.zeros(slots, dtype=torch.int64, device=dev))
-    tab = []
+    if n > K10_MAX_ROWS:
+        raise errors.DeviceError(f"K16 takes at most {K10_MAX_ROWS} rows")
+    flat = []
     for j, ((v, ok), desc) in enumerate(keys):
         _check_plane(v, n, (torch.int64, torch.float64), f"key {j}", dev)
         _check_plane(ok, n, (torch.bool,), f"key {j} valid", dev)
-        tab.append([v.data_ptr(), ok.data_ptr(),
-                    int(v.dtype == torch.float64), int(bool(desc))])
-    t_tab = torch.tensor(tab or [[0, 0, 0, 0]],
-                         dtype=torch.int64).reshape(-1).to(dev)
+        flat += [v.data_ptr(), ok.data_ptr(), int(v.dtype == torch.float64),
+                 int(bool(desc))]
+    karr = array.array("q", flat or [0] * len(K10_KEY_FIELDS))
     lib = _ext.lib("slot_topn")
-    tile = lib.slot_topn_tile()
-    cand = (n + tile - 1) // tile * min(kk, tile)
-    enc = torch.empty(max(len(keys), 1) * n, dtype=torch.int64, device=dev)
-    flg = torch.empty(n, dtype=torch.uint8, device=dev)
-    buf_a = torch.empty(slots * cand, dtype=torch.int64, device=dev)
-    buf_b = torch.empty(slots * cand, dtype=torch.int64, device=dev)
-    count = torch.empty(slots, dtype=torch.int64, device=dev)
-    idx = torch.empty((slots, kk), dtype=torch.int64, device=dev)
-    n_live = torch.empty(slots, dtype=torch.int64, device=dev)
-    rc = lib.slot_topn_launch(
-        n, slots, kk, words.data_ptr(), len(keys), t_tab.data_ptr(),
-        enc.data_ptr(), flg.data_ptr(), buf_a.data_ptr(), buf_b.data_ptr(),
-        count.data_ptr(), idx.data_ptr(), n_live.data_ptr(), _stream(dev))
-    _ext.check(rc, "slot_topn")
-    LAUNCHES["slot_topn"] += 1
-    return idx, n_live
+    total, n_calls, table = _k16_calls(lib, dev, slots, n, kk, len(keys))
+    stream = _stream(dev)
+    base = _stream_scratch("slot_topn", dev, total, stream).data_ptr()
+    out = torch.empty(slots * (kk + 1), dtype=torch.int64, device=dev)
+    op = out.data_ptr()
+    _ext.check(lib.slot_topn_launch(
+        n_calls, table.buffer_info()[0], len(keys), slots, n,
+        words.data_ptr(), karr.buffer_info()[0], base, op, kk,
+        op + 8 * slots * kk, stream), "slot_topn")
+    LAUNCHES["slot_topn"] += n_calls
+    return out[:slots * kk].view(slots, kk), out[slots * kk:]
 
 
 # ---------------------------------------------------------------------------
