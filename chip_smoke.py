@@ -145,7 +145,15 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    same permutation, a one-word plan's sorted words equal to the plain
    pack's; the timed call's plan and its peak device memory beside 32 B
    a row, and K17's split (past its row limit) at a third of the ORDER
-   BY's rows, equal to K17, with its peak memory.
+   BY's rows, equal to K17, with its peak memory. K18 (redesigned in
+   slice 17: one chained scan a call) run twice for the same bits, with
+   exactly kernels.window_scan_launch_count launches each time, also at
+   its tile's edges (h_tile_edges: n of one tile and one either side,
+   peer groups over three and over several tiles, partitions on a
+   tile's first row, one row, every row its own partition); at SF1 its
+   launches a call and its peak device memory over its inputs against
+   WindowExec's reservation for the same specs, SUM + COUNT and the seven
+   figures each timed beside its bound.
 10. Phase I, the HTAP freshness tier (slice 7), after Phase D. I.1, at
    SF0.01 through KV: 60,175 lineitem rows committed through
    DistStore.begin() ... commit() into 8 regions; the six sweep shapes
@@ -244,6 +252,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -417,6 +426,13 @@ def build() -> None:
             if "registers" in line or "spill" in line \
                     or "Function properties" in line:
                 print(f"  {name}: {line.strip()}")
+    # K15 and K14 keep their registers in shared memory: no stack frame
+    for name in ("slot_agg", "slot_filter"):
+        if name not in _ext.BUILD_LOG:      # a library built before
+            continue
+        frames = re.findall(r"(\d+) bytes stack frame", _ext.BUILD_LOG[name])
+        need(frames and all(f == "0" for f in frames),
+             f"{name}: ptxas reports a stack frame ({frames})")
 
 
 # ---------------------------------------------------------------------------
@@ -2835,15 +2851,7 @@ def check_slots(a: dict, what: str) -> dict:
          "version")
     errs = {"slot_filter": max_err(words, pw)}
     if a["reds"] is not None:
-        kn, kacc = kernels.slot_agg(*args, a["reds"])
-        pn, pacc = kernels.slot_agg_plain(*args, a["reds"])
-        need(torch.equal(kn, pn), f"{what}: K15 counts differ")
-        for r, red in enumerate(a["reds"]):
-            ka, pa = kacc[:, r], pacc[:, r]
-            if red.op in kernels.F_OPS:
-                ka, pa = ka.view(torch.float64), pa.view(torch.float64)
-            need(torch.equal(ka, pa), f"{what}: K15 reduction {r} differs")
-        errs["slot_agg"] = max(max_err(kn, pn), max_err(kacc, pacc))
+        errs["slot_agg"] = check_k15_twice(*args, a["reds"], what)
     if a["keys"] is not None:
         gi, gn = kernels.slot_topn(words, a["keys"], a["k"])
         wi, wn = kernels.slot_topn_plain(pw, a["keys"], a["k"])
@@ -2851,6 +2859,26 @@ def check_slots(a: dict, what: str) -> dict:
         need(torch.equal(gi, wi), f"{what}: K16 row ids differ")
         errs["slot_topn"] = max(max_err(gi, wi), max_err(gn, wn))
     return errs
+
+
+def check_k15_twice(fin, pools, plane_list, live, reds, what: str) -> float:
+    """K15 run twice on the card: the same bits both times, and equal bit
+    for bit to its plain version (f64 reductions compared as f64, so that
+    -0.0 and +0.0 compare by value only there). Returns max_abs_err."""
+    args = (fin, pools, plane_list, live)
+    first = kernels.slot_agg_states(*args, reds)
+    second = kernels.slot_agg_states(*args, reds)
+    need(torch.equal(first, second), f"{what}: K15's two runs differ")
+    kn, kacc = first[:, :, 0], first[:, :, 1]
+    pn, pacc = kernels.slot_agg_plain(*args, reds)
+    need(torch.equal(kn, pn.to(kn.device)), f"{what}: K15 counts differ")
+    pacc = pacc.to(kacc.device)
+    for r, red in enumerate(reds):
+        ka, pa = kacc[:, r], pacc[:, r]
+        if red.op in kernels.F_OPS:
+            ka, pa = ka.view(torch.float64), pa.view(torch.float64)
+        need(torch.equal(ka, pa), f"{what}: K15 reduction {r} differs")
+    return max(max_err(kn, pn.to(kn.device)), max_err(kacc, pacc))
 
 
 G_ECOLS = {1: dict(tp=my.TypeLonglong, flen=20),    # a: int64 extremes
@@ -2991,18 +3019,20 @@ def slot_ops(a: dict, kernel: str) -> int:
 def g_h2d_copies(a: dict, launches: int = 20,
                  kernel: str = "slot_filter") -> tuple:
     """Host-to-device copies over `launches` calls of K14 (or, kernel
-    "slot_topn", of K16 over K14's words) at these inputs (after a warm-up
-    call), read from torch.profiler: the card's HtoD memcpy records and
-    the host's copy operators (aten::copy_, aten::_to_copy; an aten::to
-    that copies nothing, as Tensor.numpy()'s on a host tensor, is not
-    one). Returns (the copies' names, the durations in µs of the K14 (or
-    K16) kernels the profiler saw on the card, by kernel name: none where
-    it traces no device activity)."""
+    "slot_topn", of K16 over K14's words; "slot_agg", of K15) at these
+    inputs (after a warm-up call), read from torch.profiler: the card's
+    HtoD memcpy records and the host's copy operators (aten::copy_,
+    aten::_to_copy; an aten::to that copies nothing, as Tensor.numpy()'s on
+    a host tensor, is not one). Returns (the copies' names, the durations
+    in µs of the kernel's launches the profiler saw on the card, by kernel
+    name: none where it traces no device activity)."""
     from torch.profiler import ProfilerActivity, profile
     args = (a["fin"], a["pools"], a["plane_list"], a["live"])
     if kernel == "slot_topn":
         words = kernels.slot_filter(*args)
         call = lambda: kernels.slot_topn(words, a["keys"], a["k"])  # noqa
+    elif kernel == "slot_agg":
+        call = lambda: kernels.slot_agg_states(*args, a["reds"])  # noqa
     else:
         call = lambda: kernels.slot_filter(*args)  # noqa: E731
     call()
@@ -3013,7 +3043,7 @@ def g_h2d_copies(a: dict, launches: int = 20,
         for _ in range(launches):
             call()
         torch.cuda.synchronize()
-    per = 1 if kernel == "slot_filter" else kernels.slot_topn_launch_count(
+    per = 1 if kernel != "slot_topn" else kernels.slot_topn_launch_count(
         a["pools"].shape[0], a["live"].shape[0], a["k"], len(a["keys"]),
         a["live"].device)
     need(kernels.LAUNCHES[kernel] - before == launches * per,
@@ -3023,8 +3053,8 @@ def g_h2d_copies(a: dict, launches: int = 20,
         if "Memcpy HtoD" in e.name or e.name in ("aten::copy_",
                                                  "aten::_to_copy"):
             copies.append(e.name)
-        elif ("slot_filter_kernel" if kernel == "slot_filter"
-              else "k10_level") in e.name:
+        elif {"slot_filter": "slot_filter_kernel", "slot_agg":
+              "slot_agg_kernel"}.get(kernel, "k10_level") in e.name:
             seen.setdefault(e.name, []).append(e.time_range.elapsed_us())
     return copies, seen
 
@@ -3033,11 +3063,12 @@ def phase_g(lineitem, device, seed: int) -> tuple:
     """The tier at TPC-H SF1's supplier table (10,000 rows, capacity
     16,384: under the 16,384-row floor at its real size): the sessions'
     traffic with the tier on and off, K14, K15 and K16 against their
-    plain versions, 20 K14 launches at the tier's shape with no
-    host-to-device copy (torch.profiler), K14's time beside the launch
-    floor (an empty kernel and a [32, 256] readback), and the stress
-    shape over Phase B's lineitem. Returns (per-kernel results, the
-    launches of the tier's run)."""
+    plain versions (K15 twice for the same bits), 20 K14, K15 and K16
+    calls at the tier's shape with no host-to-device copy
+    (torch.profiler, which also gives their card time), K14's and K15's
+    times beside the launch floor (an empty kernel and a [32, 256]
+    readback), and the stress shape over Phase B's lineitem. Returns
+    (per-kernel results, the launches of the tier's run)."""
     ms = timer(device)
     t0 = time.perf_counter()
     data, words = tpch.supplier(tpch.SF1_SUPPLIERS, seed)
@@ -3243,6 +3274,32 @@ def phase_g(lineitem, device, seed: int) -> tuple:
               f"ms; the bytes bound {r['bound'][0]:.6f} ms; in the larger "
               f"parameter block (pools padded past the smaller's) "
               f"{r['large_block_ms']:.4f} ms")
+    if device.type == "cuda":
+        # K15 at the tier's shape: one launch a call, nothing copied to the
+        # card, its card time beside the launch floor; with its [k, R, 2]
+        # read back into page-locked memory as the tier reads it
+        a = tier["g_agg"]
+        copies15, by_name15 = g_h2d_copies(a, kernel="slot_agg")
+        need(not copies15, f"phase G: {len(copies15)} host-to-device copies "
+             f"over 20 K15 calls at the tier's shape: {set(copies15)}")
+        seen15 = [d for ds in by_name15.values() for d in ds]
+        need(len(seen15) == 20, f"phase G: {len(seen15)} K15 kernels traced "
+             "over 20 calls")
+        r = out["slot_agg"]
+        r["device_us"] = float(np.median(seen15)) if seen15 else None
+        args = (a["fin"], a["pools"], a["plane_list"], a["live"])
+        r["readback_ms"] = ms(lambda: kernels.to_host(
+            kernels.slot_agg_states(*args, a["reds"])))
+        r["floor_ms"] = out["slot_filter"]["floor_ms"]
+        print(f"phase G: K15 at the tier's shape (32 slots x "
+              f"{a['live'].shape[0]} rows, {len(a['reds'])} reductions, plan "
+              f"{kernels.slot_agg_plan(a['live'].shape[0], 32, len(a['reds']))}"
+              f"): one launch a call, {len(copies15)} host-to-device copies "
+              f"over 20 calls (torch.profiler: {len(seen15)} K15 kernels, "
+              f"median {r['device_us']} µs on the card); {r['ms']:.4f} ms a "
+              f"call, with the states read back into page-locked memory "
+              f"{r['readback_ms']:.4f} ms; the launch floor "
+              f"{r['floor_ms']:.4f} ms")
     # the stress shape: 32 statements over Phase B's SF1 lineitem planes
     c = expr_column
     ti = tpch.table_info([tpch.C_ORDERKEY, tpch.C_QUANTITY,
@@ -3445,16 +3502,76 @@ def h_window_inputs(n: int, nparts: int, seed: int, device):
 
 
 def check_k18(seg, peer, specs, what: str) -> float:
+    """K18 twice on its device: the same bits both times, each with
+    exactly window_scan_launch_count launches on the card, and equal to
+    its plain version."""
     n = seg.shape[0]
-    got = kernels.window_scan(seg, peer, specs, n)
-    if seg.device.type == "cuda":
+    cuda = seg.device.type == "cuda"
+    runs = []
+    for _ in range(2):
+        before = kernels.LAUNCHES["window_scan"]
+        runs.append(kernels.window_scan(seg, peer, specs, n))
+        got = kernels.LAUNCHES["window_scan"] - before
+        need(got == (kernels.window_scan_launch_count(specs) if cuda else 0),
+             f"{what}: K18 made {got} launches")
+    if cuda:
         torch.cuda.synchronize()
     want = kernels.window_scan_plain(seg, peer, specs, n)
-    err = 0.0
-    for (op, _v, _c), g, w in zip(specs, got, want):
+    for (op, _v, _c), g, g2, w in zip(specs, runs[0], runs[1], want):
+        need(torch.equal(g, g2), f"{what}: K18 {op}'s two runs differ")
         need(torch.equal(g, w), f"{what}: K18 {op} differs from its plain "
              f"version")
-    return err
+    return 0.0
+
+
+def h_tile_edges(seed: int, device) -> list:
+    """(seg, peer, specs, what) of K18 at its tile's edges (kernels.K18_TILE
+    rows a tile): n of one tile and one either side, a peer group over
+    three tiles, a partition starting on a tile's first row, one row,
+    every row its own partition, and peer groups longer than several
+    tiles (one of them the whole input, as OVER () has)."""
+    T = kernels.K18_TILE
+    rng = np.random.default_rng(seed)
+    t = (lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device))
+
+    def case(seg, peer, what):
+        n = len(seg)
+        vals = rng.choice(np.array([col.I64_MAX, col.I64_MIN, 5, -7,
+                                    1 << 62, 0], np.int64), n)
+        ok = rng.random(n) < 0.7
+        specs = [("row_number", None, None), ("rank", None, None),
+                 ("dense_rank", None, None), ("sum", t(vals), t(ok)),
+                 ("count", None, t(ok)), ("min", t(vals), t(ok)),
+                 ("max", t(vals), t(ok))]
+        return t(np.asarray(seg, np.int64)), t(np.asarray(peer, np.int64)), \
+            specs, what
+
+    def groups(bounds, n):
+        """ids that change at each of `bounds`"""
+        chg = np.zeros(n, bool)
+        chg[[b for b in bounds if 0 < b < n]] = True
+        return np.cumsum(chg)
+
+    out = []
+    for n in (T - 1, T, T + 1):
+        seg = np.sort(rng.integers(0, 9, n))
+        chg = np.r_[False, (seg[1:] != seg[:-1]) | (rng.random(n - 1) < 0.2)]
+        out.append(case(seg, np.cumsum(chg), f"n = {n}"))
+    n = 5 * T
+    out.append(case(groups([T - 5, 4 * T + 3], n),
+                    groups([7, T - 5, 3 * T + 9, 4 * T + 3], n),
+                    "a peer group over three tiles"))
+    out.append(case(groups([T, 2 * T], 3 * T), groups([T, T + 1, 2 * T], 3 * T),
+                    "partitions starting on a tile's first row"))
+    out.append(case([0], [0], "one row"))
+    n = 3 * T + 17
+    out.append(case(np.arange(n), np.arange(n), "every row its own partition"))
+    n = 11 * T + 100
+    out.append(case(groups([3 * T + 1, 9 * T], n),
+                    groups([5, 3 * T + 1, 3 * T + 2, 8 * T - 1, 9 * T], n),
+                    "peer groups over 5 and more tiles"))
+    out.append(case(np.zeros(n), np.zeros(n), "one peer group over 12 tiles"))
+    return out
 
 
 def window_oracle(orderkey, linenumber, suppkey):
@@ -3732,6 +3849,12 @@ def phase_h(data: dict, batch, device, seed: int,
         err = max(err, check_k18(*h_window_inputs(en, parts, en + parts,
                                                   device),
                                  f"K18 edge n={en} parts={parts}"))
+    # K18's tile edges: n of one tile and one either side, peer groups
+    # over three and more tiles, partitions on a tile's first row
+    for eseg, epeer, especs, what in h_tile_edges(seed + 11, device):
+        err = max(err, check_k18(eseg, epeer, especs, f"K18 {what}"))
+    print(f"  K18: Phase H's edges and {len(h_tile_edges(0, 'cpu'))} tile "
+          f"edges equal to its plain version, twice for the same bits")
     ts_specs = [("sum", dq, dok), ("count", None, dok)]
     out["window_scan"] = dict(
         ms=ms(lambda: kernels.window_scan(dseg, dpeer, ts_specs, n)),
@@ -3739,6 +3862,41 @@ def phase_h(data: dict, batch, device, seed: int,
                                                       n)),
         library_ms=None, max_abs_err=err,
         bound=bound(n * (8 + 8 + 8 + 1 + 8 * 2), 0))
+    # the seven figures: seg, peer, the quantities and the flags read once,
+    # seven planes written
+    seven_ms = ms(lambda: kernels.window_scan(dseg, dpeer, sf1_specs, n))
+    seven_bound = bound(n * (8 + 8 + 8 + 1 + 8 * 7), 0)
+    out["window_scan"]["seven_ms"] = seven_ms
+    out["window_scan"]["seven_bound_ms"] = seven_bound[0]
+    for what, specs in (("SUM + COUNT", ts_specs), ("the seven figures",
+                                                   sf1_specs)):
+        per = kernels.window_scan_launch_count(specs)
+        # WindowExec's reservation for these specs (window._scan's sum)
+        reserve = n * (window.WINDOW_ROW_BYTES + window.WINDOW_SPEC_BYTES
+                       * sum(1 for sp in specs if sp[0] in ("sum", "count",
+                                                            "min", "max"))
+                       + 8 * len(specs))
+        peak = None
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            before = kernels.LAUNCHES["window_scan"]
+            figs_ = kernels.window_scan(dseg, dpeer, specs, n)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            need(kernels.LAUNCHES["window_scan"] - before == per,
+                 f"phase H: K18 made another count of launches than {per}")
+            need(peak <= reserve, f"phase H: K18's peak {peak} B over its "
+                 f"inputs passes WindowExec's reservation {reserve} B")
+            del figs_
+        print(f"  K18 at SF1, {what}: {per} launches a call; peak device "
+              f"memory over its inputs {peak} B "
+              f"({'not measured' if peak is None else f'{peak / n:.3f}'} B a "
+              f"row) against WindowExec's reservation {reserve} B "
+              f"({reserve / n:.0f} B a row)")
+    print(f"  K18 at SF1, the seven figures: {seven_ms:.4f} ms, bound "
+          f"{seven_bound[0]:.4f} ms by {seven_bound[1]}")
     for name, r in out.items():
         print(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']}, bound {r['bound'][0]:.4f} ms by "
@@ -5363,9 +5521,11 @@ def l_inf_edges(device, mesh8) -> int:
     planes = kernels.batch_planes(sb, device)
     sreds = [kernels.Red(kernels.R_MIN_F, planes[2][0]),
              kernels.Red(kernels.R_MAX_F, planes[2][0])]
-    cnt, acc = kernels.slot_agg(fin, torch.from_numpy(np.stack(pools)),
-                                [planes[k][w] for k, w in fin.plane_keys],
-                                kernels.device_live(sb, device), sreds)
+    largs = (fin, torch.from_numpy(np.stack(pools)),
+             [planes[k][w] for k, w in fin.plane_keys],
+             kernels.device_live(sb, device))
+    check_k15_twice(*largs, sreds, "phase L edge: K15 over only +-inf")
+    cnt, acc = kernels.slot_agg(*largs, sreds)
     got = acc.view(torch.float64).cpu().numpy()
     need(cnt[:, 0].tolist() == [10, 10, 0]
          and (got[0, 0], got[1, 1], got[2, 0], got[2, 1])

@@ -1,4 +1,4 @@
-"""Phase G's traffic and the slot and region-states kernels of two
+"""Phase G's traffic, the slot, window and region-states kernels of two
 checkouts of this repository, timed in turns on one card.
 
     python3 compare_trees.py OLD_ROOT [NEW_ROOT]
@@ -22,6 +22,14 @@ with the helpers both checkouts' chip_smoke.py share:
   at the tier's shape (32 statements of g_topn over the supplier batch)
   and at the stress shape (32 TopN statements over SF1's lineitem, as
   chip_smoke's Phase G), with a digest of the rows;
+- K15 (kernels.slot_agg, median of 5 CUDA-event runs) at the stress shape
+  (32 statements with three aggregates over SF1's lineitem), with a digest
+  of the states;
+- K18 (kernels.window_scan, median of 20 CUDA-event runs) at SF1 as
+  chip_smoke's Phase H calls it (lineitem in (l_orderkey, l_linenumber)
+  order, each order a partition and each line a peer group): SUM + COUNT
+  of l_quantity, and the seven figures ROW_NUMBER, RANK, DENSE_RANK, SUM,
+  COUNT, MIN, MAX, with a digest of the figures;
 - K6 (kernels.k6_prepare's launch, median of 20 CUDA-event runs, and the
   route it took) at q1full over 8 regions at SF1 and at SF0.01, at
   plain_q1 over 8 shards of one card (the mesh tier's near-data rung), and
@@ -120,8 +128,39 @@ def child(root: str) -> dict:
     line = tpch.generate(tpch.SF1_ROWS, 2)
     lbatch = tpch.batch(line, [tpch.C_ORDERKEY, tpch.C_QUANTITY,
                                tpch.C_EXTENDEDPRICE, tpch.C_SHIPDATE])
-    k16_time("k16_stress", cs.slot_inputs(lbatch, stress_statements(), dev))
-    del line, lbatch
+    sa = cs.slot_inputs(lbatch, stress_statements(), dev)
+    k16_time("k16_stress", sa)
+    sargs = (sa["fin"], sa["pools"], sa["plane_list"], sa["live"])
+    n15, acc15 = kernels.slot_agg(*sargs, sa["reds"])
+    out["k15_stress_digest"] = hashlib.sha1(
+        n15.cpu().numpy().tobytes() + acc15.cpu().numpy().tobytes()
+    ).hexdigest()[:16]
+    out["k15_stress_ms"] = cs.cuda_ms(
+        lambda: kernels.slot_agg(*sargs, sa["reds"]), runs=5)
+    del sa, sargs
+
+    # K18 at SF1: SUM + COUNT and the seven figures
+    order = np.lexsort((line[tpch.C_LINENUMBER], line[tpch.C_ORDERKEY]))
+    okey = line[tpch.C_ORDERKEY][order]
+    n = len(order)
+    dseg = torch.from_numpy(np.cumsum(np.r_[False, okey[1:] != okey[:-1]])
+                            .astype(np.int64)).to(dev)
+    dpeer = torch.arange(n, dtype=torch.int64, device=dev)
+    dq = torch.from_numpy(np.ascontiguousarray(
+        line[tpch.C_QUANTITY][order])).to(dev)
+    dok = torch.ones(n, dtype=torch.bool, device=dev)
+    for key, specs in (
+            ("k18_sum_count", [("sum", dq, dok), ("count", None, dok)]),
+            ("k18_seven", [("row_number", None, None), ("rank", None, None),
+                           ("dense_rank", None, None), ("sum", dq, dok),
+                           ("count", None, dok), ("min", dq, dok),
+                           ("max", dq, dok)])):
+        figs = kernels.window_scan(dseg, dpeer, specs, n)
+        out[f"{key}_digest"] = hashlib.sha1(b"".join(
+            f.cpu().numpy().tobytes() for f in figs)).hexdigest()[:16]
+        out[f"{key}_ms"] = cs.cuda_ms(
+            lambda: kernels.window_scan(dseg, dpeer, specs, n))
+    del line, lbatch, dseg, dpeer, dq, dok
 
     # K6 at q1full over 8 regions (SF1 and SF0.01) and plain_q1 over 8
     # shards of the card

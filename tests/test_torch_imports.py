@@ -29,7 +29,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _port_files():
     out = [os.path.join(ROOT, f) for f in ("chip_smoke.py",
                                            "compare_trees.py",
-                                           "k6_window_sweep.py")]
+                                           "k6_window_sweep.py",
+                                           "k18_stamps.py")]
     for dirpath, _dirs, files in os.walk(os.path.join(ROOT,
                                                       "tidb_tpu_torch")):
         out.extend(os.path.join(dirpath, f) for f in sorted(files)

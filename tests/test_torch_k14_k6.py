@@ -378,18 +378,18 @@ class _Recorder:
             lut=read(lut, lut_len, np.uint8), live=live, words=words))
         return 0
 
-    def slot_agg_blocks(self, n):
-        return 4
-
-    def slot_agg_launch(self, n, k, P, planes, n_planes, valid_bits, ins,
-                        n_instr, where, pools, lut, lut_len, live, n_red,
-                        desc, partial, out, stream):
+    def slot_agg_launch(self, n, k, P, planes, n_planes, ins, n_instr,
+                        n_inv, where, n_regs, pools, lut, lut_len, live,
+                        n_red, desc, groups, per_group, row_blocks,
+                        tiles_per_block, scratch, out, stream):
         self.calls.append(dict(
-            k=k, P=P, valid_bits=valid_bits, where=where,
+            n=n, k=k, P=P, n_inv=n_inv, where=where, n_regs=n_regs,
+            plan=(groups, per_group, row_blocks, tiles_per_block),
             ins=np.frombuffer(ctypes.string_at(ins, 48 * n_instr),
-                              np.int64).copy(),
+                              np.int64).reshape(-1, 6).copy(),
             desc=np.frombuffer(ctypes.string_at(desc, 40 * n_red),
-                               np.int64).reshape(n_red, 5).copy()))
+                               np.int64).reshape(n_red, 5).copy(),
+            scratch=scratch, out=out))
         return 0
 
 
@@ -443,13 +443,20 @@ def test_slot_agg_hands_its_tables_by_value(stub_slots):
     planes, plist, plive = _port_planes(pb, fin)
     reds = [pk.Red(pk.R_COUNT, const_bits=1),
             pk.Red(pk.R_SUM_I, *planes[3]), pk.Red(pk.R_MAX_F, *planes[2])]
-    pk.slot_agg(fin, pools, plist, plive, reds)
+    n, acc = pk.slot_agg(fin, pools, plist, plive, reds)
     (call,) = stub_slots.calls
-    assert call["ins"].tolist() == fin.meta[8:8 + 6 * fin.n_instr].tolist()
-    assert call["where"] == int(fin.meta[1])
+    # K14's split program: the invariant part, its WHERE register and the
+    # registers it writes
+    ins, n_inv, where = exprc.slot_split(fin)
+    assert call["ins"].tolist() == [list(x) for x in ins]
+    assert (call["n_inv"], call["where"]) == (n_inv, where)
+    assert call["n_regs"] == 1 + max(x[1] for x in ins)
+    assert (call["n"], call["k"], call["P"]) == (rb.capacity, 3,
+                                                  pools.shape[1])
     assert call["desc"].tolist() == pk._red_rows(reds, rb.capacity, CPU)
-    assert call["valid_bits"] == sum(1 << i for i, (_k, w)
-                                     in enumerate(fin.plane_keys) if w)
+    assert n.shape == acc.shape == (3, 3)
+    assert call["out"] == n.data_ptr()
+    assert pk.LAUNCHES["slot_agg"] == 1
 
 
 def test_slot_launch_refuses_what_its_block_cannot_hold(stub_slots):

@@ -37,8 +37,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-_P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_uint
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signature of every exported function: (argtypes, restype)
 SIGNATURES = {
     "expr_vm": {
@@ -115,9 +114,8 @@ SIGNATURES = {
                                 _P, _I, _P, _P, _P], _I),
     },
     "slot_agg": {
-        "slot_agg_blocks": ([_L], _I),
-        "slot_agg_launch": ([_L, _I, _I, _P, _I, _U, _P, _I, _I, _P, _P, _I,
-                             _P, _I, _P, _P, _P, _P], _I),
+        "slot_agg_launch": ([_L, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P,
+                             _I, _P, _I, _P, _I, _I, _I, _L, _P, _P, _P], _I),
     },
     "slot_topn": {
         "slot_topn_grid": ([_I, _I, _I], _I),
@@ -129,9 +127,10 @@ SIGNATURES = {
         "sort_perm_pack_launch": ([_L, _I, _P, _P, _P, _P, _P, _P, _P], _I),
     },
     "window_scan": {
-        "window_scan_blocks": ([_L], _L),
-        "window_scan_launch": ([_L, _I, _P, _P, _P, _P, _P, _P, _P], _I),
-        "window_finish_launch": ([_L, _I, _P, _P, _P, _P, _P, _P, _P], _I),
+        "window_scan_state_bytes": ([_L, _I], _L),
+        "window_scan_aux_bytes": ([_L, _I], _L),
+        "window_scan_launch": ([_L, _P, _P, _I, _P, _I, _P, _P, _P,
+                                ctypes.c_ulonglong, _P, _P], _I),
     },
     "delta_merge": {
         "delta_merge_blocks": ([_L], _L),

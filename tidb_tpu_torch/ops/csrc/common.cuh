@@ -143,28 +143,6 @@ __device__ __forceinline__ bool red_take(const i64* d, const unsigned char* mask
   return mask[row] && red_value(d, row, x);
 }
 
-// Fixed-order tree over a block of THREADS accumulators, staged in the
-// shared arrays sn/sv; every thread calls it and gets the block's result.
-// The caller syncs before it reuses sn/sv.
-template <int THREADS>
-__device__ __forceinline__ Acc block_merge(int op, Acc a, i64* sn, i64* sv) {
-  const int t = threadIdx.x;
-  sn[t] = a.n;
-  sv[t] = a.v;
-  __syncthreads();
-  for (int s = THREADS / 2; s > 0; s >>= 1) {
-    if (t < s) {
-      Acc l = {sn[t], sv[t]}, h = {sn[t + s], sv[t + s]};
-      Acc m = acc_merge(op, l, h);
-      sn[t] = m.n;
-      sv[t] = m.v;
-    }
-    __syncthreads();
-  }
-  Acc r = {sn[0], sv[0]};
-  return r;
-}
-
 // Fixed-order warp reduction (butterfly down to lane 0).
 __device__ __forceinline__ Acc warp_merge(int op, Acc a) {
   for (int off = 16; off > 0; off >>= 1) {

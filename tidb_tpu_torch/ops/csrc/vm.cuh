@@ -3,18 +3,15 @@
 //
 // One thread runs the program for one row. A plane slot of the program
 // (OP_LOAD's a and b) names an 8-byte value plane or a 1-byte valid
-// plane; how the slot is read is the caller's choice:
-//   VmPlanes reads the device planes directly (K1, K5: one program run
-//            per row, so each plane is read once anyway; K14, whose
-//            slot-invariant part loads each plane once a row);
-//   VmRow    reads one row's planes loaded beforehand (K15: one row runs
-//            the program once per slot, with another constant pool each
-//            time, and loads its planes only once).
-// So is where the registers live:
-//   VmArrayRegs the thread's own arrays v[] / ok[] (K1, K5, K15): indexed
-//            at run time, so the compiler puts them in local memory;
+// plane, read from the device planes directly (VmPlanes): K1 and K5 run
+// the program once per row, K14 and K15 its slot-invariant part (where
+// the loads are) once a row. Where the registers live is the caller's
+// choice:
+//   VmArrayRegs the thread's own arrays v[] / ok[] (K1, K5): indexed at
+//            run time, so the compiler puts them in local memory;
 //   VmSmemRegs  values in shared memory, one column a thread, and the
-//            valid bits in one 32-bit register (K14): no local memory.
+//            valid bits in one 32-bit register (K14, K15): no local
+//            memory.
 #pragma once
 
 #include <cstring>
@@ -34,22 +31,6 @@ struct VmPlanes {
 // At most this many plane slots per program of K14 / K15
 // (kernels.SLOT_MAX_PLANES).
 #define VM_ROW_PLANES 16
-
-// One row's planes, loaded once (K15).
-struct VmRow {
-  i64 vals[VM_ROW_PLANES];   // per slot: the row's value, or its valid byte
-
-  // Load row `row` of the n_planes planes; bit j of valid_bits marks slot
-  // j as a valid (1-byte) plane.
-  __device__ __forceinline__ void load(const u64* __restrict__ planes, int n_planes,
-                                       unsigned valid_bits, i64 row) {
-    for (int j = 0; j < n_planes; ++j)
-      vals[j] = (valid_bits >> j) & 1u ? (i64)((const unsigned char*)planes[j])[row]
-                                       : ((const i64*)planes[j])[row];
-  }
-  __device__ __forceinline__ i64 value(i64 slot, i64) const { return vals[slot]; }
-  __device__ __forceinline__ bool valid(i64 slot, i64) const { return vals[slot] != 0; }
-};
 
 struct VmArrayRegs {
   i64* v;
@@ -75,7 +56,7 @@ struct VmSmemRegs {
 };
 
 // Run instructions [from, to) of a K1 program over one row into the
-// register file `R`. `pl` reads the row's planes (VmPlanes or VmRow).
+// register file `R`. `pl` reads the row's planes.
 template <class Planes, class Regs>
 __device__ __forceinline__ void vm_exec(const i64* __restrict__ ins, int from, int to, i64 row,
                                         const i64* __restrict__ pool,

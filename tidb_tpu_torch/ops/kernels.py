@@ -86,10 +86,9 @@ import torch
 from tidb_tpu_torch import errors
 from tidb_tpu_torch.copr.proto import AGG_NAME, ExprType, SelectRequest
 from tidb_tpu_torch.ops import _ext, columnar as col, membudget
-from tidb_tpu_torch.ops.exprc import (HDR, CompiledExpr, Finalized,
-                                      Program, Unsupported, _dec_guard,
-                                      compile_expr, run_program_plain,
-                                      slot_split)
+from tidb_tpu_torch.ops.exprc import (CompiledExpr, Finalized, Program,
+                                      Unsupported, _dec_guard, compile_expr,
+                                      run_program_plain, slot_split)
 
 I64_MAX = (1 << 63) - 1
 I64_MIN = -(1 << 63)
@@ -3561,15 +3560,12 @@ def _slot_masks_plain(fin: Finalized, pools: torch.Tensor, plane_list: list,
 
 class _SlotProgram:
     """What K14 and K15 carry of one program, made once per bytecode and
-    LUT: K14's order of it (exprc.slot_split: instructions, the invariant
-    part's length, the WHERE register, the registers written), K15's
-    instructions in program order, the LUT, their host addresses (the
-    arrays are the object's own), and the valid-plane bits of its plane
-    table."""
+    LUT: its split order (exprc.slot_split: instructions, the invariant
+    part's length, the WHERE register, the registers written), the LUT,
+    and their host addresses (the arrays are the object's own)."""
 
-    __slots__ = ("split", "n_inv", "split_where", "n_regs", "ins",
-                 "n_instr", "where", "lut", "valid_bits", "p_split", "p_ins",
-                 "p_lut")
+    __slots__ = ("split", "n_inv", "split_where", "n_regs", "n_instr", "lut",
+                 "p_split", "p_lut")
 
     def __init__(self, fin: Finalized):
         if fin.n_instr > SLOT_MAX_INSTRS or len(fin.plane_keys) \
@@ -3583,14 +3579,9 @@ class _SlotProgram:
         self.split = np.asarray(code, dtype=np.int64).reshape(-1)
         self.n_regs = 1 + max([x[1] for x in code], default=-1)
         self.n_instr = fin.n_instr
-        self.ins = np.ascontiguousarray(fin.meta[HDR:HDR + 6 * self.n_instr])
-        self.where = int(fin.meta[1])
         self.lut = fin.lut.copy()
-        self.valid_bits = sum(1 << i for i, (_key, which)
-                              in enumerate(fin.plane_keys) if which)
-        self.p_split, self.p_ins, self.p_lut = (
-            a.__array_interface__["data"][0]
-            for a in (self.split, self.ins, self.lut))
+        self.p_split, self.p_lut = (a.__array_interface__["data"][0]
+                                    for a in (self.split, self.lut))
 
 
 _SLOT_PROGS: dict = {}       # (bytecode, LUT) -> _SlotProgram
@@ -3680,34 +3671,96 @@ def slot_agg_plain(fin: Finalized, pools: torch.Tensor, plane_list: list,
     return torch.stack(ns), torch.stack(accs)
 
 
-def slot_agg(fin: Finalized, pools: torch.Tensor, plane_list: list,
-             live: torch.Tensor, reds: list[Red]):
-    """K15: (n int64 [k, R], acc int64 [k, R]) — K2's reductions `reds`
-    (acc holds f64 bits for f64 ops, the exact sentinels where no row
-    contributes) under each slot's WHERE mask. `pools` as slot_filter's;
-    the descriptors too ride in the launch's parameters."""
+# K15's plan (ops/csrc/slot_agg.cu mirrors these): row tiles of
+# K15_THREADS x K15_ROWS rows, about K15_TARGET_BLOCKS blocks of row blocks
+# x slot groups, at most K15_MAX_ROW_BLOCKS row blocks (the partials the
+# last block of a group folds), at most K15_MAX_PAIRS (slot, reduction)
+# pairs a group (their running values in shared memory) and K15_MAX_GROUP
+# slots (a row's WHERE bits in one word)
+K15_THREADS = 128
+K15_ROWS = 2                 # rows a thread takes a tile
+K15_TARGET_BLOCKS = 132 * 12
+K15_MAX_ROW_BLOCKS = 132 * 12
+K15_MAX_PAIRS = 512
+K15_MAX_GROUP = 64
+K15_SAME = 4                 # descriptor flag: a twin of reduction const_bits
+
+
+def slot_agg_plan(n: int, k: int, n_red: int) -> tuple:
+    """K15's grid for k slots over n rows with n_red reductions, sized as
+    K14 sizes its own (slot_filter.cu): (groups, slots a group, row
+    blocks, tiles a row block)."""
+    tiles = -(-n // (K15_THREADS * K15_ROWS))
+    groups = min(-(-K15_TARGET_BLOCKS // tiles), k)
+    per_group = min(-(-k // groups), K15_MAX_PAIRS // n_red, K15_MAX_GROUP)
+    groups = -(-k // per_group)
+    rows = min(-(-K15_TARGET_BLOCKS // groups), K15_MAX_ROW_BLOCKS, tiles)
+    tpb = -(-tiles // rows)
+    return groups, per_group, -(-tiles // tpb), tpb
+
+
+# K15's scratch head (slot_agg.cu): an integer cell (count, value) for
+# every (slot, reduction) a launch can have and a ticket a group, at fixed
+# places, each left at 0 by the launch that used it
+K15_CELL_BYTES = 16 * SLOT_POOL_WORDS * SLOT_MAX_REDS
+K15_TICKET_BYTES = 4 * SLOT_POOL_WORDS
+
+
+def slot_agg_scratch_bytes(k: int, n_red: int, plan: tuple) -> int:
+    """The cells and tickets, then each (slot, reduction, row block)'s
+    partial (count, value) of the f64 reductions."""
+    _groups, _per, rows, _tpb = plan
+    return K15_CELL_BYTES + K15_TICKET_BYTES + 16 * k * n_red * rows
+
+
+def slot_agg_states(fin: Finalized, pools: torch.Tensor, plane_list: list,
+                    live: torch.Tensor, reds: list[Red]) -> torch.Tensor:
+    """K15: int64 [k, R, 2] — per slot and reduction of K2's `reds` the
+    (contributing count, value) under the slot's WHERE mask (the value
+    holds f64 bits for f64 ops, the exact sentinels where no row
+    contributes). `pools` as slot_filter's; the descriptors too ride in
+    the launch's parameters. One launch; its cells, tickets and partials
+    are a scratch kept per stream, so the call allocates only its
+    output."""
     if _device_kind(live) == "cpu":
-        return slot_agg_plain(fin, pools, plane_list, live, reds)
+        return torch.stack(slot_agg_plain(fin, pools, plane_list, live, reds),
+                           dim=2)
     if not 1 <= len(reds) <= SLOT_MAX_REDS:
         raise errors.DeviceError(f"K15 folds 1 to {SLOT_MAX_REDS} "
                                  f"reductions, got {len(reds)}")
     n, k, P, prog, planes = _slot_inputs(fin, pools, plane_list, live)
     dev = live.device
     R = len(reds)
-    desc = array.array("q", [x for row in _red_rows(reds, n, dev)
-                             for x in row])
-    lib = _ext.lib("slot_agg")
-    blocks = lib.slot_agg_blocks(n)
-    partial = torch.empty(k * blocks * R * 2, dtype=torch.int64, device=dev)
+    # a reduction equal to an earlier one folds nothing and copies that
+    # one's result (K15_SAME, its index in const_bits)
+    rows, first = _red_rows(reds, n, dev), {}
+    for r, row in enumerate(rows):
+        twin = first.setdefault(tuple(row), r)
+        if twin != r:
+            row[1] |= K15_SAME
+            row[2] = twin
+    desc = array.array("q", [x for row in rows for x in row])
+    plan = slot_agg_plan(n, k, R)
+    stream = _stream(dev)
+    scratch = _stream_scratch("slot_agg", dev,
+                              slot_agg_scratch_bytes(k, R, plan), stream)
     out = torch.empty((k, R, 2), dtype=torch.int64, device=dev)
-    rc = lib.slot_agg_launch(
-        n, k, P, planes.buffer_info()[0], len(plane_list), prog.valid_bits,
-        prog.p_ins, prog.n_instr, prog.where, pools.data_ptr(),
-        prog.p_lut, prog.lut.shape[0], live.data_ptr(), R,
-        desc.buffer_info()[0], partial.data_ptr(), out.data_ptr(),
-        _stream(dev))
+    rc = _ext.lib("slot_agg").slot_agg_launch(
+        n, k, P, planes.buffer_info()[0], len(plane_list), prog.p_split,
+        prog.n_instr, prog.n_inv, prog.split_where, prog.n_regs,
+        pools.data_ptr(), prog.p_lut, prog.lut.shape[0], live.data_ptr(), R,
+        desc.buffer_info()[0], *plan, scratch.data_ptr(), out.data_ptr(),
+        stream)
     _ext.check(rc, "slot_agg")
     LAUNCHES["slot_agg"] += 1
+    return out
+
+
+def slot_agg(fin: Finalized, pools: torch.Tensor, plane_list: list,
+             live: torch.Tensor, reds: list[Red]):
+    """K15 as (n int64 [k, R], acc int64 [k, R]): slot_agg_states' two
+    halves."""
+    out = slot_agg_states(fin, pools, plane_list, live, reds)
     return out[:, :, 0], out[:, :, 1]
 
 
@@ -4163,13 +4216,18 @@ def _k17_split(lib, planes: list, plan: list, bufs: list, max_rows: int,
     return out
 
 
-# K18 scan modes and finishing ops: the contract with
-# ops/csrc/window_scan.cu
-W_START, W_END, W_COUNT, W_SUM, W_MIN, W_MAX = range(6)
+# K18's reductions and figures, its tile and its limits: the contract
+# with ops/csrc/window_scan.cu
+W_COUNT, W_SUM, W_MIN, W_MAX = range(4)
 W_ROW_NUMBER, W_RANK, W_DENSE_RANK, W_FRAME = range(4)
 _W_REDUCE = {"count": W_COUNT, "sum": W_SUM, "min": W_MIN, "max": W_MAX}
 _W_RANK = {"row_number": W_ROW_NUMBER, "rank": W_RANK,
            "dense_rank": W_DENSE_RANK}
+K18_TILE = 2048
+K18_MAX_SPECS = 16
+K18_MAX_RED = 4
+_K18_LOCK = threading.Lock()
+_K18_EPOCH: dict = {}        # (device, stream) -> the last call's epoch
 
 
 def _seg_scan_doubling(v: torch.Tensor, s: torch.Tensor, op) -> torch.Tensor:
@@ -4224,6 +4282,30 @@ def window_scan_plain(seg: torch.Tensor, peer: torch.Tensor, specs: list,
     return outs
 
 
+def window_scan_plan(specs: list) -> tuple:
+    """K18's arguments for `specs`: (reductions as (op, vals, contrib),
+    figures as (kind, reduction index)); two specs of one op over the same
+    planes share a reduction."""
+    reds, figs, index = [], [], {}
+    for op, vals, contrib in specs:
+        if op in _W_RANK:
+            figs.append((_W_RANK[op], 0))
+            continue
+        key = (op, None if vals is None else vals.data_ptr(),
+               contrib.data_ptr())
+        if key not in index:
+            index[key] = len(reds)
+            reds.append((_W_REDUCE[op], vals, contrib))
+        figs.append((W_FRAME, index[key]))
+    return reds, figs
+
+
+def window_scan_launch_count(specs: list) -> int:
+    """K18's launches a call: the scan, and the patch of the peer groups
+    that run past their tile where a figure is a frame's."""
+    return 1 + any(op in _W_REDUCE for op, _v, _c in specs)
+
+
 def window_scan(seg: torch.Tensor, peer: torch.Tensor, specs: list,
                 n: int) -> list:
     """K18: per spec an int64 [n] plane of window figures over presorted
@@ -4234,7 +4316,10 @@ def window_scan(seg: torch.Tensor, peer: torch.Tensor, specs: list,
     the frame RANGE UNBOUNDED PRECEDING .. the current row's last peer.
     SUM and COUNT wrap modulo 2^64 as the reference's cumsum difference
     does; MIN / MAX give I64_MAX / I64_MIN over an empty frame (the
-    caller reads NULL from a COUNT spec)."""
+    caller reads NULL from a COUNT spec). On the card: one single-pass
+    scan over every spec, and a patch launch where a spec is a frame's
+    (window_scan_launch_count); at most K18_MAX_SPECS specs over
+    K18_MAX_RED distinct reductions."""
     n = int(n)
     if _device_kind(seg) == "cpu":
         return window_scan_plain(seg, peer, specs, n)
@@ -4249,45 +4334,44 @@ def window_scan(seg: torch.Tensor, peer: torch.Tensor, specs: list,
         _check_plane(contrib, n, (torch.bool,), f"{op} contrib", dev)
         if op != "count":
             _check_plane(vals, n, (torch.int64,), f"{op} values", dev)
-    if n == 0:
+    reds, figs = window_scan_plan(specs)
+    if len(specs) > K18_MAX_SPECS or len(reds) > K18_MAX_RED:
+        raise errors.DeviceError(
+            f"K18 takes at most {K18_MAX_SPECS} specs over at most "
+            f"{K18_MAX_RED} reductions, got {len(specs)} over {len(reds)}")
+    if n == 0 or not specs:
         return [torch.empty(0, dtype=torch.int64, device=dev) for _ in specs]
     lib = _ext.lib("window_scan")
-    nb = lib.window_scan_blocks(n)
-    st = _stream(dev)
+    stream = _stream(dev)
     try:
-        agg = torch.empty(2 * nb, dtype=torch.int64, device=dev)
-        carry = torch.empty(2 * nb, dtype=torch.int64, device=dev)
-
-        def scan(mode, key, vals=None, contrib=None):
-            out = torch.empty(n, dtype=torch.int64, device=dev)
-            rc = lib.window_scan_launch(
-                n, mode, key.data_ptr(),
-                0 if vals is None else vals.data_ptr(),
-                0 if contrib is None else contrib.data_ptr(),
-                agg.data_ptr(), carry.data_ptr(), out.data_ptr(), st)
-            _ext.check(rc, "window_scan")
-            return out
-
-        s = scan(W_START, seg)
-        p = scan(W_START, peer) if any(op == "rank" for op, _v, _c in
-                                       specs) else s
-        e = scan(W_END, peer) if any(op in _W_REDUCE for op, _v, _c in
-                                     specs) else s
-        outs = []
-        for op, vals, contrib in specs:
-            run = s
-            fin = _W_RANK.get(op, W_FRAME)
-            if fin == W_FRAME:
-                run = scan(_W_REDUCE[op], seg, vals, contrib)
-            out = torch.empty(n, dtype=torch.int64, device=dev)
-            rc = lib.window_finish_launch(
-                n, fin, peer.data_ptr(), s.data_ptr(), p.data_ptr(),
-                e.data_ptr(), run.data_ptr(), out.data_ptr(), st)
-            _ext.check(rc, "window_scan finish")
-            outs.append(out)
+        outs = list(torch.empty((len(specs), n), dtype=torch.int64,
+                                device=dev).unbind(0))
+        state = _stream_scratch("window_scan", dev,
+                                lib.window_scan_state_bytes(n, len(reds)),
+                                stream)
+        aux = _stream_scratch("window_scan_aux", dev,
+                              lib.window_scan_aux_bytes(n, len(reds)),
+                              stream)
     except torch.cuda.OutOfMemoryError as e:
         raise device_oom("window_scan", e) from e
-    LAUNCHES["window_scan"] += 1
+    rarr = array.array("q", [x for op, vals, contrib in reds for x in (
+        op, 0 if vals is None else vals.data_ptr(), contrib.data_ptr())]
+        or [0])
+    farr = array.array("q", [x for (kind, r), out in zip(figs, outs)
+                             for x in (kind, r, out.data_ptr())])
+    launched = ctypes.c_int(0)
+    key = (dev.index, stream)
+    # the scan and its patch share the stream's scratch: enqueue them
+    # together, each call with an epoch above the last
+    with _K18_LOCK:
+        epoch = _K18_EPOCH[key] = _K18_EPOCH.get(key, 0) + 1
+        rc = lib.window_scan_launch(
+            n, seg.data_ptr(), peer.data_ptr(), len(reds),
+            rarr.buffer_info()[0], len(figs), farr.buffer_info()[0],
+            state.data_ptr(), aux.data_ptr(), epoch, ctypes.byref(launched),
+            stream)
+    LAUNCHES["window_scan"] += launched.value
+    _ext.check(rc, "window_scan")
     return outs
 
 

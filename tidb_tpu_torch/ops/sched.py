@@ -20,8 +20,9 @@ that arrive within one gather window share ONE launch instead:
   3. A filter runs K14 `slot_filter` (the slots' survivor masks, bit-packed
      64 rows to an int64 word, one readback into page-locked memory; the
      program and the slots' pools ride in the launch's parameters, nothing
-     is copied to the card first); an aggregate K15 `slot_agg`
-     (each slot's where-pass count and masked reductions); a TopN K14 then
+     is copied to the card first); an aggregate K15 `slot_agg` (each
+     slot's where-pass count and masked reductions in one launch on K14's
+     grid, read back once into page-locked memory); a TopN K14 then
      K16 `slot_topn` (each slot's first k rows and live count). Each
      statement demultiplexes its own slot on its own thread's behalf and
      emits through the client's solo emission (desc/limit applied per
@@ -615,9 +616,11 @@ class MicroBatcher:
                 + [a.red(planes) for a in proto.aggs]
 
             def run(_p, _lv):
-                n, acc = kernels.slot_agg(proto.fin, pools, plane_list, live,
-                                          reds)
-                return n.cpu().numpy(), acc.cpu().numpy()
+                # (count, value) per slot and reduction, read back once
+                # into page-locked memory
+                out = kernels.to_host(kernels.slot_agg_states(
+                    proto.fin, pools, plane_list, live, reds)).numpy()
+                return out[:, :, 0], out[:, :, 1]
         elif proto.topn is not None:
             keys, kk = proto.topn
             key_planes = [(planes[cid], desc) for cid, desc, _kd in keys]
