@@ -77,8 +77,15 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    run, their repeat) and splits by phase; K8, K9 and K10 against their
    plain versions on the card at those shapes and on edge cases (NULL
    keys beside filtered rows, int64 extremes under DESC, BIGINT keys
-   above 2^53 in both orders, -0.0 beside +0.0, no live row, k = 1 and
-   k above the live rows, lengths no multiple of a tile), bit for bit.
+   above 2^53 in both orders, -0.0 beside +0.0, NaN keys of two bit
+   patterns, no live row, k = 1 and k above the live rows, lengths no
+   multiple of a tile), bit for bit. K8 (redesigned in slice 18) is a
+   rank pass once a statement, whose group count passes over the rungs
+   that cannot hold the groups, and an output pass at the rung that
+   holds them: each statement's launches show it, and the check runs one
+   rank pass and its output pass at every rung of a ladder; the two
+   passes timed at ranked_dates' top rung, the rank pass alone at
+   tuple_dates.
    K10 (redesigned in slice 11: a threshold filter over composite keys in
    registers and shared memory, launches by kernels.topk_plan, counted
    per statement) also at 2^22 + 13 rows: all keys equal (the first k
@@ -220,8 +227,11 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    K.1 and read after K.4; K.5 a DeviceOOM in f1's first pass (a hook of
    the phase) escalates, same rows; then K21 and the segmented K12
    against their plain versions at K.2's shapes and on edge cases (-0.0
-   beside +0.0, NULL keys, one hot key, empty partitions, P = 1 and 1024,
-   lengths no multiple of a tile, a build side with no valid row), K11
+   beside +0.0, NULL keys, one hot key, empty partitions, P = 1, 256,
+   257 (K21's two bin widths) and 1024, lengths no multiple of a tile, a
+   build side with no valid row), K21 (redesigned in slice 18: a counting
+   pass in radix.cuh's shape) timed at lineitem and orders with P 8, 16
+   and 1024, K11
    within partitions at the orders side in key order and shuffled (its
    passes and time), timed
    (median of 20 CUDA-event runs) beside their bounds, K21 beside a stable
@@ -308,8 +318,12 @@ KERNELS = {
     # K4's segment windows (seg_block.cuh, shared with K6's block route)
     "seg_agg_block": ("tidb_tpu_torch/ops/csrc/seg_agg_sorted.cu",
                       "tidb_tpu/ops/kernels.py:903"),
+    # K8's rank pass (once a statement) and its output pass (at the rung
+    # that holds the groups)
     "rank_groups": ("tidb_tpu_torch/ops/csrc/rank_groups.cu",
                     "tidb_tpu/ops/kernels.py:989"),
+    "rank_groups_out": ("tidb_tpu_torch/ops/csrc/rank_groups.cu",
+                        "tidb_tpu/ops/kernels.py:989"),
     "distinct_runs": ("tidb_tpu_torch/ops/csrc/distinct_runs.cu",
                       "tidb_tpu/ops/kernels.py:807"),
     "topk_select": ("tidb_tpu_torch/ops/csrc/topk_select.cu",
@@ -1883,19 +1897,22 @@ def phase_d(n_rows: int, seed: int, device, R: int = 8) -> tuple:
 # Phase E: ranked group-by, DISTINCT and TopN at SF1 (slice 3)
 # ---------------------------------------------------------------------------
 
-SLICE3_KERNELS = ("rank_groups", "distinct_runs", "topk_select")
+SLICE3_KERNELS = ("rank_groups", "rank_groups_out", "distinct_runs",
+                  "topk_select")
 # launches per statement on the card: the first run of each statement of
 # tpch.SLICE3 in order, then the repeats of the two group-by shapes, which
 # start at the memoized rung (ranked_dates) or go straight to tuple codes.
-# The ranked prepare (once a statement, whatever the rung) and each
-# DISTINCT aggregate sort by one K17 (sort_perm), whose radix passes come
-# from its plan (e_statements adds them)
+# The ranked prepare (once a statement, whatever the rung) sorts by one K17
+# (sort_perm), whose radix passes come from its plan (e_statements adds
+# them), and runs K8's rank pass, whose group count passes over the rungs
+# that cannot hold the groups; K8's output pass runs at the rung that
+# holds them, if any. Each DISTINCT aggregate sorts by one K17.
 E_LAUNCHES = {
-    "ranked_dates": {"expr_vm": 1, "sort_perm": 1, "rank_groups": 3,
-                     "seg_agg_sorted": 1},
+    "ranked_dates": {"expr_vm": 1, "sort_perm": 1, "rank_groups": 1,
+                     "rank_groups_out": 1, "seg_agg_sorted": 1},
     # the tuple codes' 429,862 segments: K4's sorted route, its ids sorted
     # by a radix pass per digit of their 19 bits
-    "tuple_dates": {"expr_vm": 2, "sort_perm": 1, "rank_groups": 3,
+    "tuple_dates": {"expr_vm": 2, "sort_perm": 1, "rank_groups": 1,
                     "seg_agg_sorted": 1,
                     "radix_pass": len(kernels.radix_plan((1 << 19) - 1,
                                                          False))},
@@ -1908,7 +1925,7 @@ E_LAUNCHES = {
     "topn_multi": {"expr_vm": 1},
     "topn_multi_5000": {"expr_vm": 1},
     "ranked_dates repeat": {"expr_vm": 1, "sort_perm": 1, "rank_groups": 1,
-                            "seg_agg_sorted": 1},
+                            "rank_groups_out": 1, "seg_agg_sorted": 1},
     "tuple_dates repeat": {"expr_vm": 1, "seg_agg_sorted": 1,
                            "radix_pass": len(kernels.radix_plan(
                                (1 << 19) - 1, False))},
@@ -1989,14 +2006,30 @@ def check_slice3(name: str, resp, data: dict, what: str) -> None:
         need(got == want, f"{what} {name}: row ids differ from numpy")
 
 
-def check_k8(prep, S: int, what: str) -> float:
-    got = kernels.rank_groups(prep.order, prep.mask, prep.cols, S)
-    want = kernels.rank_groups_plain(prep.order, prep.mask, prep.cols, S)
-    for g, w, part in zip(got, want, ("gid", "ngroups", "starts", "rep",
-                                      "nonnull")):
-        need(torch.equal(g, w), f"{what}: K8 {part} differs from its plain "
-             "version")
-    return max(max_err(g, w) for g, w in zip(got, want))
+def check_k8(order, dead, cols, caps, what: str) -> float:
+    """K8 against its plain parts on the same card tensors, bit for bit:
+    one rank pass (run twice for the same bits), and its output pass at
+    each S of `caps` in turn, as the ladder would try them (the rank
+    pass's count says which of them hold the groups)."""
+    rp = kernels.rank_groups_rank(order, dead, cols)
+    again = kernels.rank_groups_rank(order, dead, cols)
+    need(rp.word is None or (torch.equal(rp.word, again.word) and
+                             torch.equal(rp.block_off, again.block_off)),
+         f"{what}: K8's rank pass differs between two runs")
+    pp = kernels.rank_groups_rank_plain(order, dead, cols)
+    need(torch.equal(rp.ngroups, pp.ngroups),
+         f"{what}: K8's group count {int(rp.ngroups[0])} differs from its "
+         f"plain version's {int(pp.ngroups[0])}")
+    err = 0.0
+    for S in caps:
+        got = kernels.rank_groups_out(rp, S)
+        want = kernels.rank_groups_out_plain(pp, S)
+        for g, w, part in zip(got, want, ("gid", "starts", "rep",
+                                          "nonnull")):
+            need(torch.equal(g, w), f"{what}: K8 {part} at S {S} differs "
+                 "from its plain version")
+        err = max([err] + [max_err(g, w) for g, w in zip(got, want)])
+    return err
 
 
 K9_MODES = {"gather": 0, "sorted words": 0}
@@ -2180,27 +2213,36 @@ def k10_big_edges(device, seed: int) -> list:
 
 
 def edge_rank(device, seed: int) -> list:
-    """(order, mask, cols, S, what) cases for K8: NULLs, -0.0 beside
-    +0.0, an int and an f64 column, no live row, S below the group count,
-    a length that is no multiple of the tile."""
+    """(order, dead, cols, caps, what) cases for K8: NULLs, -0.0 beside
+    +0.0, NaNs of one bit pattern and of another, an int and an f64
+    column, no live row, S below the group count, a ladder whose lower
+    rungs the group count passes over, a length that is no multiple of the
+    tile, 3 and 5 columns (K8's wider column chunk)."""
     rng = np.random.default_rng(seed)
     n = 5 * 1024 + 333
     t = lambda a: torch.from_numpy(np.asarray(a)).to(device)  # noqa: E731
     a = t(rng.integers(-3, 4, n).astype(np.int64))
     f = t(np.where(rng.random(n) < 0.3, -0.0, rng.integers(0, 3, n) * 1.5))
+    fn = np.where(rng.random(n) < 0.3, -0.0, rng.integers(0, 3, n) * 1.5)
+    fn[rng.random(n) < 0.2] = np.nan
+    fn[rng.random(n) < 0.05] = np.array(0x7ff8000000000123,
+                                        np.int64).view(np.float64)
+    fn = t(fn)
     a_ok, f_ok = t(rng.random(n) > 0.2), t(rng.random(n) > 0.2)
+    wide = [(t(rng.integers(0, 3, n).astype(np.int64)),
+             t(rng.random(n) > 0.1)) for _ in range(3)]
     cases = []
-    for live_p, S, what in ((0.7, 1025, "mixed"), (0.7, 5, "overflow"),
-                            (0.0, 17, "no live row")):
+    for live_p, cols, caps, what in (
+            (0.7, [(a, a_ok), (f, f_ok)], (1025,), "mixed"),
+            (0.7, [(a, a_ok), (f, f_ok)], (5,), "overflow"),
+            (0.0, [(a, a_ok), (f, f_ok)], (17,), "no live row"),
+            (0.7, [(a, a_ok), (fn, f_ok)], (9, 33, 1025), "NaN keys, the "
+             "first two rungs passed over"),
+            (0.9, [(fn, f_ok)] + wide[:2], (65, 1025), "3 columns"),
+            (0.9, [(a, a_ok), (fn, f_ok)] + wide, (4097,), "5 columns")):
         mask = t(rng.random(n) < live_p)
-        keys = []
-        for v, ok in reversed([(a, a_ok), (f, f_ok)]):
-            keys.append(torch.where(ok, kernels.orderable(v),
-                                    torch.zeros_like(a)))
-            keys.append((~ok).to(torch.uint8))
-        keys.append((~mask).to(torch.uint8))
-        order, _ = kernels.lexsort(keys)
-        cases.append((order, mask, [(a, a_ok), (f, f_ok)], S, what))
+        order, dead = kernels.lexsort(kernels.ranked_keys(cols, mask))
+        cases.append((order, dead, cols, caps, what))
     return cases
 
 
@@ -2279,13 +2321,27 @@ def phase_e(data: dict, batch, device, seed: int) -> dict:
             prog, None, specs, kernels.lower_group_by(sel, batch).cids)
         preps[name] = rfns[name].prepare(planes, live)
     S = client._RANK_CAPS[-1]
-    err = max(check_k8(p, S, f"K8 {name}") for name, p in preps.items())
-    for order, mask, cols, S_e, what in edge_rank(device, seed):
-        err = max(err, check_k8(kernels.RankedPrep(mask, {}, order, cols),
-                                S_e, f"K8 edge {what}"))
+    # each position's dead flag in sorted order, as the prepare's sort
+    # hands it to K8
+    deads = {name: (~p.mask).to(torch.uint8).index_select(0, p.order)
+             for name, p in preps.items()}
+    err = max(check_k8(p.order, deads[name], p.cols, client._RANK_CAPS,
+                       f"K8 {name}") for name, p in preps.items())
+    for order, dead, cols, caps, what in edge_rank(device, seed):
+        err = max(err, check_k8(order, dead, cols, caps, f"K8 edge {what}"))
     prep = preps["ranked_dates"]
-    k8_bytes = n * (8 + 1) + sum(n * 9 for _c in prep.cols) + n * 8 + 8 \
-        + S * 8 * (1 + len(prep.cols)) + S * len(prep.cols)
+    nc = len(prep.cols)
+    # the rank pass reads the permutation and the dead flags, gathers the
+    # columns at live positions only and writes a 2 B word a position; the
+    # output pass reads the words and writes the ids and S representatives,
+    # gathering the openers' rows; K8's bytes before the split (the live
+    # bytes gathered then)
+    nlive = int(prep.mask.sum())
+    rank_bytes = n * (8 + 1 + 2) + nlive * 9 * nc + 8
+    rargs = (prep.order, deads["ranked_dates"], prep.cols)
+    out_bytes = n * (2 + 8) + S * (8 + 9 * nc) + prep.ngroups * (8 + 9 * nc)
+    k8_bytes = n * (8 + 1) + n * 9 * nc + n * 8 + 8 + S * 8 * (1 + nc) \
+        + S * nc
     sort_ms = ms(lambda: rfns["ranked_dates"].prepare(planes, live), runs=5)
     # the sort of ranked_dates' prepare: K17, and the chained torch.sort
     # the card path ran before (5 stable sorts); K8's yardstick the
@@ -2298,14 +2354,28 @@ def phase_e(data: dict, batch, device, seed: int) -> dict:
                               for k in rkeys], 1)
     split = {"K17": ms(lambda: kernels.lexsort(rkeys)),
              "chained torch.sort": ms(lambda: kernels.lexsort_plain(rkeys))}
+    rp, pp = prep.ranks, kernels.rank_groups_rank_plain(*rargs)
     out["rank_groups"] = dict(
-        ms=ms(lambda: kernels.rank_groups(prep.order, prep.mask, prep.cols,
-                                          S)),
-        plain_ms=ms(lambda: kernels.rank_groups_plain(
-            prep.order, prep.mask, prep.cols, S)),
+        ms=ms(lambda: kernels.rank_groups_rank(*rargs)),
+        plain_ms=ms(lambda: kernels.rank_groups_rank_plain(*rargs)),
         library_ms=ms(lambda: torch.unique_consecutive(
             rwords, return_inverse=True, return_counts=True, dim=0)),
-        max_abs_err=err, bound=bound(k8_bytes, n * len(prep.cols)))
+        max_abs_err=err, bound=bound(rank_bytes, n * nc))
+    out["rank_groups_out"] = dict(
+        ms=ms(lambda: kernels.rank_groups_out(rp, S)),
+        plain_ms=ms(lambda: kernels.rank_groups_out_plain(pp, S)),
+        library_ms=None, max_abs_err=err, bound=bound(out_bytes, n))
+    both = ms(lambda: kernels.rank_groups_out(kernels.rank_groups_rank(
+        *rargs), S))
+    tp = preps["tuple_dates"]
+    tuple_rank = ms(lambda: kernels.rank_groups_rank(
+        tp.order, deads["tuple_dates"], tp.cols))
+    print(f"phase E: K8 at ranked_dates (n {n}, S {S}, {prep.ngroups} "
+          f"groups): rank pass {out['rank_groups']['ms']:.4f} ms + output "
+          f"pass {out['rank_groups_out']['ms']:.4f} ms, the two in one run "
+          f"{both:.4f} ms against K8's bound before the split "
+          f"{bound(k8_bytes, n * nc)[0]:.4f} ms; the rank pass alone at "
+          f"tuple_dates ({tp.ngroups} groups) {tuple_rank:.4f} ms")
     print(f"phase E: ranked_dates' K1 + sort ({len(rkeys)} planes of {n} "
           f"rows) {sort_ms:.4f} ms; the sort alone: K17 {split['K17']:.4f} "
           f"ms, chained torch.sort {split['chained torch.sort']:.4f} ms; "
@@ -4928,7 +4998,8 @@ class KHostPartition:
 
 
 def k21_edges(device, seed: int) -> list:
-    """(key, valid, parts, what) edge cases of K21."""
+    """(key, valid, parts, what) edge cases of K21: the two bin widths'
+    edges (P 256 and 257) among them."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa
     n = 100_003
@@ -4945,6 +5016,11 @@ def k21_edges(device, seed: int) -> list:
             "P = 1"),
            (t(rng.integers(-(1 << 62), 1 << 62, n)), t(np.ones(n, bool)),
             1024, "P = 1024"),
+           (t(f), t(rng.random(n) > 0.1), 256, "P = 256, -0.0"),
+           (t(rng.integers(-(1 << 62), 1 << 62, n)), t(rng.random(n) > 0.3),
+            257, "P = 257, NULL keys"),
+           (t(np.full(n, 7, np.int64)), t(np.ones(n, bool)), 257,
+            "P = 257, one hot key"),
            (t(rng.integers(0, 9, 2047)), t(np.ones(2047, bool)), 3,
             "2047 rows"),
            (t(rng.integers(0, 9, 2049)), t(np.ones(2049, bool)), 3,
@@ -5217,6 +5293,12 @@ def phase_k(joins: tuple, batch, d_store: DistStore, d_data: dict, device,
         err12 = max(err12, check_seg_k12(a, b, c, d, parts,
                                          f"segmented K12 edge {what}"))
     codes = kernels.partition_codes_t(lk, lv, MESH_SHARDS)
+    k21_at = {}
+    for what, k_, v_ in (("lineitem", lk, lv), ("orders", rk, rv)):
+        for parts in (MESH_SHARDS, 16, kernels.KEY_PARTITIONS_MAX):
+            k21_at[f"{what} P {parts}"] = ms(
+                lambda: kernels.key_partition(k_, v_, parts))
+    print("phase K: K21 ms " + json.dumps(k21_at))
     out = {"key_partition": dict(
         ms=ms(lambda: kernels.key_partition(lk, lv, MESH_SHARDS)),
         plain_ms=ms(lambda: kernels.key_partition_plain(lk, lv,

@@ -1,15 +1,16 @@
-"""Phase G's traffic, the slot, window and region-states kernels of two
-checkouts of this repository, timed in turns on one card.
+"""Phase G's traffic, the slot, window, region-states, rank and partition
+kernels of two checkouts of this repository, timed in turns on one card.
 
-    python3 compare_trees.py OLD_ROOT [NEW_ROOT]
+    python3 compare_trees.py OLD_ROOT [NEW_ROOT] [--only PART,PART...]
 
 NEW_ROOT defaults to this file's checkout. The two run in the order OLD,
 NEW, NEW, OLD, each in a process of its own started in its checkout's root
 and importing that checkout's chip_smoke, tidb_tpu_torch and kernels
 (each builds its kernels into its own build/ directory). A run measures,
-with the helpers both checkouts' chip_smoke.py share:
+with the helpers both checkouts' chip_smoke.py share, the parts below (all
+of them, or those --only names: g, stress, k18, k8, k21, k6):
 
-- Phase G's traffic (chip_smoke.g_traffic: 64 sessions x 25 statements of
+- g: Phase G's traffic (chip_smoke.g_traffic: 64 sessions x 25 statements of
   tpch.G_SHAPES over SF1's supplier table through one GpuClient), once
   with the micro-batch tier on and once off: statements/s, p50 and p99
   latency (host clock);
@@ -19,18 +20,27 @@ with the helpers both checkouts' chip_smoke.py share:
   Tensor.cpu()): median of 20 CUDA-event runs of the wrapper, as
   chip_smoke.cuda_ms;
 - K16 (kernels.slot_topn over K14's words: median of 20 CUDA-event runs)
-  at the tier's shape (32 statements of g_topn over the supplier batch)
-  and at the stress shape (32 TopN statements over SF1's lineitem, as
-  chip_smoke's Phase G), with a digest of the rows;
-- K15 (kernels.slot_agg, median of 5 CUDA-event runs) at the stress shape
-  (32 statements with three aggregates over SF1's lineitem), with a digest
-  of the states;
-- K18 (kernels.window_scan, median of 20 CUDA-event runs) at SF1 as
+  at the tier's shape (32 statements of g_topn over the supplier batch);
+- stress: K16 at the stress shape (32 TopN statements over SF1's
+  lineitem, as chip_smoke's Phase G), with a digest of the rows, and K15
+  (kernels.slot_agg, median of 5 CUDA-event runs) there (32 statements
+  with three aggregates), with a digest of the states;
+- k18: K18 (kernels.window_scan, median of 20 CUDA-event runs) at SF1 as
   chip_smoke's Phase H calls it (lineitem in (l_orderkey, l_linenumber)
   order, each order a partition and each line a peer group): SUM + COUNT
   of l_quantity, and the seven figures ROW_NUMBER, RANK, DENSE_RANK, SUM,
   COUNT, MIN, MAX, with a digest of the figures;
-- K6 (kernels.k6_prepare's launch, median of 20 CUDA-event runs, and the
+- k8: K8 (median of 20 CUDA-event runs) over Phase E's ranked_dates and
+  tuple_dates inputs (SF1's lineitem at the batch's 8,388,608 positions,
+  sorted by the checkout's prepare): one K8 at the top rung (262,145
+  segments; since slice 18 its rank and output passes), and the K8 work
+  of each statement (before slice 18 one K8 a rung tried: three for
+  either; since, one rank pass and, for ranked_dates, one output pass),
+  with a digest of the ids at the top rung and the group count;
+- k21: K21 (kernels.key_partition, median of 20 CUDA-event runs) at
+  lineitem's 6,001,215 l_orderkey and orders' 1,500,216 o_orderkey with
+  P 8, with a digest of the layout;
+- k6: K6 (kernels.k6_prepare's launch, median of 20 CUDA-event runs, and the
   route it took) at q1full over 8 regions at SF1 and at SF0.01, at
   plain_q1 over 8 shards of one card (the mesh tier's near-data rung), and
   at d_supplier over 8 regions at SF1 (with the statement's time, median
@@ -53,9 +63,10 @@ import sys
 import time
 
 ORDER = ("old", "new", "new", "old")
+PARTS = ("g", "stress", "k18", "k8", "k21", "k6")
 
 
-def child(root: str) -> dict:
+def child(root: str, parts: set) -> dict:
     os.chdir(root)
     sys.path.insert(0, root)
     import numpy as np
@@ -69,98 +80,171 @@ def child(root: str) -> dict:
     from tidb_tpu_torch.ops import _ext, kernels
     from tidb_tpu_torch.ops import mesh as mesh_mod
     from tidb_tpu_torch.ops.client import GpuClient
+    from tidb_tpu_torch.ops.exprc import Program
     from tidb_tpu_torch.parallel import CoprMesh
+
+    def want(part: str) -> bool:
+        return not parts or part in parts
+
+    def digest(*ts) -> str:
+        return hashlib.sha1(b"".join(t.cpu().numpy().tobytes()
+                                     for t in ts)).hexdigest()[:16]
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     _ext.build_all()
     out = {"build_s": time.perf_counter() - t0}
 
-    # Phase G's traffic, tier on and off, and K14 / K15 at its shape
-    data, words = tpch.supplier(tpch.SF1_SUPPLIERS, 9)
-    store = MemStore.from_pairs(tpch.supplier_pairs(data, words))
-    rng = np.random.default_rng(9)
-    work = [[tpch.G_SHAPES[(t + i) % len(tpch.G_SHAPES)]
-             for i in range(cs.G_PER_THREAD)] for t in range(cs.G_THREADS)]
-    work = [[(sh, tpch.g_literal(sh, rng)) for sh in w] for w in work]
-    for mode, on in (("tier", True), ("solo", False)):
-        rows, lat, wall, _c, _l = cs.g_traffic(store, (data, words), work,
-                                               on, dev)
-        for t, w in enumerate(work):
-            for i, (shape, lit) in enumerate(w):
-                cs.same_g(rows[(t, i)], tpch.g_expected(shape, lit, data,
-                                                        words), mode)
-        out[f"g_{mode}_stmts_per_s"] = len(lat) / wall
-        out[f"g_{mode}_p50_ms"] = float(np.percentile(lat, 50))
-        out[f"g_{mode}_p99_ms"] = float(np.percentile(lat, 99))
-    client = GpuClient(store, dev)
-    for shape in tpch.G_SHAPES:
-        client.send(tpch.g_statement(shape, 0)).next()
-    for kname, shape in (("slot_filter", "g_nation"), ("slot_agg", "g_agg")):
-        reqs = [tpch.g_statement(shape, x % 25) for x in range(32)]
-        batch = client._get_batch(reqs[0].data, reqs[0].key_ranges)
-        a = cs.slot_inputs(batch, [r.data for r in reqs], dev)
-        args = (a["fin"], a["pools"], a["plane_list"], a["live"])
-        if kname == "slot_filter":
-            # the words read back as each checkout's tier reads them
-            back = getattr(kernels, "to_host", lambda t: t.cpu())
-            out["k14_ms"] = cs.cuda_ms(lambda: kernels.slot_filter(*args))
-            out["k14_readback_ms"] = cs.cuda_ms(
-                lambda: back(kernels.slot_filter(*args)))
-        else:
-            out["k15_ms"] = cs.cuda_ms(
-                lambda: kernels.slot_agg(*args, a["reds"]))
-
-    # K16 at the tier's shape and at the stress shape
+    # Phase G's traffic, tier on and off, and K14 / K15 / K16 at its shape
     def k16_time(key: str, a: dict) -> None:
         words = kernels.slot_filter(a["fin"], a["pools"], a["plane_list"],
                                     a["live"])
         idx, n_live = kernels.slot_topn(words, a["keys"], a["k"])
-        out[f"{key}_digest"] = hashlib.sha1(
-            idx.cpu().numpy().tobytes() + n_live.cpu().numpy().tobytes()
-        ).hexdigest()[:16]
+        out[f"{key}_digest"] = digest(idx, n_live)
         out[f"{key}_ms"] = cs.cuda_ms(
             lambda: kernels.slot_topn(words, a["keys"], a["k"]))
 
-    reqs = [tpch.g_statement("g_topn", x % 25) for x in range(32)]
-    batch = client._get_batch(reqs[0].data, reqs[0].key_ranges)
-    k16_time("k16_tier", cs.slot_inputs(batch, [r.data for r in reqs], dev))
-    line = tpch.generate(tpch.SF1_ROWS, 2)
-    lbatch = tpch.batch(line, [tpch.C_ORDERKEY, tpch.C_QUANTITY,
-                               tpch.C_EXTENDEDPRICE, tpch.C_SHIPDATE])
-    sa = cs.slot_inputs(lbatch, stress_statements(), dev)
-    k16_time("k16_stress", sa)
-    sargs = (sa["fin"], sa["pools"], sa["plane_list"], sa["live"])
-    n15, acc15 = kernels.slot_agg(*sargs, sa["reds"])
-    out["k15_stress_digest"] = hashlib.sha1(
-        n15.cpu().numpy().tobytes() + acc15.cpu().numpy().tobytes()
-    ).hexdigest()[:16]
-    out["k15_stress_ms"] = cs.cuda_ms(
-        lambda: kernels.slot_agg(*sargs, sa["reds"]), runs=5)
-    del sa, sargs
+    if want("g"):
+        data, words = tpch.supplier(tpch.SF1_SUPPLIERS, 9)
+        store = MemStore.from_pairs(tpch.supplier_pairs(data, words))
+        rng = np.random.default_rng(9)
+        work = [[tpch.G_SHAPES[(t + i) % len(tpch.G_SHAPES)]
+                 for i in range(cs.G_PER_THREAD)]
+                for t in range(cs.G_THREADS)]
+        work = [[(sh, tpch.g_literal(sh, rng)) for sh in w] for w in work]
+        for mode, on in (("tier", True), ("solo", False)):
+            rows, lat, wall, _c, _l = cs.g_traffic(store, (data, words),
+                                                   work, on, dev)
+            for t, w in enumerate(work):
+                for i, (shape, lit) in enumerate(w):
+                    cs.same_g(rows[(t, i)], tpch.g_expected(
+                        shape, lit, data, words), mode)
+            out[f"g_{mode}_stmts_per_s"] = len(lat) / wall
+            out[f"g_{mode}_p50_ms"] = float(np.percentile(lat, 50))
+            out[f"g_{mode}_p99_ms"] = float(np.percentile(lat, 99))
+        client = GpuClient(store, dev)
+        for shape in tpch.G_SHAPES:
+            client.send(tpch.g_statement(shape, 0)).next()
+        for kname, shape in (("slot_filter", "g_nation"),
+                             ("slot_agg", "g_agg")):
+            reqs = [tpch.g_statement(shape, x % 25) for x in range(32)]
+            batch = client._get_batch(reqs[0].data, reqs[0].key_ranges)
+            a = cs.slot_inputs(batch, [r.data for r in reqs], dev)
+            args = (a["fin"], a["pools"], a["plane_list"], a["live"])
+            if kname == "slot_filter":
+                # the words read back as each checkout's tier reads them
+                back = getattr(kernels, "to_host", lambda t: t.cpu())
+                out["k14_ms"] = cs.cuda_ms(lambda: kernels.slot_filter(*args))
+                out["k14_readback_ms"] = cs.cuda_ms(
+                    lambda: back(kernels.slot_filter(*args)))
+            else:
+                out["k15_ms"] = cs.cuda_ms(
+                    lambda: kernels.slot_agg(*args, a["reds"]))
+        reqs = [tpch.g_statement("g_topn", x % 25) for x in range(32)]
+        batch = client._get_batch(reqs[0].data, reqs[0].key_ranges)
+        k16_time("k16_tier", cs.slot_inputs(batch, [r.data for r in reqs],
+                                            dev))
+
+    line = tpch.generate(tpch.SF1_ROWS, 2) \
+        if any(want(p) for p in ("stress", "k18", "k8", "k21")) else None
+
+    # K16 and K15 at the stress shape
+    if want("stress"):
+        lbatch = tpch.batch(line, [tpch.C_ORDERKEY, tpch.C_QUANTITY,
+                                   tpch.C_EXTENDEDPRICE, tpch.C_SHIPDATE])
+        sa = cs.slot_inputs(lbatch, stress_statements(), dev)
+        k16_time("k16_stress", sa)
+        sargs = (sa["fin"], sa["pools"], sa["plane_list"], sa["live"])
+        n15, acc15 = kernels.slot_agg(*sargs, sa["reds"])
+        out["k15_stress_digest"] = digest(n15, acc15)
+        out["k15_stress_ms"] = cs.cuda_ms(
+            lambda: kernels.slot_agg(*sargs, sa["reds"]), runs=5)
+        del lbatch, sa, sargs
 
     # K18 at SF1: SUM + COUNT and the seven figures
-    order = np.lexsort((line[tpch.C_LINENUMBER], line[tpch.C_ORDERKEY]))
-    okey = line[tpch.C_ORDERKEY][order]
-    n = len(order)
-    dseg = torch.from_numpy(np.cumsum(np.r_[False, okey[1:] != okey[:-1]])
-                            .astype(np.int64)).to(dev)
-    dpeer = torch.arange(n, dtype=torch.int64, device=dev)
-    dq = torch.from_numpy(np.ascontiguousarray(
-        line[tpch.C_QUANTITY][order])).to(dev)
-    dok = torch.ones(n, dtype=torch.bool, device=dev)
-    for key, specs in (
-            ("k18_sum_count", [("sum", dq, dok), ("count", None, dok)]),
-            ("k18_seven", [("row_number", None, None), ("rank", None, None),
-                           ("dense_rank", None, None), ("sum", dq, dok),
-                           ("count", None, dok), ("min", dq, dok),
-                           ("max", dq, dok)])):
-        figs = kernels.window_scan(dseg, dpeer, specs, n)
-        out[f"{key}_digest"] = hashlib.sha1(b"".join(
-            f.cpu().numpy().tobytes() for f in figs)).hexdigest()[:16]
-        out[f"{key}_ms"] = cs.cuda_ms(
-            lambda: kernels.window_scan(dseg, dpeer, specs, n))
-    del line, lbatch, dseg, dpeer, dq, dok
+    if want("k18"):
+        order = np.lexsort((line[tpch.C_LINENUMBER], line[tpch.C_ORDERKEY]))
+        okey = line[tpch.C_ORDERKEY][order]
+        n = len(order)
+        dseg = torch.from_numpy(np.cumsum(np.r_[False, okey[1:] != okey[:-1]])
+                                .astype(np.int64)).to(dev)
+        dpeer = torch.arange(n, dtype=torch.int64, device=dev)
+        dq = torch.from_numpy(np.ascontiguousarray(
+            line[tpch.C_QUANTITY][order])).to(dev)
+        dok = torch.ones(n, dtype=torch.bool, device=dev)
+        for key, specs in (
+                ("k18_sum_count", [("sum", dq, dok), ("count", None, dok)]),
+                ("k18_seven", [("row_number", None, None),
+                               ("rank", None, None),
+                               ("dense_rank", None, None), ("sum", dq, dok),
+                               ("count", None, dok), ("min", dq, dok),
+                               ("max", dq, dok)])):
+            figs = kernels.window_scan(dseg, dpeer, specs, n)
+            out[f"{key}_digest"] = digest(*figs)
+            out[f"{key}_ms"] = cs.cuda_ms(
+                lambda: kernels.window_scan(dseg, dpeer, specs, n))
+        del dseg, dpeer, dq, dok
+
+    # K8 over Phase E's ranked inputs: one K8 at the top rung, and each
+    # statement's K8 work (the checkout's own: the rank and output passes,
+    # or one K8 a rung tried)
+    if want("k8"):
+        kb = tpch.batch(line, [tpch.C_QUANTITY, tpch.C_EXTENDEDPRICE,
+                               tpch.C_SHIPDATE, tpch.C_COMMITDATE,
+                               tpch.C_RECEIPTDATE])
+        kplanes = kernels.batch_planes(kb, dev)
+        klive = kernels.device_live(kb, dev)
+        caps = GpuClient._RANK_CAPS
+        split = hasattr(kernels, "rank_groups_rank")
+        for name, make in tpch.SLICE3[:2]:
+            sel = make()
+            prog = Program(kb)
+            fn = kernels.build_ranked_group_fn(
+                prog, None, kernels.lower_aggregates(sel, kb, prog),
+                kernels.lower_group_by(sel, kb).cids)
+            p = fn.prepare(kplanes, klive)
+            args = (p.order, p.mask, p.cols)
+            if split:
+                # the sort's dead flags in sorted order, as the prepare
+                # hands them to the rank pass
+                args = (p.order, (~p.mask).to(torch.uint8).index_select(
+                    0, p.order), p.cols)
+                def top(args=args):
+                    rp = kernels.rank_groups_rank(*args)
+                    return kernels.rank_groups_out(rp, caps[-1]), rp.ngroups
+
+                def stmt(args=args, ranked=name == "ranked_dates"):
+                    rp = kernels.rank_groups_rank(*args)
+                    if ranked:
+                        kernels.rank_groups_out(rp, caps[-1])
+            else:
+                def top(args=args):
+                    res = kernels.rank_groups(*args, caps[-1])
+                    return res[:1] + res[2:], res[1]
+
+                def stmt(args=args):
+                    for S in caps:
+                        kernels.rank_groups(*args, S)
+            ids, ngroups = top()
+            out[f"k8_{name}_digest"] = digest(ids[0], ngroups)
+            out[f"k8_{name}_top_ms"] = cs.cuda_ms(top)
+            out[f"k8_{name}_stmt_ms"] = cs.cuda_ms(stmt)
+        del kb, kplanes, klive, p, args
+
+    # K21 at lineitem's and orders' join keys with P 8
+    if want("k21"):
+        for what, keys in (("lineitem", line[tpch.C_ORDERKEY]),
+                           ("orders", tpch.orders(line, 2)[tpch.O_ORDERKEY])):
+            k_ = torch.from_numpy(np.ascontiguousarray(keys)).to(dev)
+            v_ = torch.ones(k_.shape[0], dtype=torch.bool, device=dev)
+            out[f"k21_{what}_digest"] = digest(*kernels.key_partition(k_, v_,
+                                                                      8))
+            out[f"k21_{what}_ms"] = cs.cuda_ms(
+                lambda: kernels.key_partition(k_, v_, 8))
+    del line
+
+    if not want("k6"):
+        return out
 
     # K6 at q1full over 8 regions (SF1 and SF0.01) and plain_q1 over 8
     # shards of the card
@@ -170,8 +254,7 @@ def child(root: str) -> dict:
         torch.cuda.synchronize()
         out[f"{key}_route"] = [k for k, v in kernels.LAUNCHES.items()
                                if v != before[k]]
-        out[f"{key}_digest"] = hashlib.sha1(
-            got.cpu().numpy().tobytes()).hexdigest()[:16]
+        out[f"{key}_digest"] = digest(got)
         out[f"{key}_ms"] = cs.cuda_ms(kernels.k6_prepare(*k6)[0])
 
     q1full = tpch.sweep_request("q1full")
@@ -248,10 +331,15 @@ def stress_statements() -> list:
 
 
 def main(argv: list) -> int:
+    parts = set()
+    if "--only" in argv:
+        i = argv.index("--only")
+        parts = set(argv[i + 1].split(",")) if i + 1 < len(argv) else {""}
+        argv = argv[:i] + argv[i + 2:]
     if len(argv) >= 2 and argv[0] == "--child":
-        print("RESULT " + json.dumps(child(argv[1])), flush=True)
+        print("RESULT " + json.dumps(child(argv[1], parts)), flush=True)
         return 0
-    if not 1 <= len(argv) <= 2:
+    if not 1 <= len(argv) <= 2 or not parts <= set(PARTS):
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -263,9 +351,10 @@ def main(argv: list) -> int:
                                     else os.path.dirname(__file__))}
     runs = {"old": [], "new": []}
     for which in ORDER:
+        only = ["--only", ",".join(sorted(parts))] if parts else []
         p = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--child", roots[which]], cwd=roots[which],
-                           capture_output=True, text=True)
+                            "--child", roots[which]] + only,
+                           cwd=roots[which], capture_output=True, text=True)
         lines = [ln for ln in p.stdout.splitlines()
                  if ln.startswith("RESULT ")]
         if p.returncode != 0 or not lines:

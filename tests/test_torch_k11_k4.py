@@ -857,9 +857,15 @@ def test_radix_constants_match_source():
         == pk.RADIX_TILE
     assert re.search(r"#define RADIX_TILE \(RADIX_THREADS \* RADIX_ITEMS\)",
                      src)
-    # one digit width, built without a template of it
+    # one digit width, built without a template of it: only the two tile
+    # steps the sort shares with K21's partition pass take their bins as
+    # a template, and the sort's scatter instantiates them at RADIX_BINS
     assert _define(src, "RADIX_BITS") == pk.RADIX_BITS
-    assert "template" not in src
+    assert re.findall(r"template <int BINS>\n__device__ __forceinline__ "
+                      r"\w+ (\w+)\(", src) == ["radix_warp_rank",
+                                               "radix_tile_starts"]
+    assert src.count("template <") == 2
+    assert "constexpr int BINS = RADIX_BINS;" in src
     assert '#include "radix.cuh"' in _source("radix_sort.cu")
     # the scratch the wrapper asks for: counts [digit][tile] and totals
     body = re.search(r"radix_scratch\(long long n\) \{(.*?)\n\}",

@@ -63,9 +63,11 @@ SIGNATURES = {
                                   _I, _I, _L, _P, _P, _P], _I),
     },
     "rank_groups": {
-        "rank_groups_blocks": ([_L], _L),
-        "rank_groups_launch": ([_L, _P, _P, _I, _P, _L, _P, _P, _P, _P, _P,
-                                _P, _P, _P, _P], _I),
+        "rank_groups_rank_launch": ([_L, _P, _P, _I, _P, _P,
+                                     ctypes.c_ulonglong, _P, _P, _P, _P, _P],
+                                    _I),
+        "rank_groups_out_launch": ([_L, _P, _P, _P, _P, _I, _P, _P, _L, _P,
+                                    _P, _P, _P, _P], _I),
     },
     "distinct_runs": {
         "distinct_runs_launch": ([_L, _P, _P, _P, _P, _P, _P], _I),
@@ -138,9 +140,8 @@ SIGNATURES = {
                                 _P, _P, _P, _P, _P, _P, _P], _I),
     },
     "key_partition": {
-        "key_partition_blocks": ([_L], _L),
-        "key_partition_launch": ([_L, _P, _P, _I, _I, _P, _P, _P, _P, _P],
-                                 _I),
+        "key_partition_scratch_ints": ([_L, _I], _L),
+        "key_partition_launch": ([_L, _P, _P, _I, _I, _P, _P, _P, _P], _I),
     },
     "radix_sort": {
         "radix_scratch_ints": ([_L], _L),

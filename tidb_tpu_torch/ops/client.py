@@ -432,10 +432,11 @@ class GpuClient(kv.Client):
     def _run_ranked(self, sel, dec: _Decode, prog, where, specs, gspec,
                     planes, live) -> SelectResponse:
         """The rank ladder of the reference's _run_ranked, with its memo of
-        the rung a repeated statement starts at. The K1 pass and the sort
-        do not depend on the rung, so they run once per statement; each
-        rung tried runs K8, and the one that holds the groups the
-        reductions."""
+        the rung a repeated statement starts at. The K1 pass, the sort and
+        K8's rank pass do not depend on the rung, so they run once per
+        statement; the rank pass counts the groups, the rungs that cannot
+        hold them are passed over, and the first that can runs K8's output
+        pass and the reductions."""
         ck = (batch_uid(dec.batch), repr(sel.where), repr(sel.aggregates),
               repr(sel.group_by))
         with self._lock:
@@ -446,9 +447,9 @@ class GpuClient(kv.Client):
                               "(memoized)")
         fn = kernels.build_ranked_group_fn(prog, where, specs, gspec.cids)
         prep = self._dispatch(fn.prepare, planes, live)
-        ngroups = -1
+        ngroups = prep.ngroups
         for cap in self._RANK_CAPS:
-            if cap < start:
+            if cap < start or ngroups > cap - 1:
                 continue
             ngroups, outs = self._dispatch(
                 lambda p, lv, cap=cap: fn(prep, p, cap), planes, live)

@@ -39,6 +39,11 @@
 // Bound by bytes: each pass reads the words (count), then the words and
 // payloads (scatter) and writes both: 40 B a row (32 B in the partition
 // passes, which read the payload for the digit instead of the word).
+//
+// K21 key_partition runs the same count, scan and scatter with the digit
+// computed from a key (its partition, up to 1,024 bins): it shares the
+// scan kernel and the scatter's two tile steps below (radix_warp_rank,
+// radix_tile_starts), which take the bins as a template parameter.
 #pragma once
 
 #include "scan.cuh"
@@ -80,6 +85,68 @@ __device__ __forceinline__ int radix_digit(i64 word, i64 row, int shift,
     if (offsets[mid] <= row) lo = mid; else hi = mid - 1;
   }
   return (lo >> shift) & (RADIX_BINS - 1);
+}
+
+// A row's rank among the earlier rows of its digit d in its warp (rows
+// in lane order a step; d == BINS: no row), moving the warp's count h[d]
+// of the digit: the lanes of one digit meet in __match_any_sync and the
+// group's lowest lane reads and moves the count.
+template <int BINS>
+__device__ __forceinline__ int radix_warp_rank(int d, int* h) {
+  const int lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(0xffffffffu, d);
+  const int leader = __ffs(peers) - 1;
+  int base = 0;
+  if (d < BINS && lane == leader) base = h[d];
+  base = __shfl_sync(0xffffffffu, base, leader);
+  if (d < BINS && lane == leader) h[d] = base + __popc(peers);
+  __syncwarp();
+  return base + __popc(peers & ((1u << lane) - 1u));
+}
+
+// The tile's places, after every warp ranked its rows: whist[warp][digit]
+// (the warps' counts) becomes each warp's tile-local start of the digit's
+// run (digit-major, warp-minor), and gofs[digit] the run's global start
+// minus its tile-local start, from counts[digit][tile] (the scan's
+// exclusive offsets) and totals[digit]. Digits from `used` on have no
+// count and no row. With starts given, each digit's global start (the
+// smaller digits' totals) goes there too. A barrier must separate the
+// ranking from this step, and this step from reading its results.
+template <int BINS>
+__device__ __forceinline__ void radix_tile_starts(int* whist, int* gofs,
+                                                  const int* __restrict__ counts,
+                                                  const int* __restrict__ totals, int n_tiles,
+                                                  int used, i64* starts, i64* warp_tot) {
+  constexpr int PER = BINS / RADIX_THREADS;   // digits a thread scans
+  const int t = threadIdx.x;
+  int tot[PER];
+  i64 mine = 0, gmine = 0;
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    const int b = t * PER + q;
+    int run = 0;
+    for (int w = 0; w < RADIX_WARPS; ++w) {
+      const int c = whist[w * BINS + b];
+      whist[w * BINS + b] = run;
+      run += c;
+    }
+    tot[q] = run;
+    mine += run;
+    gmine += b < used ? totals[b] : 0;
+  }
+  i64 s = block_scan_incl(mine, warp_tot) - mine;
+  i64 gs = block_scan_incl(gmine, warp_tot) - gmine;
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    const int b = t * PER + q;
+    for (int w = 0; w < RADIX_WARPS; ++w) whist[w * BINS + b] += (int)s;
+    if (b < used) {
+      gofs[b] = (int)(gs + counts[(i64)b * n_tiles + blockIdx.x] - s);
+      if (starts != nullptr) starts[b] = gs;
+      gs += totals[b];
+    }
+    s += tot[q];
+  }
 }
 
 __global__ void __launch_bounds__(RADIX_THREADS)
@@ -129,7 +196,6 @@ radix_scatter(i64 n, int shift, const i64* __restrict__ offsets, int P,
               i64* __restrict__ keys_out, i64* __restrict__ pay_out,
               const int* __restrict__ counts, const int* __restrict__ totals, int n_tiles) {
   constexpr int BINS = RADIX_BINS;
-  constexpr int PER = BINS / RADIX_THREADS;   // digits a thread scans
   extern __shared__ i64 radix_smem[];
   i64* skey = radix_smem;                                    // [RADIX_TILE]
   i64* spay = skey + RADIX_TILE;                             // [RADIX_TILE]
@@ -138,7 +204,6 @@ radix_scatter(i64 n, int shift, const i64* __restrict__ offsets, int P,
   unsigned short* sdig = (unsigned short*)(gofs + BINS);     // [RADIX_TILE]
   __shared__ i64 warp_tot[32];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const unsigned lt = (1u << lane) - 1u;
   const i64 t0 = (i64)blockIdx.x * RADIX_TILE;
   for (int i = t; i < RADIX_WARPS * BINS; i += RADIX_THREADS) whist[i] = 0;
   __syncthreads();
@@ -154,14 +219,7 @@ radix_scatter(i64 n, int shift, const i64* __restrict__ offsets, int P,
     key[k] = in ? keys_in[row] : 0;
     pay[k] = in ? (pay_in != nullptr ? pay_in[row] : row) : 0;
     const int d = in ? radix_digit(key[k], pay[k], shift, offsets, P) : BINS;
-    const unsigned peers = __match_any_sync(0xffffffffu, d);
-    const int leader = __ffs(peers) - 1;
-    int base = 0;
-    if (in && lane == leader) base = h[d];
-    base = __shfl_sync(0xffffffffu, base, leader);
-    if (in && lane == leader) h[d] = base + __popc(peers);
-    __syncwarp();
-    rk[k] = base + __popc(peers & lt);
+    rk[k] = radix_warp_rank<BINS>(d, h);
     dig[k] = d;
   }
   __syncthreads();
@@ -169,31 +227,7 @@ radix_scatter(i64 n, int shift, const i64* __restrict__ offsets, int P,
   // 2. per digit, the warps' offsets within the digit's run (warp order)
   //    and the run's length; then the runs' tile-local starts and the
   //    digits' global starts (the totals of the smaller digits)
-  int tot[PER];
-  i64 mine = 0, gmine = 0;
-#pragma unroll
-  for (int q = 0; q < PER; ++q) {
-    const int b = t * PER + q;
-    int run = 0;
-    for (int w = 0; w < RADIX_WARPS; ++w) {
-      const int c = whist[w * BINS + b];
-      whist[w * BINS + b] = run;
-      run += c;
-    }
-    tot[q] = run;
-    mine += run;
-    gmine += totals[b];
-  }
-  i64 s = block_scan_incl(mine, warp_tot) - mine;
-  i64 gs = block_scan_incl(gmine, warp_tot) - gmine;
-#pragma unroll
-  for (int q = 0; q < PER; ++q) {
-    const int b = t * PER + q;
-    for (int w = 0; w < RADIX_WARPS; ++w) whist[w * BINS + b] += (int)s;
-    gofs[b] = (int)(gs + counts[(i64)b * n_tiles + blockIdx.x] - s);
-    s += tot[q];
-    gs += totals[b];
-  }
+  radix_tile_starts<BINS>(whist, gofs, counts, totals, n_tiles, BINS, nullptr, warp_tot);
   __syncthreads();
 
   // 3. the tile in sorted order in shared memory
@@ -217,7 +251,7 @@ radix_scatter(i64 n, int shift, const i64* __restrict__ offsets, int P,
 }
 
 // The scatter's shared-memory opt-in, once per device.
-static cudaError_t radix_ready() {
+static inline cudaError_t radix_ready() {
   static bool ready[64];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -236,7 +270,7 @@ static cudaError_t radix_ready() {
 // words, or, with offsets (P + 1 ascending partition starts), of the
 // payload row's partition. pay_in null: the payload is the row index.
 // counts: radix_scratch(n) int32.
-static int radix_pass(i64 n, int shift, const i64* offsets, int P, const i64* keys_in,
+static inline int radix_pass(i64 n, int shift, const i64* offsets, int P, const i64* keys_in,
                       const i64* pay_in, i64* keys_out, i64* pay_out, int* counts,
                       cudaStream_t st) {
   if (n < 1 || n > 0x7fffffffLL || shift < 0 || shift > 63) return -1;

@@ -21,8 +21,10 @@ grouped, by K3 (`seg_agg_onehot`, S <= ONEHOT_SEGMENTS_MAX) or K4
 (`seg_agg_sorted`, above: segment windows in shared memory, or past
 `K4_MAX_WINDOWS` windows the segmented pass over ids sorted by the radix
 of `radix_sort_t`; `k4_route`). A group-by beyond the radix ceiling is ranked:
-a stable lexsort of the group columns, K8 (`rank_groups`: group ids in
-sorted space, representatives) and K4's segmented pass in sorted space.
+a stable lexsort of the group columns, K8 (`rank_groups_rank`: each
+sorted position's group rank, once a statement; `rank_groups_out`: group
+ids in sorted space and representatives at the rung that holds the
+groups) and K4's segmented pass in sorted space.
 DISTINCT aggregates sort by (group, contributing first, value), K9
 (`distinct_runs`) marks the run openers and K2 or K4's pass totals them.
 TopN is K10 (`topk_select`) over K1's mask and key planes. Each wrapper
@@ -123,7 +125,8 @@ GC_BASE = -1000
 # radix_pass one pass of the radix sort K11, K4's and K6's sorted routes
 # and K17 run
 LAUNCHES = {"expr_vm": 0, "scalar_agg": 0, "seg_agg_onehot": 0,
-            "seg_agg_sorted": 0, "rank_groups": 0, "distinct_runs": 0,
+            "seg_agg_sorted": 0, "rank_groups": 0, "rank_groups_out": 0,
+            "distinct_runs": 0,
             "topk_select": 0, "expr_vm_ragged": 0,
             "seg_states_ragged_smem": 0, "seg_states_ragged_window": 0,
             "seg_states_ragged_sorted": 0, "combine_partials": 0,
@@ -820,15 +823,18 @@ def distinct_totals(spec: AggSpec, planes: dict, outs: dict,
 
 class RankedPrep:
     """What a ranked group-by's statement computes once, whatever the
-    rung: K1's mask and argument planes, and the lexsort permutation."""
+    rung: K1's mask and argument planes, the lexsort permutation and K8's
+    rank pass with its group count."""
 
-    __slots__ = ("mask", "outs", "order", "cols")
+    __slots__ = ("mask", "outs", "order", "cols", "ranks", "ngroups")
 
-    def __init__(self, mask, outs, order, cols):
+    def __init__(self, mask, outs, order, cols, ranks):
         self.mask = mask
         self.outs = outs
         self.order = order
         self.cols = cols
+        self.ranks = ranks
+        self.ngroups = int(ranks.ngroups[0])
 
 
 def ranked_keys(cols: list, mask: torch.Tensor) -> list:
@@ -848,13 +854,15 @@ def build_ranked_group_fn(prog: Program, where: CompiledExpr | None,
                           specs: list[AggSpec], group_cids: list[int]):
     """Group-by over any columns by sort and rank (the port of the
     reference's build_ranked_group_fn, its ids batch-local). fn.prepare(
-    planes, live) runs K1 and the stable lexsort (liveness first, then the
-    columns in declaration order, null flag before value); fn(prep,
-    planes, S) runs K8 with S segments and, when the groups fit (ngroups
-    <= S - 1), the reductions in sorted space with K4's pass. It returns
-    (ngroups, outs) with outs = [ngroups, row_count[S], (representative,
-    non-null) per group column, per-spec outputs…], or (ngroups, None) when
-    the groups overflow S - 1 (the caller takes the next rung)."""
+    planes, live) runs K1, the stable lexsort (liveness first, then the
+    columns in declaration order, null flag before value) and K8's rank
+    pass, which counts the groups (prep.ngroups); fn(prep, planes, S), when
+    the groups fit S segments (ngroups <= S - 1), runs K8's output pass
+    with S segments and the reductions in sorted space with K4's pass. It
+    returns (ngroups, outs) with outs = [ngroups, row_count[S],
+    (representative, non-null) per group column, per-spec outputs…], or
+    (ngroups, None) when the groups overflow S - 1 (the caller takes the
+    next rung)."""
     outputs = program_outputs(specs)
     fin = prog.finalize(where, outputs)
 
@@ -863,17 +871,18 @@ def build_ranked_group_fn(prog: Program, where: CompiledExpr | None,
             mask, _gid, outs = run_k1(fin, planes, live, outputs, False)
         cols = [planes[cid] for cid in group_cids]
         with phase("sort", live.device):
-            order, _last = lexsort(ranked_keys(cols, mask))
-        return RankedPrep(mask, outs, order, cols)
+            order, dead = lexsort(ranked_keys(cols, mask))
+        with phase("k8", live.device):
+            return RankedPrep(mask, outs, order, cols,
+                              rank_groups_rank(order, dead, cols))
 
     def run(prep: RankedPrep, planes, S: int):
         dev = prep.mask.device
-        with phase("k8", dev):
-            gid_s, ngroups, _starts, rep, nonnull = rank_groups(
-                prep.order, prep.mask, prep.cols, S)
-            ngroups = int(ngroups[0])
+        ngroups = prep.ngroups
         if ngroups > S - 1:
             return ngroups, None
+        with phase("k8", dev):
+            gid_s, _starts, rep, nonnull = rank_groups_out(prep.ranks, S)
         plain = [i for i, s in enumerate(specs) if not s.dedup]
         reds = [Red(R_COUNT)] + [spec_reduction(specs[i], planes, prep.outs)
                                  for i in plain]
@@ -954,10 +963,40 @@ def build_topn_fn(prog: Program, where: CompiledExpr | None,
 # K8 rank_groups, K9 distinct_runs, K10 topk_select and their plain versions
 # ---------------------------------------------------------------------------
 
-def rank_groups_plain(order, mask, cols: list, S: int):
+# K8's column table by value, and its tile of sorted positions (the
+# contract with ops/csrc/rank_groups.cu: K8_MAX_COLS, K8_TILE)
+K8_MAX_COLS = 64
+K8_TILE = 1024
+
+
+class RankPass:
+    """What K8's rank pass leaves for its output pass: the permutation and
+    group columns it ranked, ngroups (int64 [1], on their device) and, on
+    the card, each sorted position's 16-bit word ((inclusive count of
+    openers in its K8_TILE tile << 2) | opener << 1 | live) with the
+    tiles' offsets and the column table the launch took, or, from the
+    plain version, the sorted live flags and the unclamped ranks
+    (inclusive count of openers - 1)."""
+
+    __slots__ = ("order", "cols", "ngroups", "word", "block_off", "table",
+                 "live_s", "rank")
+
+    def __init__(self, order, cols, ngroups, word=None, block_off=None,
+                 table=None, live_s=None, rank=None):
+        self.order = order
+        self.cols = cols
+        self.ngroups = ngroups
+        self.word = word
+        self.block_off = block_off
+        self.table = table
+        self.live_s = live_s
+        self.rank = rank
+
+
+def rank_groups_rank_plain(order, dead, cols: list) -> RankPass:
     n = order.shape[0]
     dev = order.device
-    live_s = mask[order]
+    live_s = dead == 0
     change = torch.zeros(n, dtype=torch.bool, device=dev)
     change[:1] = True                  # row 0 always opens a group
     for v, ok in cols:
@@ -967,10 +1006,19 @@ def rank_groups_plain(order, mask, cols: list, S: int):
         change[1:] |= (ks[1:] != ks[:-1]) | (os_[1:] != os_[:-1])
     newgrp = change & live_s
     rank = torch.cumsum(newgrp.to(torch.int64), 0) - 1
+    ngroups = newgrp.sum(dtype=torch.int64).reshape(1)
+    return RankPass(order, cols, ngroups, live_s=live_s, rank=rank)
+
+
+def rank_groups_out_plain(rp: RankPass, S: int) -> tuple:
+    order, cols, rank, live_s = rp.order, rp.cols, rp.rank, rp.live_s
+    dev = order.device
     sink = torch.full_like(rank, S - 1)
     gid_s = torch.where(live_s, torch.minimum(rank, sink), sink)
-    ngroups = newgrp.sum(dtype=torch.int64).reshape(1)
-    pos = torch.nonzero(newgrp & (rank < S)).squeeze(1)
+    # an opener is a live position whose rank its predecessor lacks
+    opens = live_s.clone()
+    opens[1:] &= rank[1:] != rank[:-1]
+    pos = torch.nonzero(opens & (rank < S)).squeeze(1)
     r = rank[pos]
     starts = torch.full((S,), -1, dtype=torch.int64, device=dev)
     starts[r] = pos
@@ -981,51 +1029,95 @@ def rank_groups_plain(order, mask, cols: list, S: int):
         vi = v.view(torch.int64) if v.dtype == torch.float64 else v
         rep[c, r] = vi[rows]
         nonnull[c, r] = ok[rows]
-    return gid_s, ngroups, starts, rep, nonnull
+    return gid_s, starts, rep, nonnull
 
 
-def rank_groups(order: torch.Tensor, mask: torch.Tensor, cols: list, S: int):
-    """K8 over rows in lexsort order `order` (live rows first): (gid_s
-    int64[n] group id per sorted position — the inclusive count of group
-    openers minus one, clamped to S - 1, dead rows S - 1; ngroups int64[1];
-    starts int64[S], the sorted position opening each group, -1 where none;
-    rep int64[ncol, S], each column's value (f64 bits) at the group's
-    opener; nonnull bool[ncol, S]). A row opens a group when it is live and
-    row 0 or any column's (null flag, value) differs from the previous
-    row's."""
-    if S < 1 or not cols:
-        raise errors.DeviceError("rank_groups needs S >= 1 and a column")
-    if _device_kind(mask) == "cpu":
-        return rank_groups_plain(order, mask, cols, S)
-    dev = mask.device
-    n = mask.shape[0]
-    _check_plane(mask, n, (torch.bool,), "mask", dev)
-    _check_plane(order, n, (torch.int64,), "order", dev)
-    tab = []
+def _k8_cols(cols: list, n: int, dev) -> tuple:
+    """K8's column table: (values pointers, valid pointers, f64 mask),
+    each plane checked."""
+    if len(cols) > K8_MAX_COLS:
+        raise Unsupported(f"{len(cols)} group columns exceed K8's "
+                          f"{K8_MAX_COLS}")
+    vals, valid, f64 = [], [], 0
     for c, (v, ok) in enumerate(cols):
         _check_plane(v, n, (torch.int64, torch.float64), f"column {c}", dev)
         _check_plane(ok, n, (torch.bool,), f"column {c} valid", dev)
-        tab.append([v.data_ptr(), ok.data_ptr(),
-                    int(v.dtype == torch.float64)])
-    t_tab = torch.tensor(tab, dtype=torch.int64).reshape(-1).to(dev)
+        vals.append(v.data_ptr())
+        valid.append(ok.data_ptr())
+        f64 |= int(v.dtype == torch.float64) << c
+    return (_c_array(ctypes.c_void_p, vals),
+            _c_array(ctypes.c_void_p, valid), f64)
+
+
+def rank_groups_rank(order: torch.Tensor, dead: torch.Tensor,
+                     cols: list) -> RankPass:
+    """K8's rank pass over rows in lexsort order `order`, with `dead` each
+    sorted position's dead flag (uint8, nonzero for a dead row: the sort's
+    most significant key in sorted order, as lexsort(ranked_keys(...))
+    returns it; live rows first): a row opens a group when it is live and
+    row 0 or any column's (null flag, value) differs from the previous
+    row's, f64 values compared by their orderable images (-0.0 as +0.0,
+    NaNs of one bit pattern equal). It gathers each sorted position's key
+    once; its RankPass holds ngroups and what rank_groups_out needs."""
+    if not cols:
+        raise errors.DeviceError("rank_groups needs a column")
+    if _device_kind(dead) == "cpu":
+        return rank_groups_rank_plain(order, dead, cols)
+    dev = dead.device
+    n = dead.shape[0]
+    _check_plane(dead, n, (torch.uint8,), "dead flags", dev)
+    _check_plane(order, n, (torch.int64,), "order", dev)
+    vals, valid, f64 = _k8_cols(cols, n, dev)
+    if n == 0:
+        return RankPass(order, cols, torch.zeros(1, dtype=torch.int64,
+                                                 device=dev))
     lib = _ext.lib("rank_groups")
-    blocks = lib.rank_groups_blocks(n)
-    opens = torch.empty(n, dtype=torch.uint8, device=dev)
-    totals = torch.empty(blocks, dtype=torch.int64, device=dev)
-    offs = torch.empty(blocks, dtype=torch.int64, device=dev)
-    gid_s = torch.empty(n, dtype=torch.int64, device=dev)
-    ngroups = torch.empty(1, dtype=torch.int64, device=dev)
-    starts = torch.empty(S, dtype=torch.int64, device=dev)
-    rep = torch.empty((len(cols), S), dtype=torch.int64, device=dev)
-    nonnull = torch.empty((len(cols), S), dtype=torch.bool, device=dev)
-    rc = lib.rank_groups_launch(
-        n, order.data_ptr(), mask.data_ptr(), len(cols), t_tab.data_ptr(),
-        S, opens.data_ptr(), totals.data_ptr(), offs.data_ptr(),
-        gid_s.data_ptr(), ngroups.data_ptr(), starts.data_ptr(),
-        rep.data_ptr(), nonnull.data_ptr(), _stream(dev))
+    blocks = -(-n // K8_TILE)
+    word = torch.empty(n, dtype=torch.uint16, device=dev)
+    # the tiles' totals, their offsets and ngroups, which the scan writes
+    scan = torch.empty(2 * blocks + 1, dtype=torch.int64, device=dev)
+    rc = lib.rank_groups_rank_launch(
+        n, order.data_ptr(), dead.data_ptr(), len(cols), vals, valid, f64,
+        word.data_ptr(), scan.data_ptr(), scan[blocks:].data_ptr(),
+        scan[2 * blocks:].data_ptr(), _stream(dev))
     _ext.check(rc, "rank_groups")
     LAUNCHES["rank_groups"] += 1
-    return gid_s, ngroups, starts, rep, nonnull
+    return RankPass(order, cols, scan[2 * blocks:],
+                    word=word, block_off=scan[blocks:2 * blocks],
+                    table=(vals, valid))
+
+
+def rank_groups_out(rp: RankPass, S: int) -> tuple:
+    """K8's output pass at S segments over a rank pass: (gid_s int64[n]
+    group id per sorted position — its rank clamped to S - 1, dead rows
+    S - 1; starts int64[S], the sorted position opening each group, -1
+    where none; rep int64[ncol, S], each column's value (f64 bits) at the
+    group's opener; nonnull bool[ncol, S])."""
+    if S < 1:
+        raise errors.DeviceError("rank_groups needs S >= 1")
+    if rp.rank is not None:
+        return rank_groups_out_plain(rp, S)
+    dev = rp.order.device
+    n = rp.order.shape[0]
+    ncols = len(rp.cols)
+    gid_s = torch.empty(n, dtype=torch.int64, device=dev)
+    if n == 0:
+        return (gid_s, torch.full((S,), -1, dtype=torch.int64, device=dev),
+                torch.zeros((ncols, S), dtype=torch.int64, device=dev),
+                torch.zeros((ncols, S), dtype=torch.bool, device=dev))
+    starts = torch.empty(S, dtype=torch.int64, device=dev)
+    rep = torch.empty((ncols, S), dtype=torch.int64, device=dev)
+    nonnull = torch.empty((ncols, S), dtype=torch.bool, device=dev)
+    vals, valid = rp.table
+    lib = _ext.lib("rank_groups")
+    rc = lib.rank_groups_out_launch(
+        n, rp.word.data_ptr(), rp.block_off.data_ptr(),
+        rp.ngroups.data_ptr(), rp.order.data_ptr(), ncols, vals, valid, S,
+        gid_s.data_ptr(), starts.data_ptr(), rep.data_ptr(),
+        nonnull.data_ptr(), _stream(dev))
+    _ext.check(rc, "rank_groups_out")
+    LAUNCHES["rank_groups_out"] += 1
+    return gid_s, starts, rep, nonnull
 
 
 # K9's flag for a constant flag plane: the contract with
@@ -1817,8 +1909,10 @@ def join_match_pairs(lkey, lvalid, rkey, rvalid, stats: dict | None = None,
 # in its partition-segmented mode, and their plain versions
 # ---------------------------------------------------------------------------
 
-# the most partitions K21 takes (ops/csrc/key_partition.cu K21_MAX_PARTS)
+# the most partitions and rows K21 takes (ops/csrc/key_partition.cu
+# K21_MAX_PARTS, K21_MAX_ROWS: its counts and places are int32)
 KEY_PARTITIONS_MAX = 1024
+K21_MAX_ROWS = (1 << 31) - 1
 
 _M1, _M2, _M3 = (np.uint64(c).astype(np.int64).item() for c in (
     0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB))
@@ -1863,7 +1957,9 @@ def key_partition(key: torch.Tensor, valid: torch.Tensor,
     """K21: (sel int64[n], offsets int64[parts + 1]) — the rows in
     partition-major order, stable (rows of a partition in row order), and
     where each partition starts; a row's partition is
-    membudget.partition_codes of its key."""
+    membudget.partition_codes of its key. On the card one counting pass
+    of radix.cuh's shape with the partition as the digit (three
+    launches); at most K21_MAX_ROWS rows."""
     if not 1 <= parts <= KEY_PARTITIONS_MAX:
         raise errors.DeviceError(f"{parts} partitions (1 to "
                                  f"{KEY_PARTITIONS_MAX})")
@@ -1871,20 +1967,22 @@ def key_partition(key: torch.Tensor, valid: torch.Tensor,
         return key_partition_plain(key, valid, parts)
     dev = valid.device
     n = valid.shape[0]
+    if n > K21_MAX_ROWS:
+        raise errors.DeviceError(f"key_partition over {n} rows (at most "
+                                 f"{K21_MAX_ROWS})")
     _check_plane(key, n, (torch.int64, torch.float64), "partition key", dev)
     _check_plane(valid, n, (torch.bool,), "partition valid", dev)
     sel = torch.empty(n, dtype=torch.int64, device=dev)
-    offsets = torch.zeros(parts + 1, dtype=torch.int64, device=dev)
     if n == 0:
-        return sel, offsets
+        return sel, torch.zeros(parts + 1, dtype=torch.int64, device=dev)
+    offsets = torch.empty(parts + 1, dtype=torch.int64, device=dev)
     lib = _ext.lib("key_partition")
-    nb = lib.key_partition_blocks(n)
-    hist = torch.empty(parts * nb, dtype=torch.int64, device=dev)
-    offs = torch.empty(parts * nb, dtype=torch.int64, device=dev)
+    counts = torch.empty(lib.key_partition_scratch_ints(n, parts),
+                         dtype=torch.int32, device=dev)
     rc = lib.key_partition_launch(
         n, key.data_ptr(), valid.data_ptr(), int(key.dtype == torch.float64),
-        parts, hist.data_ptr(), offs.data_ptr(), sel.data_ptr(),
-        offsets.data_ptr(), _stream(dev))
+        parts, counts.data_ptr(), sel.data_ptr(), offsets.data_ptr(),
+        _stream(dev))
     _ext.check(rc, "key_partition")
     LAUNCHES["key_partition"] += 1
     return sel, offsets
