@@ -392,6 +392,10 @@ KERNELS = {
 # (seg_states_ragged_sorted)
 K6_ROUTES = kernels.K6_ROUTES
 CLUSTER_KERNELS = ("expr_vm_ragged",) + K6_ROUTES + ("combine_partials",)
+# K5's table past K5_PARAM_WORDS words goes to the card packed, a second
+# instantiation of its kernel: no main-path statement has such a table,
+# Phase D forces one (k5_packed_regions)
+K5_PACKED = ("expr_vm_ragged_packed",)
 # K4's sorted route and the radix that sorts its ids: the main path takes
 # them past K4_MAX_WINDOWS windows (Phase J's by_supplier over 8 shards);
 # Phase A's group-by fits its windows
@@ -440,13 +444,25 @@ def build() -> None:
             if "registers" in line or "spill" in line \
                     or "Function properties" in line:
                 print(f"  {name}: {line.strip()}")
-    # K15 and K14 keep their registers in shared memory: no stack frame
-    for name in ("slot_agg", "slot_filter"):
+    # K15, K14 and K5 keep their registers in shared memory: no stack
+    # frame (expr_vm.cu's K1 keeps its arrays)
+    for name, fn in (("slot_agg", ""), ("slot_filter", ""),
+                     ("expr_vm", "expr_vm_ragged")):
         if name not in _ext.BUILD_LOG:      # a library built before
             continue
-        frames = re.findall(r"(\d+) bytes stack frame", _ext.BUILD_LOG[name])
-        need(frames and all(f == "0" for f in frames),
+        frames = {f: b for f, b in stack_frames(_ext.BUILD_LOG[name]).items()
+                  if fn in f}
+        need(frames and all(b == 0 for b in frames.values()),
              f"{name}: ptxas reports a stack frame ({frames})")
+        if fn:
+            print(f"  {name}: {fn} stack frames {sorted(frames.values())} "
+                  f"bytes ({len(frames)} kernels)")
+
+
+def stack_frames(log: str) -> dict:
+    """Each kernel's stack frame in bytes from ptxas -v's output."""
+    return {f: int(b) for f, b in re.findall(
+        r"Function properties for (\S+)\s+(\d+) bytes stack frame", log)}
 
 
 # ---------------------------------------------------------------------------
@@ -530,7 +546,7 @@ def phase_a(n_rows: int, seed: int, device=None) -> dict:
                  or k in JOIN_KERNELS or k in SLOT_KERNELS
                  or k in SORT_KERNELS or k in DELTA_KERNELS
                  or k in MESH_KERNELS or k in OOC_KERNELS
-                 or k in K4_SORTED_KERNELS,
+                 or k in K4_SORTED_KERNELS or k in K5_PACKED,
                  f"kernel {k} never launched on the main path")
     return launches
 
@@ -1318,6 +1334,41 @@ def _edge_regions(R: int, seed: int, device, caps=(1024, 2048)) -> list:
     return out
 
 
+def k5_packed_regions(device, seed: int) -> list:
+    """Regions whose K5 table passes K5_PARAM_WORDS: 300 of the edge
+    regions (one tile each), then 4 regions of 4,096 rows whose string
+    column holds a 20,000-string dictionary, compiled with WHERE
+    s LIKE '%7%' OR a < 0 (a LUT of 20,000 bytes each)."""
+    rng = np.random.default_rng(seed)
+    out = [rp for _b, rp in _edge_regions(300, seed, device, caps=(1024,))]
+    dic = sorted({b"s%07d" % x for x in rng.integers(0, 10 ** 7, 20_000)})
+    c, v, op = expr_column, expr_value, expr_op
+    where = op(Op.OrOr, tpch._like(c(2), "%7%"),
+               op(Op.LT, c(1), v(Datum.i64(0))))
+    arg = op(Op.Mul, c(1), v(Datum.i64(3)))
+    for r in range(4):
+        cap = 4096
+        n = cap - 37 * r
+        live = np.arange(cap) < n
+        sv = live & (rng.random(cap) > 0.1)
+        cols = {
+            1: col.ColumnData(col.K_I64, rng.integers(-1000, 1000, cap)
+                              .astype(np.int64),
+                              live & (rng.random(cap) > 0.2), tp=8,
+                              max_abs=1000),
+            2: col.ColumnData(col.K_STR, np.where(sv, rng.integers(
+                0, len(dic), cap), -1).astype(np.int64), sv, dic, tp=15),
+        }
+        b = col.ColumnBatch(n, cap, np.arange(cap, dtype=np.int64), cols)
+        prog = Program(b)
+        fin = prog.finalize(compile_expr(where, b, prog),
+                            [compile_expr(arg, b, prog)])
+        planes = kernels.batch_planes(b, device)
+        out.append(kernels.RegionProgram(
+            fin, [planes[k][x] for k, x in fin.plane_keys], cap, n))
+    return out
+
+
 def _edge_states(edge: list, bits, outs, device, big: bool, seed: int):
     """seg_states_ragged arguments over the edge regions' K5 masks: every
     op, the argument plane's valid, G_r = 0 where nothing survived, and
@@ -1510,8 +1561,16 @@ def check_k6_twice(k6: tuple, what: str, route: str | None = None) -> float:
 # cluster path or in these cases; K7 adds f64 states in region order on
 # both sides). Each check returns the largest |kernel - plain| it read.
 
-def check_k5(regions: list, device, what: str) -> float:
+def check_k5(regions: list, device, what: str,
+             route: str = "expr_vm_ragged") -> float:
+    """K5 against its plain version, bit for bit, launched once on
+    `route` (its by-value or its packed instantiation)."""
+    before = {k: kernels.LAUNCHES[k] for k in kernels.K5_ROUTES}
     kb, ko = kernels.expr_vm_ragged(regions, device)
+    got = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.K5_ROUTES}
+    need(device.type != "cuda"
+         or got == {k: int(k == route) for k in kernels.K5_ROUTES},
+         f"{what}: K5 launches {got}, not one on {route}")
     pb, po = kernels.expr_vm_ragged_plain(regions, device)
     need(torch.equal(kb, pb), f"{what}: K5 survivor bits differ")
     err = max_err(kb, pb)
@@ -1770,11 +1829,21 @@ def phase_d(n_rows: int, seed: int, device, R: int = 8) -> tuple:
     sel = tpch.sweep_request("q1full")
     regions, k6, (states, codes) = capture(store, sel, device)
     out = {}
-    # K5 at Q1's shapes, plus 64 edge regions
+    # K5 at Q1's shapes and over 64 edge regions (their tables by value),
+    # and over regions whose table goes packed (many regions, large LUTs)
     k5_err = check_k5(regions, device, "K5 Q1")
     edge = _edge_regions(64, seed + 11, device)
     eregions = [rp for _b, rp in edge]
     k5_err = max(k5_err, check_k5(eregions, device, "K5 edge"))
+    pregions = k5_packed_regions(device, seed + 17)
+    k5_err = max(k5_err, check_k5(pregions, device, "K5 packed",
+                                  "expr_vm_ragged_packed"))
+    for what, rr in (("q1full", regions), ("64 edge regions", eregions),
+                     ("the packed case", pregions)):
+        words, _n = kernels.k5_pack(rr, [0] * (2 * len(rr[0].fin.out_dts)))
+        print(f"  K5 {what}: {len(rr)} regions, {words[1]} distinct "
+              f"program streams, a table of {len(words)} words "
+              f"({kernels.k5_route(len(words))})")
     total = sum(rp.cap for rp in regions)
     n_out = len(regions[0].fin.out_dts)
     k5_bytes = _nbytes([t for rp in regions for t in rp.planes]) \
@@ -1788,6 +1857,14 @@ def phase_d(n_rows: int, seed: int, device, R: int = 8) -> tuple:
         library_ms=None, max_abs_err=k5_err,
         bound=bound(k5_bytes, sum(rp.cap * rp.fin.n_instr
                                   for rp in regions)))
+    r = out["expr_vm_ragged"]
+    packed_launch = kernels.k5_prepare(pregions, device)[0] if cuda \
+        else (lambda: kernels.expr_vm_ragged(pregions, device))
+    print(f"  K5 at q1full: launch {r['ms']:.4f} ms, wrapper "
+          f"{k5_wrapper_ms:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
+          f"{r['bound'][0]:.4f} ms by {r['bound'][1]}); the packed case "
+          f"({sum(rp.cap for rp in pregions)} rows) {ms(packed_launch):.4f} "
+          "ms")
     # K6 on each of its routes (kernels.k6_route): Q1's spans (8 segments
     # a region) and date_group's (about 2.5k dates, 4,096 segments a
     # region) the block route in the opt-in shared memory, Q1's with 16
@@ -3990,7 +4067,8 @@ def k19_case(n_rows: int, cap: int, n_tomb: int, app_mode: str, seed: int,
     I64_MIN; tombstones drawn from the live handles (or all of them) plus
     absent ones (3x + 1); appended handles before, after or between the
     base's ("between": updates, i.e. tombstoned handles, and new 3x + 2
-    handles; "ties": also kept base handles), or none. `k` fixes the
+    handles; "ties": also kept base handles; "kept": kept base handles
+    only), or none. `k` fixes the
     appended count (random below 300 otherwise)."""
     rng = np.random.default_rng(seed)
     h = np.full(cap, col.I64_MIN, np.int64)
@@ -4017,6 +4095,8 @@ def k19_case(n_rows: int, cap: int, n_tomb: int, app_mode: str, seed: int,
         if app_mode == "ties":
             new[: len(new) // 2] = rng.choice(base, len(new) // 2)
         app = np.sort(np.concatenate([upd, new]))
+    elif app_mode == "kept":
+        app = np.sort(rng.choice(np.setdiff1d(base, tomb), k))
     else:
         app = np.zeros(0, np.int64)
     return h, live, tomb.astype(np.int64), np.asarray(app, np.int64)
@@ -4038,16 +4118,42 @@ K19_EDGES = [
      300),
     ("app_past_shared_memory", 100_000, 131_072, 500, "between", False,
      30_000),
+    # appended handles all equal to kept ones; no base rows with many
+    # appended; no tombstones and no appended rows; more tiles than one
+    # look-back step (K19_THREADS tiles)
+    ("app_all_ties", 4000, 4096, 100, "kept", False, 1500),
+    ("no_base_app_only", 0, 1024, 10, "between", False, 3000),
+    ("empty_both", 3000, 4096, 0, "none", False, None),
+    ("many_tiles", 700_000, 1 << 20, 9000, "between", False, 7000),
 ]
 
 
 def check_k19(h, live, tomb, app, what: str) -> float:
-    """K19 against its plain version on the card, bit for bit."""
-    got = kernels.delta_merge_order(h, live, tomb, app)
+    """K19 and its merged handle plane against their plain versions on
+    the card, bit for bit, in one launch."""
     want = kernels.delta_merge_order_plain(h, live, tomb, app)
+    merged = torch.full((want.shape[0] + 7,), col.I64_MIN,
+                        dtype=torch.int64, device=h.device)
+    before = kernels.LAUNCHES["delta_merge_order"]
+    got = kernels.delta_merge_order(h, live, tomb, app, merged)
+    need(h.device.type != "cuda"
+         or kernels.LAUNCHES["delta_merge_order"] - before == 1,
+         f"{what}: K19 took more than one launch")
     need(torch.equal(got, want), f"{what}: K19 differs from its plain "
          f"version ({got.shape[0]} vs {want.shape[0]} rows)")
+    check_merged(h, app, want, merged, what)
     return max_err(got, want)
+
+
+def check_merged(h, app, order, merged, what: str) -> None:
+    """K19's merged handle plane: the plain version's at each position,
+    the rest of the plane as it was made (I64_MIN)."""
+    n = order.shape[0]
+    need(torch.equal(merged[:n], kernels.delta_merge_handles_plain(
+        h, app, order)), f"{what}: K19's merged handle plane differs from "
+         "its plain version")
+    need(bool((merged[n:] == col.I64_MIN).all()),
+         f"{what}: K19 wrote past its merged rows")
 
 
 def k19_edges(device, seed: int) -> float:
@@ -4090,16 +4196,16 @@ def k19_edges(device, seed: int) -> float:
 
 
 class K19Recorder:
-    """Keeps every K19 call the merge path makes (its inputs and output)
-    while active."""
+    """Keeps every K19 call the merge path makes (its inputs, output and
+    merged handle plane) while active."""
 
     def __init__(self):
         self.calls = []
         self._orig = kernels.delta_merge_order
 
-    def __call__(self, h, live, tomb, app):
-        out = self._orig(h, live, tomb, app)
-        self.calls.append((h, live, tomb, app, out))
+    def __call__(self, h, live, tomb, app, merged=None):
+        out = self._orig(h, live, tomb, app, merged)
+        self.calls.append((h, live, tomb, app, out, merged))
         return out
 
     def __enter__(self):
@@ -4187,10 +4293,11 @@ def phase_i1(n_rows: int, seed: int, device, R: int = 8) -> tuple:
          f"phase I.1: K19 launches {launches}, merges through it "
          f"{len(rec.calls)}")
     err = 0.0
-    for i, (h, live, tomb, app, out) in enumerate(rec.calls):
+    for i, (h, live, tomb, app, out, merged) in enumerate(rec.calls):
         want_o = kernels.delta_merge_order_plain(h, live, tomb, app)
         need(torch.equal(out, want_o), f"phase I.1: K19 call {i} differs "
              "from its plain version")
+        check_merged(h, app, want_o, merged, f"phase I.1: K19 call {i}")
         err = max(err, max_err(out, want_o))
     s1 = i_stats(gpu)
     again = i_sweep(gpu, ts)
@@ -4274,6 +4381,8 @@ def phase_i2(store: DistStore, data: dict, device, seed: int,
             want = kernels.delta_merge_order_plain(*c[:4])
             need(torch.equal(c[4], want), f"phase I.2 pair {p + 1}: K19 "
                  f"call {i} differs from its plain version")
+            check_merged(c[0], c[3], want, c[5],
+                         f"phase I.2 pair {p + 1}: K19 call {i}")
             err = max(err, max_err(c[4], want))
         on_card = sum(any(c[0] is h and c[1] is live for h, live in resident)
                       for c in rec.calls)
@@ -4301,33 +4410,53 @@ def phase_i2(store: DistStore, data: dict, device, seed: int,
 
 
 def k19_timed(call, device) -> dict:
-    """K19's launch alone, its plain version and a stable argsort of the
-    masked concatenation (the yardstick: it omits the mask), medians of
-    20 CUDA-event runs, and its bound."""
-    h, live, tomb, app, out = call
+    """K19's launch alone as the merge path makes it (order and merged
+    handle plane), its plain version (the order and the plane's gather)
+    and a stable argsort of the masked concatenation (the yardstick: it
+    omits the mask and the plane), medians of 20 CUDA-event runs, and its
+    bound; then the merge path's k19 phase in parts: the wrapper (the
+    launch and the meta read), the plane's I64_MIN fill, the order's
+    readback into page-locked memory, and the three in a row."""
+    h, live, tomb, app, out, merged = call
     n, m, k = h.shape[0], tomb.shape[0], app.shape[0]
-    launch = (kernels.delta_merge_prepare(h, live, tomb, app)[0]
+    plane = torch.full_like(merged, col.I64_MIN)
+    launch = (kernels.delta_merge_prepare(h, live, tomb, app, plane)[0]
               if device.type == "cuda" else
-              (lambda: kernels.delta_merge_order(h, live, tomb, app)))
+              (lambda: kernels.delta_merge_order(h, live, tomb, app, plane)))
     pos = torch.searchsorted(tomb, h)
     dead = (pos < m) & (tomb[pos.clamp(max=max(m - 1, 0))] == h) \
         if m else torch.zeros_like(live)
     masked = torch.cat([torch.where(live & ~dead, h,
                                     torch.full_like(h, kernels.I64_MAX)),
                         app])
+
+    def plain():
+        o = kernels.delta_merge_order_plain(h, live, tomb, app)
+        return o, kernels.delta_merge_handles_plain(h, app, o)
+
+    def k19_phase():
+        p = torch.full_like(merged, col.I64_MIN)
+        o = kernels.delta_merge_order(h, live, tomb, app, p)
+        return kernels.to_host(o)
+
     # the live mask over the capacity, the handles of live base rows only
     # (the kernel reads no other), the tombstones, the appended handles,
-    # and the order written
-    nbytes = n + 8 * int(live.sum()) + 8 * (m + k) + 8 * out.shape[0]
+    # and the order and the merged handle plane written (8 B a position
+    # each)
+    nbytes = n + 8 * int(live.sum()) + 8 * (m + k) + 16 * out.shape[0]
     ms = timer(device)
     return dict(
         ms=ms(launch),
-        plain_ms=ms(lambda: kernels.delta_merge_order_plain(
-            h, live, tomb, app)),
+        plain_ms=ms(plain),
         library_ms=ms(lambda: torch.argsort(masked, stable=True)),
         bound=bound(nbytes, n * max(int(m).bit_length(), 1)
                     + k * max(int(n).bit_length(), 1)),
-        shape=(n, m, k, int(out.shape[0])))
+        shape=(n, m, k, int(out.shape[0])),
+        parts={"wrapper": ms(lambda: kernels.delta_merge_order(
+                   h, live, tomb, app, plane)),
+               "fill": ms(lambda: torch.full_like(merged, col.I64_MIN)),
+               "readback": ms(lambda: kernels.to_host(out)),
+               "k19_phase": ms(k19_phase)})
 
 
 def phase_i(d_store: DistStore, d_data: dict, device, seed: int,
@@ -4351,7 +4480,9 @@ def phase_i(d_store: DistStore, d_data: dict, device, seed: int,
         print(f"  K19 at {what} (n, m, k, n_live) {r['shape']}: "
               f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, stable "
               f"argsort {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} "
-              f"ms by {r['bound'][1]})")
+              f"ms by {r['bound'][1]}); the merge path's k19 phase "
+              + ", ".join(f"{p} {v:.4f}" for p, v in r["parts"].items())
+              + " ms")
     print("phase I statements: " + json.dumps(stmts))
     print(f"phase I: launches {launches}; {time.perf_counter() - t0:.1f} s")
     r = dict(timed["region_8"], max_abs_err=err)

@@ -1,5 +1,6 @@
-"""Phase G's traffic, the slot, window, region-states, rank and partition
-kernels of two checkouts of this repository, timed in turns on one card.
+"""Phase G's traffic, the slot, window, region-states, rank, partition,
+region-filter and delta-merge kernels of two checkouts of this
+repository, timed in turns on one card.
 
     python3 compare_trees.py OLD_ROOT [NEW_ROOT] [--only PART,PART...]
 
@@ -8,7 +9,7 @@ NEW, NEW, OLD, each in a process of its own started in its checkout's root
 and importing that checkout's chip_smoke, tidb_tpu_torch and kernels
 (each builds its kernels into its own build/ directory). A run measures,
 with the helpers both checkouts' chip_smoke.py share, the parts below (all
-of them, or those --only names: g, stress, k18, k8, k21, k6):
+of them, or those --only names: g, stress, k18, k8, k21, k6, k5, k19):
 
 - g: Phase G's traffic (chip_smoke.g_traffic: 64 sessions x 25 statements of
   tpch.G_SHAPES over SF1's supplier table through one GpuClient), once
@@ -45,7 +46,22 @@ of them, or those --only names: g, stress, k18, k8, k21, k6):
   plain_q1 over 8 shards of one card (the mesh tier's near-data rung), and
   at d_supplier over 8 regions at SF1 (with the statement's time, median
   of 3 on the host clock), with a digest of the states, which must be
-  equal in every run.
+  equal in every run;
+- k5: K5 (kernels.k5_prepare's launch and the expr_vm_ragged wrapper,
+  medians of 20 CUDA-event runs) at q1full over 8 regions at SF1, and the
+  `k5` phase of q1full's statement there (kernels.SPLIT, median of 5),
+  with a digest of the survivor bits and the argument planes (values
+  where valid);
+- k19: Phase I.2 on a store of those regions (chip_smoke.phase_i2: two
+  RF1 + RF2 pairs, q1full after each), each pair's `k19` and `k5` phases
+  and its merge statement (host clock), a digest of every merge order;
+  then K19 at the last pair's region_8 and tombstones_only merges (the
+  most and the fewest appended rows): the launch as the merge path makes
+  it (with the merged handle plane where the checkout writes one), and
+  the merge path's k19 phase as that checkout runs it, with its parts:
+  the wrapper (launch and meta read), the merged plane (I64_MIN fill,
+  then the parent's cat and gather), the order's readback (the parent's
+  Tensor.cpu(), else kernels.to_host).
 
 Each run prints one JSON line after "RESULT"; this script prints them,
 each metric's median per checkout, and the card's name and power limit.
@@ -63,7 +79,7 @@ import sys
 import time
 
 ORDER = ("old", "new", "new", "old")
-PARTS = ("g", "stress", "k18", "k8", "k21", "k6")
+PARTS = ("g", "stress", "k18", "k8", "k21", "k6", "k5", "k19")
 
 
 def child(root: str, parts: set) -> dict:
@@ -243,6 +259,8 @@ def child(root: str, parts: set) -> dict:
                 lambda: kernels.key_partition(k_, v_, 8))
     del line
 
+    if want("k5") or want("k19"):
+        k5_k19(out, want, digest, dev)
     if not want("k6"):
         return out
 
@@ -297,6 +315,99 @@ def child(root: str, parts: set) -> dict:
     out["d_supplier_stmt_ms"] = cs.host_ms(lambda: cs.final_rows(st, sup), 3)
     k6_time("k6_d_supplier", cs.capture(st, sup, dev)[1])
     return out
+
+
+def k5_k19(out: dict, want, digest, dev) -> None:
+    """The k5 and k19 parts (see the docstring) into `out`."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from tidb_tpu_torch import tpch
+    from tidb_tpu_torch.cluster.store import DistStore
+    from tidb_tpu_torch.copr.plane_cache import PlaneCache
+    from tidb_tpu_torch.ops import columnar as col, kernels
+
+    q1full = tpch.sweep_request("q1full")
+    data = tpch.generate(tpch.SF1_ROWS, 2)
+    st = DistStore([], tpch.split_keys(tpch.SF1_ROWS, 8), dev,
+                   plane_cache=PlaneCache(device=dev))
+    cs.admit(st, q1full, tpch.region_batches(data, cs.D_CIDS, 8))
+    cs.final_rows(st, q1full)
+    if want("k5"):
+        regions = cs.capture(st, q1full, dev)[0]
+        bits, outs = kernels.expr_vm_ragged(regions, dev)
+        out["k5_q1full_digest"] = digest(bits, *[t for v, ok in outs
+                                                 for t in (v[ok], ok)])
+        out["k5_q1full_ms"] = cs.cuda_ms(kernels.k5_prepare(regions, dev)[0])
+        out["k5_q1full_wrapper_ms"] = cs.cuda_ms(
+            lambda: kernels.expr_vm_ragged(regions, dev))
+        split = []
+        for _ in range(5):
+            kernels.SPLIT = {}
+            cs.final_rows(st, q1full)
+            split.append(kernels.SPLIT["k5"])
+            kernels.SPLIT = None
+        out["k5_q1full_split_ms"] = float(np.median(split))
+    if not want("k19"):
+        return
+    _l, calls, _e, stmts = cs.phase_i2(st, data, dev, 22)
+    for p, s in enumerate(stmts):
+        out[f"i2_pair{p + 1}_k19_ms"] = s["split"]["k19"]
+        out[f"i2_pair{p + 1}_k5_ms"] = s["split"]["k5"]
+        out[f"i2_pair{p + 1}_statement_ms"] = s["merge_statement_ms"]
+    out["k19_orders_digest"] = digest(*[c[4] for c in calls])
+    merged_arg = "merged" in inspect.signature(
+        kernels.delta_merge_order).parameters
+    to_host = getattr(kernels, "to_host", None)
+    by_app = sorted(calls, key=lambda c: c[3].shape[0])
+    for what, c in (("tombstones_only", by_app[0]), ("region_8", by_app[-1])):
+        h, live, tomb, app = c[:4]
+        cap = col.bucket_capacity(int(live.sum()) + app.shape[0])
+
+        def fill():
+            return torch.full((cap,), col.I64_MIN, dtype=torch.int64,
+                              device=dev)
+
+        if merged_arg:
+            plane = fill()
+            launch = kernels.delta_merge_prepare(h, live, tomb, app, plane)[0]
+
+            def wrapper():
+                return kernels.delta_merge_order(h, live, tomb, app, plane)
+
+            def gather(order):
+                return fill()
+
+            def phase():
+                m = fill()
+                return to_host(kernels.delta_merge_order(h, live, tomb, app,
+                                                          m))
+        else:
+            launch = kernels.delta_merge_prepare(h, live, tomb, app)[0]
+
+            def wrapper():
+                return kernels.delta_merge_order(h, live, tomb, app)
+
+            def gather(order):
+                m = fill()
+                m[:order.shape[0]] = torch.cat([h, app])[order]
+                return m
+
+            def phase():
+                order = wrapper()
+                gather(order)
+                return order.cpu()
+
+        order = wrapper()
+        readback = (lambda: to_host(order)) if merged_arg else order.cpu
+        out[f"k19_{what}_ms"] = cs.cuda_ms(launch)
+        out[f"k19_{what}_wrapper_ms"] = cs.cuda_ms(wrapper)
+        out[f"k19_{what}_plane_ms"] = cs.cuda_ms(lambda: gather(order))
+        out[f"k19_{what}_readback_ms"] = cs.cuda_ms(readback)
+        out[f"k19_{what}_phase_ms"] = cs.cuda_ms(phase)
 
 
 def stress_statements() -> list:

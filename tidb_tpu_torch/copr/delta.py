@@ -17,10 +17,10 @@ an older base that `usable` accepts merges base planes + delta at scan
 time (`merge`): the handle-ordered merge order of the kept base rows and
 the appended rows comes from K19 `delta_merge_order` at or above
 MERGE_DEVICE_FLOOR base rows, from its plain version on the host below
-it, and every plane is gathered once on the host; the merged handle plane
-and its liveness plane are also made on the device, where the next merge
-over the merged batch finds them. A K19 fault raises (the reference
-degrades to its host plan). When a pack's delta outgrows the row budget,
+it, and every plane is gathered once on the host; K19 also writes the
+merged handle plane, which stays on the device with its liveness plane,
+where the next merge over the merged batch finds them. A K19 fault
+raises (the reference degrades to its host plan). When a pack's delta outgrows the row budget,
 the scan that merged it folds it: the merged batch becomes the new base
 entry and the pack resets.
 
@@ -422,10 +422,11 @@ def _merge_order(base, tomb: np.ndarray, app_handles: np.ndarray,
     Below MERGE_DEVICE_FLOOR base rows K19's plain version runs on the
     host. At or above it K19 (its plain version under device "cpu")
     merges the base's resident handle and liveness planes with the
-    delta's: only the tombstones and appended handles move up, the order
-    is read back once, and the merged handle plane, gathered on the
-    device, stays there (with the merged liveness plane) for the merged
-    batch's next merge."""
+    delta's: only the tombstones and appended handles move up, and K19
+    writes the merged handle plane beside the order (its capacity
+    bucketed as the merged batch's, I64_MIN past its rows), which stays
+    on the device (with the merged liveness plane) for the merged batch's
+    next merge; the order is read back once, into page-locked memory."""
     if base.n_rows < MERGE_DEVICE_FLOOR:
         with kernels.phase("merge_order", device):
             order = kernels.delta_merge_order_plain(
@@ -439,9 +440,13 @@ def _merge_order(base, tomb: np.ndarray, app_handles: np.ndarray,
         tomb_d = torch.from_numpy(tomb).to(device)
         app_d = torch.from_numpy(app_handles).to(device)
     with kernels.phase("k19", device):
-        order = kernels.delta_merge_order(h, live, tomb_d, app_d)
-        n = order.shape[0]
-        merged_h = torch.full((col.bucket_capacity(n),), col.I64_MIN,
-                              dtype=torch.int64, device=h.device)
-        merged_h[:n] = torch.cat([h, app_d])[order]
-        return order.cpu().numpy(), merged_h
+        # the live rows are the base's first n_rows, so the merge holds at
+        # most n_rows + k rows
+        merged_h = torch.full((col.bucket_capacity(
+            base.n_rows + len(app_handles)),), col.I64_MIN,
+            dtype=torch.int64, device=h.device)
+        order = kernels.delta_merge_order(h, live, tomb_d, app_d, merged_h)
+        cap = col.bucket_capacity(order.shape[0])
+        if cap < merged_h.shape[0]:
+            merged_h = merged_h[:cap].clone()
+        return kernels.to_host(order).numpy(), merged_h

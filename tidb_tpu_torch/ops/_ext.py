@@ -43,8 +43,7 @@ SIGNATURES = {
     "expr_vm": {
         "expr_vm_launch": ([_L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P], _I),
         "expr_vm_ragged_tile": ([], _I),
-        "expr_vm_ragged_launch": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _P], _I),
+        "expr_vm_ragged_launch": ([_P, _I, _P, _P, _P], _I),
     },
     "scalar_agg": {
         "scalar_agg_grid": ([], _I),
@@ -135,9 +134,10 @@ SIGNATURES = {
                                 ctypes.c_ulonglong, _P, _P], _I),
     },
     "delta_merge": {
-        "delta_merge_blocks": ([_L], _L),
-        "delta_merge_launch": ([_L, _P, _P, _P, _L, _P, _L, _P, _P, _P, _P,
-                                _P, _P, _P, _P, _P, _P, _P], _I),
+        "delta_merge_tiles": ([_L], _L),
+        "delta_merge_workspace_bytes": ([_L], _L),
+        "delta_merge_launch": ([_L, _P, _P, _P, _L, _P, _L, _P, _P, _L, _P,
+                                ctypes.c_ulonglong, _P, _P], _I),
     },
     "key_partition": {
         "key_partition_scratch_ints": ([_L, _I], _L),

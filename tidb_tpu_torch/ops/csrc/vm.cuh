@@ -7,10 +7,10 @@
 // the program once per row, K14 and K15 its slot-invariant part (where
 // the loads are) once a row. Where the registers live is the caller's
 // choice:
-//   VmArrayRegs the thread's own arrays v[] / ok[] (K1, K5): indexed at
+//   VmArrayRegs the thread's own arrays v[] / ok[] (K1): indexed at
 //            run time, so the compiler puts them in local memory;
 //   VmSmemRegs  values in shared memory, one column a thread, and the
-//            valid bits in one 32-bit register (K14, K15): no local
+//            valid bits in one 32-bit register (K5, K14, K15): no local
 //            memory.
 #pragma once
 
@@ -55,168 +55,239 @@ struct VmSmemRegs {
   }
 };
 
-// Run instructions [from, to) of a K1 program over one row into the
-// register file `R`. `pl` reads the row's planes.
-template <class Planes, class Regs>
-__device__ __forceinline__ void vm_exec(const i64* __restrict__ ins, int from, int to, i64 row,
-                                        const i64* __restrict__ pool,
-                                        const unsigned char* __restrict__ lut,
-                                        const Planes& pl, Regs& R) {
+__device__ __forceinline__ bool vm_cmp_i(int op, i64 x, i64 y) {
+  switch (op) {
+    case OP_EQ_I: return x == y;
+    case OP_NE_I: return x != y;
+    case OP_LT_I: return x < y;
+    case OP_LE_I: return x <= y;
+    case OP_GT_I: return x > y;
+    default: return x >= y;
+  }
+}
+
+__device__ __forceinline__ bool vm_cmp_f(int op, double x, double y) {
+  switch (op) {
+    case OP_EQ_F: return x == y;
+    case OP_NE_F: return x != y;
+    case OP_LT_F: return x < y;
+    case OP_LE_F: return x <= y;
+    case OP_GT_F: return x > y;
+    default: return x >= y;
+  }
+}
+
+// Each of a thread's N rows in turn (unrolled: q is a constant)
+#define VM_ROWS _Pragma("unroll") for (int q = 0; q < N; ++q)
+
+// Run instructions [from, to) of a K1 program over N rows at once: row
+// rows[q] into the register file R[q]. Each instruction is fetched and
+// dispatched once for the N rows, whose work is independent (their loads
+// in flight together). `pl` reads the rows' planes.
+template <int N, class Planes, class Regs>
+__device__ __forceinline__ void vm_exec_rows(const i64* __restrict__ ins, int from, int to,
+                                             const i64 (&rows)[N],
+                                             const i64* __restrict__ pool,
+                                             const unsigned char* __restrict__ lut,
+                                             const Planes& pl, Regs (&R)[N]) {
   for (int k = from; k < to; ++k) {
     const i64* in = ins + 6 * k;
     const int op = (int)in[0];
     const int d = (int)in[1];
     const i64 a = in[2], b = in[3], c = in[4], imm = in[5];
-    i64 rv = 0;
-    bool rk = false;
+    i64 rv[N];
+    bool rk[N];
     switch (op) {
       case OP_LOAD:
-        rv = pl.value(a, row);
-        rk = b < 0 ? true : pl.valid(b, row);
+        VM_ROWS {
+          rv[q] = pl.value(a, rows[q]);
+          rk[q] = b < 0 ? true : pl.valid(b, rows[q]);
+        }
         break;
       case OP_CONST:
-        rv = pool[imm];
-        rk = a != 0;
+        VM_ROWS {
+          rv[q] = pool[imm];
+          rk[q] = a != 0;
+        }
         break;
       case OP_EQ_I: case OP_NE_I: case OP_LT_I:
-      case OP_LE_I: case OP_GT_I: case OP_GE_I: {
-        const i64 x = R.val(a), y = R.val(b);
-        bool r;
-        switch (op) {
-          case OP_EQ_I: r = x == y; break;
-          case OP_NE_I: r = x != y; break;
-          case OP_LT_I: r = x < y; break;
-          case OP_LE_I: r = x <= y; break;
-          case OP_GT_I: r = x > y; break;
-          default: r = x >= y;
+      case OP_LE_I: case OP_GT_I: case OP_GE_I:
+        VM_ROWS {
+          rv[q] = vm_cmp_i(op, R[q].val(a), R[q].val(b));
+          rk[q] = R[q].valid(a) && R[q].valid(b);
         }
-        rv = r;
-        rk = R.valid(a) && R.valid(b);
         break;
-      }
       case OP_EQ_F: case OP_NE_F: case OP_LT_F:
-      case OP_LE_F: case OP_GT_F: case OP_GE_F: {
-        const double x = as_f64(R.val(a)), y = as_f64(R.val(b));
-        bool r;
-        switch (op) {
-          case OP_EQ_F: r = x == y; break;
-          case OP_NE_F: r = x != y; break;
-          case OP_LT_F: r = x < y; break;
-          case OP_LE_F: r = x <= y; break;
-          case OP_GT_F: r = x > y; break;
-          default: r = x >= y;
-        }
-        rv = r;
-        rk = R.valid(a) && R.valid(b);
-        break;
-      }
-      case OP_AND: case OP_OR: case OP_XOR: {
-        const bool at = R.val(a) != 0, bt = R.val(b) != 0;
-        const bool aa = R.valid(a), bb = R.valid(b);
-        if (op == OP_AND) {
-          rv = at && bt;
-          rk = (aa && bb) || (aa && !at) || (bb && !bt);
-        } else if (op == OP_OR) {
-          rv = at || bt;
-          rk = (aa && bb) || (aa && at) || (bb && bt);
-        } else {
-          rv = at != bt;
-          rk = aa && bb;
+      case OP_LE_F: case OP_GT_F: case OP_GE_F:
+        VM_ROWS {
+          rv[q] = vm_cmp_f(op, as_f64(R[q].val(a)), as_f64(R[q].val(b)));
+          rk[q] = R[q].valid(a) && R[q].valid(b);
         }
         break;
-      }
+      case OP_AND: case OP_OR: case OP_XOR:
+        VM_ROWS {
+          const bool at = R[q].val(a) != 0, bt = R[q].val(b) != 0;
+          const bool aa = R[q].valid(a), bb = R[q].valid(b);
+          if (op == OP_AND) {
+            rv[q] = at && bt;
+            rk[q] = (aa && bb) || (aa && !at) || (bb && !bt);
+          } else if (op == OP_OR) {
+            rv[q] = at || bt;
+            rk[q] = (aa && bb) || (aa && at) || (bb && bt);
+          } else {
+            rv[q] = at != bt;
+            rk[q] = aa && bb;
+          }
+        }
+        break;
       case OP_NOT:
-        rv = R.val(a) == 0;
-        rk = R.valid(a);
+        VM_ROWS {
+          rv[q] = R[q].val(a) == 0;
+          rk[q] = R[q].valid(a);
+        }
         break;
-      case OP_ADD_I:
-        rv = (i64)((u64)R.val(a) + (u64)R.val(b));
-        rk = R.valid(a) && R.valid(b);
+      case OP_ADD_I: case OP_SUB_I: case OP_MUL_I:
+        VM_ROWS {
+          const u64 x = (u64)R[q].val(a), y = (u64)R[q].val(b);
+          rv[q] = (i64)(op == OP_ADD_I ? x + y : op == OP_SUB_I ? x - y : x * y);
+          rk[q] = R[q].valid(a) && R[q].valid(b);
+        }
         break;
-      case OP_SUB_I:
-        rv = (i64)((u64)R.val(a) - (u64)R.val(b));
-        rk = R.valid(a) && R.valid(b);
-        break;
-      case OP_MUL_I:
-        rv = (i64)((u64)R.val(a) * (u64)R.val(b));
-        rk = R.valid(a) && R.valid(b);
-        break;
-      case OP_IDIV_I: case OP_MOD_I: {
+      case OP_IDIV_I: case OP_MOD_I:
         // truncating division, remainder with the dividend's sign;
         // divisor 0 -> NULL; -1 handled apart (INT64_MIN / -1 overflows)
-        const i64 x = R.val(a), y = R.val(b);
-        if (y == 0) rv = op == OP_IDIV_I ? x : 0;
-        else if (y == -1) rv = op == OP_IDIV_I ? (i64)(0ULL - (u64)x) : 0;
-        else rv = op == OP_IDIV_I ? x / y : x % y;
-        rk = R.valid(a) && R.valid(b) && y != 0;
-        break;
-      }
-      case OP_ADD_F:
-        rv = as_i64(as_f64(R.val(a)) + as_f64(R.val(b)));
-        rk = R.valid(a) && R.valid(b);
-        break;
-      case OP_SUB_F:
-        rv = as_i64(as_f64(R.val(a)) - as_f64(R.val(b)));
-        rk = R.valid(a) && R.valid(b);
-        break;
-      case OP_MUL_F:
-        rv = as_i64(as_f64(R.val(a)) * as_f64(R.val(b)));
-        rk = R.valid(a) && R.valid(b);
-        break;
-      case OP_DIV_F: case OP_IDIV_F: case OP_MOD_F: {
-        const double x = as_f64(R.val(a)), y = as_f64(R.val(b));
-        const bool zero = y == 0.0;
-        const double safe = zero ? 1.0 : y;
-        if (op == OP_DIV_F) rv = as_i64(x / safe);
-        else if (op == OP_IDIV_F) rv = __double2ll_rz(trunc(x / safe));
-        else rv = as_i64(fmod(x, safe));
-        rk = R.valid(a) && R.valid(b) && !zero;
-        break;
-      }
-      case OP_I2F: rv = as_i64((double)R.val(a) / as_f64(pool[imm])); rk = R.valid(a); break;
-      case OP_MULC_I: rv = (i64)((u64)R.val(a) * (u64)pool[imm]); rk = R.valid(a); break;
-      case OP_NEG_I: rv = (i64)(0ULL - (u64)R.val(a)); rk = R.valid(a); break;
-      case OP_NEG_F: rv = as_i64(-as_f64(R.val(a))); rk = R.valid(a); break;
-      case OP_ISNULL: rv = !R.valid(a); rk = true; break;
-      case OP_NOTNULL: rv = R.valid(a); rk = true; break;
-      case OP_IN_I: case OP_IN_F: {
-        bool hit = false;
-        if (op == OP_IN_I) {
-          const i64 x = R.val(a);
-          for (i64 j = 0; j < b; ++j) hit |= pool[imm + j] == x;
-        } else {
-          const double x = as_f64(R.val(a));
-          for (i64 j = 0; j < b; ++j) hit |= as_f64(pool[imm + j]) == x;
+        VM_ROWS {
+          const i64 x = R[q].val(a), y = R[q].val(b);
+          if (y == 0) rv[q] = op == OP_IDIV_I ? x : 0;
+          else if (y == -1) rv[q] = op == OP_IDIV_I ? (i64)(0ULL - (u64)x) : 0;
+          else rv[q] = op == OP_IDIV_I ? x / y : x % y;
+          rk[q] = R[q].valid(a) && R[q].valid(b) && y != 0;
         }
-        rv = (c & 1) ? !hit : hit;
-        rk = R.valid(a) && (hit || !(c & 2));
         break;
-      }
-      case OP_LUT: {
-        i64 code = R.val(a);
-        code = code < 0 ? 0 : (code > b - 1 ? b - 1 : code);
-        const bool hit = lut[imm + code] != 0;
-        rv = c ? !hit : hit;
-        rk = R.valid(a);
+      case OP_ADD_F: case OP_SUB_F: case OP_MUL_F:
+        VM_ROWS {
+          const double x = as_f64(R[q].val(a)), y = as_f64(R[q].val(b));
+          rv[q] = as_i64(op == OP_ADD_F ? x + y : op == OP_SUB_F ? x - y : x * y);
+          rk[q] = R[q].valid(a) && R[q].valid(b);
+        }
         break;
-      }
-      case OP_BOOLV: rv = imm; rk = R.valid(a); break;
-      case OP_SELECT: {
-        const bool cond = R.val(a) != 0 && R.valid(a);
-        rv = cond ? R.val(b) : R.val(c);
-        rk = cond ? R.valid(b) : R.valid(c);
+      case OP_DIV_F: case OP_IDIV_F: case OP_MOD_F:
+        VM_ROWS {
+          const double x = as_f64(R[q].val(a)), y = as_f64(R[q].val(b));
+          const bool zero = y == 0.0;
+          const double safe = zero ? 1.0 : y;
+          if (op == OP_DIV_F) rv[q] = as_i64(x / safe);
+          else if (op == OP_IDIV_F) rv[q] = __double2ll_rz(trunc(x / safe));
+          else rv[q] = as_i64(fmod(x, safe));
+          rk[q] = R[q].valid(a) && R[q].valid(b) && !zero;
+        }
         break;
-      }
+      case OP_I2F:
+        VM_ROWS {
+          rv[q] = as_i64((double)R[q].val(a) / as_f64(pool[imm]));
+          rk[q] = R[q].valid(a);
+        }
+        break;
+      case OP_MULC_I:
+        VM_ROWS {
+          rv[q] = (i64)((u64)R[q].val(a) * (u64)pool[imm]);
+          rk[q] = R[q].valid(a);
+        }
+        break;
+      case OP_NEG_I:
+        VM_ROWS {
+          rv[q] = (i64)(0ULL - (u64)R[q].val(a));
+          rk[q] = R[q].valid(a);
+        }
+        break;
+      case OP_NEG_F:
+        VM_ROWS {
+          rv[q] = as_i64(-as_f64(R[q].val(a)));
+          rk[q] = R[q].valid(a);
+        }
+        break;
+      case OP_ISNULL: case OP_NOTNULL:
+        VM_ROWS {
+          rv[q] = R[q].valid(a) == (op == OP_NOTNULL);
+          rk[q] = true;
+        }
+        break;
+      case OP_IN_I: case OP_IN_F:
+        VM_ROWS {
+          bool hit = false;
+          if (op == OP_IN_I) {
+            const i64 x = R[q].val(a);
+            for (i64 j = 0; j < b; ++j) hit |= pool[imm + j] == x;
+          } else {
+            const double x = as_f64(R[q].val(a));
+            for (i64 j = 0; j < b; ++j) hit |= as_f64(pool[imm + j]) == x;
+          }
+          rv[q] = (c & 1) ? !hit : hit;
+          rk[q] = R[q].valid(a) && (hit || !(c & 2));
+        }
+        break;
+      case OP_LUT:
+        VM_ROWS {
+          i64 code = R[q].val(a);
+          code = code < 0 ? 0 : (code > b - 1 ? b - 1 : code);
+          const bool hit = lut[imm + code] != 0;
+          rv[q] = c ? !hit : hit;
+          rk[q] = R[q].valid(a);
+        }
+        break;
+      case OP_BOOLV:
+        VM_ROWS {
+          rv[q] = imm;
+          rk[q] = R[q].valid(a);
+        }
+        break;
+      case OP_SELECT:
+        VM_ROWS {
+          const bool cond = R[q].val(a) != 0 && R[q].valid(a);
+          rv[q] = cond ? R[q].val(b) : R[q].val(c);
+          rk[q] = cond ? R[q].valid(b) : R[q].valid(c);
+        }
+        break;
       case OP_IFNULL:
-        rv = R.valid(a) ? R.val(a) : R.val(b);
-        rk = R.valid(a) || R.valid(b);
+        VM_ROWS {
+          rv[q] = R[q].valid(a) ? R[q].val(a) : R[q].val(b);
+          rk[q] = R[q].valid(a) || R[q].valid(b);
+        }
         break;
-      case OP_TRUTHY_I: rv = R.val(a) != 0; rk = R.valid(a); break;
-      case OP_TRUTHY_F: rv = as_f64(R.val(a)) != 0.0; rk = R.valid(a); break;
-      default: break;
+      case OP_TRUTHY_I:
+        VM_ROWS {
+          rv[q] = R[q].val(a) != 0;
+          rk[q] = R[q].valid(a);
+        }
+        break;
+      case OP_TRUTHY_F:
+        VM_ROWS {
+          rv[q] = as_f64(R[q].val(a)) != 0.0;
+          rk[q] = R[q].valid(a);
+        }
+        break;
+      default:
+        VM_ROWS {
+          rv[q] = 0;
+          rk[q] = false;
+        }
     }
-    R.put(d, rv, rk);
+    VM_ROWS R[q].put(d, rv[q], rk[q]);
   }
+}
+
+#undef VM_ROWS
+
+// Instructions [from, to) over one row into the register file `R`.
+template <class Planes, class Regs>
+__device__ __forceinline__ void vm_exec(const i64* __restrict__ ins, int from, int to, i64 row,
+                                        const i64* __restrict__ pool,
+                                        const unsigned char* __restrict__ lut,
+                                        const Planes& pl, Regs& R) {
+  const i64 rows[1] = {row};
+  Regs one[1] = {R};
+  vm_exec_rows<1>(ins, from, to, rows, pool, lut, pl, one);
+  R = one[0];
 }
 
 // The whole program over one row into the thread's arrays v / ok.

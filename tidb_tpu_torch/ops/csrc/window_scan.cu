@@ -58,7 +58,7 @@
 // contributing flags once, one int64 plane written per figure.
 #include <cstring>
 
-#include "common.cuh"
+#include "lookback.cuh"
 
 #define K18_THREADS 256
 #define K18_WARPS (K18_THREADS / 32)
@@ -206,18 +206,6 @@ __device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem) : "memory");
 }
 
-// A tagged word read from L2 anew each time (volatile: a spin on it sees
-// another block's store; one 16-byte access, so the tag and its word
-// arrive together).
-__device__ __forceinline__ longlong2 ld_tagged(const longlong2* p) {
-  longlong2 r;
-  asm volatile("ld.volatile.global.v2.s64 {%0, %1}, [%2];\n"
-               : "=l"(r.x), "=l"(r.y)
-               : "l"(p)
-               : "memory");
-  return r;
-}
-
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
@@ -236,14 +224,9 @@ __device__ __forceinline__ void store_rows(i64* __restrict__ p, i64 i0, i64 n,
     if (i0 + k < n && !((skip >> k) & 1u)) p[i0 + k] = v[k];
 }
 
-// A tile's published state: K18_HDR + n_red words, each in a 16-byte
-// record {tag, word} (tag = epoch << 2 | 1 for the aggregate, | 2 for the
-// inclusive prefix) written and read with one 16-byte access, so a word
-// is valid exactly when its tag is: no fence between the words and a
-// status.
-__device__ __forceinline__ void put_words(longlong2* rec, int lane, int W, i64 tag, i64 w) {
-  if (lane < W) __stcg(rec + lane, make_longlong2(tag, w));
-}
+// A tile's published state: K18_HDR + n_red words, each a tagged record
+// (lookback.cuh; tag = epoch << 2 | 1 for the aggregate, | 2 for the
+// inclusive prefix).
 
 // Three blocks an SM: the scan is bound by each tile's latency, not by
 // the card's rates (two an SM, as 128 registers a thread allow, read

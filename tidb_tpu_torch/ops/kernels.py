@@ -88,8 +88,9 @@ import torch
 from tidb_tpu_torch import errors
 from tidb_tpu_torch.copr.proto import AGG_NAME, ExprType, SelectRequest
 from tidb_tpu_torch.ops import _ext, columnar as col, membudget
-from tidb_tpu_torch.ops.exprc import (CompiledExpr, Finalized, Program,
-                                      Unsupported, _dec_guard, compile_expr,
+from tidb_tpu_torch.ops.exprc import (HDR, MAX_REGS, CompiledExpr,
+                                      Finalized, Program, Unsupported,
+                                      _dec_guard, compile_expr,
                                       run_program_plain, slot_split)
 
 I64_MAX = (1 << 63) - 1
@@ -128,6 +129,7 @@ LAUNCHES = {"expr_vm": 0, "scalar_agg": 0, "seg_agg_onehot": 0,
             "seg_agg_sorted": 0, "rank_groups": 0, "rank_groups_out": 0,
             "distinct_runs": 0,
             "topk_select": 0, "expr_vm_ragged": 0,
+            "expr_vm_ragged_packed": 0,
             "seg_states_ragged_smem": 0, "seg_states_ragged_window": 0,
             "seg_states_ragged_sorted": 0, "combine_partials": 0,
             "join_build": 0, "join_probe": 0, "dict_remap": 0,
@@ -2798,39 +2800,119 @@ def expr_vm_ragged(regions: list, device):
     return bits, outs
 
 
+# K5's table (ops/csrc/expr_vm.cu, the contract with k5_pack): header
+# words, then per region K5_REGION words and per distinct program stream
+# K5_STREAM words plus its output registers
+K5_THREADS = 256
+K5_HDR = 12
+K5_REGION = 6
+K5_STREAM = 3
+# the table rides by value up to K5_PARAM_WORDS (in the smaller block up
+# to K5_SMALL_WORDS), past it packed into a device buffer; each counts
+# under its own LAUNCHES key
+K5_SMALL_WORDS = 512
+K5_PARAM_WORDS = 3968
+K5_ROUTES = ("expr_vm_ragged", "expr_vm_ragged_packed")
+
+
+def k5_route(n_words: int) -> str:
+    """The K5 instantiation a table of n_words takes."""
+    return K5_ROUTES[n_words > K5_PARAM_WORDS]
+
+
+def _k5_stream(fin: Finalized) -> tuple:
+    """(key, instruction words, WHERE register, output registers,
+    registers) of a region's program, kept on it. Programs with the same
+    key share one stream of K5's table."""
+    got = getattr(fin, "_k5_stream", None)
+    if got is None:
+        meta = fin.meta
+        n, where, n_out = int(meta[0]), int(meta[1]), int(meta[2])
+        body = meta[HDR:HDR + 6 * n + n_out]
+        ins, outs = body[:6 * n].tolist(), body[6 * n:].tolist()
+        n_regs = max(ins[1::6] + outs + [where], default=-1) + 1
+        got = fin._k5_stream = (meta[:3].tobytes() + body.tobytes(), ins,
+                                where, outs, n_regs)
+    return got
+
+
+def k5_pack(regions: list, out_ptrs: list) -> tuple:
+    """K5's table in one host pass: (int64 words, registers). `out_ptrs`
+    are the outputs' (values, valid) pointers."""
+    R, n_out = len(regions), len(out_ptrs) // 2
+    stream_of: dict = {}
+    streams, tile0, rdesc, planes, pools, luts = [], [], [], [], [], []
+    base = tiles = pool_off = lut_off = n_regs = 0
+    for rp in regions:
+        key, ins, where, oregs, nr = _k5_stream(rp.fin)
+        s = stream_of.get(key)
+        if s is None:
+            s = stream_of[key] = len(streams)
+            streams.append((ins, where, oregs))
+        n_regs = max(n_regs, nr)
+        tile0.append(tiles)
+        rdesc += (base, rp.n_rows, s, len(planes), pool_off, lut_off)
+        planes += [t.data_ptr() for t in rp.planes]
+        pools.append(rp.fin.pool)
+        luts.append(rp.fin.lut)
+        base += rp.cap
+        tiles += rp.cap // K5_TILE
+        pool_off += rp.fin.pool.shape[0]
+        lut_off += rp.fin.lut.shape[0]
+    tile0.append(tiles)
+    off_tile0 = K5_HDR
+    off_regions = off_tile0 + R + 1
+    off_streams = off_regions + K5_REGION * R
+    ins_at = off_streams + (K5_STREAM + n_out) * len(streams)
+    table = []
+    for ins, where, oregs in streams:
+        table += (ins_at, len(ins) // 6, where, *oregs)
+        ins_at += len(ins)
+    off_outs = ins_at
+    off_planes = off_outs + 2 * n_out
+    off_pool = off_planes + len(planes)
+    off_lut = off_pool + pool_off
+    words = array.array("q", (R, len(streams), n_out, tiles, n_regs,
+                              off_tile0, off_regions, off_streams, off_outs,
+                              off_planes, off_pool, off_lut))
+    words.extend(tile0)
+    words.extend(rdesc)
+    words.extend(table)
+    for ins, _w, _o in streams:
+        words.extend(ins)
+    words.extend(out_ptrs)
+    words.extend(planes)
+    for p in pools:
+        words.frombytes(p.tobytes())
+    lut = b"".join(x.tobytes() for x in luts)
+    words.frombytes(lut + bytes(-len(lut) % 8))
+    return words, n_regs
+
+
+# the packed route's page-locked staging buffer per device and the event
+# of the last copy out of it
+_K5_STAGE: dict = {}
+_K5_LOCK = threading.Lock()
+
+
 def k5_prepare(regions: list, dev):
-    """Everything of a K5 launch but the launch: checks, the descriptor,
-    tile, program and pointer tables moved to the card, the outputs
-    allocated. Returns (launch, bits, outs); launch() runs the kernel
-    into bits and outs."""
+    """Everything of a K5 launch but the launch: checks, the table packed
+    (k5_pack), the outputs allocated. Returns (launch, bits, outs);
+    launch() runs the kernel into bits and outs: the table by value in
+    its parameters, or past K5_PARAM_WORDS copied once from the reused
+    page-locked staging buffer."""
     dev = _device(dev)
     dts = _out_dts(regions)
-    desc, metas, pools, luts, ptrs = [], [], [], [], []
-    tile_region, tile_first = [], []
-    base = m_off = p_off = l_off = 0
+    total = 0
     for r, rp in enumerate(regions):
         fin = rp.fin
         if rp.cap % K5_TILE or rp.cap <= 0:
             raise errors.DeviceError(f"region capacity {rp.cap} is not a "
                                      f"multiple of {K5_TILE}")
-        if len(fin.meta) > 1024:
-            raise errors.DeviceError("region program exceeds K1_MAX_META")
         for (key, which), t in zip(fin.plane_keys, rp.planes):
             dtypes = (torch.bool,) if which else (torch.int64, torch.float64)
             _check_plane(t, rp.cap, dtypes, f"region {r} plane {key}", dev)
-        desc.append([base, rp.cap, rp.n_rows, len(ptrs), m_off,
-                     len(fin.meta), p_off, l_off])
-        tile_first.append(len(tile_region))
-        tile_region.extend([r] * (rp.cap // K5_TILE))
-        metas.append(fin.meta)
-        pools.append(fin.pool)
-        luts.append(fin.lut)
-        ptrs.extend(t.data_ptr() for t in rp.planes)
-        base += rp.cap
-        m_off += len(fin.meta)
-        p_off += len(fin.pool)
-        l_off += len(fin.lut)
-    total = base
+        total += rp.cap
     bits = torch.empty(total // 32, dtype=torch.int32, device=dev)
     outs, out_ptrs = [], []
     for dt in dts:
@@ -2838,25 +2920,39 @@ def k5_prepare(regions: list, dev):
                         else torch.int64, device=dev)
         ok = torch.empty(total, dtype=torch.bool, device=dev)
         outs.append((v, ok))
-        out_ptrs.extend([v.data_ptr(), ok.data_ptr()])
-    t_desc = torch.tensor(desc, dtype=torch.int64).reshape(-1).to(dev)
-    t_tiles = torch.tensor(tile_region, dtype=torch.int32).to(dev)
-    t_first = torch.tensor(tile_first, dtype=torch.int32).to(dev)
-    t_meta = torch.from_numpy(np.concatenate(metas)).to(dev)
-    t_pool = torch.from_numpy(np.concatenate(pools)).to(dev)
-    t_lut = torch.from_numpy(np.concatenate(luts)).to(dev)
-    t_planes = torch.tensor(ptrs or [0], dtype=torch.int64).to(dev)
-    t_outs = torch.tensor(out_ptrs or [0], dtype=torch.int64).to(dev)
+        out_ptrs += (v.data_ptr(), ok.data_ptr())
+    words, n_regs = k5_pack(regions, out_ptrs)
+    if n_regs > MAX_REGS:
+        raise errors.DeviceError(f"a region program uses {n_regs} registers")
     lib = _ext.lib("expr_vm")
+    st = _stream(dev)
+    n = len(words)
+    route = k5_route(n)
+    packed = route == "expr_vm_ragged_packed"
 
     def launch():
-        rc = lib.expr_vm_ragged_launch(
-            len(tile_region), t_desc.data_ptr(), t_tiles.data_ptr(),
-            t_first.data_ptr(), t_meta.data_ptr(), t_pool.data_ptr(),
-            t_lut.data_ptr(), t_planes.data_ptr(), bits.data_ptr(),
-            t_outs.data_ptr(), _stream(dev))
-        _ext.check(rc, "expr_vm_ragged")
-        LAUNCHES["expr_vm_ragged"] += 1
+        if not packed:
+            rc = lib.expr_vm_ragged_launch(words.buffer_info()[0], n, None,
+                                           bits.data_ptr(), st)
+        else:
+            with _K5_LOCK:
+                stage, ev = _K5_STAGE.get(dev.index, (None, None))
+                if ev is not None:
+                    ev.synchronize()   # its last copy has left the buffer
+                if stage is None or stage.numel() < n:
+                    stage = torch.empty(max(n, 2 * K5_PARAM_WORDS),
+                                        dtype=torch.int64, pin_memory=True)
+                    ev = torch.cuda.Event()
+                ctypes.memmove(stage.data_ptr(), words.buffer_info()[0],
+                               8 * n)
+                buf = _stream_scratch(route, dev, 8 * n, st)
+                rc = lib.expr_vm_ragged_launch(stage.data_ptr(), n,
+                                               buf.data_ptr(),
+                                               bits.data_ptr(), st)
+                ev.record(torch.cuda.current_stream(dev))
+                _K5_STAGE[dev.index] = (stage, ev)
+        _ext.check(rc, route)
+        LAUNCHES[route] += 1
 
     return launch, bits.view(torch.uint8), outs
 
@@ -4505,38 +4601,56 @@ def delta_merge_order_plain(handles: torch.Tensor, live: torch.Tensor,
     return order[:int(keep.sum()) + app.shape[0]]
 
 
+def delta_merge_handles_plain(handles: torch.Tensor, app: torch.Tensor,
+                              order: torch.Tensor) -> torch.Tensor:
+    """The merged handle plane of a merge order: the handle of the row at
+    each position."""
+    return torch.cat([handles, app])[order]
+
+
+# K19's workspace (the ticket and the tiles' tagged states) is kept per
+# (device, stream) and never reset: each call takes its stream's next
+# epoch, under the lock, with its launch
+_K19_EPOCH: dict = {}
+_K19_LOCK = threading.Lock()
+
+
 def delta_merge_prepare(handles: torch.Tensor, live: torch.Tensor,
-                        tomb: torch.Tensor, app: torch.Tensor):
-    """Everything of a K19 launch but the launch: checks, scratch and
-    outputs. Returns (launch, order, meta); launch() enqueues the kernel's
-    four passes into order (n + k int64, the first meta[0] + k written)
-    and meta ([kept rows, precondition flags])."""
+                        tomb: torch.Tensor, app: torch.Tensor,
+                        merged: torch.Tensor | None = None):
+    """Everything of a K19 launch but the launch: checks and outputs.
+    Returns (launch, order, meta); launch() enqueues the kernel (one
+    launch) into order (n + k int64, the first meta[0] + k written) and
+    merged (when given: the handle at each of those positions it holds);
+    its last tile writes meta ([kept rows, precondition flags]) straight
+    into this page-locked host tensor, to read once the stream has passed
+    the launch."""
     dev = handles.device
     n, m, k = handles.shape[0], tomb.shape[0], app.shape[0]
     _check_plane(handles, n, (torch.int64,), "base handles", dev)
     _check_plane(live, n, (torch.bool,), "base live", dev)
     _check_plane(tomb, m, (torch.int64,), "tombstones", dev)
     _check_plane(app, k, (torch.int64,), "appended handles", dev)
+    if merged is not None:
+        _check_plane(merged, merged.shape[0], (torch.int64,),
+                     "merged handles", dev)
     lib = _ext.lib("delta_merge")
-    nb = max(lib.delta_merge_blocks(n), 1)
-
-    def i64(size):
-        return torch.empty(max(size, 1), dtype=torch.int64, device=dev)
-
-    keep = torch.empty(max(n, 1), dtype=torch.uint8, device=dev)
-    tile_kept, tile_min, tile_max, tile_off = (i64(nb) for _ in range(4))
-    tile_any, tile_bad = (torch.empty(nb, dtype=torch.int32, device=dev)
-                          for _ in range(2))
-    kept_h, order, meta = i64(n), i64(n + k), i64(2)
     st = _stream(dev)
+    order = torch.empty(max(n + k, 1), dtype=torch.int64, device=dev)
+    meta = torch.empty(2, dtype=torch.int64, pin_memory=True)
+    ws = _stream_scratch("delta_merge", dev,
+                         lib.delta_merge_workspace_bytes(n), st)
+    key = (dev.index, st)
+    args = (n, handles.data_ptr(), live.data_ptr(), tomb.data_ptr(), m,
+            app.data_ptr(), k, order.data_ptr(),
+            None if merged is None else merged.data_ptr(),
+            0 if merged is None else merged.shape[0], ws.data_ptr())
+    fn = lib.delta_merge_launch
 
     def launch():
-        rc = lib.delta_merge_launch(
-            n, handles.data_ptr(), live.data_ptr(), tomb.data_ptr(), m,
-            app.data_ptr(), k, keep.data_ptr(), tile_kept.data_ptr(),
-            tile_any.data_ptr(), tile_min.data_ptr(), tile_max.data_ptr(),
-            tile_bad.data_ptr(), tile_off.data_ptr(), kept_h.data_ptr(),
-            order.data_ptr(), meta.data_ptr(), st)
+        with _K19_LOCK:
+            epoch = _K19_EPOCH[key] = _K19_EPOCH.get(key, 0) + 1
+            rc = fn(*args, epoch, meta.data_ptr(), st)
         _ext.check(rc, "delta_merge_order")
         LAUNCHES["delta_merge_order"] += 1
 
@@ -4544,21 +4658,32 @@ def delta_merge_prepare(handles: torch.Tensor, live: torch.Tensor,
 
 
 def delta_merge_order(handles: torch.Tensor, live: torch.Tensor,
-                      tomb: torch.Tensor, app: torch.Tensor) -> torch.Tensor:
+                      tomb: torch.Tensor, app: torch.Tensor,
+                      merged: torch.Tensor | None = None) -> torch.Tensor:
     """K19: the merge order (int64 [count(keep) + k]) of a base batch's
     rows (handles int64 [n], live bool [n]) and a delta's appended rows
     (app int64 [k], sorted), base rows whose handle is in the sorted
     tombstones (tomb int64 [m]) and dead rows dropped: i < n is base row
     i, n + j appended row j, ascending by handle, a base row before an
-    appended row of the same handle. The kernel merges two sorted runs:
-    the live base handles must strictly ascend and no live or appended
-    handle may be I64_MAX (the sentinel), or it raises DeviceError naming
-    the broken precondition; the order stays on the device."""
+    appended row of the same handle. With `merged` (an int64 plane on the
+    same device holding at least count(keep) + k), position p of it takes
+    the handle of the row at p (delta_merge_handles_plain); the rest is
+    left as it is. The kernel merges two sorted runs: the live base
+    handles must strictly ascend and no live or appended handle may be
+    I64_MAX (the sentinel), or it raises DeviceError naming the broken
+    precondition; the order stays on the device."""
     if _device_kind(handles) == "cpu":
-        return delta_merge_order_plain(handles, live, tomb, app)
+        order = delta_merge_order_plain(handles, live, tomb, app)
+        if merged is not None:
+            _merged_room(merged, order.shape[0])
+            merged[:order.shape[0]] = delta_merge_handles_plain(
+                handles, app, order)
+        return order
     try:
-        launch, order, meta = delta_merge_prepare(handles, live, tomb, app)
+        launch, order, meta = delta_merge_prepare(handles, live, tomb, app,
+                                                  merged)
         launch()
+        torch.cuda.current_stream(handles.device).synchronize()
         n_kept, flags = meta.tolist()
     except torch.cuda.OutOfMemoryError as e:
         raise device_oom("delta_merge_order", e) from e
@@ -4566,4 +4691,13 @@ def delta_merge_order(handles: torch.Tensor, live: torch.Tensor,
         raise errors.DeviceError(
             "delta_merge_order: " + "; ".join(
                 what for bit, what in K19_BROKEN.items() if flags & bit))
+    if merged is not None:
+        _merged_room(merged, n_kept + app.shape[0])
     return order[:n_kept + app.shape[0]]
+
+
+def _merged_room(merged: torch.Tensor, rows: int) -> None:
+    if merged.shape[0] < rows:
+        raise errors.DeviceError(f"delta_merge_order: the merged handle "
+                                 f"plane holds {merged.shape[0]} of {rows} "
+                                 "rows")
