@@ -22,6 +22,19 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    PyTorch version run on the card, at the shapes of Q1 / Q6 / GROUP BY
    l_suppkey on that batch and on edge-case planes (NULLs, int64
    extremes, empty segments); median times over 20 runs from CUDA events.
+   K1 (redesigned in slice 20: K5's four-row interpreter, its table by
+   value) also on the edge programs with and without a group id (NULL
+   codes to slot `size`, dead rows to the sink) and on a table past
+   K5_PARAM_WORDS (the packed route, k1_packed), bit for bit; its build
+   has no stack frame; its time is taken on a new Finalized of the
+   program each call, as GpuClient.serve calls it. K3 (redesigned in
+   slice 20: one pass over the rows for all reductions, one launch) with
+   one launch at Q1, then at 64
+   segments with empty ones, every row in one segment, S = 1, 36
+   reductions over 64 segments (more than one launch) and Q6's mesh
+   partials over 8 shards, each with one launch a k3_chunks span and run
+   twice for the same bits; K4's block route (kernels._k4_block) timed at
+   Q1's inputs, which K3 must not be slower than.
    K2 (redesigned in slice 11: one pass, descriptors by value) also on
    planes that start at odd row offsets (views p[1:], p[3:], a mask in
    another 16-byte phase than its planes), n of 1, 15, 17, 4099 and
@@ -297,7 +310,7 @@ from tidb_tpu_torch.ops import mesh as mesh_mod  # noqa: E402
 from tidb_tpu_torch.parallel import CoprMesh  # noqa: E402
 from tidb_tpu_torch.ops.client import GpuClient  # noqa: E402
 from tidb_tpu_torch.ops.exprc import (  # noqa: E402
-    Program, compile_expr, run_program_plain)
+    Finalized, Program, compile_expr, run_program_plain)
 from tidb_tpu_torch.sqlast.opcode import Op  # noqa: E402
 from tidb_tpu_torch.types.datum import NULL, Datum  # noqa: E402
 
@@ -309,6 +322,9 @@ SCALAR_OPS_PER_S = 67e12
 KERNELS = {
     "expr_vm": ("tidb_tpu_torch/ops/csrc/expr_vm.cu",
                 "tidb_tpu/ops/exprc.py:79"),
+    # build_filter_fn: K1's mask of Q6's WHERE, then torch.nonzero
+    "expr_vm/filter": ("tidb_tpu_torch/ops/csrc/expr_vm.cu",
+                       "tidb_tpu/ops/kernels.py:1970"),
     "scalar_agg": ("tidb_tpu_torch/ops/csrc/scalar_agg.cu",
                    "tidb_tpu/ops/kernels.py:713"),
     "seg_agg_onehot": ("tidb_tpu_torch/ops/csrc/seg_agg_onehot.cu",
@@ -444,10 +460,10 @@ def build() -> None:
             if "registers" in line or "spill" in line \
                     or "Function properties" in line:
                 print(f"  {name}: {line.strip()}")
-    # K15, K14 and K5 keep their registers in shared memory: no stack
-    # frame (expr_vm.cu's K1 keeps its arrays)
+    # K15, K14, K5 and K1 keep their registers in shared memory: no
+    # stack frame
     for name, fn in (("slot_agg", ""), ("slot_filter", ""),
-                     ("expr_vm", "expr_vm_ragged")):
+                     ("expr_vm", "expr_vm")):
         if name not in _ext.BUILD_LOG:      # a library built before
             continue
         frames = {f: b for f, b in stack_frames(_ext.BUILD_LOG[name]).items()
@@ -596,6 +612,17 @@ def _nbytes(tensors) -> int:
     return total
 
 
+def _row_bytes(tensors) -> int:
+    """Bytes a row of these planes takes, each distinct plane once."""
+    seen, total = set(), 0
+    for t in tensors:
+        if t is None or t.data_ptr() in seen:
+            continue
+        seen.add(t.data_ptr())
+        total += t.element_size()
+    return total
+
+
 def bound(nbytes: int, ops: int) -> tuple[float, str]:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = ops / SCALAR_OPS_PER_S * 1e3
@@ -661,18 +688,7 @@ def max_err(a: torch.Tensor, b: torch.Tensor, valid=None) -> float:
 
 
 def check_k1(req: Request, what: str) -> float:
-    kmask, kgid, kvals = kernels.expr_vm(req.fin, req.plane_list, req.live,
-                                         req.segments > 0)
-    pmask, pgid, pvals = run_program_plain(req.fin, req.plane_list, req.live)
-    err = max_err(kmask, pmask)
-    if kgid is not None:
-        err = max(err, max_err(kgid, pgid))
-    for (kv_, kok), (pv, pok) in zip(kvals, pvals):
-        err = max(err, max_err(kok, pok))
-        e = max_err(kv_, pv, pok)
-        need(e == 0.0, f"{what}: K1 value differs by {e}")
-    need(err == 0.0, f"{what}: K1 differs from its plain version")
-    return err
+    return check_k1_fin(req.fin, req.planes, req.live, what)
 
 
 def check_reduce(kern, plain, args, reds, what: str) -> float:
@@ -856,6 +872,103 @@ def k2_edges(device, seed: int) -> float:
     return err
 
 
+def check_k1_fin(fin, planes: dict, live, what: str) -> float:
+    """K1 against its plain version, bit for bit, on one program."""
+    plane_list = [planes[k][w] for k, w in fin.plane_keys]
+    grouped = bool(int(fin.meta[3]))
+    km, kg, kv_ = kernels.expr_vm(fin, plane_list, live, grouped)
+    pm, pg, pv = run_program_plain(fin, plane_list, live)
+    err = max_err(km, pm)
+    if grouped:
+        err = max(err, max_err(kg, pg))
+    for (a, aok), (b, bok) in zip(kv_, pv):
+        err = max(err, max_err(aok, bok), max_err(a, b, bok))
+    need(err == 0.0, f"{what}: K1 differs from its plain version")
+    return err
+
+
+def k1_packed(device, seed: int) -> float:
+    """K1 on a table past K5_PARAM_WORDS (the packed route,
+    expr_vm_packed, which Phase A's filter scan takes for its LIKE over
+    l_comment's dictionary; its launches counted): 5,000 rows (no multiple of a tile) whose string column
+    holds a 40,000-string dictionary, WHERE s LIKE '%7%' OR a < 0 (a LUT
+    of 40,000 bytes), the argument a * 3, grouped by the string column
+    (NULL codes to slot `size`), dead rows to the sink."""
+    rng = np.random.default_rng(seed)
+    dic = sorted({b"s%07d" % x for x in rng.integers(0, 10 ** 7, 40_000)})
+    cap, n = 5_000, 4_963
+    live = np.arange(cap) < n
+    sv = live & (rng.random(cap) > 0.1)
+    cols = {
+        1: col.ColumnData(col.K_I64, rng.integers(-1000, 1000, cap)
+                          .astype(np.int64), live & (rng.random(cap) > 0.2),
+                          tp=8, max_abs=1000),
+        2: col.ColumnData(col.K_STR, np.where(sv, rng.integers(
+            0, len(dic), cap), -1).astype(np.int64), sv, dic, tp=15),
+    }
+    b = col.ColumnBatch(n, cap, np.arange(cap, dtype=np.int64), cols)
+    c, v, op = expr_column, expr_value, expr_op
+    prog = Program(b)
+    where = compile_expr(op(Op.OrOr, tpch._like(c(2), "%7%"),
+                            op(Op.LT, c(1), v(Datum.i64(0)))), b, prog)
+    fin = prog.finalize(where, [compile_expr(op(Op.Mul, c(1), v(Datum.i64(
+        3))), b, prog)], group=[(2, len(dic))], sink=len(dic) + 1)
+    planes = kernels.batch_planes(b, device)
+    live_t = kernels.device_live(b, device)
+    words = kernels.k1_pack(fin, cap, 0, 0, [0, 0],
+                            [0] * len(fin.plane_keys))
+    need(kernels.param_block(len(words)) == "packed",
+         f"K1 packed case: {len(words)} words ride by value")
+    before = kernels.LAUNCHES["expr_vm_packed"]
+    err = check_k1_fin(fin, planes, live_t, "K1 packed")
+    need(device.type != "cuda"
+         or kernels.LAUNCHES["expr_vm_packed"] - before == 1,
+         "K1 packed case: not one expr_vm_packed launch")
+    print(f"phase B: K1's packed route ({len(words)} words, a LUT of "
+          f"{len(dic)} bytes) equal to its plain version")
+    return err
+
+
+def check_k3(gid, mask, S: int, reds: list, what: str) -> float:
+    """K3 against its plain version on the same tensors, with one launch
+    a k3_chunks span, and run again for the same bits."""
+    device = mask.device
+    before = kernels.LAUNCHES["seg_agg_onehot"]
+    err = check_reduce(kernels.seg_agg_onehot, kernels.seg_agg_plain,
+                       (gid, mask, S), reds, what)
+    want = len(kernels.k3_chunks(reds, S))
+    need(device.type != "cuda"
+         or kernels.LAUNCHES["seg_agg_onehot"] - before == want,
+         f"{what}: not {want} K3 launches")
+    a = kernels.seg_agg_onehot(gid, mask, S, reds)
+    b = kernels.seg_agg_onehot(gid, mask, S, reds)
+    need(all(torch.equal(x, y) for x, y in zip(a, b)),
+         f"{what}: two runs of K3 differ")
+    return err
+
+
+def k3_edge_cases(egid, emask, ereds, cap: int, eb, device, rng) -> list:
+    """K3's edge cases over the edge planes: (gid, S, reds, what)."""
+    p = kernels.batch_planes(eb, device)
+    iv, iok = p[1]
+    fv, fok = p[3]
+    R = kernels.Red
+    many = []
+    for i in range(12):
+        many += [R(kernels.R_SUM_F, fv * (i + 1), fok),
+                 R(kernels.R_MIN_F, fv + i, fok),
+                 R(kernels.R_SUM_I, iv + i, iok)]
+    need(len(kernels.k3_chunks(many, 64)) > 1,
+         "K3 edge: the many reductions fit one launch")
+    one = torch.full_like(egid, 5)
+    return [(egid, 64, ereds, "edge 64 segments, empty ones"),
+            (one, 64, ereds, "edge, every row in one segment"),
+            (torch.zeros_like(egid), 1, ereds, "edge S = 1"),
+            (egid, 64, many, f"edge 64 segments, {len(many)} reductions "
+                             f"in {len(kernels.k3_chunks(many, 64))} "
+                             f"launches")]
+
+
 def k4_route_of(reds: list, S: int, device) -> tuple:
     """K4's route for these reductions over S segments
     (kernels.k4_route under the card's limit; ("plain", 0, 0) off the
@@ -969,7 +1082,9 @@ def phase_b(n_rows: int, seed: int, device, edge_cap: int) -> tuple:
     n = batch.capacity
     out = {}
 
-    # K1
+    # K1: Q1, Q6 and by_supplier, the edge programs with a group id (NULL
+    # codes to slot `size`, dead rows to the sink), and a table past
+    # K5_PARAM_WORDS (the packed route), each bit for bit
     err = max(check_k1(q1, "Q1"), check_k1(q6, "Q6"), check_k1(sup, "supp"))
     eb = edge_batch(edge_cap, seed + 7)
     elive = kernels.device_live(eb, device)
@@ -977,19 +1092,27 @@ def phase_b(n_rows: int, seed: int, device, edge_cap: int) -> tuple:
     for exprs in edge_programs():
         prog = Program(eb)
         outs = [compile_expr(e, eb, prog) for e in exprs]
-        fin = prog.finalize(outs[0], outs)
-        plane_list = [eplanes[k][w] for k, w in fin.plane_keys]
-        km, _g, kv_ = kernels.expr_vm(fin, plane_list, elive, False)
-        pm, _g, pv = run_program_plain(fin, plane_list, elive)
-        err = max(err, max_err(km, pm))
-        for (a, aok), (b, bok) in zip(kv_, pv):
-            err = max(err, max_err(aok, bok), max_err(a, b, bok))
+        for group in (None, [(4, 6)]):
+            fin = prog.finalize(outs[0], outs, group=group, sink=7)
+            err = max(err, check_k1_fin(fin, eplanes, elive,
+                                        "K1 edge program"))
+    err = max(err, k1_packed(device, seed + 13))
     need(err == 0.0, "K1 differs from its plain version")
     k1_bytes = _nbytes(q1.plane_list) + n * (1 + 1 + 8) \
         + n * 9 * len(q1.fin.out_dts)
     fin = q1.fin
+    words = kernels.k1_pack(fin, n, 0, 0, [0] * 2 * len(fin.out_dts),
+                            [0] * len(q1.plane_list))
+    print(f"phase B: K1 at Q1: {fin.n_instr} instructions, table of "
+          f"{len(words)} words in the {kernels.param_block(len(words))} "
+          f"parameter block")
+    # K1 timed on a new Finalized of Q1's program each call, as
+    # GpuClient.serve makes one a statement: nothing the wrapper keeps on
+    # a program carries over between the timed calls
     out["expr_vm"] = dict(
-        ms=ms(lambda: kernels.expr_vm(fin, q1.plane_list, q1.live, True)),
+        ms=ms(lambda: kernels.expr_vm(
+            Finalized(fin.meta, fin.pool, fin.lut, fin.plane_keys,
+                      fin.out_dts), q1.plane_list, q1.live, True)),
         plain_ms=ms(lambda: run_program_plain(fin, q1.plane_list, q1.live)),
         library_ms=None, max_abs_err=err,
         bound=bound(k1_bytes, n * fin.n_instr))
@@ -1022,18 +1145,34 @@ def phase_b(n_rows: int, seed: int, device, edge_cap: int) -> tuple:
                                        for t in (r.values, r.valid)]),
                     n * len(reds6)))
 
-    # K3 at Q1's shape (13 segments), plus 64 segments with empty ones
+    # K3 at Q1's shape (13 segments), then the 64-segment edge with empty
+    # segments, every row in one segment, S = 1, more reductions than one
+    # launch over 64 segments, and the mesh partials over 8 shards; each
+    # with its launches (one a k3_chunks span: one at Q1) and run twice
+    # for the same bits
     mask1, gid1, outs1 = q1.k1()
     reds1 = q1.reds(outs1)
     S1 = q1.segments
-    err = check_reduce(lambda *a: kernels.seg_agg_onehot(*a),
-                       kernels.seg_agg_plain, (gid1, mask1, S1), reds1,
-                       "K3 Q1")
+    err = check_k3(gid1, mask1, S1, reds1, "K3 Q1")
+    need(len(kernels.k3_chunks(reds1, S1)) == 1, "K3 at Q1: not one launch")
     egid = torch.from_numpy(rng.integers(0, 40, edge_cap) * (64 // 40))\
         .to(device)
-    err = max(err, check_reduce(kernels.seg_agg_onehot,
-                                kernels.seg_agg_plain, (egid, emask, 64),
-                                ereds, "K3 edge"))
+    for g, S, reds, what in k3_edge_cases(egid, emask, ereds, edge_cap, eb,
+                                          device, rng):
+        err = max(err, check_k3(g, emask, S, reds, f"K3 {what}"))
+    mask6s, _g, outs6s = q6.k1()
+    err = max(err, check_k3(kernels.shard_ids(n, 8, device), mask6s, 8,
+                            q6.reds(outs6s), "K3 Q6's mesh partials (8 "
+                            "shards)"))
+    # the bound reads the mask at every row, and the group id and each
+    # distinct reduction plane only at the rows the mask keeps: no other
+    # row adds to any state
+    live1 = int(mask1.sum())
+    # today's best route at Q1's segments: K4's one window (seg_block.cuh)
+    k4_q1 = ms(lambda: kernels._k4_block(gid1, mask1, S1, reds1)) \
+        if device.type == "cuda" else float("inf")
+    print(f"phase B: K4's block route (kernels._k4_block) at Q1's {S1} "
+          f"segments: {k4_q1:.4f} ms")
     stacked1 = torch.stack([torch.where(mask1, r.values, torch.zeros_like(
         r.values)).view(torch.int64) for r in reds1
         if r.values is not None], 1)
@@ -1044,9 +1183,12 @@ def phase_b(n_rows: int, seed: int, device, edge_cap: int) -> tuple:
                                           dtype=torch.int64, device=device)
                       .index_add_(0, gid1, stacked1)),
         max_abs_err=err,
-        bound=bound(_nbytes([gid1, mask1] + [t for r in reds1
-                                             for t in (r.values, r.valid)]),
-                    n * len(reds1)))
+        bound=bound(_nbytes([mask1]) + live1 * _row_bytes(
+            [gid1] + [t for r in reds1 for t in (r.values, r.valid)]),
+                    live1 * len(reds1)))
+    need(out["seg_agg_onehot"]["ms"] <= k4_q1,
+         f"K3 at Q1 ({out['seg_agg_onehot']['ms']:.4f} ms) slower than "
+         f"K4's block route ({k4_q1:.4f} ms)")
 
     # K4 at GROUP BY l_suppkey's shape (segment windows), plus edge
     # reductions over windows and over 2^20 segments mostly empty (the
@@ -1111,6 +1253,11 @@ def phase_b(n_rows: int, seed: int, device, edge_cap: int) -> tuple:
         ffn.program, fplanes, q6.live)[0]))
     print(f"phase B: build_filter_fn plain version (K1 plain + "
           f"torch.nonzero) {filter_plain_ms:.4f} ms")
+    out["expr_vm/filter"] = dict(
+        ms=filter_ms, plain_ms=filter_plain_ms, library_ms=None,
+        max_abs_err=max_err(torch.nonzero(fmask), torch.nonzero(
+            run_program_plain(ffn.program, fplanes, q6.live)[0])),
+        bound=filter_bound)
     return out, data, batch
 
 

@@ -9,7 +9,8 @@ NEW, NEW, OLD, each in a process of its own started in its checkout's root
 and importing that checkout's chip_smoke, tidb_tpu_torch and kernels
 (each builds its kernels into its own build/ directory). A run measures,
 with the helpers both checkouts' chip_smoke.py share, the parts below (all
-of them, or those --only names: g, stress, k18, k8, k21, k6, k5, k19):
+of them, or those --only names: g, stress, k18, k8, k21, k6, k5, k19,
+k1k3):
 
 - g: Phase G's traffic (chip_smoke.g_traffic: 64 sessions x 25 statements of
   tpch.G_SHAPES over SF1's supplier table through one GpuClient), once
@@ -63,6 +64,19 @@ of them, or those --only names: g, stress, k18, k8, k21, k6, k5, k19):
   then the parent's cat and gather), the order's readback (the parent's
   Tensor.cpu(), else kernels.to_host).
 
+- k1k3: K1 (kernels.expr_vm) and K3 (kernels.seg_agg_onehot) at TPC-H
+  Q1 over SF1's lineitem at the batch's 8,388,608 rows, as chip_smoke's
+  Phase B calls them (medians of 20 CUDA-event runs; K1 on a new
+  Finalized of the same program each call, as GpuClient.serve makes one
+  a statement), with digests of K1's mask, group id and argument planes
+  (values where valid) and of K3's counts and integer states (its f64
+  states, none at Q1, as values held within 1e-12 relative across the
+  runs); K4's block route
+  (kernels._k4_block) at the same inputs; Phase B's "Q1 device time"
+  (K1 + K3 + readback: the request fn), GpuClient.serve of Q1 (median of
+  10) and the build_filter_fn row (K1's mask of Q6's WHERE, then
+  torch.nonzero).
+
 Each run prints one JSON line after "RESULT"; this script prints them,
 each metric's median per checkout, and the card's name and power limit.
 It needs one card and imports nothing of JAX.
@@ -79,7 +93,7 @@ import sys
 import time
 
 ORDER = ("old", "new", "new", "old")
-PARTS = ("g", "stress", "k18", "k8", "k21", "k6", "k5", "k19")
+PARTS = ("g", "stress", "k18", "k8", "k21", "k6", "k5", "k19", "k1k3")
 
 
 def child(root: str, parts: set) -> dict:
@@ -162,7 +176,11 @@ def child(root: str, parts: set) -> dict:
                                             dev))
 
     line = tpch.generate(tpch.SF1_ROWS, 2) \
-        if any(want(p) for p in ("stress", "k18", "k8", "k21")) else None
+        if any(want(p) for p in ("stress", "k18", "k8", "k21", "k1k3")) \
+        else None
+
+    if want("k1k3"):
+        k1k3(out, line, digest, dev)
 
     # K16 and K15 at the stress shape
     if want("stress"):
@@ -410,6 +428,58 @@ def k5_k19(out: dict, want, digest, dev) -> None:
         out[f"k19_{what}_phase_ms"] = cs.cuda_ms(phase)
 
 
+def k1k3(out: dict, line, digest, dev) -> None:
+    """The k1k3 part (see the docstring) into `out`."""
+    import torch
+
+    import chip_smoke as cs
+    from tidb_tpu_torch import tpch
+    from tidb_tpu_torch.kv.memstore import MemStore
+    from tidb_tpu_torch.ops import kernels
+    from tidb_tpu_torch.ops.client import GpuClient
+    from tidb_tpu_torch.ops.exprc import Finalized, Program, compile_expr
+
+    batch = tpch.batch(line, [tpch.C_QUANTITY, tpch.C_EXTENDEDPRICE,
+                              tpch.C_DISCOUNT, tpch.C_TAX, tpch.C_RETURNFLAG,
+                              tpch.C_LINESTATUS, tpch.C_SHIPDATE])
+    q1 = cs.Request(tpch.q1(), batch, dev)
+    mask, gid, vals = kernels.expr_vm(q1.fin, q1.plane_list, q1.live, True)
+    out["k1_q1_digest"] = digest(mask, gid, *[t for v, ok in vals
+                                              for t in (v[ok], ok)])
+    fin = q1.fin
+    # a new Finalized each call, as GpuClient.serve makes one a statement:
+    # nothing a wrapper keeps on the program carries over between calls
+    out["k1_q1_ms"] = cs.cuda_ms(lambda: kernels.expr_vm(
+        Finalized(fin.meta, fin.pool, fin.lut, fin.plane_keys, fin.out_dts),
+        q1.plane_list, q1.live, True))
+    mask1, gid1, outs1 = q1.k1()
+    reds = q1.reds(outs1)
+    S = q1.segments
+    n, acc = kernels.seg_agg_onehot(gid1, mask1, S, reds)
+    f64 = [r for r, red in enumerate(reds) if red.op in kernels.F_OPS]
+    ints = [r for r in range(len(reds)) if r not in f64]
+    out["k3_q1_digest"] = digest(n, acc[ints])
+    out["k3_q1_f64"] = acc[f64].view(torch.float64).flatten().tolist()
+    out["k3_q1_ms"] = cs.cuda_ms(
+        lambda: kernels.seg_agg_onehot(gid1, mask1, S, reds))
+    out["k4_block_q1_ms"] = cs.cuda_ms(
+        lambda: kernels._k4_block(gid1, mask1, S, reds))
+    out["q1_device_ms"] = cs.cuda_ms(lambda: q1.fn(q1.planes, q1.live))
+    client = GpuClient(MemStore([], []), dev)
+    sel = tpch.q1()
+    client.serve(sel, batch)
+    out["q1_serve_ms"] = cs.cuda_ms(lambda: client.serve(sel, batch),
+                                    runs=10)
+    q6 = cs.Request(tpch.q6(), batch, dev)
+    fprog = Program(batch)
+    ffn = kernels.build_filter_fn(fprog, compile_expr(tpch.q6().where, batch,
+                                                      fprog))
+    out["filter_q6_digest"] = digest(torch.nonzero(ffn(q6.planes,
+                                                       q6.live)[0]))
+    out["filter_q6_ms"] = cs.cuda_ms(
+        lambda: torch.nonzero(ffn(q6.planes, q6.live)[0]))
+
+
 def stress_statements() -> list:
     """chip_smoke Phase G's stress statements: 32 filters of SF1's
     lineitem with three aggregates and ORDER BY l_extendedprice desc,
@@ -482,6 +552,18 @@ def main(argv: list) -> int:
         print(f"compare_trees: the states differ between runs: {bad}",
               file=sys.stderr)
         return 1
+    # f64 states: equal within 1e-12 of their magnitudes across the runs
+    for k in runs["new"][0]:
+        if not k.endswith("_f64"):
+            continue
+        ref = runs["new"][0][k]
+        for r in runs["old"] + runs["new"]:
+            if len(r[k]) != len(ref) or any(
+                    abs(a - b) > 1e-12 * max(abs(a), abs(b))
+                    for a, b in zip(r[k], ref)):
+                print(f"compare_trees: the f64 states {k} differ between "
+                      f"runs", file=sys.stderr)
+                return 1
     for k in runs["new"][0]:
         if isinstance(runs["new"][0][k], float):
             print(f"{k}: old {statistics.median(r[k] for r in runs['old'])}"

@@ -41,7 +41,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signature of every exported function: (argtypes, restype)
 SIGNATURES = {
     "expr_vm": {
-        "expr_vm_launch": ([_L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P], _I),
+        "expr_vm_launch": ([_P, _I, _P, _P, _P], _I),
         "expr_vm_ragged_tile": ([], _I),
         "expr_vm_ragged_launch": ([_P, _I, _P, _P, _P], _I),
     },
@@ -50,8 +50,8 @@ SIGNATURES = {
         "scalar_agg_launch": ([_L, _P, _I, _P, _P, _P, _P, _P, _I, _P], _I),
     },
     "seg_agg_onehot": {
-        "seg_onehot_blocks": ([_L], _I),
-        "seg_onehot_launch": ([_L, _P, _P, _I, _I, _P, _P, _P, _P], _I),
+        "seg_onehot_launch": ([_L, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P,
+                               _P], _I),
     },
     "seg_agg_sorted": {
         "seg_sorted_pieces_count": ([_L], _I),

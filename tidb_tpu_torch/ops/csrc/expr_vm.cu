@@ -1,88 +1,22 @@
-// K1 expr_vm: the bytecode interpreter of pushed-down expressions.
-//
-// Replaces the expression programs of tidb_tpu/ops/exprc.py:79
-// compile_expr, which XLA fuses into every coprocessor kernel, and the
-// WHERE mask lines of tidb_tpu/ops/kernels.py:721-722 and :921-924 (mask =
-// live & valid & truthy(where)) plus the mixed-radix group id of
-// kernels.py:925-930.
-//
-// One thread interprets the whole program for one row (grid-stride loop),
-// so every intermediate stays in registers / local memory and each input
-// plane is read once, each output written once: the kernel is bound by
-// the bytes it moves (about 8 B per loaded column value, 1 B per valid
-// flag, 1 B of mask, 8 B of group id and 9 B per output per row). The
-// program (at most 64 instructions) is copied into shared memory by every
-// block; the data-dependent dispatch is a switch, which costs issue slots
-// but no memory traffic. The interpreter (vm_run) lives in vm.cuh, which
-// K14 and K15 share.
-//
-// K5 expr_vm_ragged (below K1) runs the same interpreter over R regions in
-// one launch: every region brings its own program, constant pool, LUT and
-// plane table (each region's batch has its own string dictionary).
+// K1 expr_vm and K5 expr_vm_ragged: the bytecode interpreter of
+// pushed-down expressions (vm.cuh vm_exec_rows), over one batch (K1) or
+// over R regions in one launch (K5). Both take everything they read
+// besides the planes' rows as one table of int64 words that
+// ops/kernels.py lays out in one host pass (k1_pack, k5_pack): by value
+// in the launch's parameters (K5Params, __grid_constant__, a 4 KB or a
+// 31 KB block), or past K5_PARAM_WORDS copied once from a page-locked
+// staging buffer into a device buffer that the same body reads through a
+// pointer. Instructions are fetched from the table, uniform across a
+// warp; no block stages a program. A thread interprets K5_ROWS rows of a
+// K5_TILE-row tile at once, a warp's 32 rows consecutive for each: each
+// instruction is fetched and dispatched once for the four rows, whose
+// loads are in flight together. Registers live in shared memory, a
+// column a row, and their valid bits in one 32-bit register a row
+// (vm.cuh VmSmemRegs, as K14 and K15): no stack frame. The grid is whole
+// waves of the resident blocks, striding over the tiles.
 #include <cstring>
 
 #include "vm.cuh"
-
-__global__ void expr_vm_kernel(i64 n, const i64* __restrict__ meta, int meta_len,
-                               const i64* __restrict__ pool,
-                               const unsigned char* __restrict__ lut,
-                               const u64* __restrict__ planes,
-                               const unsigned char* __restrict__ live,
-                               unsigned char* __restrict__ mask_out,
-                               i64* __restrict__ gid_out,
-                               const u64* __restrict__ outs) {
-  __shared__ i64 sm[K1_MAX_META];
-  for (int i = threadIdx.x; i < meta_len; i += blockDim.x) sm[i] = meta[i];
-  __syncthreads();
-  const int n_instr = (int)sm[0];
-  const int where_reg = (int)sm[1];
-  const int n_out = (int)sm[2];
-  const int n_group = (int)sm[3];
-  const i64 sink = sm[4];
-  const i64* ins = sm + K1_HDR;
-  const i64* out_regs = ins + 6 * n_instr;
-  const i64* grp = out_regs + n_out;
-
-  const i64 stride = (i64)gridDim.x * blockDim.x;
-  for (i64 row = (i64)blockIdx.x * blockDim.x + threadIdx.x; row < n; row += stride) {
-    i64 v[K1_MAX_REGS];
-    bool ok[K1_MAX_REGS];
-    vm_run(ins, n_instr, row, pool, lut, VmPlanes{planes}, v, ok);
-    bool m = live[row] != 0;
-    if (where_reg >= 0) m = m && ok[where_reg] && v[where_reg] != 0;
-    mask_out[row] = m;
-    if (n_group > 0) {
-      i64 g = 0;
-      for (int j = 0; j < n_group; ++j) {
-        const i64* gs = grp + 4 * j;
-        const i64 code = ((const i64*)planes[gs[0]])[row];
-        const bool gv = ((const unsigned char*)planes[gs[1]])[row] != 0;
-        const i64 cc = gv ? code : gs[2];   // NULL -> slot `size`
-        g = j == 0 ? cc : g * gs[3] + cc;
-      }
-      gid_out[row] = m ? g : sink;          // dead rows -> sink segment
-    }
-    for (int j = 0; j < n_out; ++j) {
-      const int r = (int)out_regs[j];
-      ((i64*)outs[2 * j])[row] = v[r];
-      ((unsigned char*)outs[2 * j + 1])[row] = ok[r];
-    }
-  }
-}
-
-extern "C" int expr_vm_launch(i64 n, const i64* meta, int meta_len, const i64* pool,
-                              const unsigned char* lut, const u64* planes,
-                              const unsigned char* live, unsigned char* mask_out,
-                              i64* gid_out, const u64* outs, void* stream) {
-  if (meta_len > K1_MAX_META || meta_len < K1_HDR) return -1;
-  if (n <= 0) return 0;
-  const int threads = 256;
-  i64 blocks = (n + threads - 1) / threads;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  expr_vm_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      n, meta, meta_len, pool, lut, planes, live, mask_out, gid_out, outs);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // K5 expr_vm_ragged: every region's WHERE (and aggregate-argument planes)
@@ -236,14 +170,20 @@ expr_vm_ragged_packed(const i64* __restrict__ w, unsigned* __restrict__ bits) {
   k5_run(w, bits);
 }
 
-// Whole waves of a K5 kernel at `smem` bytes of registers, kept per
+// The table kernels k5_wave keeps apart: K5's three instantiations (the
+// smaller and the larger parameter block, then the packed table), K1's.
+#define VM_TABLE_KERNELS 6
+#define VM_K5 0
+#define VM_K1 3
+
+// Whole waves of a table kernel at `smem` bytes of registers, kept per
 // device, kernel and register count (or minus a CUDA error); the first
 // call on a device opts the kernel in to the shared memory of
 // K1_MAX_REGS registers.
 template <class Kernel>
 static int k5_wave(Kernel kernel, int which, int n_regs, size_t smem) {
-  static int waves[64][3][K1_MAX_REGS + 1];
-  static bool ready[64][3];
+  static int waves[64][VM_TABLE_KERNELS][K1_MAX_REGS + 1];
+  static bool ready[64][VM_TABLE_KERNELS];
   int dev = 0, sms = 0, occ = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return -(int)e;
@@ -264,15 +204,39 @@ static int k5_wave(Kernel kernel, int which, int n_regs, size_t smem) {
   return g;
 }
 
-template <class Kernel, class Arg>
-static int k5_go(Kernel kernel, int which, const Arg& arg, i64 n_tiles, int n_regs,
-                 unsigned* bits, cudaStream_t st) {
+template <class Kernel, class Arg, class Out>
+static int k5_go(Kernel kernel, int which, const Arg& arg, i64 n_tiles, int n_regs, Out* out,
+                 cudaStream_t st) {
   const size_t smem = (size_t)K5_REG_BYTES * (n_regs > 0 ? n_regs : 1);
   const int wave = k5_wave(kernel, which, n_regs, smem);
   if (wave <= 0) return -wave;
   const i64 grid = n_tiles < wave ? n_tiles : wave;
-  kernel<<<(unsigned)grid, K5_THREADS, smem, st>>>(arg, bits);
+  kernel<<<(unsigned)grid, K5_THREADS, smem, st>>>(arg, out);
   return (int)cudaGetLastError();
+}
+
+// A table of n_words int64 (host memory) launched on the kernels
+// [small, large, packed] (k5_wave's which, which + 1, which + 2): by value
+// in the smaller or the larger parameter block, or, with dev_words set
+// (words then page-locked), copied into dev_words and read from there.
+template <class KS, class KL, class KP, class Out>
+static int vm_table_go(KS small, KL large, KP packed, int which, const i64* words, int n_words,
+                       i64* dev_words, i64 n_tiles, int n_regs, Out* out, cudaStream_t st) {
+  if (dev_words != nullptr) {
+    const cudaError_t e = cudaMemcpyAsync(dev_words, words, 8 * (size_t)n_words,
+                                          cudaMemcpyHostToDevice, st);
+    if (e != cudaSuccess) return (int)e;
+    return k5_go(packed, which + 2, (const i64*)dev_words, n_tiles, n_regs, out, st);
+  }
+  if (n_words <= K5_SMALL_WORDS) {
+    K5ParamsSmall p;
+    memcpy(p.w, words, 8 * (size_t)n_words);
+    return k5_go(small, which, p, n_tiles, n_regs, out, st);
+  }
+  if (n_words > K5_PARAM_WORDS) return -1;
+  K5ParamsLarge p;
+  memcpy(p.w, words, 8 * (size_t)n_words);
+  return k5_go(large, which + 1, p, n_tiles, n_regs, out, st);
 }
 
 extern "C" int expr_vm_ragged_tile() { return K5_TILE; }
@@ -288,22 +252,153 @@ extern "C" int expr_vm_ragged_launch(const i64* words, int n_words, i64* dev_wor
       words[K5_H_LUT] > n_words)
     return -1;
   const i64 n_tiles = words[K5_H_TILES];
-  const int n_regs = (int)words[K5_H_REGS];
   if (n_tiles == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dev_words != nullptr) {
-    const cudaError_t e = cudaMemcpyAsync(dev_words, words, 8 * (size_t)n_words,
-                                          cudaMemcpyHostToDevice, st);
-    if (e != cudaSuccess) return (int)e;
-    return k5_go(expr_vm_ragged_packed, 2, (const i64*)dev_words, n_tiles, n_regs, bits, st);
+  return vm_table_go(expr_vm_ragged_value<K5_SMALL_WORDS>, expr_vm_ragged_value<K5_PARAM_WORDS>,
+                     expr_vm_ragged_packed, VM_K5, words, n_words, dev_words, n_tiles,
+                     (int)words[K5_H_REGS], bits, (cudaStream_t)stream);
+}
+
+// ---------------------------------------------------------------------------
+// K1 expr_vm: a request's WHERE mask, group id and argument planes over
+// one batch of n rows.
+//
+// Replaces the expression programs of tidb_tpu/ops/exprc.py:79
+// compile_expr, which XLA fuses into every coprocessor kernel, and the
+// WHERE mask lines of tidb_tpu/ops/kernels.py:721-722 and :921-924 (mask =
+// live & valid & truthy(where)) plus the mixed-radix group id of
+// kernels.py:925-930 (NULL takes slot `size`, dead rows the sink).
+//
+// K5's shape over one batch: its tiles of K5_TILE rows (the last one
+// ragged: its lanes past n interpret the last row again and store
+// nothing), K5_ROWS rows a thread at once, registers in shared memory,
+// the table by value or packed (k1_pack). Bound by the bytes it moves:
+// the referenced planes once, 1 B of live, 1 B of mask (bytes, which K2,
+// K3 and K4 read), 8 B of group id and 9 B a program output a row. The
+// first design ran one row a thread, its registers in a 144-byte stack
+// frame, and staged the program in every block from five uploaded tables.
+//
+// The table: K1_T_HDR header words (below), the output pointers (values,
+// valid), the plane pointers, then the program's instructions, output
+// registers and group slots (value slot, valid slot, size, radix), its
+// pool, and last its LUT bytes.
+#define K1_T_HDR 17
+#define K1_T_N 0          // rows
+#define K1_T_TILES 1
+#define K1_T_INSTR 2
+#define K1_T_WHERE 3      // the WHERE register, -1: none
+#define K1_T_OUT 4
+#define K1_T_GROUP 5
+#define K1_T_SINK 6
+#define K1_T_REGS 7
+#define K1_T_LIVE 8       // the live plane's pointer
+#define K1_T_GID 9        // the group id's pointer (0 without groups)
+#define K1_T_OUTS 10      // word offsets of the parts
+#define K1_T_PLANES 11
+#define K1_T_INS 12
+#define K1_T_OREGS 13
+#define K1_T_GRP 14
+#define K1_T_POOL 15
+#define K1_T_LUT 16
+#define K1_MINB 4         // resident blocks a launch bound asks for
+
+__device__ __forceinline__ void k1_run(const i64* __restrict__ w,
+                                       unsigned char* __restrict__ mask_out) {
+  extern __shared__ i64 k1_regs[];   // [registers][K5_ROWS][K5_THREADS]
+  const i64 n = w[K1_T_N], tiles = w[K1_T_TILES], sink = w[K1_T_SINK];
+  const int n_instr = (int)w[K1_T_INSTR], where = (int)w[K1_T_WHERE];
+  const int n_out = (int)w[K1_T_OUT], n_group = (int)w[K1_T_GROUP];
+  const unsigned char* live = (const unsigned char*)w[K1_T_LIVE];
+  i64* gid = (i64*)w[K1_T_GID];
+  const u64* outs = (const u64*)(w + w[K1_T_OUTS]);
+  const VmPlanes pl = {(const u64*)(w + w[K1_T_PLANES])};
+  const i64* ins = w + w[K1_T_INS];
+  const i64* oregs = w + w[K1_T_OREGS];
+  const i64* grp = w + w[K1_T_GRP];
+  const i64* pool = w + w[K1_T_POOL];
+  const unsigned char* lut = (const unsigned char*)(w + w[K1_T_LUT]);
+  VmSmemRegs regs[K5_ROWS];
+#pragma unroll
+  for (int q = 0; q < K5_ROWS; ++q)
+    regs[q] = {k1_regs + q * K5_THREADS + threadIdx.x, K5_ROWS * K5_THREADS, 0u};
+  for (i64 tl = blockIdx.x; tl < tiles; tl += gridDim.x) {
+    // the thread's K5_ROWS rows of the tile, a warp's 32 consecutive for
+    // each; a row past n reads the last row and stores nothing
+    i64 rows[K5_ROWS];
+    bool in[K5_ROWS];
+#pragma unroll
+    for (int q = 0; q < K5_ROWS; ++q) {
+      const i64 r = tl * K5_TILE + q * K5_THREADS + threadIdx.x;
+      in[q] = r < n;
+      rows[q] = in[q] ? r : n - 1;
+    }
+    vm_exec_rows<K5_ROWS>(ins, 0, n_instr, rows, pool, lut, pl, regs);
+    bool m[K5_ROWS];
+#pragma unroll
+    for (int q = 0; q < K5_ROWS; ++q) {
+      m[q] = live[rows[q]] != 0;
+      if (where >= 0) m[q] = m[q] && regs[q].valid(where) && regs[q].val(where) != 0;
+    }
+    if (n_group > 0) {
+      // the surviving rows' codes only: a dead row's id is the sink
+      i64 g[K5_ROWS];
+#pragma unroll
+      for (int q = 0; q < K5_ROWS; ++q) g[q] = 0;
+      for (int j = 0; j < n_group; ++j) {
+        const i64* gs = grp + 4 * j;
+#pragma unroll
+        for (int q = 0; q < K5_ROWS; ++q) {
+          if (!m[q]) continue;
+          const i64 code = pl.value(gs[0], rows[q]);
+          g[q] = g[q] * gs[3] + (pl.valid(gs[1], rows[q]) ? code : gs[2]);   // NULL -> `size`
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < K5_ROWS; ++q)
+        if (in[q]) gid[rows[q]] = m[q] ? g[q] : sink;
+    }
+#pragma unroll
+    for (int q = 0; q < K5_ROWS; ++q)
+      if (in[q]) mask_out[rows[q]] = m[q];
+    for (int j = 0; j < n_out; ++j) {
+      const int r = (int)oregs[j];
+      i64* vo = (i64*)outs[2 * j];
+      unsigned char* ko = (unsigned char*)outs[2 * j + 1];
+#pragma unroll
+      for (int q = 0; q < K5_ROWS; ++q) {
+        if (!in[q]) continue;
+        vo[rows[q]] = regs[q].val(r);
+        ko[rows[q]] = regs[q].valid(r);
+      }
+    }
   }
-  if (n_words <= K5_SMALL_WORDS) {
-    K5ParamsSmall p;
-    memcpy(p.w, words, 8 * (size_t)n_words);
-    return k5_go(expr_vm_ragged_value<K5_SMALL_WORDS>, 0, p, n_tiles, n_regs, bits, st);
-  }
-  if (n_words > K5_PARAM_WORDS) return -1;
-  K5ParamsLarge p;
-  memcpy(p.w, words, 8 * (size_t)n_words);
-  return k5_go(expr_vm_ragged_value<K5_PARAM_WORDS>, 1, p, n_tiles, n_regs, bits, st);
+}
+
+// At most 64 registers: four blocks an SM. The packed table keeps its
+// pointers in registers: 85, three blocks an SM (at 64 it spills).
+template <int W>
+__global__ void __launch_bounds__(K5_THREADS, K1_MINB)
+expr_vm_value(const __grid_constant__ K5Params<W> p, unsigned char* __restrict__ mask) {
+  k1_run(p.w, mask);
+}
+
+__global__ void __launch_bounds__(K5_THREADS, 3)
+expr_vm_packed(const i64* __restrict__ w, unsigned char* __restrict__ mask) {
+  k1_run(w, mask);
+}
+
+// words: K1's table (n_words int64, host memory), by value up to
+// K5_PARAM_WORDS, else copied into dev_words (words then page-locked);
+// mask: n bytes.
+extern "C" int expr_vm_launch(const i64* words, int n_words, i64* dev_words,
+                              unsigned char* mask, void* stream) {
+  if (n_words < K1_T_HDR || words[K1_T_N] < 0 || words[K1_T_INSTR] < 0 ||
+      words[K1_T_REGS] < 0 || words[K1_T_REGS] > K1_MAX_REGS || words[K1_T_OUT] < 0 ||
+      words[K1_T_GROUP] < 0 || words[K1_T_LUT] > n_words ||
+      words[K1_T_TILES] != (words[K1_T_N] + K5_TILE - 1) / K5_TILE)
+    return -1;
+  const i64 tiles = words[K1_T_TILES];
+  if (tiles == 0) return 0;
+  return vm_table_go(expr_vm_value<K5_SMALL_WORDS>, expr_vm_value<K5_PARAM_WORDS>,
+                     expr_vm_packed, VM_K1, words, n_words, dev_words, tiles,
+                     (int)words[K1_T_REGS], mask, (cudaStream_t)stream);
 }

@@ -1,17 +1,14 @@
 // The K1 bytecode interpreter, shared by K1 and K5 (expr_vm.cu), K14
 // (slot_filter.cu) and K15 (slot_agg.cu).
 //
-// One thread runs the program for one row. A plane slot of the program
-// (OP_LOAD's a and b) names an 8-byte value plane or a 1-byte valid
-// plane, read from the device planes directly (VmPlanes): K1 and K5 run
-// the program once per row, K14 and K15 its slot-invariant part (where
-// the loads are) once a row. Where the registers live is the caller's
-// choice:
-//   VmArrayRegs the thread's own arrays v[] / ok[] (K1): indexed at
-//            run time, so the compiler puts them in local memory;
-//   VmSmemRegs  values in shared memory, one column a thread, and the
-//            valid bits in one 32-bit register (K5, K14, K15): no local
-//            memory.
+// A plane slot of the program (OP_LOAD's a and b) names an 8-byte value
+// plane or a 1-byte valid plane, read from the device planes directly
+// (VmPlanes). vm_exec_rows runs instructions over N rows of a thread at
+// once (K1 and K5: four, the whole program once a row); vm_exec is its
+// one-row form (K14 and K15: the slot-invariant part, where the loads
+// are, once a row). The registers live in shared memory, one column a
+// thread (VmSmemRegs), their valid bits in one 32-bit register: no local
+// memory.
 #pragma once
 
 #include <cstring>
@@ -31,17 +28,6 @@ struct VmPlanes {
 // At most this many plane slots per program of K14 / K15
 // (kernels.SLOT_MAX_PLANES).
 #define VM_ROW_PLANES 16
-
-struct VmArrayRegs {
-  i64* v;
-  bool* ok;
-  __device__ __forceinline__ i64 val(int r) const { return v[r]; }
-  __device__ __forceinline__ bool valid(int r) const { return ok[r]; }
-  __device__ __forceinline__ void put(int r, i64 x, bool k) {
-    v[r] = x;
-    ok[r] = k;
-  }
-};
 
 struct VmSmemRegs {
   i64* v;          // this thread's register 0; register r at v[r * stride]
@@ -288,16 +274,6 @@ __device__ __forceinline__ void vm_exec(const i64* __restrict__ ins, int from, i
   Regs one[1] = {R};
   vm_exec_rows<1>(ins, from, to, rows, pool, lut, pl, one);
   R = one[0];
-}
-
-// The whole program over one row into the thread's arrays v / ok.
-template <class Planes>
-__device__ __forceinline__ void vm_run(const i64* __restrict__ ins, int n_instr, i64 row,
-                                       const i64* __restrict__ pool,
-                                       const unsigned char* __restrict__ lut, const Planes& pl,
-                                       i64* v, bool* ok) {
-  VmArrayRegs R{v, ok};
-  vm_exec(ins, 0, n_instr, row, pool, lut, pl, R);
 }
 
 // ---- K14 and K15's parameter block: everything a slot launch reads

@@ -4,8 +4,8 @@ tidb_tpu/ops/exprc.py:35-700).
 The reference lowers an Expr tree into jnp closures that XLA fuses into
 each kernel. The port lowers the same tree, with the same `Unsupported`
 decisions and the same host-side scale and bound proofs, into a small
-register program that kernel K1 (`ops/csrc/expr_vm.cu`) interprets one
-row per thread, and that `run_program_plain` interprets with torch ops
+register program that kernel K1 (`ops/csrc/expr_vm.cu`) interprets four
+rows a thread at once, and that `run_program_plain` interprets with torch ops
 one instruction at a time over whole planes (K1's plain version).
 
 Value model: a register holds a 64-bit value (int64, or the bits of an
@@ -59,8 +59,8 @@ MAX_DEC_SCALE = 6
 # or the request is refused (int64 would silently wrap)
 DEC_ABS_LIMIT = 1 << 62
 
-# K1 limits: the program lives in shared memory, the registers in local
-# memory of each thread
+# K1 limits: the program rides in the launch's parameters, its registers
+# in shared memory (a column a row of the block)
 MAX_INSTRS = 64
 MAX_REGS = 16
 

@@ -125,7 +125,8 @@ GC_BASE = -1000
 # sorted ids (seg_agg_sorted, also the ranked and DISTINCT paths' pass);
 # radix_pass one pass of the radix sort K11, K4's and K6's sorted routes
 # and K17 run
-LAUNCHES = {"expr_vm": 0, "scalar_agg": 0, "seg_agg_onehot": 0,
+LAUNCHES = {"expr_vm": 0, "expr_vm_packed": 0, "scalar_agg": 0,
+            "seg_agg_onehot": 0,
             "seg_agg_sorted": 0, "rank_groups": 0, "rank_groups_out": 0,
             "distinct_runs": 0,
             "topk_select": 0, "expr_vm_ragged": 0,
@@ -2223,17 +2224,15 @@ def _device_kind(t: torch.Tensor) -> str:
 
 
 def _check_plane(t: torch.Tensor, n: int, dtypes, what: str, device) -> None:
+    if t.device == device and t.dtype in dtypes and t.shape == (n,) \
+            and t.is_contiguous():
+        return
     if t.device != device:
         raise errors.DeviceError(f"{what} on {t.device}, expected {device}")
     if t.dtype not in dtypes:
         raise errors.DeviceError(f"{what} of dtype {t.dtype}")
     if t.dim() != 1 or t.shape[0] != n or not t.is_contiguous():
         raise errors.DeviceError(f"{what} must be a contiguous [{n}] plane")
-
-
-def _ptr_table(tensors, device) -> torch.Tensor:
-    ptrs = [0 if t is None else t.data_ptr() for t in tensors] or [0]
-    return torch.tensor(ptrs, dtype=torch.int64).to(device)
 
 
 def _device(device) -> torch.device:
@@ -2278,69 +2277,194 @@ _VALUE_DTYPES = (torch.int64, torch.float64)
 def expr_vm(fin: Finalized, plane_list: list, live: torch.Tensor,
             want_gid: bool):
     """K1: (mask bool[n], gid int64[n] | None, [(values, valid)] per
-    program output)."""
+    program output). On the card one launch: the table (k1_pack) by value
+    in the launch's parameters, or past K5_PARAM_WORDS copied once from
+    page-locked staging (`_table_launch`, K5's)."""
     if _device_kind(live) == "cpu":
         mask, gid, values = run_program_plain(fin, plane_list, live)
         return mask, (gid if want_gid else None), values
+    launch, outputs = k1_prepare(fin, plane_list, live, want_gid)
+    launch()
+    return outputs()
+
+
+def k1_prepare(fin: Finalized, plane_list: list, live: torch.Tensor,
+               want_gid: bool) -> tuple:
+    """Everything of a K1 launch on the card but the launch: checks, the
+    outputs allocated (one buffer: the mask and the outputs' valid
+    planes, then from a 16-byte boundary the outputs' values and the
+    group id, a row each), the table packed. Returns (launch, outputs);
+    outputs() gives (mask, gid, values), its views made after the launch
+    is queued."""
     dev = live.device
     n = live.shape[0]
     _check_program_planes(fin, plane_list, live)
-    where, out_regs, grp = fin.tail()
-    if bool(grp) != want_gid:
+    if bool(int(fin.meta[3])) != want_gid:
         raise errors.DeviceError("group id requested without group planes")
-    meta = torch.from_numpy(fin.meta).to(dev)
-    pool = torch.from_numpy(fin.pool).to(dev)
-    lut = torch.from_numpy(fin.lut).to(dev)
-    planes_t = _ptr_table(plane_list, dev)
-    mask = torch.empty(n, dtype=torch.bool, device=dev)
-    gid = torch.empty(n, dtype=torch.int64, device=dev) if want_gid else None
-    values, out_ptrs = [], []
-    for dt in fin.out_dts:
-        v = torch.empty(n, dtype=torch.float64 if dt == "f" else torch.int64,
-                        device=dev)
-        ok = torch.empty(n, dtype=torch.bool, device=dev)
-        values.append((v, ok))
-        out_ptrs.extend([v, ok])
-    outs_t = _ptr_table(out_ptrs, dev)
-    rc = _ext.lib("expr_vm").expr_vm_launch(
-        n, meta.data_ptr(), int(meta.shape[0]), pool.data_ptr(),
-        lut.data_ptr(), planes_t.data_ptr(), live.data_ptr(),
-        mask.data_ptr(), 0 if gid is None else gid.data_ptr(),
-        outs_t.data_ptr(), _stream(dev))
-    _ext.check(rc, "expr_vm")
-    LAUNCHES["expr_vm"] += 1
-    return mask, gid, values
+    if fin.meta.shape[0] > K1_MAX_META:
+        raise errors.DeviceError(f"a program of {fin.meta.shape[0]} words "
+                                 f"exceeds K1's {K1_MAX_META}")
+    k, g = len(fin.out_dts), int(want_gid)
+    nb = (k + 1) * n
+    at = nb + (-nb % 16)
+    buf = torch.empty((at + 8 * (k + g) * n,), dtype=torch.uint8,
+                      device=dev)
+    fp = buf.data_ptr()
+    wp = fp + at
+    out_ptrs = []
+    for j in range(k):
+        out_ptrs += (wp + 8 * j * n, fp + (j + 1) * n)
+    words = k1_pack(fin, n, live.data_ptr(), wp + 8 * k * n if g else 0,
+                    out_ptrs, [t.data_ptr() for t in plane_list])
+    fn = _ext.lib("expr_vm").expr_vm_launch
+
+    def launch():
+        _table_launch(fn, K1_ROUTES, words, dev, fp)
+
+    def outputs():
+        fl = buf[:nb].view(torch.bool).view(k + 1, n).unbind(0)
+        w8 = buf[at:].view(torch.int64).view(k + g, n).unbind(0)
+        values = [(w8[j].view(torch.float64) if dt == "f" else w8[j],
+                   fl[j + 1]) for j, dt in enumerate(fin.out_dts)]
+        return fl[0], (w8[k] if g else None), values
+
+    return launch, outputs
+
+
+# K1's table (ops/csrc/expr_vm.cu, the contract with k1_pack): K1_T_HDR
+# header words, the output and plane pointers, then the program's
+# instructions, output registers and group slots, its pool and its LUT
+# bytes. A program (exprc's meta) holds at most K1_MAX_META words
+# (common.cuh). Each route counts under its own LAUNCHES key
+K1_T_HDR = 17
+K1_MAX_META = 1024
+K1_ROUTES = ("expr_vm", "expr_vm_packed")
+
+
+def _k1_program(fin: Finalized) -> tuple:
+    """(registers, words before the pool, pool words, the table's tail
+    bytes: instructions, output registers, group slots, pool, LUT) of a
+    program, kept on it."""
+    got = getattr(fin, "_k1_program", None)
+    if got is None:
+        meta = fin.meta
+        n_instr, where, n_out, n_group = (int(x) for x in meta[:4])
+        body = meta[HDR:HDR + 6 * n_instr + n_out + 4 * n_group]
+        dsts = body[1:6 * n_instr:6].tolist()
+        oregs = body[6 * n_instr:6 * n_instr + n_out].tolist()
+        n_regs = max(dsts + oregs + [where], default=-1) + 1
+        lut = fin.lut.tobytes()
+        tail = body.tobytes() + fin.pool.tobytes() + lut \
+            + bytes(-len(lut) % 8)
+        got = fin._k1_program = (n_regs, body.shape[0], fin.pool.shape[0],
+                                 tail)
+    return got
+
+
+def k1_pack(fin: Finalized, n: int, live_ptr: int, gid_ptr: int,
+            out_ptrs: list, plane_ptrs: list):
+    """K1's table for n rows in one host pass (an int64 array): the
+    header, the outputs' (values, valid) pointers, the planes' pointers,
+    then the program's words (kept on the program)."""
+    n_regs, n_body, n_pool, tail = _k1_program(fin)
+    meta = fin.meta
+    n_instr, n_out = int(meta[0]), int(meta[2])
+    off_planes = K1_T_HDR + len(out_ptrs)
+    off_ins = off_planes + len(plane_ptrs)
+    off_pool = off_ins + n_body
+    words = array.array("q", (
+        n, -(-n // K5_TILE), n_instr, int(meta[1]), n_out, int(meta[3]),
+        int(meta[4]), n_regs, live_ptr, gid_ptr, K1_T_HDR, off_planes,
+        off_ins, off_ins + 6 * n_instr, off_ins + 6 * n_instr + n_out,
+        off_pool, off_pool + n_pool))
+    words.extend(out_ptrs)
+    words.extend(plane_ptrs)
+    words.frombytes(tail)
+    return words
+
+
+def param_block(n_words: int) -> str:
+    """Where a K1 or K5 table of n_words rides: the smaller parameter
+    block (4 KB), the larger (31 KB), or packed into a device buffer."""
+    if n_words <= K5_SMALL_WORDS:
+        return "small"
+    return "large" if n_words <= K5_PARAM_WORDS else "packed"
+
+
+# the packed route's page-locked staging buffer per device (K1 and K5
+# share it) and the event of the last copy out of it
+_K5_STAGE: dict = {}
+_K5_LOCK = threading.Lock()
+
+
+def _table_launch(fn, routes: tuple, words, dev: torch.device,
+                  out_ptr: int) -> None:
+    """One launch of a table kernel (K1, K5): `fn(words, n_words,
+    dev_words, out, stream)` with the table by value, or past
+    K5_PARAM_WORDS (routes[1]) copied from the reused page-locked staging
+    buffer into the stream's buffer (waiting first for the buffer's last
+    copy). Counts the launch under its route."""
+    n = len(words)
+    st = _stream(dev)
+    route = routes[param_block(n) == "packed"]
+    if route == routes[0]:
+        rc = fn(words.buffer_info()[0], n, None, out_ptr, st)
+    else:
+        with _K5_LOCK:
+            stage, ev = _K5_STAGE.get(dev.index, (None, None))
+            if ev is not None:
+                ev.synchronize()   # its last copy has left the buffer
+            if stage is None or stage.numel() < n:
+                stage = torch.empty(max(n, 2 * K5_PARAM_WORDS),
+                                    dtype=torch.int64, pin_memory=True)
+                ev = torch.cuda.Event()
+            ctypes.memmove(stage.data_ptr(), words.buffer_info()[0], 8 * n)
+            buf = _stream_scratch(route, dev, 8 * n, st)
+            rc = fn(stage.data_ptr(), n, buf.data_ptr(), out_ptr, st)
+            ev.record(torch.cuda.current_stream(dev))
+            _K5_STAGE[dev.index] = (stage, ev)
+    _ext.check(rc, route)
+    LAUNCHES[route] += 1
 
 
 # ---------------------------------------------------------------------------
 # K2 / K3 / K4 and their plain version
 # ---------------------------------------------------------------------------
 
-def _red_rows(reds: list[Red], n: int, device) -> list:
-    """Each reduction's descriptor (op, flags, const_bits, values pointer,
-    valid pointer), its planes checked."""
-    rows = []
+def _check_reds(reds: list[Red], n: int, device) -> None:
+    """The reductions' planes checked (an f64 op over f64 values, an
+    integer op over int64, contiguous [n] planes on the device), each
+    distinct plane once."""
+    seen = set()
     for red in reds:
-        flags = (RED_CONST if red.values is None else 0) \
-            | (RED_NEVER if red.never else 0)
         if red.values is not None:
             want = torch.float64 if red.op in F_OPS else torch.int64
             if red.values.dtype != want and red.op != R_COUNT:
                 raise errors.DeviceError(
                     f"reduction op {red.op} over {red.values.dtype}")
-            _check_plane(red.values, n, (torch.int64, torch.float64),
-                         "reduction values", device)
-        if red.valid is not None:
+            if id(red.values) not in seen:
+                seen.add(id(red.values))
+                _check_plane(red.values, n, (torch.int64, torch.float64),
+                             "reduction values", device)
+        if red.valid is not None and id(red.valid) not in seen:
+            seen.add(id(red.valid))
             _check_plane(red.valid, n, (torch.bool,), "reduction valid",
                          device)
-        rows.append([red.op, flags, red.const_bits,
-                     0 if red.values is None else red.values.data_ptr(),
-                     0 if red.valid is None else red.valid.data_ptr()])
-    return rows
+
+
+def _red_rows(reds: list[Red], n: int, device) -> list:
+    """Each reduction's descriptor (op, flags, const_bits, values pointer,
+    valid pointer), its planes checked."""
+    _check_reds(reds, n, device)
+    return [[red.op, (RED_CONST if red.values is None else 0)
+             | (RED_NEVER if red.never else 0), red.const_bits,
+             0 if red.values is None else red.values.data_ptr(),
+             0 if red.valid is None else red.valid.data_ptr()]
+            for red in reds]
 
 
 def _red_desc(reds: list[Red], n: int, device) -> torch.Tensor:
-    """The descriptor table of K3 / K4 / K15 on the device."""
+    """The descriptor table of K4's sorted pass on the device."""
     return torch.tensor(_red_rows(reds, n, device),
                         dtype=torch.int64).reshape(-1).to(device)
 
@@ -2482,32 +2606,134 @@ def _check_gid(gid, mask, dev):
     _check_plane(gid, mask.shape[0], (torch.int64,), "group id", dev)
 
 
+# K3's launch (ops/csrc/seg_agg_onehot.cu): at most K3_MAX_SLOTS state
+# slots (k3_chunks: K4's slots, integer ones first) and K3_MAX_REDS
+# reductions ride by value, their shared-memory states within K3_SMEM_CAP
+# bytes for one copy (k3_smem_bytes); copies of the integer states are
+# added while they fit K3_COPIES_BYTES; the stream's workspace holds the
+# ticket, K3_CELLS device cells and the f64 partials of up to K3_MAX_GRID
+# blocks
+K3_THREADS = 256
+K3_WARPS = K3_THREADS // 32
+K3_MAX_SLOTS = 32
+K3_MAX_REDS = 64
+K3_MAX_COPIES = 32
+K3_SLOT = 5
+K3_MAP = 3
+K3_CELLS = K3_MAX_SLOTS * ONEHOT_SEGMENTS_MAX
+K3_COPIES_BYTES = 49152
+K3_SMEM_CAP = 98304
+K3_MAX_GRID = 1024
+
+
+def k3_slab(n_int: int, S: int) -> int:
+    """Words a copy of K3's integer states takes (made odd)."""
+    w = n_int * S
+    return w + 1 if w > 0 and w % 2 == 0 else w
+
+
+def k3_smem_bytes(n_int: int, n_f: int, S: int, copies: int) -> int:
+    """K3's dynamic shared memory: `copies` copies of the integer states
+    and each warp's f64 states."""
+    return 8 * (copies * k3_slab(n_int, S) + K3_WARPS * n_f * S)
+
+
+def k3_workspace_bytes(n_f: int, S: int) -> int:
+    """A K3 launch's workspace: the ticket (8 B), the cells, the f64
+    partials of K3_MAX_GRID blocks."""
+    return 8 + 8 * K3_CELLS + 8 * n_f * S * K3_MAX_GRID
+
+
+def k3_chunks(reds: list[Red], S: int) -> list:
+    """K3's launches for these reductions over S segments: [(start, stop,
+    slots, red_map)], each span of reductions as many as fit one launch
+    (K3_MAX_REDS, K3_MAX_SLOTS slots of K4's kinds, `_slot_rows`, one copy
+    of their states within K3_SMEM_CAP), in order. Slots are [op, flags,
+    constant, values pointer, valid pointer], the integer ones first;
+    red_map[j] = [op, count slot, value slot] (-1: none)."""
+    slot_rows = [_slot_rows(red) for red in reds]
+    chunks, a = [], 0
+    while a < len(reds):
+        index, rows, n_f, b = {}, [], 0, a
+        while b < len(reds) and b - a < K3_MAX_REDS:
+            new = [(k, r) for k, r in slot_rows[b] if k not in index]
+            if new:
+                nf = n_f + sum(r[0] in F_OPS for _k, r in new)
+                ns = len(rows) + len(new)
+                if b > a and (ns > K3_MAX_SLOTS or k3_smem_bytes(
+                        ns - nf, nf, S, 1) > K3_SMEM_CAP):
+                    break
+                for k, r in new:
+                    index[k] = len(rows)
+                    rows.append(r)
+                n_f = nf
+            b += 1
+        order = sorted(range(len(rows)), key=lambda i: rows[i][0] in F_OPS)
+        at = {old: new for new, old in enumerate(order)}
+        red_map = []
+        for j in range(a, b):
+            keys = [at[index[k]] for k, _r in slot_rows[j]]
+            red_map.append([reds[j].op, keys[0] if keys else -1,
+                            keys[1] if len(keys) > 1 else -1])
+        chunks.append((a, b, [rows[i] for i in order], red_map))
+        a = b
+    return chunks
+
+
+def _k3_plan(reds: list[Red], S: int) -> list:
+    """k3_chunks as launch arguments: [(start, stop, slots, f64 slots,
+    slot words, map words)]."""
+    return [(a, b, len(slots), sum(row[0] in F_OPS for row in slots),
+             array.array("q", [x for row in slots for x in row]),
+             array.array("q", [x for row in red_map for x in row]))
+            for a, b, slots, red_map in k3_chunks(reds, S)]
+
+
+def k3_prepare(gid: torch.Tensor, mask: torch.Tensor, num_segments: int,
+               reds: list[Red]) -> tuple:
+    """Everything of K3's launches on the card but the launches: checks,
+    the plan (k3_chunks), the output allocated. Returns (launch,
+    out); launch() runs one launch per chunk into out [R, S, 2]."""
+    dev = mask.device
+    _check_gid(gid, mask, dev)
+    n = mask.shape[0]
+    if not reds:
+        raise errors.DeviceError("K3 needs at least one reduction")
+    _check_reds(reds, n, dev)
+    fn = _ext.lib("seg_agg_onehot").seg_onehot_launch
+    S = num_segments
+    plan = _k3_plan(reds, S)
+    out = torch.empty((len(reds), S, 2), dtype=torch.int64, device=dev)
+    g, m, o = gid.data_ptr(), mask.data_ptr(), out.data_ptr()
+
+    def launch():
+        st = _stream(dev)
+        for a, b, n_slots, n_f, t_slots, t_map in plan:
+            work = _stream_scratch("seg_agg_onehot", dev,
+                                   k3_workspace_bytes(n_f, S), st)
+            rc = fn(n, g, m, S, n_slots, n_f,
+                    t_slots.buffer_info()[0] if n_slots else None, b - a,
+                    t_map.buffer_info()[0], work.data_ptr(),
+                    o + 16 * S * a, st)
+            _ext.check(rc, "seg_agg_onehot")
+            LAUNCHES["seg_agg_onehot"] += 1
+
+    return launch, out
+
+
 def seg_agg_onehot(gid: torch.Tensor, mask: torch.Tensor, num_segments: int,
                    reds: list[Red]):
-    """K3 (S <= ONEHOT_SEGMENTS_MAX): (n int64[R, S], acc int64[R, S])."""
+    """K3 (S <= ONEHOT_SEGMENTS_MAX): (n int64[R, S], acc int64[R, S]). On
+    the card one launch per k3_chunks span (one for up to K3_MAX_SLOTS
+    slots), its slots and map by value, its workspace the stream's."""
     if num_segments > ONEHOT_SEGMENTS_MAX:
         raise errors.DeviceError(
             f"{num_segments} segments exceed the one-hot kernel's "
             f"{ONEHOT_SEGMENTS_MAX}")
     if _device_kind(mask) == "cpu":
         return seg_agg_plain(gid, mask, num_segments, reds)
-    dev = mask.device
-    _check_gid(gid, mask, dev)
-    n = mask.shape[0]
-    lib = _ext.lib("seg_agg_onehot")
-    desc = _red_desc(reds, n, dev)
-    blocks = lib.seg_onehot_blocks(n)
-    partial = torch.empty(len(reds) * num_segments * blocks * 2,
-                          dtype=torch.int64, device=dev)
-    out = torch.empty(len(reds) * num_segments * 2, dtype=torch.int64,
-                      device=dev)
-    rc = lib.seg_onehot_launch(n, gid.data_ptr(), mask.data_ptr(),
-                               num_segments, len(reds), desc.data_ptr(),
-                               partial.data_ptr(), out.data_ptr(),
-                               _stream(dev))
-    _ext.check(rc, "seg_agg_onehot")
-    LAUNCHES["seg_agg_onehot"] += 1
-    out = out.view(len(reds), num_segments, 2)
+    launch, out = k3_prepare(gid, mask, num_segments, reds)
+    launch()
     return out[..., 0], out[..., 1]
 
 
@@ -2529,6 +2755,26 @@ K4_MAP = 3
 K6B_ROW_VALUE = 1
 
 
+def _slot_rows(red: Red) -> list:
+    """The state slots a reduction needs, [(key, slot row)]: its count
+    slot first (R_COUNT, constant 1, over its valid plane; R_FIRST's over
+    every mask row), then its value slot (none for R_COUNT); none for a
+    NULL-constant reduction. Equal keys are one slot."""
+    if red.op == R_FIRST:
+        return [(("n", 0), [R_COUNT, 0, 1, 0, 0]),
+                (("first",), [R_FIRST, K6B_ROW_VALUE, 0, 0, 0])]
+    if red.never:
+        return []
+    valid = 0 if red.valid is None else red.valid.data_ptr()
+    out = [(("n", valid), [R_COUNT, 0, 1, 0, valid])]
+    if red.op != R_COUNT:
+        vals = 0 if red.values is None else red.values.data_ptr()
+        const = red.const_bits if red.values is None else 0
+        out.append((("v", red.op, vals, const, valid),
+                    [red.op, 0, const, vals, valid]))
+    return out
+
+
 def k4_slots(reds: list[Red]) -> tuple:
     """K4's state slots on the windowed route: (slots, red_map). A slot is
     [op, flags, constant, values pointer, valid pointer]: one count slot
@@ -2537,29 +2783,14 @@ def k4_slots(reds: list[Red]) -> tuple:
     values or constant, valid); red_map[j] = [op, count slot, value slot]
     (-1: none; a NULL-constant reduction has neither, R_COUNT no value)."""
     slots, index, red_map = [], {}, []
-
-    def slot(key, row) -> int:
-        if key not in index:
-            index[key] = len(slots)
-            slots.append(row)
-        return index[key]
-
     for red in reds:
-        if red.op == R_FIRST:
-            cs = slot(("n", 0), [R_COUNT, 0, 1, 0, 0])
-            vs = slot(("first",), [R_FIRST, K6B_ROW_VALUE, 0, 0, 0])
-        elif red.never:
-            cs = vs = -1
-        else:
-            valid = 0 if red.valid is None else red.valid.data_ptr()
-            cs = slot(("n", valid), [R_COUNT, 0, 1, 0, valid])
-            vs = -1
-            if red.op != R_COUNT:
-                vals = 0 if red.values is None else red.values.data_ptr()
-                const = red.const_bits if red.values is None else 0
-                vs = slot(("v", red.op, vals, const, valid),
-                          [red.op, 0, const, vals, valid])
-        red_map.append([red.op, cs, vs])
+        got = []
+        for key, row in _slot_rows(red):
+            if key not in index:
+                index[key] = len(slots)
+                slots.append(row)
+            got.append(index[key])
+        red_map.append([red.op] + (got + [-1, -1])[:2])
     return slots, red_map
 
 
@@ -2642,7 +2873,7 @@ def seg_agg_sorted(gid: torch.Tensor, mask: torch.Tensor, num_segments: int,
     dev = mask.device
     n = mask.shape[0]
     _check_gid(gid, mask, dev)
-    _red_rows(reds, n, dev)                 # the planes' checks
+    _check_reds(reds, n, dev)
     slots, _red_map = k4_slots(reds)
     n_f = sum(row[0] in F_OPS for row in slots)
     route = k4_route(len(reds), len(slots), n_f, num_segments,
@@ -2817,7 +3048,7 @@ K5_ROUTES = ("expr_vm_ragged", "expr_vm_ragged_packed")
 
 def k5_route(n_words: int) -> str:
     """The K5 instantiation a table of n_words takes."""
-    return K5_ROUTES[n_words > K5_PARAM_WORDS]
+    return K5_ROUTES[param_block(n_words) == "packed"]
 
 
 def _k5_stream(fin: Finalized) -> tuple:
@@ -2889,12 +3120,6 @@ def k5_pack(regions: list, out_ptrs: list) -> tuple:
     return words, n_regs
 
 
-# the packed route's page-locked staging buffer per device and the event
-# of the last copy out of it
-_K5_STAGE: dict = {}
-_K5_LOCK = threading.Lock()
-
-
 def k5_prepare(regions: list, dev):
     """Everything of a K5 launch but the launch: checks, the table packed
     (k5_pack), the outputs allocated. Returns (launch, bits, outs);
@@ -2924,35 +3149,10 @@ def k5_prepare(regions: list, dev):
     words, n_regs = k5_pack(regions, out_ptrs)
     if n_regs > MAX_REGS:
         raise errors.DeviceError(f"a region program uses {n_regs} registers")
-    lib = _ext.lib("expr_vm")
-    st = _stream(dev)
-    n = len(words)
-    route = k5_route(n)
-    packed = route == "expr_vm_ragged_packed"
+    fn = _ext.lib("expr_vm").expr_vm_ragged_launch
 
     def launch():
-        if not packed:
-            rc = lib.expr_vm_ragged_launch(words.buffer_info()[0], n, None,
-                                           bits.data_ptr(), st)
-        else:
-            with _K5_LOCK:
-                stage, ev = _K5_STAGE.get(dev.index, (None, None))
-                if ev is not None:
-                    ev.synchronize()   # its last copy has left the buffer
-                if stage is None or stage.numel() < n:
-                    stage = torch.empty(max(n, 2 * K5_PARAM_WORDS),
-                                        dtype=torch.int64, pin_memory=True)
-                    ev = torch.cuda.Event()
-                ctypes.memmove(stage.data_ptr(), words.buffer_info()[0],
-                               8 * n)
-                buf = _stream_scratch(route, dev, 8 * n, st)
-                rc = lib.expr_vm_ragged_launch(stage.data_ptr(), n,
-                                               buf.data_ptr(),
-                                               bits.data_ptr(), st)
-                ev.record(torch.cuda.current_stream(dev))
-                _K5_STAGE[dev.index] = (stage, ev)
-        _ext.check(rc, route)
-        LAUNCHES[route] += 1
+        _table_launch(fn, K5_ROUTES, words, dev, bits.data_ptr())
 
     return launch, bits.view(torch.uint8), outs
 
