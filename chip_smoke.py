@@ -139,6 +139,13 @@ either is missing or where `tidb_tpu_torch` is not beside this file.
    K13 codes, each equal to its plain version twice, its passes and time
    printed beside torch.sort(stable=True) of the same words; each
    statement's radix passes are those its build side's planes plan.
+   K12 (redesigned in slice 21: a count launch with decoupled look-back
+   and an expand launch) with its two launches a call and nothing else on
+   the card, its split printed (count and expand on the card by
+   torch.profiler, the rest host work), and a timed skew case (2^20 more
+   build rows of one key); K13 (redesigned in slice 21: columns by value,
+   an interpolation probe, tables in shared memory) with no copy to the
+   card in a call and an f64 domain holding NaN of either sign and +-inf.
 8. Phase G, the micro-batch tier at SF1's supplier table (see phase_g).
 9. Phase H, sort and windows on Phase B's SF1 lineitem (its planes
    resident): ORDER BY l_extendedprice DESC, l_orderkey through
@@ -584,6 +591,101 @@ def cuda_ms(fn, runs: int = 20, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+TRACE_SLEEP = 0.25
+TRACE_MARKS = 256
+TRACE_CALLS = "chip_smoke traced calls"
+
+
+def traced(fn, calls: int = 20) -> tuple:
+    """`calls` calls of `fn` under torch.profiler, after a warm-up call.
+    The profiler loses records near the edges of a trace, more the later
+    the trace in a process: it drops the first records the card gives a
+    trace (none in Phase F; 2 in Phase G, whether the calls came at once or
+    0.25 s after the first record; 21 in Phase J), and it puts the card's
+    records on the host's clock by an offset that has drifted by 2 ms in
+    Phase K, past where a trace that ends with the calls stops. So the
+    calls run between two bursts of TRACE_MARKS markers (empty
+    `torch.cuda._sleep` kernels, their records not counted), each set
+    apart by a synchronisation and TRACE_SLEEP s. Returns (every event of
+    the trace, the card's records of the calls, {"launches": the host's
+    launch records in the calls, "markers": the markers' records kept, of
+    2 * TRACE_MARKS, "lead_us": the µs by which the first record's start
+    on the host's clock leads the calls' first launch, "tail_us": the last
+    record's start less the last launch's})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    fn()
+    torch.cuda.synchronize()
+
+    def marks():
+        for _ in range(TRACE_MARKS):
+            torch.cuda._sleep(0)
+        torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        marks()
+        time.sleep(TRACE_SLEEP)
+        with record_function(TRACE_CALLS):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        time.sleep(TRACE_SLEEP)
+        marks()
+    events = prof.events()
+    records = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name != TRACE_CALLS]
+    kept = [e for e in records if "spin_kernel" in e.name]
+    records = [e for e in records if "spin_kernel" not in e.name]
+    window = [e.time_range for e in events if e.name == TRACE_CALLS
+              and e.device_type == DeviceType.CPU]
+    need(len(window) == 1, f"the trace holds {len(window)} call windows")
+    launches = [e.time_range.start for e in events
+                if e.device_type == DeviceType.CPU
+                and e.name.startswith("cu") and "Launch" in e.name
+                and window[0].start <= e.time_range.start <= window[0].end]
+    starts = [e.time_range.start for e in records]
+    edges = {"launches": len(launches), "markers": len(kept)}
+    if starts and launches:
+        edges["lead_us"] = min(launches) - min(starts)
+        edges["tail_us"] = max(starts) - max(launches)
+    return events, records, edges
+
+
+def device_split(fn, calls: int = 20) -> tuple:
+    """({name: (launches a call, device µs a call)} of every kernel and copy
+    the card ran for `fn` over `calls` calls, read from torch.profiler
+    (traced); and traced's edge figures."""
+    _events, records, edges = traced(fn, calls)
+    out = {}
+    for e in records:
+        n, us = out.get(e.name[:48], (0, 0.0))
+        out[e.name[:48]] = (n + 1, us + e.time_range.elapsed_us())
+    return {k: (n / calls, us / calls) for k, (n, us) in out.items()}, edges
+
+
+def k12_split(fn, what: str) -> dict:
+    """K12's device launches a call (2: the count and the expand, nothing
+    else on the card) and its split: each launch's device µs, the call's
+    CUDA-event ms and the rest (host work: checks, allocations, the wait
+    for the count and the read of the mapped totals). The trace may hold
+    nothing but one count and one expand a call."""
+    split, edges = device_split(fn)
+    k12 = {k: v for k, v in split.items() if "k12_" in k}
+    need(len(split) == len(k12) == 2
+         and all(n == 1 for n, _us in k12.values()),
+         f"{what}: K12 ran {split} on the card (the trace's edges {edges}), "
+         "want its count and expand")
+    call = cuda_ms(fn)
+    dev_ms = sum(us for _n, us in k12.values()) / 1e3
+    out = {"launches": 2, "call_ms": call, "host_ms": call - dev_ms,
+           "trace": edges}
+    for k, (_n, us) in k12.items():
+        out["count_us" if "k12_count" in k else "expand_us"] = us
+    print(f"  {what}: K12 split " + json.dumps(out))
+    return out
 
 
 def timer(device):
@@ -2897,10 +2999,20 @@ def edge_remaps(device, seed: int) -> list:
     fdom = np.unique(np.where(fv == 0.0, 0.0, fv)[fvalid])
     dom_f = RC(kernels.REMAP_DOMAIN, t(fv), t(fvalid), t(fdom),
                len(fdom) - 1, 7)
+    # NaN of either sign beside +-inf and -0.0: every NaN takes the NaN
+    # entry's code, +inf its own (the domain as np.unique makes it)
+    nv_ = rng.integers(-5, 6, n) * 0.5
+    nv_[::7], nv_[3::11] = np.nan, -np.float64(np.nan)
+    nv_[::13], nv_[5::17], nv_[::19] = np.inf, -np.inf, -0.0
+    nvalid = rng.random(n) > 0.1
+    ndom = np.unique(np.where(nv_ == 0.0, 0.0, nv_)[nvalid])
+    dom_n = RC(kernels.REMAP_DOMAIN, t(nv_), t(nvalid), t(ndom),
+               len(ndom) - 1, 5)
     return [([codes], n, "codes"), ([remap, codes], n, "remap"),
             ([empty, codes], n, "empty remap table"),
             ([dom_i, codes], n, "int64 domain"),
-            ([dom_f, remap, codes], n, "f64 domain")]
+            ([dom_f, remap, codes], n, "f64 domain"),
+            ([dom_n, codes], n, "f64 domain with NaN and +-inf")]
 
 
 def phase_f(data: dict, batch, device, seed: int) -> tuple:
@@ -3020,6 +3132,27 @@ def phase_f(data: dict, batch, device, seed: int) -> tuple:
                     n_l * 2 * max(int(nv).bit_length(), 1)))
     print(f"phase F: K11/K12 full shape {n_l} probe x {n_o} build rows, "
           f"{n_pairs} pairs")
+    out["join_probe"]["split"] = k12_split(
+        lambda: kernels.join_probe(words, order, lk, lv), "phase F")
+    # the skew case: the build side with 2^20 more rows of lineitem row
+    # 0's order key, so its lines match 2^20 + 1 rows each
+    hot = torch.full((1 << 20,), int(lk[0]), dtype=torch.int64,
+                     device=device)
+    sk = torch.cat([rk, hot])
+    sv = torch.cat([rv, torch.ones(1 << 20, dtype=torch.bool,
+                                   device=device)])
+    err = max(err, check_join_kernels(sk, sv, lk, lv, "K11/K12 skew"))
+    sw, so = kernels.join_build(sk, sv)
+    skew_pairs = kernels.join_probe(sw, so, lk, lv)[0].shape[1]
+    out["join_probe"]["max_abs_err"] = err
+    out["join_probe"]["skew"] = {
+        "build_rows": int(sk.shape[0]), "pairs": skew_pairs,
+        "ms": ms(lambda: kernels.join_probe(sw, so, lk, lv)),
+        "plain_ms": ms(lambda: kernels.join_probe_plain(sw, so, lk, lv)),
+        "split": k12_split(lambda: kernels.join_probe(sw, so, lk, lv),
+                           "phase F skew")}
+    print("phase F: K12 skew " + json.dumps(out["join_probe"]["skew"]))
+    del hot, sk, sv, sw, so
 
     # K13 at f2's composite keys (the lineitem side), and edge cases
     cols = kernels.remap_cols(l_specs, device)
@@ -3028,6 +3161,12 @@ def phase_f(data: dict, batch, device, seed: int) -> tuple:
     for ecols, en, what in edge_remaps(device, seed + 13):
         err = max(err, check_k13(ecols, en, f"K13 edge {what}"))
     tlen = [0 if c.table is None else c.table.numel() for c in cols]
+    # no copy to the card in a call: the columns ride by value
+    split13, edges13 = device_split(lambda: kernels.dict_remap(cols, n2))
+    need(not any("Memcpy" in k for k in split13),
+         f"phase F: K13 copied to the card: {split13}")
+    print("phase F: K13 on the card a call " + json.dumps(split13)
+          + f" (the trace's edges {edges13})")
     out["dict_remap"] = dict(
         ms=ms(lambda: kernels.dict_remap(cols, n2)),
         plain_ms=ms(lambda: kernels.dict_remap_plain(cols, n2)),
@@ -3314,13 +3453,13 @@ def g_h2d_copies(a: dict, launches: int = 20,
                  kernel: str = "slot_filter") -> tuple:
     """Host-to-device copies over `launches` calls of K14 (or, kernel
     "slot_topn", of K16 over K14's words; "slot_agg", of K15) at these
-    inputs (after a warm-up call), read from torch.profiler: the card's
-    HtoD memcpy records and the host's copy operators (aten::copy_,
-    aten::_to_copy; an aten::to that copies nothing, as Tensor.numpy()'s on
-    a host tensor, is not one). Returns (the copies' names, the durations
-    in µs of the kernel's launches the profiler saw on the card, by kernel
-    name: none where it traces no device activity)."""
-    from torch.profiler import ProfilerActivity, profile
+    inputs, read from torch.profiler (traced): the card's HtoD memcpy
+    records and the host's copy operators (aten::copy_, aten::_to_copy;
+    an aten::to that copies nothing, as Tensor.numpy()'s on a host tensor,
+    is not one). Returns (the copies'
+    names, the durations in µs of the kernel's launches the profiler saw
+    on the card, by kernel name: none where it traces no device activity,
+    traced's edge figures)."""
     args = (a["fin"], a["pools"], a["plane_list"], a["live"])
     if kernel == "slot_topn":
         words = kernels.slot_filter(*args)
@@ -3329,28 +3468,23 @@ def g_h2d_copies(a: dict, launches: int = 20,
         call = lambda: kernels.slot_agg_states(*args, a["reds"])  # noqa
     else:
         call = lambda: kernels.slot_filter(*args)  # noqa: E731
-    call()
-    torch.cuda.synchronize()
     before = kernels.LAUNCHES[kernel]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(launches):
-            call()
-        torch.cuda.synchronize()
+    events, records, edges = traced(call, launches)
     per = 1 if kernel != "slot_topn" else kernels.slot_topn_launch_count(
         a["pools"].shape[0], a["live"].shape[0], a["k"], len(a["keys"]),
         a["live"].device)
-    need(kernels.LAUNCHES[kernel] - before == launches * per,
+    need(kernels.LAUNCHES[kernel] - before == (launches + 1) * per,
          f"phase G: the profiled {kernel} launches were not counted")
-    copies, seen = [], {}
-    for e in prof.events():
-        if "Memcpy HtoD" in e.name or e.name in ("aten::copy_",
-                                                 "aten::_to_copy"):
-            copies.append(e.name)
-        elif {"slot_filter": "slot_filter_kernel", "slot_agg":
-              "slot_agg_kernel"}.get(kernel, "k10_level") in e.name:
+    copies = [e.name for e in events
+              if "Memcpy HtoD" in e.name or e.name in ("aten::copy_",
+                                                       "aten::_to_copy")]
+    seen = {}
+    name = {"slot_filter": "slot_filter_kernel",
+            "slot_agg": "slot_agg_kernel"}.get(kernel, "k10_level")
+    for e in records:
+        if name in e.name:
             seen.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    return copies, seen
+    return copies, seen, edges
 
 
 def phase_g(lineitem, device, seed: int) -> tuple:
@@ -3511,7 +3645,7 @@ def phase_g(lineitem, device, seed: int) -> tuple:
         n16, nk16 = a["live"].shape[0], len(a["keys"])
         per16 = kernels.slot_topn_launch_count(32, n16, a["k"], nk16, device)
         out["slot_topn"]["launches_per_call"] = per16
-        copies16, by_name16 = g_h2d_copies(a, kernel="slot_topn")
+        copies16, by_name16, edges16 = g_h2d_copies(a, kernel="slot_topn")
         need(not copies16, f"phase G: {len(copies16)} host-to-device copies "
              f"over 20 K16 calls at the tier's shape: {set(copies16)}")
         seen16 = [d for ds in by_name16.values() for d in ds]
@@ -3522,14 +3656,15 @@ def phase_g(lineitem, device, seed: int) -> tuple:
               f"{nk16} keys, k {a['k']}): {per16} kernel launches a call "
               f"(kernels.shard_topk_plan); {len(copies16)} host-to-device "
               f"copies over 20 calls ({20 * per16} launches; "
-              f"torch.profiler, {len(seen16)} level kernels traced, "
+              f"torch.profiler, {len(seen16)} level kernels traced, the "
+              f"trace's edges {edges16}, "
               f"{out['slot_topn']['device_us']} µs a call on the card; "
               f"median µs by kernel {levels16}); torch.topk over the "
               f"composite score {out['slot_topn']['library_ms']:.4f} ms")
     if device.type == "cuda":
         # K14 at the tier's shape copies nothing to the card per launch
         a = tier["g_nation"]
-        copies, by_name = g_h2d_copies(a)
+        copies, by_name, edges14 = g_h2d_copies(a)
         seen = [d for ds in by_name.values() for d in ds]
         need(not copies, f"phase G: {len(copies)} host-to-device copies "
              f"over 20 K14 launches at the tier's shape: {set(copies)}")
@@ -3538,7 +3673,8 @@ def phase_g(lineitem, device, seed: int) -> tuple:
         print(f"phase G: 20 K14 launches at the tier's shape (32 slots x "
               f"{a['live'].shape[0]} rows): {len(copies)} host-to-device "
               f"copies (torch.profiler; {len(seen)} K14 kernels traced on "
-              f"the card, median {r['device_us']} µs each)")
+              f"the card, median {r['device_us']} µs each; the trace's edges "
+              f"{edges14})")
         # the launch floor beside the bytes bound: an empty kernel and the
         # readback of a [32, 256] int64 block into page-locked memory; and
         # K14 with its words read back the same way, as the tier reads
@@ -3573,12 +3709,12 @@ def phase_g(lineitem, device, seed: int) -> tuple:
         # card, its card time beside the launch floor; with its [k, R, 2]
         # read back into page-locked memory as the tier reads it
         a = tier["g_agg"]
-        copies15, by_name15 = g_h2d_copies(a, kernel="slot_agg")
+        copies15, by_name15, edges15 = g_h2d_copies(a, kernel="slot_agg")
         need(not copies15, f"phase G: {len(copies15)} host-to-device copies "
              f"over 20 K15 calls at the tier's shape: {set(copies15)}")
         seen15 = [d for ds in by_name15.values() for d in ds]
         need(len(seen15) == 20, f"phase G: {len(seen15)} K15 kernels traced "
-             "over 20 calls")
+             f"over 20 calls (the trace's edges {edges15})")
         r = out["slot_agg"]
         r["device_us"] = float(np.median(seen15)) if seen15 else None
         args = (a["fin"], a["pools"], a["plane_list"], a["live"])
@@ -3590,7 +3726,8 @@ def phase_g(lineitem, device, seed: int) -> tuple:
               f"{kernels.slot_agg_plan(a['live'].shape[0], 32, len(a['reds']))}"
               f"): one launch a call, {len(copies15)} host-to-device copies "
               f"over 20 calls (torch.profiler: {len(seen15)} K15 kernels, "
-              f"median {r['device_us']} µs on the card); {r['ms']:.4f} ms a "
+              f"median {r['device_us']} µs on the card, the trace's edges "
+              f"{edges15}); {r['ms']:.4f} ms a "
               f"call, with the states read back into page-locked memory "
               f"{r['readback_ms']:.4f} ms; the launch floor "
               f"{r['floor_ms']:.4f} ms")
@@ -5154,6 +5291,8 @@ def phase_j(data: dict, batch, d_store: DistStore, d_data: dict,
     one, _one_total = kernels.join_probe(words, order, lk, lv)
     need(torch.equal(sp, one) and int(totals.sum()) == one.shape[1],
          "phase J: the sharded probe differs from the one-shard probe")
+    j_split = k12_split(lambda: kernels.join_probe(
+        words, order, lk, lv, shards=MESH_SHARDS), "phase J sharded")
     timed["join_probe_sharded"] = dict(
         ms=ms(lambda: kernels.join_probe(words, order, lk, lv,
                                          shards=MESH_SHARDS)),
@@ -5165,7 +5304,7 @@ def phase_j(data: dict, batch, d_store: DistStore, d_data: dict,
                     lk.numel() * 2 * max(int(words.numel()).bit_length(), 1)),
         shape=f"{MESH_SHARDS} shards x {lk.numel() // MESH_SHARDS} probe "
               f"rows, {words.numel()} build rows, totals "
-              f"{totals.tolist()}")
+              f"{totals.tolist()}", split=j_split)
     # the default configuration: the process mesh of this one-card rig is
     # one shard, whose rungs are the batched K6 and the region combine
     # (the same launches as with the tier off); each statement timed both
@@ -5613,6 +5752,8 @@ def phase_k(joins: tuple, batch, d_store: DistStore, d_data: dict, device,
     nv = a["words"].shape[0]
     steps = max(int(max(nv // MESH_SHARDS, 1)).bit_length(), 1)
     out["join_probe_seg"] = dict(
+        split=k12_split(lambda: kernels.join_probe_partitioned(**a),
+                        "phase K segmented"),
         ms=ms(lambda: kernels.join_probe_partitioned(**a)),
         plain_ms=ms(lambda: kernels.join_probe_partitioned_plain(**a)),
         library_ms=None, max_abs_err=err12,

@@ -10,7 +10,7 @@ and importing that checkout's chip_smoke, tidb_tpu_torch and kernels
 (each builds its kernels into its own build/ directory). A run measures,
 with the helpers both checkouts' chip_smoke.py share, the parts below (all
 of them, or those --only names: g, stress, k18, k8, k21, k6, k5, k19,
-k1k3):
+k1k3, k12k13):
 
 - g: Phase G's traffic (chip_smoke.g_traffic: 64 sessions x 25 statements of
   tpch.G_SHAPES over SF1's supplier table through one GpuClient), once
@@ -77,6 +77,17 @@ k1k3):
   10) and the build_filter_fn row (K1's mask of Q6's WHERE, then
   torch.nonzero).
 
+- k12k13: K12 (kernels.join_probe, median of 20 CUDA-event runs of the
+  wrapper) at Phase F's full shape (lineitem's 6,001,215 l_orderkey
+  against orders' 1,500,216 words), the same over the 8,388,608-row
+  capacity in 8 shards, the segmented mode over K21's layouts at P 8
+  (kernels.join_probe_partitioned), and the skew case (2^20 more build
+  rows of one order key); K13 (kernels.dict_remap) at f2's lineitem side
+  (l_partkey and l_suppkey in domain mode); the inputs are
+  k12_k13_variants.inputs (this script's checkout's file, over the
+  measured checkout's modules), with digests of the pairs and totals and
+  of the key and valid planes.
+
 Each run prints one JSON line after "RESULT"; this script prints them,
 each metric's median per checkout, and the card's name and power limit.
 It needs one card and imports nothing of JAX.
@@ -93,7 +104,8 @@ import sys
 import time
 
 ORDER = ("old", "new", "new", "old")
-PARTS = ("g", "stress", "k18", "k8", "k21", "k6", "k5", "k19", "k1k3")
+PARTS = ("g", "stress", "k18", "k8", "k21", "k6", "k5", "k19", "k1k3",
+         "k12k13")
 
 
 def child(root: str, parts: set) -> dict:
@@ -276,6 +288,20 @@ def child(root: str, parts: set) -> dict:
             out[f"k21_{what}_ms"] = cs.cuda_ms(
                 lambda: kernels.key_partition(k_, v_, 8))
     del line
+
+    # K12 (one pass, sharded, segmented, skewed) and K13 at f2's lineitem
+    # side, Phase F's shapes (k12_k13_variants.inputs, this script's
+    # checkout's, over the measured checkout's modules)
+    if want("k12k13"):
+        import k12_k13_variants as kv
+        a = kv.inputs(dev)
+        for name, fn in kv.calls(a).items():
+            got = fn()
+            planes = got if name == "k13_f2" else (
+                got[0].to(torch.int64), torch.from_numpy(np.asarray(got[1])))
+            out[f"{name}_digest"] = digest(*planes)
+            out[f"{name}_ms"] = cs.cuda_ms(fn)
+        del a
 
     if want("k5") or want("k19"):
         k5_k19(out, want, digest, dev)

@@ -99,16 +99,17 @@ SIGNATURES = {
                                _P, _P], _I),
     },
     "join_probe": {
-        "join_probe_blocks": ([_L], _L),
-        "join_probe_count_launch": ([_L, _P, _P, _I, _P, _L, _P, _P, _P, _P,
-                                     _P, _P], _I),
-        "join_probe_count_seg_launch": ([_L, _P, _P, _I, _P, _L, _P, _P, _I,
-                                         _P, _P, _P, _P, _P, _P], _I),
-        "join_probe_expand_launch": ([_L, _L, _P, _P, _P, _P, _I, _P, _P],
-                                     _I),
+        "join_probe_workspace_bytes": ([_L], _L),
+        "join_probe_sample_cap": ([], _L),
+        "join_probe_count_launch": ([_L, _P, _P, _I, _P, _L, _P, _P, _I, _I,
+                                     _I, _P, _P, _L, _I, _P,
+                                     ctypes.c_ulonglong, _P, _P], _I),
+        "join_probe_expand_launch": ([_L, _L, _I, _P, _P, _P, _P, _I, _P,
+                                      _P], _I),
     },
     "dict_remap": {
-        "dict_remap_launch": ([_L, _I, _P, _P, _P, _P], _I),
+        "dict_remap_config": ([_P], _I),
+        "dict_remap_launch": ([_L, _I, _P, _L, _I, _P, _P, _P], _I),
     },
     "slot_filter": {
         "slot_filter_launch": ([_L, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P,

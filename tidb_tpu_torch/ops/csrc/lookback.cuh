@@ -1,11 +1,11 @@
 // The tagged words of the single-pass scans with decoupled look-back
-// (K18 window_scan.cu, K19 delta_merge.cu; Merrill and Garland). A tile
-// publishes each word of its state in a 16-byte record {tag, word},
-// written and read with one 16-byte access, so a word is valid exactly
-// when its tag is: no fence orders a status after the words. The tag
-// carries the call's epoch (epoch << 2 | kind: 1 the tile's aggregate, 2
-// its inclusive prefix), so a word left by an earlier call reads as "not
-// yet" and nothing is reset between calls.
+// (K18 window_scan.cu, K19 delta_merge.cu, K12 join_probe.cu; Merrill and
+// Garland). A tile publishes each word of its state in a 16-byte record
+// {tag, word}, written and read with one 16-byte access, so a word is
+// valid exactly when its tag is: no fence orders a status after the
+// words. The tag carries the call's epoch (epoch << 2 | kind: 1 the
+// tile's aggregate, 2 its inclusive prefix), so a word left by an earlier
+// call reads as "not yet" and nothing is reset between calls.
 #pragma once
 
 #include "common.cuh"

@@ -1,6 +1,6 @@
 // Block-wide prefix scans shared by the kernels that count by position
-// (K8 rank_groups, K11 join_build, K12 join_probe): a scan inside each
-// block, one block over the block totals, and an add-back by the caller.
+// (K8 rank_groups, K11 join_build): a scan inside each block, one block
+// over the block totals, and an add-back by the caller.
 // Integer only, no atomics: the result is the same on every run.
 #pragma once
 

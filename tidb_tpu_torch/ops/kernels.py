@@ -1823,35 +1823,83 @@ def join_probe(words: torch.Tensor, order: torch.Tensor, lkey: torch.Tensor,
     _check_plane(lvalid, nl, (torch.bool,), "probe valid", dev)
     _check_plane(words, nv, (torch.int64,), "build words", dev)
     _check_plane(order, nv, (torch.int64,), "build order", dev)
+    return _k12(words, order, lkey, lvalid, dev, shards=shards)
+
+
+# K12's workspace (the ticket and the tiles' tagged words) is kept per
+# (device, stream) and never reset: each call takes its stream's next
+# epoch under the lock, with its launch; the marks' offsets come back in a
+# page-locked buffer per (device, stream), read under the same lock
+K12_MAX_PARTS = 1024         # join_probe.cu: the partition starts it stages
+_K12_EPOCH: dict = {}
+_K12_HOST: dict = {}
+_K12_LOCK = threading.Lock()
+
+
+def k12_marks(nl: int, shards: int = 1, parts: int = 0) -> tuple:
+    """(mark stride, marks) of K12's count: the rows whose offsets its
+    last tiles write into the mapped host buffer. Segmented (parts > 0):
+    the parts + 1 partition starts (the stride unused, 0); else the
+    starts k * nl / shards of the shards, k = 0..shards, the last (nl)
+    holding the grand total."""
+    if parts:
+        return 0, parts + 1
+    return nl // shards, shards + 1
+
+
+def _k12(words, order, lkey, lvalid, dev, shards: int = 1, loff=None,
+         bounds=None, lsel=None) -> tuple:
+    """K12's two launches over checked card planes: the count (it waits
+    for the stream; the marks' offsets read from mapped page-locked
+    memory), then the expand into an output of the exact total. Returns
+    (pairs [2, total], the pairs of each shard or partition)."""
+    nl, nv = lvalid.shape[0], words.shape[0]
     narrow = nl < (1 << 31) and nv < (1 << 31)
     dt = torch.int32 if narrow else torch.int64
+    parts = 0 if loff is None else loff.shape[0] - 1
+    stride, nmarks = k12_marks(nl, shards, parts)
     if nl == 0:
         return (torch.empty((2, 0), dtype=dt, device=dev),
-                np.zeros(shards, np.int64))
+                np.zeros(nmarks - 1, np.int64))
     lib = _ext.lib("join_probe")
-    nb = lib.join_probe_blocks(nl)
-    lo = torch.empty(nl, dtype=torch.int64, device=dev)
-    offs = torch.empty(nl, dtype=torch.int64, device=dev)
-    totals = torch.empty(nb, dtype=torch.int64, device=dev)
-    block_off = torch.empty(nb, dtype=torch.int64, device=dev)
-    total_d = torch.empty(1, dtype=torch.int64, device=dev)
-    rc = lib.join_probe_count_launch(
-        nl, lkey.data_ptr(), lvalid.data_ptr(),
-        int(lkey.dtype == torch.float64), words.data_ptr(), nv,
-        lo.data_ptr(), offs.data_ptr(), totals.data_ptr(),
-        block_off.data_ptr(), total_d.data_ptr(), _stream(dev))
-    _ext.check(rc, "join_probe")
-    LAUNCHES["join_probe"] += 1
-    # the exact total sizes the output: no capacity bucket, no retry;
-    # each block's first offset comes back beside it
-    starts = torch.cat([offs[::nl // shards], total_d]).cpu().numpy()
+    st = _stream(dev)
+    # lo int32 where the build side is under 2^31 words; the build words'
+    # sample every 2^shift-th word, one fewer than the cap at most
+    lo_bytes = 4 if narrow else 8
+    shift = sample_shift(nv, lib.join_probe_sample_cap() - 1)
+    # the count's two planes, the offsets (int64) then lo, in one block
+    planes = torch.empty(nl * (8 + lo_bytes), dtype=torch.uint8, device=dev)
+    offs = planes.data_ptr()
+    lo = offs + 8 * nl
+    ws = _stream_scratch("join_probe", dev,
+                         lib.join_probe_workspace_bytes(nl), st)
+    key = (dev.index, st)
+    what = "join_probe" if loff is None else "join_probe segmented"
+    with _K12_LOCK:
+        host = _K12_HOST.get(key)
+        if host is None or host.numel() < nmarks:
+            host = _K12_HOST[key] = torch.empty(max(nmarks, 64),
+                                                dtype=torch.int64,
+                                                pin_memory=True)
+        epoch = _K12_EPOCH[key] = _K12_EPOCH.get(key, 0) + 1
+        rc = lib.join_probe_count_launch(
+            nl, lkey.data_ptr(), lvalid.data_ptr(),
+            int(lkey.dtype == torch.float64), words.data_ptr(), nv,
+            None if loff is None else loff.data_ptr(),
+            None if bounds is None else bounds.data_ptr(), parts, shift,
+            lo_bytes, lo, offs, stride, nmarks, ws.data_ptr(),
+            epoch, host.data_ptr(), st)
+        _ext.check(rc, what)
+        starts = host[:nmarks].numpy().copy()
+    LAUNCHES["join_probe" if loff is None else "join_probe_seg"] += 1
     total = int(starts[-1])
     out = torch.empty(2 * total, dtype=dt, device=dev)
     if total:
         rc = lib.join_probe_expand_launch(
-            total, nl, lo.data_ptr(), offs.data_ptr(), order.data_ptr(),
-            None, int(narrow), out.data_ptr(), _stream(dev))
-        _ext.check(rc, "join_probe expand")
+            total, nl, lo_bytes, lo, offs, order.data_ptr(),
+            None if lsel is None else lsel.data_ptr(), int(narrow),
+            out.data_ptr(), st)
+        _ext.check(rc, what + " expand")
     return out.view(2, total), np.diff(starts)
 
 
@@ -2077,36 +2125,11 @@ def join_probe_partitioned(words: torch.Tensor, order: torch.Tensor,
     _check_plane(order, nv, (torch.int64,), "build order", dev)
     _check_plane(loff, P + 1, (torch.int64,), "probe offsets", dev)
     _check_plane(bounds, P + 1, (torch.int64,), "build bounds", dev)
-    narrow = nl < (1 << 31) and nv < (1 << 31)
-    dt = torch.int32 if narrow else torch.int64
-    if nl == 0:
-        return (torch.empty((2, 0), dtype=dt, device=dev),
-                np.zeros(P, np.int64))
-    lib = _ext.lib("join_probe")
-    nb = lib.join_probe_blocks(nl)
-    lo = torch.empty(nl, dtype=torch.int64, device=dev)
-    offs = torch.empty(nl, dtype=torch.int64, device=dev)
-    totals = torch.empty(nb, dtype=torch.int64, device=dev)
-    block_off = torch.empty(nb, dtype=torch.int64, device=dev)
-    total_d = torch.empty(1, dtype=torch.int64, device=dev)
-    rc = lib.join_probe_count_seg_launch(
-        nl, lkey.data_ptr(), lvalid.data_ptr(),
-        int(lkey.dtype == torch.float64), words.data_ptr(), nv,
-        loff.data_ptr(), bounds.data_ptr(), P, lo.data_ptr(),
-        offs.data_ptr(), totals.data_ptr(), block_off.data_ptr(),
-        total_d.data_ptr(), _stream(dev))
-    _ext.check(rc, "join_probe segmented")
-    LAUNCHES["join_probe_seg"] += 1
-    # each partition's first offset, and the exact total beside them
-    starts = torch.cat([offs, total_d])[loff].cpu().numpy()
-    total = int(starts[-1])
-    out = torch.empty(2 * total, dtype=dt, device=dev)
-    if total:
-        rc = lib.join_probe_expand_launch(
-            total, nl, lo.data_ptr(), offs.data_ptr(), order.data_ptr(),
-            lsel.data_ptr(), int(narrow), out.data_ptr(), _stream(dev))
-        _ext.check(rc, "join_probe segmented expand")
-    return out.view(2, total), np.diff(starts)
+    if P > K12_MAX_PARTS:
+        raise errors.DeviceError(f"K12 takes at most {K12_MAX_PARTS} "
+                                 f"partitions, got {P}")
+    return _k12(words, order, lkey, lvalid, dev, loff=loff, bounds=bounds,
+                lsel=lsel)
 
 
 # K13 per-column modes: the contract with ops/csrc/dict_remap.cu
@@ -2132,6 +2155,17 @@ class RemapCol:
         self.stride = stride
 
 
+def domain_words(v: torch.Tensor) -> torch.Tensor:
+    """The order words a domain is searched by: an int64 plane as it is;
+    an f64 plane's orderable image with every NaN made the one positive
+    NaN first, so NaN sorts after +inf (as numpy and the reference sort
+    it) and -0.0 is +0.0."""
+    if v.dtype != torch.float64:
+        return v
+    return orderable(torch.where(torch.isnan(v), torch.full_like(v, np.nan),
+                                 v))
+
+
 def dict_remap_plain(cols: list, n: int) -> tuple:
     dev = cols[0].valid.device
     key = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -2144,25 +2178,96 @@ def dict_remap_plain(cols: list, n: int) -> tuple:
             code = c.table[c.values.clamp(0, tlen - 1)].clamp(0, c.cmax) \
                 if tlen else torch.zeros(n, dtype=torch.int64, device=dev)
         else:
-            v = c.values
-            if v.dtype == torch.float64:
-                v = torch.where(v == 0.0, torch.zeros_like(v), v)
-            code = torch.searchsorted(c.table, v).clamp(0, c.cmax)
+            code = torch.searchsorted(domain_words(c.table),
+                                      domain_words(c.values)).clamp(0, c.cmax)
         key += code * c.stride
         valid &= c.valid
     return key, valid
 
 
+# K13's kernel modes and packed column (ops/csrc/dict_remap.cu K13Mode,
+# dict_remap_launch): mode, values, valid, table, table length, cmax,
+# stride, sample shift, staged entries, their first word in shared
+# memory, the search's steps
+K13_CODES, K13_REMAP, K13_DOM_I64, K13_DOM_F64 = range(4)
+K13_WORDS = 11
+_K13_CONFIG: dict = {}
+
+
+def sample_shift(n: int, cap: int) -> int:
+    """The shift s of a sample of every 2^s-th of n elements that holds at
+    most cap entries: K12's over the build words, K13's over a domain
+    (sample_search.cuh searches it)."""
+    s = 0
+    while -(-n >> s) > cap:
+        s += 1
+    return s
+
+
+def k13_config(lib) -> tuple:
+    """(most columns a launch, shared-memory bytes, sample entries at most
+    a column, words a column) of a K13 library."""
+    got = _K13_CONFIG.get(id(lib))
+    if got is None:
+        buf = (ctypes.c_int64 * 4)()
+        lib.dict_remap_config(ctypes.addressof(buf))
+        got = _K13_CONFIG[id(lib)] = tuple(int(x) for x in buf)
+    return got
+
+
+def k13_plan(cols: list, config: tuple) -> list:
+    """K13's launches over `cols`: [(packed words, shared-memory bytes,
+    columns)], one launch per `config`'s most columns, each after the
+    first adding to the planes before it. A launch stages its tables in
+    ascending length: whole where the room left holds them, else (a
+    domain) a sample of every 2^s-th entry of at most the sample cap and
+    the room left; a remap table too large to stage, or a table past the
+    room, is read where it lies."""
+    max_cols, smem, sample_cap, _words = config
+    out = []
+    for g in range(0, len(cols), max_cols):
+        grp = cols[g:g + max_cols]
+        tlen = [0 if c.mode == REMAP_CODES else c.table.shape[0] for c in grp]
+        staged, used = {}, 0
+        for j in sorted((j for j in range(len(grp)) if tlen[j]),
+                        key=lambda j: (tlen[j], j)):
+            room = smem // 8 - used
+            if room < 1:
+                break
+            if tlen[j] <= room:
+                staged[j] = (0, tlen[j], used)
+            elif grp[j].mode == REMAP_DOMAIN:
+                sh = sample_shift(tlen[j], min(sample_cap, room))
+                staged[j] = (sh, -(-tlen[j] >> sh), used)
+            else:
+                continue
+            used += staged[j][1]
+        words = []
+        for j, c in enumerate(grp):
+            if c.mode == REMAP_DOMAIN:
+                mode = K13_DOM_F64 if c.values.dtype == torch.float64 \
+                    else K13_DOM_I64
+            else:
+                mode = K13_REMAP if c.mode == REMAP_TABLE else K13_CODES
+            sh, ns, soff = staged.get(j, (0, 0, 0))
+            words += [mode, c.values.data_ptr(), c.valid.data_ptr(),
+                      c.table.data_ptr() if tlen[j] else 0, tlen[j], c.cmax,
+                      c.stride, sh, ns, soff,
+                      int(ns if ns else tlen[j]).bit_length()]
+        out.append((words, 8 * used, len(grp)))
+    return out
+
+
 def dict_remap(cols: list, n: int) -> tuple:
     """K13: (key int64[n], valid bool[n]) — the composite key-tuple code of
     one join side, the sum over its key columns of code * stride, and the
-    AND of their valid planes."""
+    AND of their valid planes. On the card the columns ride by value in
+    the launch's parameters (k13_plan): nothing is copied to the card."""
     if not cols:
         raise errors.DeviceError("dict_remap needs a key column")
     if _device_kind(cols[0].valid) == "cpu":
         return dict_remap_plain(cols, n)
     dev = cols[0].valid.device
-    tab = []
     for j, c in enumerate(cols):
         _check_plane(c.valid, n, (torch.bool,), f"key {j} valid", dev)
         if c.mode == REMAP_CODES or c.mode == REMAP_TABLE:
@@ -2170,25 +2275,23 @@ def dict_remap(cols: list, n: int) -> tuple:
         else:
             _check_plane(c.values, n, (torch.int64, torch.float64),
                          f"key {j} values", dev)
-        tlen = 0
         if c.mode != REMAP_CODES:
             want = torch.int64 if c.mode == REMAP_TABLE else c.values.dtype
-            tlen = c.table.shape[0]
-            _check_plane(c.table, tlen, (want,), f"key {j} table", dev)
-        tab.append([c.mode, int(c.values.dtype == torch.float64),
-                    c.values.data_ptr(), c.valid.data_ptr(),
-                    c.table.data_ptr() if tlen else 0, tlen, c.cmax,
-                    c.stride])
+            _check_plane(c.table, c.table.shape[0], (want,), f"key {j} table",
+                         dev)
     key = torch.empty(n, dtype=torch.int64, device=dev)
     valid = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return key, valid
-    t_tab = torch.tensor(tab, dtype=torch.int64).reshape(-1).to(dev)
-    rc = _ext.lib("dict_remap").dict_remap_launch(
-        n, len(cols), t_tab.data_ptr(), key.data_ptr(), valid.data_ptr(),
-        _stream(dev))
-    _ext.check(rc, "dict_remap")
-    LAUNCHES["dict_remap"] += 1
+    lib = _ext.lib("dict_remap")
+    st = _stream(dev)
+    for i, (words, smem, ncols) in enumerate(k13_plan(cols, k13_config(lib))):
+        buf = array.array("q", words)
+        rc = lib.dict_remap_launch(n, ncols, buf.buffer_info()[0], smem,
+                                   int(i > 0), key.data_ptr(),
+                                   valid.data_ptr(), st)
+        _ext.check(rc, "dict_remap")
+        LAUNCHES["dict_remap"] += 1
     return key, valid
 
 
